@@ -6,27 +6,51 @@ Phases, in order; any failure raises and the script exits non-zero
 without printing its result line:
 
 0. Require a CUDA device; print the card's name and power limit; build
-   every kernel of the serving path from ``ray_lightning_tpu_torch/csrc``
-   (one ``nvcc`` per source, all started together); turn TF32 off.
-1. Each kernel against its plain PyTorch version at the shapes of the
-   GPT-2-small serving path (B=8 slots, H=12, D=64, page_size 16,
-   pages_per_slot 64, ragged positions 0..1000, unmapped −1 page-table
-   entries, one row with every key masked): f32, bf16 and int8 pages,
-   T=1 and T=4. Prints each case's max abs error against its stated
-   bound, the kernel's time, the plain version's time, the time of one
-   PyTorch library call of the same function, and the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak
-   rate of their type, whichever is larger).
-2. The main path: GPT-2-small at full width (random weights from
+   every kernel from ``ray_lightning_tpu_torch/csrc`` (one ``nvcc`` per
+   source, all started together); turn TF32 off.
+1. The paged-attention kernel (K1) against its plain PyTorch version at
+   the shapes of the GPT-2-small serving path (B=8 slots, H=12, D=64,
+   page_size 16, pages_per_slot 64, ragged positions 0..1000, unmapped −1
+   page-table entries, one row with every key masked): f32, bf16 and int8
+   pages, T=1 and T=4. Prints each case's max abs error against its
+   stated bound, the kernel's time, the plain version's time, the time of
+   one PyTorch library call of the same function, and the least time the
+   card could take (bytes over 3.35 TB/s or operations over the peak rate
+   of their type, whichever is larger).
+T1. The flash-attention kernels (K2 forward, K3 dK/dV, K4 dQ) against
+   their plain versions at the training path's shapes (B=8, T=S=1024,
+   H=12, D=64, causal) in bf16 and f32, and on a ragged length
+   (T=S=1000), end-aligned T=512 < S=1024, non-causal, and T=64 > S=32
+   (rows that admit no key): the max abs error of out, lse, dq, dk and dv
+   against stated bounds. At the path shapes, each kernel's time on a
+   cold L2 beside its bound, its plain version's time and the library's
+   (``F.scaled_dot_product_attention`` forward; its backward for K3+K4).
+2. The serving path: GPT-2-small at full width (random weights from
    ``np.random.default_rng(0)``, a flax-layout tree carried across by
    ``interop.load_flax_params``) served by ``ServeClient(...,
    page_native=True, attention_kernel="cuda")`` over a trace of 12
    requests, some arriving mid-flight, greedy and sampled. Every request
-   must finish with its full budget, and the kernel must have launched
+   must finish with its full budget, and K1 must have launched
    ``n_layers`` times per decode step. Repeated with ``kv_dtype="int8"``.
-3. Kernel path against plain path end to end, in f32: the first decode
-   step after prefill from the same arena, logits held to 1e-3; then the
-   share of greedy tokens the two paths agree on over the trace.
+3. Serving, kernel path against plain path end to end, in f32: the first
+   decode step after prefill from the same arena, logits held to 1e-3;
+   then the share of greedy tokens the two paths agree on over the trace.
+T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
+   max_epochs=1, limit_train_batches=20, limit_val_batches=2,
+   seed=0).fit(GPTModule(config=gpt2_config("small",
+   attention_impl="flash"), batch_size=8, seq_len=1024))`` -- full width,
+   bf16 compute over f32 master weights, AdamW (lr 3e-4, b2 0.95, weight
+   decay 0.1). Every loss finite, the last 5 steps' mean below the first
+   step's, K2 launched n_layers x (train steps + validation batches)
+   times and K3 and K4 n_layers x train steps. Prints the median step,
+   tokens/s, the share of bf16 peak, peak memory and the attention
+   kernels' share of a step.
+T3. Training, kernel path against plain path end to end, in f32: one
+   step's loss and gradients of GPT-2-small (B=2, T=1024, the same
+   weights) through the kernels (``attention_impl="flash"``) and through
+   plain PyTorch attention differentiated by autograd
+   (``attention_impl="dot"``); loss to 1e-5 relative, every gradient to
+   its stated bound.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``.
 """
@@ -402,6 +426,291 @@ def phase3_kernel_vs_plain_path(cfg, sd, trace):
     return err, share
 
 
+# -------------------------------------------------------------- phase T1
+FLASH_CASES = [  # (label, B, T, S, causal); H=12, D=64 throughout
+    ("path", 8, 1024, 1024, True),
+    ("ragged", 8, 1000, 1000, True),
+    ("end-aligned", 8, 512, 1024, True),
+    ("non-causal", 8, 1024, 1024, False),
+    ("empty-rows", 8, 64, 32, True),
+]
+
+
+def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool) -> float:
+    """Bound on |kernel - plain| of one flash output, in f32 units.
+
+    f32: only the order of the f32 sums differs (64-key tiles, an online
+    softmax whose running maximum rescales earlier tiles) -- 1e-5 for out
+    and lse; 1e-4 of the largest magnitude for a gradient, a sum over up
+    to 1024 rows in another order. lse is f32 sums of exact products in
+    both dtypes: 1e-5 (rows that admit no key are 1e30 in both, exactly).
+    bf16: the kernel rounds the softmax
+    weights to bf16 relative to its running maximum and the plain version
+    relative to the final one, p and ds are rounded before each product,
+    and each output is rounded once -- 2e-2 of max(1, largest magnitude)
+    (one output rounding is at most 2**-8 of it, a flipped one 2**-7)."""
+    if name == "lse":
+        return 1e-5
+    top = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        return 1e-4 * max(top, 1e-30) if grad else 1e-5
+    return 2e-2 * max(1.0, top)
+
+
+def flash_inputs(dtype, B, T, S, H=12, D=64, seed=0):
+    """q, k, v as views of fused projections (the model's layout) and dO,
+    N(0, 1), made on the card from ``seed``."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    qkv = torch.randn(B, T, 3, H, D, generator=g, device=DEVICE).to(dtype)
+    kv = torch.randn(B, S, 2, H, D, generator=g, device=DEVICE).to(dtype)
+    do = torch.randn(B, T, H, D, generator=g, device=DEVICE).to(dtype)
+    return qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1], do
+
+
+def admitted_pairs(T: int, S: int, causal: bool) -> int:
+    """(query, key) pairs the mask admits: the work these inputs need."""
+    if not causal:
+        return T * S
+    keys = np.clip(np.arange(T) + (S - T) + 1, 0, S)
+    return int(keys.sum())
+
+
+def flash_bound(kind: str, q, k, causal: bool):
+    """Least time of one flash kernel call, as ``(ms, "bytes" |
+    "operations")``. Operations, per admitted (query, key) pair and head
+    dimension: 4 for the forward (Q.K^T, P.V), 8 for dK/dV (Q.K^T, dO.V^T,
+    P^T.dO, dS^T.Q), 6 for dQ (Q.K^T, dO.V^T, dS.K), over the peak rate of
+    q's type. Bytes: every input read once and every output written once
+    (forward: q, k, v -> out, lse; dK/dV: q, k, v, dO, lse, delta -> dk,
+    dv; dQ: q, k, v, dO, lse, delta -> dq) over 3.35 TB/s."""
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    e = q.element_size()
+    nq, nk, rows = B * T * H * D * e, B * S * H * D * e, B * H * T * 4
+    ops_per, nbytes = {
+        "fwd": (4, 2 * nq + 2 * nk + rows),
+        "dkv": (8, 2 * nq + 4 * nk + 2 * rows),
+        "dq": (6, 3 * nq + 2 * nk + 2 * rows),
+    }[kind]
+    ops = ops_per * B * H * D * admitted_pairs(T, S, causal)
+    by_ops = ops / PEAK_OPS_PER_S[q.dtype]
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(by_ops, by_bytes),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def sdpa_times(q, k, v, do, causal, flush):
+    """``F.scaled_dot_product_attention`` on (B, H, T, D) views of the same
+    inputs: its forward, and its backward (forward + backward minus
+    forward). The port never calls it; it is the yardstick."""
+    F = torch.nn.functional
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+    doh = do.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+    def fwd_bwd():
+        for x in leaves:
+            x.grad = None
+        F.scaled_dot_product_attention(*leaves, is_causal=causal) \
+            .backward(doh)
+
+    fwd_ms = time_ms(fwd, flush)
+    return fwd_ms, time_ms(fwd_bwd, flush) - fwd_ms
+
+
+def phase_t1_flash_vs_plain(flush):
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    rows = {}
+    for label, B, T, S, causal in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = flash_inputs(dtype, B, T, S)
+            out, lse = cf.flash_fwd(q, k, v, causal)
+            delta = cf.flash_delta(out, do)
+            dk, dv = cf.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+            dq = cf.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+            # the same inputs for both: the kernels' lse and delta
+            ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
+            ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                        delta, causal)
+            ref_dq = cf.flash_bwd_dq_reference(q, k, v, do, lse, delta,
+                                               causal)
+            row = dict(case=label, dtype=str(dtype).split(".")[-1], B=B,
+                       T=T, S=S, causal=causal)
+            for name, got, ref, grad in (("out", out, ref_out, False),
+                                         ("lse", lse, ref_lse, False),
+                                         ("dq", dq, ref_dq, True),
+                                         ("dk", dk, ref_dk, True),
+                                         ("dv", dv, ref_dv, True)):
+                check(got.shape == ref.shape and got.dtype == ref.dtype,
+                      f"flash {label} {name}: {got.shape} {got.dtype}")
+                check(bool(torch.isfinite(got).all()),
+                      f"flash {label} {dtype} {name} not finite")
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = flash_tol(dtype, name, ref, grad)
+                row[f"{name}_err"], row[f"{name}_tol"] = err, tol
+                check(err <= tol, f"flash {label} {dtype} {name}: kernel "
+                      f"vs plain {err} > {tol}")
+            if causal and T > S:
+                check(float(out[:, :T - S].abs().max()) == 0.0
+                      and bool((lse[:, :, :T - S] == 1e30).all())
+                      and float(dq[:, :T - S].abs().max()) == 0.0,
+                      "rows that admit no key must give out 0, lse 1e30, "
+                      "dq 0")
+            if label == "path":
+                lib_fwd, lib_bwd = sdpa_times(q, k, v, do, causal, flush)
+                for kind, fn, plain in (
+                        ("fwd", lambda: cf.flash_fwd(q, k, v, causal),
+                         lambda: cf.flash_fwd_reference(q, k, v, causal)),
+                        ("dkv", lambda: cf.flash_bwd_dkv(
+                            q, k, v, do, lse, delta, causal),
+                         lambda: cf.flash_bwd_dkv_reference(
+                             q, k, v, do, lse, delta, causal)),
+                        ("dq", lambda: cf.flash_bwd_dq(
+                            q, k, v, do, lse, delta, causal),
+                         lambda: cf.flash_bwd_dq_reference(
+                             q, k, v, do, lse, delta, causal))):
+                    bound_ms, bound_by = flash_bound(kind, q, k, causal)
+                    row[f"{kind}_ms"] = time_ms(fn, flush)
+                    row[f"{kind}_plain_ms"] = time_ms(plain, flush)
+                    row[f"{kind}_bound_ms"] = bound_ms
+                    row[f"{kind}_bound_by"] = bound_by
+                row["library_fwd_ms"], row["library_bwd_ms"] = (lib_fwd,
+                                                                lib_bwd)
+            rows[(label, row["dtype"])] = row
+            print("phaseT1 flash", json.dumps(row), flush=True)
+            del q, k, v, do, out, lse, delta, dk, dv, dq
+            del ref_out, ref_lse, ref_dk, ref_dv, ref_dq
+    return rows
+
+
+# -------------------------------------------------------------- phase T2
+TRAIN_STEPS, VAL_BATCHES, WARMUP_STEPS = 20, 2, 3
+
+
+def phase_t2_training(card, flash_path):
+    """The training main path; returns its measurements and launches."""
+    from ray_lightning_tpu_torch import GPTModule, RayStrategy, Trainer
+    from ray_lightning_tpu_torch.core import LambdaCallback
+    from ray_lightning_tpu_torch.models import gpt2_config
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    cfg = gpt2_config("small", attention_impl="flash")
+    module = GPTModule(config=cfg, batch_size=8, seq_len=1024)
+    ends, losses = [], []
+
+    def on_batch_end(trainer, pl_module, outputs, batch, batch_idx):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        losses.append(float(outputs["loss"]))
+
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=TRAIN_STEPS,
+                      limit_val_batches=VAL_BATCHES, seed=0,
+                      callbacks=[LambdaCallback(
+                          on_train_batch_end=on_batch_end)])
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer.fit(module)
+    fit_s = time.perf_counter() - t0
+    launches = cf.kernel_launches()
+    n = cfg.n_layers
+    check(trainer.global_step == TRAIN_STEPS,
+          f"global_step {trainer.global_step} != {TRAIN_STEPS}")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"losses {losses}")
+    check(np.isfinite(trainer.callback_metrics["val_loss"]),
+          f"val_loss {trainer.callback_metrics}")
+    last5 = float(np.mean(losses[-5:]))
+    check(last5 < losses[0],
+          f"loss did not fall: first {losses[0]}, last-5 mean {last5}")
+    expect = {"flash_fwd": n * (TRAIN_STEPS + VAL_BATCHES),
+              "flash_bwd_dkv": n * TRAIN_STEPS,
+              "flash_bwd_dq": n * TRAIN_STEPS}
+    check(launches == expect, f"flash launches {launches} != {expect}")
+    steps_s = np.diff(ends)[WARMUP_STEPS - 1:]      # steps 4..20
+    step_ms = 1e3 * float(np.median(steps_s))
+    tokens = module.batch_size * module.seq_len
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    # model flops per step (PaLM's count): 6·N·tokens for the weights'
+    # products forward and backward (N every parameter, the tied LM head
+    # included) + 12·L·T·d·tokens for attention's two products, counted
+    # without the causal half
+    flops = (6 * n_params * tokens
+             + 12 * cfg.n_layers * module.seq_len * cfg.d_model * tokens)
+    attn_ms = n * sum(flash_path[f"{k}_ms"] for k in ("fwd", "dkv", "dq"))
+    res = dict(
+        train_steps=TRAIN_STEPS, val_batches=VAL_BATCHES,
+        first_loss=losses[0], last5_mean_loss=last5,
+        val_loss=trainer.callback_metrics["val_loss"],
+        expected_first_loss=float(np.log(cfg.vocab_size)),
+        launches=launches, params=n_params, fit_s=fit_s,
+        step_ms_median=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+        model_flops_per_step=flops,
+        bf16_peak_share=flops / (step_ms / 1e3) / PEAK_OPS_PER_S[
+            torch.bfloat16],
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+        # n_layers x (K2 + K3 + K4 at the T1 path shapes, cold L2)
+        attention_share_of_step=attn_ms / step_ms, card=card)
+    print("phaseT2 training", json.dumps(res), flush=True)
+    del trainer, module
+    torch.cuda.empty_cache()
+    return res
+
+
+# -------------------------------------------------------------- phase T3
+E2E_LOSS_RTOL = 1e-5    # the loss of one f32 step, kernel vs plain path
+# each f32 gradient, |kernel - plain| <= this x its largest magnitude:
+# attention's sums run in another order (the kernels' 64-key tiles and
+# online softmax against one dense softmax and autograd's products) in 12
+# layers, and the rest of the step is the same f32 code on both paths
+E2E_GRAD_RTOL = 1e-4
+
+
+def phase_t3_train_kernel_vs_plain():
+    from ray_lightning_tpu_torch import GPTModule
+    from ray_lightning_tpu_torch.data import synthetic_tokens
+    from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
+    cfg = gpt2_config("small", attention_impl="flash", dtype=torch.float32)
+    toks = torch.from_numpy(synthetic_tokens(2, 1025, cfg.vocab_size,
+                                             seed=3)).to(DEVICE)
+    batch = (toks[:, :-1], toks[:, 1:])
+    module = GPTModule(config=cfg)
+    sd = None
+    result = {}
+    for impl in ("flash", "dot"):
+        model = TransformerLM(dataclasses.replace(cfg, attention_impl=impl),
+                              device="meta").to_empty(device=DEVICE)
+        if sd is None:
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            sd = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(sd)
+        loss, _ = module._loss(model, batch)
+        loss.backward()
+        result[impl] = (loss.item(), {
+            n: p.grad for n, p in model.named_parameters()})
+        del model
+    (lk, gk), (lp, gp) = result["flash"], result["dot"]
+    check(np.isfinite(lk), f"T3 loss {lk}")
+    rel = abs(lk - lp) / abs(lp)
+    worst = max(((gk[n] - gp[n]).abs().max().item()
+                 / max(gp[n].abs().max().item(), 1e-30), n) for n in gp)
+    print(f"phaseT3 f32 training step, kernel vs plain path: loss "
+          f"{lk:.6f} vs {lp:.6f} (rel {rel:.3e}, bound {E2E_LOSS_RTOL}); "
+          f"worst gradient |diff|/max|grad| {worst[0]:.3e} in {worst[1]} "
+          f"(bound {E2E_GRAD_RTOL})", flush=True)
+    check(rel <= E2E_LOSS_RTOL, f"T3 loss differs by {rel}")
+    check(worst[0] <= E2E_GRAD_RTOL, f"T3 gradient {worst[1]} differs by "
+          f"{worst[0]} of its largest magnitude")
+    del result
+    torch.cuda.empty_cache()
+    return rel, worst[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -430,6 +739,7 @@ def main() -> int:
 
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = phase1_kernel_vs_plain(flush)
+    flash = phase_t1_flash_vs_plain(flush)
     del flush
 
     cfg = gpt2_config("small")
@@ -447,8 +757,14 @@ def main() -> int:
     launches = served["bf16"]["kernel_launches"]
 
     phase3_kernel_vs_plain_path(cfg, sd, trace)
+    del sd
 
-    # the main path's own call: bf16 q and pages, T=1
+    fpath = flash[("path", "bfloat16")]
+    trained = phase_t2_training(card, fpath)
+    phase_t3_train_kernel_vs_plain()
+
+    # the main paths' own calls: bf16 q and pages, T=1 (serving); bf16,
+    # B=8, T=S=1024, causal (training)
     path = next(r for r in rows
                 if (r["q"], r["pages"], r["T"]) == ("bfloat16", "bfloat16",
                                                     1))
@@ -459,6 +775,22 @@ def main() -> int:
         launches=launches, max_abs_err=path["max_abs_err"], ms=path["ms"],
         plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
+    flash_source = "ray_lightning_tpu_torch/csrc/flash_attention.cu"
+    for name, kind, line, errs, lib in (
+            ("flash_fwd", "fwd", 41, ("out",), fpath["library_fwd_ms"]),
+            # SDPA's backward computes dq, dk and dv together: it stands
+            # beside K3, and K4 has no library call of its own
+            ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
+             fpath["library_bwd_ms"]),
+            ("flash_bwd_dq", "dq", 173, ("dq",), None)):
+        kernels.append(dict(
+            name=name, route="cuda", source=flash_source,
+            replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
+            launches=trained["launches"][name],
+            max_abs_err=max(fpath[f"{e}_err"] for e in errs),
+            ms=fpath[f"{kind}_ms"], plain_ms=fpath[f"{kind}_plain_ms"],
+            bound_ms=fpath[f"{kind}_bound_ms"],
+            bound_by=fpath[f"{kind}_bound_by"], library_ms=lib))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,13 @@
 
 The JAX package (``ray_lightning_tpu/``) is the reference; this package
 grows beside it, slice by slice, until it does everything the JAX package
-does. The first slice is page-native continuous-batching serving of
-GPT-style LMs: ``ServeClient`` -> ``submit`` -> ``run_until_idle``, with
-the decode read side in a hand-written CUDA paged-attention kernel
-(``csrc/paged_attention.cu``).
+does. Slice 1 is page-native continuous-batching serving of GPT-style
+LMs: ``ServeClient`` -> ``submit`` -> ``run_until_idle``, with the decode
+read side in a hand-written CUDA paged-attention kernel
+(``csrc/paged_attention.cu``). Slice 2 is training on one device:
+``Trainer(strategy=RayStrategy(num_workers=1)).fit(GPTModule(...))``,
+with ``attention_impl="flash"`` running hand-written CUDA flash-attention
+kernels forward and backward (``csrc/flash_attention.cu``).
 
 Ground rules of the port:
 
@@ -30,11 +33,16 @@ Ground rules of the port:
 Kernels are compiled from ``csrc/`` with ``nvcc`` at first use into
 ``_build/`` (listed in ``.gitignore``); see :mod:`._build`.
 """
+from ray_lightning_tpu_torch.core import (Callback, TpuDataModule,
+                                          TpuModule, Trainer, make_optimizer)
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.interop import load_flax_params
-from ray_lightning_tpu_torch.models import (TransformerConfig,
+from ray_lightning_tpu_torch.models import (GPTModule, TransformerConfig,
                                             TransformerLM, gpt2_config)
 from ray_lightning_tpu_torch.serve import ServeClient, ServeEngine
+from ray_lightning_tpu_torch.strategies import RayStrategy
 
-__all__ = ["resolve_device", "load_flax_params", "TransformerConfig",
-           "TransformerLM", "gpt2_config", "ServeClient", "ServeEngine"]
+__all__ = ["Callback", "TpuDataModule", "TpuModule", "Trainer",
+           "make_optimizer", "resolve_device", "load_flax_params",
+           "GPTModule", "TransformerConfig", "TransformerLM", "gpt2_config",
+           "ServeClient", "ServeEngine", "RayStrategy"]

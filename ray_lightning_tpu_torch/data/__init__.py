@@ -1,0 +1,4 @@
+from ray_lightning_tpu_torch.data.loader import ArrayDataset, DataLoader
+from ray_lightning_tpu_torch.data.synthetic import synthetic_tokens
+
+__all__ = ["ArrayDataset", "DataLoader", "synthetic_tokens"]

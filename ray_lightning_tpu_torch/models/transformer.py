@@ -18,10 +18,19 @@ of :meth:`TransformerLM.forward`:
   or ``"torch"`` (its plain version; the counterpart of the JAX
   package's ``"xla"``).
 
+The plain forward is the training path. Its attention is
+``attention_impl="dot"`` (:func:`~ray_lightning_tpu_torch.ops.attention.dot_product_attention`)
+or ``"flash"`` (:func:`~ray_lightning_tpu_torch.ops.flash_attention.flash_attention`:
+the CUDA flash kernels, forward and backward, on the card; their plain
+versions on the CPU). The layers run in a Python loop: the JAX package's
+``scan_layers`` has no counterpart, and :mod:`..interop` takes either
+weight layout.
+
 Caches and arenas are updated IN PLACE (JAX returns new ones): a
 serving arena is the one large allocation of the engine and is never
-copied. Not yet ported: scanned layers, remat, dropout, LoRA, quantized
-weights and the flash/ring/ulysses attention impls.
+copied. Not yet ported (they raise ``NotImplementedError``): remat,
+dropout, the ring/ulysses attention impls; nor are LoRA and quantized
+weights.
 """
 from __future__ import annotations
 
@@ -38,8 +47,10 @@ from ray_lightning_tpu_torch.models.paged_attention import (
 from ray_lightning_tpu_torch.models.quant import (kv_dequantize, kv_quantize,
                                                   kv_scales)
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
+from ray_lightning_tpu_torch.ops.flash_attention import flash_attention
 
 ATTENTION_KERNELS = ("torch", "cuda")
+ATTENTION_IMPLS = ("dot", "flash")
 _BIG_NEG = torch.finfo(torch.float32).min
 
 
@@ -54,11 +65,30 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16        # compute dtype
     param_dtype: torch.dtype = torch.float32   # master weights
     causal: bool = True
+    dropout: float = 0.0
+    remat: bool = False
+    # attention of the plain (training) forward: "dot" | "flash"
+    attention_impl: str = "dot"
     # page-native read side: "torch" = the plain PyTorch version,
     # "cuda" = the hand-written paged-attention kernel
     attention_kernel: str = "torch"
 
     def __post_init__(self):
+        if self.attention_impl in ("ring", "ulysses"):
+            raise NotImplementedError(
+                f"attention_impl={self.attention_impl!r} (sequence "
+                "parallelism) is not ported yet (ROADMAP.md A, after the "
+                "slices: ring_attention, ulysses)")
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"attention_impl must be one of {ATTENTION_IMPLS}, got "
+                f"{self.attention_impl!r}")
+        if self.dropout > 0.0:
+            raise NotImplementedError(
+                "dropout > 0 is not ported yet (ROADMAP.md T3)")
+        if self.remat:
+            raise NotImplementedError(
+                "remat=True is not ported yet (ROADMAP.md T3)")
         if self.attention_kernel not in ATTENTION_KERNELS:
             raise ValueError(
                 f"attention_kernel must be one of {ATTENTION_KERNELS}, got "
@@ -210,6 +240,8 @@ class MultiHeadAttention(nn.Module):
         elif kv is not None:
             k, v, mask = self._decode_cache(k, v, kv)
             out = dot_product_attention(q, k, v, mask=mask)
+        elif cfg.attention_impl == "flash":
+            out = flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = dot_product_attention(q, k, v, causal=cfg.causal)
         return self.out(out.reshape(B, T, cfg.n_heads * cfg.head_dim))
@@ -369,9 +401,15 @@ class TransformerLM(nn.Module):
         self.reset_parameters()
 
     @torch.no_grad()
-    def reset_parameters(self):
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """GPT-2-style init: N(0, 0.02) embeddings and projections, zero
-        biases, unit LayerNorm scales."""
+        biases, unit LayerNorm scales. Every draw comes from ``generator``
+        (a CPU ``torch.Generator``; None = a fresh one seeded 0), made on
+        the CPU and copied to the parameter's device, so a seed gives the
+        same weights on any device; torch's global generator is never
+        used."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
         for name, p in self.named_parameters():
             if p.device.type == "meta":
                 continue
@@ -380,7 +418,8 @@ class TransformerLM(nn.Module):
             elif ".ln" in name or name.startswith("ln_f"):
                 p.fill_(1.0)
             else:
-                p.normal_(0.0, 0.02)
+                p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(
+                    0.0, 0.02, generator=generator))
 
     @property
     def device(self) -> torch.device:
