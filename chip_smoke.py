@@ -35,6 +35,25 @@ T1. The flash-attention kernels (K2 forward, K3 dK/dV, K4 dQ) against
 3. Serving, kernel path against plain path end to end, in f32: the first
    decode step after prefill from the same arena, logits held to 1e-3;
    then the share of greedy tokens the two paths agree on over the trace.
+Q1. The fused dequant-matmul kernel (K5) against its plain PyTorch
+   version at the quantized serving path's shapes: GPT-2-small's five
+   projections (qkv 768 -> 3x12x64, out 768 -> 768, up 768 -> 3072, down
+   3072 -> 768, and the tied head 768 -> 50257, transposed) at M=8 (a
+   decode step) and M=1024 (a prefill dispatch), int8 and int4 codes
+   (group 64), bf16 and f32 x, plus a ragged M=7; bounds f32 1e-5 and
+   bf16 2**-7 of max(1, max|ref|). Each path case prints its cold-L2
+   time, its bound and what bounds it, the plain version's time and the
+   time of ``torch.matmul`` by the weight already dequantized to x's dtype
+   (cuBLAS, no dequant in the timed call).
+Q2. Quantized serving: phase 2's trace served by ``ServeClient(...,
+   page_native=True, attention_kernel="cuda", matmul_kernel="cuda")``
+   with ``weight_dtype="int8"`` and again with ``"int4"``. Every request
+   finishes with its full budget, K5 launches 4·n_layers + 1 times per
+   forward (decode steps and prefill dispatches), and the engine's param
+   bytes are at most 0.26x (int8) and 0.15x (int4) of the f32 model's.
+Q3. As phase 3, in f32 with int8 weights: kernel path (K1 and K5) against
+   plain path, the first decode step's logits to 1e-3, then the share of
+   greedy tokens the two agree on (information only).
 T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
    max_epochs=1, limit_train_batches=20, limit_val_batches=2,
    seed=0).fit(GPTModule(config=gpt2_config("small",
@@ -52,7 +71,9 @@ T3. Training, kernel path against plain path end to end, in f32: one
    (``attention_impl="dot"``); loss to 1e-5 relative, every gradient to
    its stated bound.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
-   line ``{"ok": true, "device": {...}}``.
+   line ``{"ok": true, "device": {...}}``. K5's entry holds one decode
+   step's 49 calls at M=8 (bf16 x, int8 codes): its times and bound are
+   their sums, its error the largest of them.
 """
 import dataclasses
 import json
@@ -272,6 +293,13 @@ def make_trace(rng, vocab):
 
 
 SERVE = dict(num_slots=8, prefill_len=128, page_size=16, page_native=True)
+# a greedy and a sampled request, served before a measured run: CUDA
+# modules load lazily at first use (cuBLAS, the sort and random kernels of
+# sampling, the int8 write path), and that one-time cost would otherwise
+# land in the first measured TTFT
+WARM = [(0, dict(prompt=[1, 2, 3], max_new_tokens=4)),
+        (0, dict(prompt=[4, 5], max_new_tokens=4, temperature=0.8,
+                 top_k=40))]
 
 
 def serve(model, sd, trace, **kw):
@@ -324,21 +352,29 @@ def check_completions(done, trace, vocab, label):
               f"{label}: request {rid} emitted a token outside the vocab")
 
 
+def serving_times(done, stamps):
+    """Decode tokens/s (tokens of step dispatches over their host time),
+    ms per step and per prefill dispatch, and TTFT (submit to the end of
+    the first token's prefill), median and max."""
+    decode_tokens = sum(len(c.tokens) - 1 for c in done.values())
+    ttft = [stamps["first"][r] - stamps["submit"][r] for r in done]
+    return dict(
+        decode_tokens=decode_tokens,
+        decode_tokens_per_s=decode_tokens / sum(stamps["step_s"]),
+        step_ms_median=1e3 * statistics.median(stamps["step_s"]),
+        prefill_ms_median=1e3 * statistics.median(stamps["prefill_s"]),
+        ttft_ms_median=1e3 * statistics.median(ttft),
+        ttft_ms_max=1e3 * max(ttft))
+
+
 def phase2_main_path(cfg, sd, trace, card):
     from ray_lightning_tpu_torch.models import paged_attention as pa
     from ray_lightning_tpu_torch.models import TransformerLM
     proto = TransformerLM(cfg, device="meta")
-    # a greedy and a sampled request, run before the counts are reset:
-    # CUDA modules load lazily at first use (cuBLAS, the sort and random
-    # kernels of sampling, the int8 write path), and that one-time cost
-    # would otherwise land in the first measured TTFT
-    warm = [(0, dict(prompt=[1, 2, 3], max_new_tokens=4)),
-            (0, dict(prompt=[4, 5], max_new_tokens=4, temperature=0.8,
-                     top_k=40))]
     results = {}
     for kv_dtype in (None, "int8"):
         label = f"main path kv_dtype={kv_dtype}"
-        serve(proto, sd, warm, attention_kernel="cuda", kv_dtype=kv_dtype)
+        serve(proto, sd, WARM, attention_kernel="cuda", kv_dtype=kv_dtype)
         pa.reset_kernel_launches()
         done, eng, st = serve(proto, sd, trace, attention_kernel="cuda",
                               kv_dtype=kv_dtype)
@@ -348,24 +384,29 @@ def phase2_main_path(cfg, sd, trace, card):
         check(eng.decode_substeps > 0 and launches == expect,
               f"{label}: {launches} kernel launches, expected n_layers x "
               f"decode steps = {expect}")
-        decode_tokens = sum(len(c.tokens) - 1 for c in done.values())
-        ttft = [st["first"][r] - st["submit"][r] for r in done]
-        res = dict(
-            kv_dtype=kv_dtype or "bf16", requests=len(done),
-            decode_steps=eng.decode_substeps, kernel_launches=launches,
-            decode_tokens=decode_tokens,
-            decode_tokens_per_s=decode_tokens / sum(st["step_s"]),
-            step_ms_median=1e3 * statistics.median(st["step_s"]),
-            prefill_ms_median=1e3 * statistics.median(st["prefill_s"]),
-            ttft_ms_median=1e3 * statistics.median(ttft),
-            ttft_ms_max=1e3 * max(ttft), card=card)
+        res = dict(kv_dtype=kv_dtype or "bf16", requests=len(done),
+                   decode_steps=eng.decode_substeps,
+                   kernel_launches=launches,
+                   **serving_times(done, st), card=card)
         print("phase2", json.dumps(res), flush=True)
         results[res["kv_dtype"]] = res
     return results
 
 
 # --------------------------------------------------------------- phase 3
-def phase3_kernel_vs_plain_path(cfg, sd, trace):
+PATHS_ATTENTION = {"cuda": dict(attention_kernel="cuda"),
+                   "torch": dict(attention_kernel="torch")}
+PATHS_QUANTIZED = {"cuda": dict(attention_kernel="cuda", matmul_kernel="cuda"),
+                   "torch": dict(attention_kernel="torch",
+                                 matmul_kernel="torch")}
+
+
+def phase3_kernel_vs_plain_path(cfg, sd, trace, tag="phase3",
+                                paths=PATHS_ATTENTION, weight_dtype=None):
+    """Serving in f32, the kernel path (``paths["cuda"]``) against the
+    plain path (``paths["torch"]``), with weights quantized to
+    ``weight_dtype`` when it is set: the first decode step's logits from
+    the same arena, then the share of greedy tokens over the trace."""
     from ray_lightning_tpu_torch.models import TransformerLM
     from ray_lightning_tpu_torch.models.generate import (_prefill_impl,
                                                         decode_step_paged)
@@ -374,13 +415,15 @@ def phase3_kernel_vs_plain_path(cfg, sd, trace):
     from ray_lightning_tpu_torch.serve.request import Request
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
 
-    def model(kernel):
-        m = TransformerLM(dataclasses.replace(cfg32, attention_kernel=kernel),
+    def model(kw):
+        m = TransformerLM(dataclasses.replace(cfg32, **kw),
                           device="meta").to_empty(device=DEVICE)
         m.load_state_dict(sd)
+        if weight_dtype is not None:
+            m.quantize_weights(weight_dtype)
         return m.requires_grad_(False).eval()
 
-    models = {k: model(k) for k in ("cuda", "torch")}
+    models = {k: model(kw) for k, kw in paths.items()}
     reqs = [Request(id=i, prompt=kw["prompt"],
                     max_new_tokens=kw["max_new_tokens"])
             for i, (_, kw) in enumerate(trace[:8])]
@@ -406,24 +449,133 @@ def phase3_kernel_vs_plain_path(cfg, sd, trace):
     check(a.shape == (8, cfg.vocab_size) and bool(torch.isfinite(a).all()),
           f"decode logits {tuple(a.shape)} not finite")
     err = (a - b).abs().max().item()
-    print(f"phase3 first decode step f32 logits kernel vs plain: max abs "
+    print(f"{tag} first decode step f32 logits kernel vs plain: max abs "
           f"{err:.3e} (bound {E2E_LOGITS_TOL})", flush=True)
     check(err <= E2E_LOGITS_TOL, f"end-to-end logits differ by {err}")
     del models, pool, cache
 
     greedy = [(t, dict(kw, temperature=0.0, top_k=None)) for t, kw in trace]
     proto = TransformerLM(cfg32, device="meta")
-    runs = {k: serve(proto, sd, greedy, attention_kernel=k)[0]
-            for k in ("cuda", "torch")}
+    runs = {k: serve(proto, sd, greedy, weight_dtype=weight_dtype, **kw)[0]
+            for k, kw in paths.items()}
     same = total = 0
     for rid in runs["cuda"]:
         x, y = runs["cuda"][rid].tokens, runs["torch"][rid].tokens
         total += len(x)
         same += sum(int(i == j) for i, j in zip(x, y))
     share = same / total
-    print(f"phase3 greedy tokens equal on the kernel and plain paths (f32, "
+    print(f"{tag} greedy tokens equal on the kernel and plain paths (f32, "
           f"information only): {same}/{total} = {share:.4f}", flush=True)
     return err, share
+
+
+# -------------------------------------------------------------- phase Q1
+# GPT-2-small's projections as stored (flax-layout) leaves: (label, leaf
+# shape, transpose); the tied head contracts the table's last axis
+PROJECTIONS = [("qkv", (768, 3, 12, 64), False), ("out", (768, 768), False),
+               ("up", (768, 3072), False), ("down", (3072, 768), False),
+               ("head", (50257, 768), True)]
+QMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def matmul_bound(x, qt, N):
+    """Least time of one K5 call, as ``(ms, "bytes" | "operations")``:
+    codes, scales and x read once and the output written once over 3.35
+    TB/s, or 2·M·K·N operations over the peak rate of x's type."""
+    M, K = x.shape
+    nbytes = qt.nbytes + (x.numel() + M * N) * x.element_size()
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = 2 * M * K * N / PEAK_OPS_PER_S[x.dtype]
+    return (1e3 * max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_q1_matmul_vs_plain(flush):
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.models.quant import (matmul_view,
+                                                      quantize_params)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rows = []
+    for label, shape, transpose in PROJECTIONS:
+        w = torch.randn(shape, generator=gen, device=DEVICE) * 0.02
+        for weight_dtype in ("int8", "int4"):
+            qt = quantize_params({"w": w}, weight_dtype)["w"]
+            _, _, K, N = matmul_view(qt, transpose)
+            for dtype in (torch.bfloat16, torch.float32):
+                wd = qt.dequantize().to(dtype)
+                w2d = wd.reshape(N, K).T if transpose else wd.reshape(K, N)
+                for M in (8, 1024, 7):
+                    x = torch.randn(M, K, generator=gen,
+                                    device=DEVICE).to(dtype)
+                    out = qmm.quantized_matmul(x, qt, transpose)
+                    torch.cuda.synchronize()
+                    ref = qmm.quantized_matmul_reference(x, qt, transpose)
+                    check(out.shape == ref.shape and out.dtype == ref.dtype,
+                          f"K5 output {out.shape} {out.dtype}")
+                    check(bool(torch.isfinite(out).all()),
+                          "K5 output not finite")
+                    err = (out.float() - ref.float()).abs().max().item()
+                    tol = QMM_TOL[dtype] * max(
+                        1.0, float(ref.float().abs().max()))
+                    row = dict(proj=label, weights=weight_dtype,
+                               x=str(dtype).split(".")[-1], M=M, K=K, N=N,
+                               max_abs_err=err, tol=tol)
+                    if M != 7:      # the ragged case is checked, not timed
+                        bound_ms, bound_by = matmul_bound(x, qt, N)
+                        row.update(
+                            ms=time_ms(lambda: qmm.quantized_matmul(
+                                x, qt, transpose), flush),
+                            plain_ms=time_ms(
+                                lambda: qmm.quantized_matmul_reference(
+                                    x, qt, transpose), flush),
+                            library_ms=time_ms(
+                                lambda: torch.matmul(x, w2d), flush),
+                            bound_ms=bound_ms, bound_by=bound_by)
+                    rows.append(row)
+                    print("phaseQ1 quantized_matmul", json.dumps(row),
+                          flush=True)
+                    check(err <= tol, f"K5 vs plain {err} > {tol} ({row})")
+                del wd, w2d
+        del w
+    return rows
+
+
+# -------------------------------------------------------------- phase Q2
+Q2_BYTES = {"int8": 0.26, "int4": 0.15}   # of the f32 model's param bytes
+
+
+def phase_q2_quantized_serving(cfg, sd, trace, card):
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.models.quant import param_bytes
+    proto = TransformerLM(cfg, device="meta")
+    plain_bytes = param_bytes(sd)
+    per_forward = 4 * cfg.n_layers + 1
+    results = {}
+    for weight_dtype, limit in Q2_BYTES.items():
+        label = f"quantized path weight_dtype={weight_dtype}"
+        kw = dict(attention_kernel="cuda", matmul_kernel="cuda",
+                  weight_dtype=weight_dtype)
+        serve(proto, sd, WARM, **kw)
+        qmm.reset_kernel_launches()
+        done, eng, st = serve(proto, sd, trace, **kw)
+        launches = qmm.kernel_launches()
+        check_completions(done, trace, cfg.vocab_size, label)
+        expect = per_forward * (eng.decode_substeps + eng.prefills)
+        check(eng.decode_substeps > 0 and launches == expect,
+              f"{label}: {launches} K5 launches, expected (4 x n_layers + 1)"
+              f" x (decode steps + prefills) = {expect}")
+        share = eng.param_bytes() / plain_bytes
+        check(share <= limit, f"{label}: param bytes {eng.param_bytes()} = "
+              f"{share:.4f} of the f32 model's, over {limit}")
+        res = dict(weight_dtype=weight_dtype, requests=len(done),
+                   decode_steps=eng.decode_substeps, prefills=eng.prefills,
+                   kernel_launches=launches, param_bytes=eng.param_bytes(),
+                   f32_param_bytes=plain_bytes, param_bytes_share=share,
+                   **serving_times(done, st), card=card)
+        print("phaseQ2", json.dumps(res), flush=True)
+        results[weight_dtype] = res
+    return results
 
 
 # -------------------------------------------------------------- phase T1
@@ -724,6 +876,7 @@ def main() -> int:
     from ray_lightning_tpu_torch.interop import load_flax_params
     from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
     from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
 
     t0 = time.perf_counter()
     logs = _build.build(_build.SOURCES)
@@ -740,6 +893,7 @@ def main() -> int:
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     rows = phase1_kernel_vs_plain(flush)
     flash = phase_t1_flash_vs_plain(flush)
+    qrows = phase_q1_matmul_vs_plain(flush)
     del flush
 
     cfg = gpt2_config("small")
@@ -757,6 +911,9 @@ def main() -> int:
     launches = served["bf16"]["kernel_launches"]
 
     phase3_kernel_vs_plain_path(cfg, sd, trace)
+    quantized = phase_q2_quantized_serving(cfg, sd, trace, card)
+    phase3_kernel_vs_plain_path(cfg, sd, trace, tag="phaseQ3",
+                                paths=PATHS_QUANTIZED, weight_dtype="int8")
     del sd
 
     fpath = flash[("path", "bfloat16")]
@@ -791,6 +948,22 @@ def main() -> int:
             ms=fpath[f"{kind}_ms"], plain_ms=fpath[f"{kind}_plain_ms"],
             bound_ms=fpath[f"{kind}_bound_ms"],
             bound_by=fpath[f"{kind}_bound_by"], library_ms=lib))
+    # K5: one decode step's calls -- n_layers x (qkv, out, up, down) and
+    # the head -- at M=8, bf16 x, int8 codes
+    step = {r["proj"]: r for r in qrows
+            if (r["weights"], r["x"], r["M"]) == ("int8", "bfloat16", 8)}
+    calls = {p: (1 if p == "head" else cfg.n_layers) for p in step}
+    kernels.append(dict(
+        name=qmm.KERNEL, route="cuda",
+        source="ray_lightning_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="ray_lightning_tpu/models/pallas_matmul.py:123",
+        launches=quantized["int8"]["kernel_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in step.values()),
+        **{k: sum(calls[p] * step[p][k] for p in step)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        # what bounds the call with the largest bound
+        bound_by=max(step.values(), key=lambda r: r["bound_ms"])[
+            "bound_by"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

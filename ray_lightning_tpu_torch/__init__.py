@@ -36,7 +36,8 @@ Kernels are compiled from ``csrc/`` with ``nvcc`` at first use into
 from ray_lightning_tpu_torch.core import (Callback, TpuDataModule,
                                           TpuModule, Trainer, make_optimizer)
 from ray_lightning_tpu_torch.device import resolve_device
-from ray_lightning_tpu_torch.interop import load_flax_params
+from ray_lightning_tpu_torch.interop import (load_flax_params,
+                                             load_flax_quantized)
 from ray_lightning_tpu_torch.models import (GPTModule, TransformerConfig,
                                             TransformerLM, gpt2_config)
 from ray_lightning_tpu_torch.serve import ServeClient, ServeEngine
@@ -44,5 +45,6 @@ from ray_lightning_tpu_torch.strategies import RayStrategy
 
 __all__ = ["Callback", "TpuDataModule", "TpuModule", "Trainer",
            "make_optimizer", "resolve_device", "load_flax_params",
+           "load_flax_quantized",
            "GPTModule", "TransformerConfig", "TransformerLM", "gpt2_config",
            "ServeClient", "ServeEngine", "RayStrategy"]

@@ -18,15 +18,35 @@ module in place. The layouts differ in these places:
   ``wte/embedding`` (vocab, d);
 - embeddings are ``embedding`` (rows, d), the same layout as torch.
 
+Quantized weights keep the flax layout (``models/quant.py``):
+:func:`flax_weights` gives the flax-layout view of each of a port
+model's matrices (what the port quantizes, so its codes and scales are
+JAX's), and :func:`load_flax_quantized` carries a tree quantized by the
+JAX package's ``quantize_params`` across as it is.
+
 The tanh GELU and the final f32 cast of the logits are the model's
 business (``models/transformer.py``), not the weights'.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from ray_lightning_tpu_torch.models.quant import QTensor
+
+#: the port's Dense weights other than qkv: flax kernel = weight.T
+_DENSE_SUFFIXES = (".attn.out.weight", ".mlp.up.weight", ".mlp.down.weight")
+_QKV_SUFFIX = ".attn.qkv.weight"
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _is_quantized_leaf(leaf) -> bool:
+    """A quantized leaf of the JAX package (its ``QTensor``), read by
+    duck type: codes ``q``, ``scale`` and the metadata beside them."""
+    return all(hasattr(leaf, a) for a in ("q", "scale", "bits",
+                                          "group_size", "shape", "dtype"))
 
 
 def unstack_scan_params(params: Mapping[str, Any]) -> Dict[str, Any]:
@@ -47,42 +67,86 @@ def unstack_scan_params(params: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _stacked_leaf(leaf) -> np.ndarray:
+    if _is_quantized_leaf(leaf):
+        raise ValueError(
+            "a quantized leaf inside a scanned layer stack has scales "
+            "shared across the layer axis; quantize the unrolled tree "
+            "(scan_layers=False) instead")
+    return np.asarray(leaf)
+
+
 def _first_leaf(tree):
     while isinstance(tree, Mapping):
         tree = next(iter(tree.values()))
-    return np.asarray(tree)
+    return _stacked_leaf(tree)
 
 
 def _map_leaves(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
-    return fn(np.asarray(tree))
+    return fn(_stacked_leaf(tree))
 
 
-def flax_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The port's state-dict entries (as numpy) for a flax
-    ``TransformerLM`` param tree, scanned or unrolled."""
+def _flax_leaves(params: Mapping[str, Any]) -> Iterator[Tuple[str, Any]]:
+    """(port state-dict name, flax leaf) for every leaf of a flax
+    ``TransformerLM`` tree, scanned or unrolled; leaves as they are."""
     p = unstack_scan_params(params)
-    a = np.asarray
-    sd = {"wte.weight": a(p["wte"]["embedding"]),
-          "wpe.weight": a(p["wpe"]["embedding"]),
-          "ln_f.weight": a(p["ln_f"]["scale"]),
-          "ln_f.bias": a(p["ln_f"]["bias"])}
+    yield "wte.weight", p["wte"]["embedding"]
+    yield "wpe.weight", p["wpe"]["embedding"]
+    yield "ln_f.weight", p["ln_f"]["scale"]
+    yield "ln_f.bias", p["ln_f"]["bias"]
     stack = p["stack"]
     n_layers = sum(1 for k in stack if k.startswith("block_"))
     for i in range(n_layers):
         blk = stack[f"block_{i}"]
         pre = f"stack.blocks.{i}."
-        qkv_k = a(blk["attn"]["qkv"]["kernel"])         # (d, 3, H, hd)
-        sd[pre + "attn.qkv.weight"] = qkv_k.reshape(qkv_k.shape[0], -1).T
-        sd[pre + "attn.qkv.bias"] = a(blk["attn"]["qkv"]["bias"]).reshape(-1)
-        for mod, name in (("attn", "out"), ("mlp", "up"), ("mlp", "down")):
-            sd[pre + f"{mod}.{name}.weight"] = a(blk[mod][name]["kernel"]).T
-            sd[pre + f"{mod}.{name}.bias"] = a(blk[mod][name]["bias"])
+        for mod, name in (("attn", "qkv"), ("attn", "out"), ("mlp", "up"),
+                          ("mlp", "down")):
+            yield pre + f"{mod}.{name}.weight", blk[mod][name]["kernel"]
+            yield pre + f"{mod}.{name}.bias", blk[mod][name]["bias"]
         for ln in ("ln1", "ln2"):
-            sd[pre + f"{ln}.weight"] = a(blk[ln]["scale"])
-            sd[pre + f"{ln}.bias"] = a(blk[ln]["bias"])
-    return sd
+            yield pre + f"{ln}.weight", blk[ln]["scale"]
+            yield pre + f"{ln}.bias", blk[ln]["bias"]
+
+
+def _to_port_layout(name: str, leaf: np.ndarray) -> np.ndarray:
+    if name.endswith(_QKV_SUFFIX):                  # (d, 3, H, hd)
+        return leaf.reshape(leaf.shape[0], -1).T
+    if name.endswith(".attn.qkv.bias"):             # (3, H, hd)
+        return leaf.reshape(-1)
+    if name.endswith(_DENSE_SUFFIXES):
+        return leaf.T
+    return leaf
+
+
+def flax_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's state-dict entries (as numpy) for a flax
+    ``TransformerLM`` param tree, scanned or unrolled."""
+    return {name: _to_port_layout(name, np.asarray(leaf))
+            for name, leaf in _flax_leaves(params)}
+
+
+def flax_layout(name: str, weight: torch.Tensor,
+                n_heads: int) -> torch.Tensor:
+    """The flax-layout view of one port matrix (the inverse of the
+    transposes above): qkv (3·H·hd, d) -> (d, 3, H, hd); out, up, down
+    (out, in) -> (in, out); embeddings as they are."""
+    if name.endswith(_QKV_SUFFIX):
+        rows, d = weight.shape
+        return weight.T.reshape(d, 3, n_heads, rows // (3 * n_heads))
+    if name.endswith(_DENSE_SUFFIXES):
+        return weight.T
+    return weight
+
+
+def flax_weights(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The flax-layout view of every full-precision matrix (parameter of
+    ndim >= 2) of a port ``TransformerLM``: the Dense weights and the
+    two embedding tables -- the leaves JAX ``quantize_params`` quantizes
+    -- keyed by the port's state-dict names."""
+    return {name: flax_layout(name, p.detach(), model.cfg.n_heads)
+            for name, p in model.named_parameters() if p.ndim >= 2}
 
 
 def load_flax_params(model: torch.nn.Module,
@@ -94,4 +158,30 @@ def load_flax_params(model: torch.nn.Module,
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dtype)
           for k, v in flax_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+def load_flax_quantized(model: torch.nn.Module,
+                        params: Mapping[str, Any]) -> torch.nn.Module:
+    """Fill ``model`` from a tree quantized by the JAX package's
+    ``quantize_params`` (unrolled layers), in place. Its quantized leaves
+    (read as numpy ``q``/``scale`` and their bits, group size, shape and
+    dtype) become the model's quantized weights as they are, codes in
+    the flax layout; every other leaf loads as :func:`load_flax_params`
+    loads it. Returns the model."""
+    plain, quantized = {}, {}
+    dev = model.device
+    for name, leaf in _flax_leaves(params):
+        if _is_quantized_leaf(leaf):
+            quantized[name] = QTensor(
+                torch.from_numpy(np.array(leaf.q, dtype=np.int8)),
+                torch.from_numpy(np.array(leaf.scale, dtype=np.float32)),
+                int(leaf.bits), leaf.group_size, tuple(leaf.shape),
+                _TORCH_DTYPES[np.dtype(leaf.dtype).name]).to(dev)
+        else:
+            plain[name] = torch.from_numpy(np.array(
+                _to_port_layout(name, np.asarray(leaf)), dtype=np.float32)
+            ).to(model.cfg.param_dtype)
+    model.load_quantized(quantized)
+    model.load_state_dict(plain, strict=True)
     return model

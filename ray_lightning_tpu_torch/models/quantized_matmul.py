@@ -1,0 +1,139 @@
+"""Fused dequant-matmul: ``x @ dequant(W)`` straight from int8/int4 codes.
+
+Counterpart of ``ray_lightning_tpu/models/pallas_matmul.py``. Three
+pieces:
+
+- :func:`quantized_matmul_reference` -- the plain PyTorch version, JAX's
+  ``_quant_matmul`` non-Pallas branch (``models/transformer.py:232-237``):
+  ``qt.dequantize()`` (f32 ``code * scale``, rounded to the leaf's
+  dtype), a cast to x's (the compute) dtype, then one f32 matmul of the
+  rounded operands rounded once to x's dtype. Products of compute-dtype
+  values are exact in f32, as in ``paged_attention_reference``. The CPU
+  path, ``matmul_kernel="torch"`` and the kernel's oracle in
+  ``chip_smoke.py`` all run it.
+- ``csrc/quantized_matmul.cu`` -- the hand-written CUDA kernel for
+  ``sm_90a``, built by :mod:`ray_lightning_tpu_torch._build`. It keeps the
+  same rounding points and sums every product in f32 over all of K; the
+  JAX kernel's ``tile_k`` (f32-accumulated partial dots, a TPU occupancy
+  knob) has no counterpart, and its ``tile_m``/``tile_n`` are the
+  kernel's own block shapes.
+- :func:`quantized_matmul` -- the wrapper: CPU tensors take the plain
+  version; CUDA tensors launch the kernel or raise. It counts its
+  launches (:func:`kernel_launches`).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ray_lightning_tpu_torch.models.quant import QTensor, matmul_view
+
+__all__ = ["quantized_matmul", "quantized_matmul_reference",
+           "kernel_launches", "reset_kernel_launches", "KERNEL"]
+
+KERNEL = "quantized_matmul"
+_PARAM_DTYPES = (torch.float32, torch.bfloat16)
+
+_launches = 0
+_lib: Optional[ctypes.CDLL] = None
+
+
+def kernel_launches() -> int:
+    """Kernel launches since the last :func:`reset_kernel_launches`
+    (CPU calls of the plain version are not launches)."""
+    return _launches
+
+
+def reset_kernel_launches() -> None:
+    global _launches
+    _launches = 0
+
+
+def _weight_2d(qt: QTensor, transpose: bool) -> torch.Tensor:
+    """The dequantized leaf as the (K, N) right operand."""
+    w = qt.dequantize()
+    if transpose:
+        return w.reshape(-1, qt.shape[-1]).T
+    return w.reshape(qt.shape[0], -1)
+
+
+def quantized_matmul_reference(x: torch.Tensor, qt: QTensor,
+                               transpose: bool = False) -> torch.Tensor:
+    """The plain version; arguments as :func:`quantized_matmul`."""
+    w = _weight_2d(qt, transpose).to(x.dtype)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from ray_lightning_tpu_torch._build import load
+        lib = load(KERNEL)
+        lib.quantized_matmul_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        lib.quantized_matmul_launch.restype = ctypes.c_int
+        lib.quantized_matmul_error_string.argtypes = [ctypes.c_int]
+        lib.quantized_matmul_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def quantized_matmul(x: torch.Tensor, qt: QTensor,
+                     transpose: bool = False) -> torch.Tensor:
+    """``x (..., K) @ dequantize(qt) -> (..., N)``, the dequant fused
+    into the matmul: no dense weight is materialized.
+
+    ``transpose=False`` contracts the leaf's stored axis 0 and flattens
+    its other axes to ``N`` (a Dense kernel ``(K, *features)``; the
+    caller reshapes to its features); ``transpose=True`` contracts the
+    stored LAST axis (the tied LM head's ``x @ E.T``). ``x`` is float32
+    or bfloat16 -- callers cast to the compute dtype first, as flax's
+    Dense does -- and the output has x's dtype. CPU tensors run the plain
+    version; CUDA tensors (x contiguous, on the leaf's device) launch the
+    kernel on the current stream or raise -- nothing falls back.
+    """
+    codes, scales, K, N = matmul_view(qt, transpose)
+    if x.shape[-1] != K:
+        raise ValueError(
+            f"quantized_matmul contraction mismatch: x has {x.shape[-1]} "
+            f"features, the quantized leaf contracts over {K}")
+    if x.device != qt.device:
+        raise ValueError(f"quantized_matmul inputs span devices "
+                         f"{x.device} and {qt.device}")
+    if x.device.type == "cpu":
+        return quantized_matmul_reference(x, qt, transpose)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantized_matmul runs on cpu or cuda, got "
+                         f"{x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if qt.dtype not in _PARAM_DTYPES:
+        raise ValueError(f"the quantized leaf's dtype must be float32 or "
+                         f"bfloat16, got {qt.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("quantized_matmul needs a contiguous x")
+    if codes.data_ptr() % 4 or scales.data_ptr() % 4:
+        raise ValueError("quantized_matmul reads codes in 32-bit words: "
+                         "codes and scales must be 4-byte aligned")
+    lead = x.shape[:-1]
+    M = x.numel() // K
+    if M < 1:
+        raise ValueError("quantized_matmul needs at least one row of x")
+    out = torch.empty((*lead, N), dtype=x.dtype, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.quantized_matmul_launch(
+            x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), M, N, K, qt.bits, int(transpose),
+            qt.group_size or 0, scales.shape[1],
+            0 if x.dtype == torch.float32 else 1,
+            int(qt.dtype == torch.bfloat16), stream)
+    if err != 0:
+        msg = lib.quantized_matmul_error_string(err).decode()
+        raise RuntimeError(f"quantized_matmul kernel launch failed: {msg}")
+    global _launches
+    _launches += 1
+    return out

@@ -18,6 +18,18 @@ of :meth:`TransformerLM.forward`:
   or ``"torch"`` (its plain version; the counterpart of the JAX
   package's ``"xla"``).
 
+**Quantized weights** (the JAX package's ``QuantDense``/``QuantEmbed``):
+:meth:`TransformerLM.quantize_weights` (or
+:meth:`TransformerLM.load_quantized`) swaps the f32 matrices -- every
+Dense weight and both embedding tables -- for int8/int4
+:class:`~ray_lightning_tpu_torch.models.quant.QTensor` codes in the flax
+layout and drops the f32 copies. A quantized Dense and the tied LM head
+then run ``matmul_kernel="cuda"`` (the fused dequant-matmul kernel,
+:func:`~ray_lightning_tpu_torch.models.quantized_matmul.quantized_matmul`)
+or ``"torch"`` (its plain version; JAX's ``"xla"``); the embedding
+lookups gather code rows and dequantize only those. A model with no
+quantized weights computes what it always did.
+
 The plain forward is the training path. Its attention is
 ``attention_impl="dot"`` (:func:`~ray_lightning_tpu_torch.ops.attention.dot_product_attention`)
 or ``"flash"`` (:func:`~ray_lightning_tpu_torch.ops.flash_attention.flash_attention`:
@@ -29,13 +41,12 @@ weight layout.
 Caches and arenas are updated IN PLACE (JAX returns new ones): a
 serving arena is the one large allocation of the engine and is never
 copied. Not yet ported (they raise ``NotImplementedError``): remat,
-dropout, the ring/ulysses attention impls; nor are LoRA and quantized
-weights.
+dropout, the ring/ulysses attention impls; nor is LoRA.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -44,12 +55,16 @@ import torch.nn.functional as F
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models.paged_attention import (
     paged_attention, paged_attention_reference)
-from ray_lightning_tpu_torch.models.quant import (kv_dequantize, kv_quantize,
-                                                  kv_scales)
+from ray_lightning_tpu_torch.models.quant import (QTensor, kv_dequantize,
+                                                  kv_quantize, kv_scales,
+                                                  quantize_params)
+from ray_lightning_tpu_torch.models.quantized_matmul import (
+    quantized_matmul, quantized_matmul_reference)
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
 from ray_lightning_tpu_torch.ops.flash_attention import flash_attention
 
 ATTENTION_KERNELS = ("torch", "cuda")
+MATMUL_KERNELS = ("torch", "cuda")
 ATTENTION_IMPLS = ("dot", "flash")
 _BIG_NEG = torch.finfo(torch.float32).min
 
@@ -72,6 +87,9 @@ class TransformerConfig:
     # page-native read side: "torch" = the plain PyTorch version,
     # "cuda" = the hand-written paged-attention kernel
     attention_kernel: str = "torch"
+    # matmuls of quantized weights: "torch" = the plain PyTorch version,
+    # "cuda" = the fused dequant-matmul kernel (inert on plain weights)
+    matmul_kernel: str = "torch"
 
     def __post_init__(self):
         if self.attention_impl in ("ring", "ulysses"):
@@ -93,6 +111,10 @@ class TransformerConfig:
             raise ValueError(
                 f"attention_kernel must be one of {ATTENTION_KERNELS}, got "
                 f"{self.attention_kernel!r}")
+        if self.matmul_kernel not in MATMUL_KERNELS:
+            raise ValueError(
+                f"matmul_kernel must be one of {MATMUL_KERNELS}, got "
+                f"{self.matmul_kernel!r}")
         if self.d_model % self.n_heads:
             raise ValueError(
                 f"d_model ({self.d_model}) must be a multiple of n_heads "
@@ -176,22 +198,68 @@ def new_arena(cfg: TransformerConfig, num_pages: int, page_size: int,
 
 
 # ---------------------------------------------------------------- layers
+def _quant_matmul(x: torch.Tensor, qt: QTensor, matmul_kernel: str,
+                  transpose: bool = False) -> torch.Tensor:
+    """One quantized-leaf contraction in the compute dtype: the fused
+    kernel under "cuda", its plain version under "torch". Returns the
+    flattened ``(..., N)``."""
+    fn = (quantized_matmul if matmul_kernel == "cuda"
+          else quantized_matmul_reference)
+    return fn(x.contiguous(), qt, transpose)
+
+
 class Dense(nn.Module):
     """``nn.Dense``/``nn.DenseGeneral`` of the JAX package: f32 master
-    weight (out, in), computed in the compute dtype."""
+    weight (out, in), computed in the compute dtype; or, once quantized,
+    ``qweight`` (codes of the flax kernel ``(in, *features)``) and no f32
+    weight (``QuantDense``/``QuantDenseGeneral``)."""
 
     def __init__(self, in_features: int, out_features: int,
                  cfg: TransformerConfig, device):
         super().__init__()
         self.dtype = cfg.dtype
+        self.matmul_kernel = cfg.matmul_kernel
         self.weight = nn.Parameter(torch.empty(
             out_features, in_features, dtype=cfg.param_dtype, device=device))
         self.bias = nn.Parameter(torch.empty(
             out_features, dtype=cfg.param_dtype, device=device))
+        self.qweight: Optional[QTensor] = None
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.qweight is None:
+            return F.linear(x, self.weight.to(self.dtype),
+                            self.bias.to(self.dtype))
+        return (_quant_matmul(x, self.qweight, self.matmul_kernel)
+                + self.bias.to(self.dtype))
+
+
+class Embed(nn.Embedding):
+    """``nn.Embed`` of the JAX package: an f32 table (rows, d) looked up
+    and rounded to the compute dtype; or, once quantized, ``qweight`` and
+    no f32 table (``QuantEmbed``). :meth:`attend` is the tied LM head."""
+
+    def __init__(self, rows: int, features: int, cfg: TransformerConfig,
+                 device):
+        super().__init__(rows, features, device=device,
+                         dtype=cfg.param_dtype)
+        self.dtype = cfg.dtype
+        self.matmul_kernel = cfg.matmul_kernel
+        self.qweight: Optional[QTensor] = None
+
+    def forward(self, ids):
+        if self.qweight is None:
+            # gather the f32 rows, then round them: the lookup of a
+            # compute-dtype table, without casting the whole table
+            return self.weight[ids.long()].to(self.dtype)
+        return self.qweight.take_rows(ids).to(self.dtype)
+
+    def attend(self, x):
+        """``x @ table.T`` in the compute dtype (flax ``Embed.attend``)."""
+        if self.qweight is None:
+            return F.linear(x, self.weight.to(self.dtype))
+        return _quant_matmul(x.to(self.dtype), self.qweight,
+                             self.matmul_kernel, transpose=True)
 
 
 class LayerNorm(nn.Module):
@@ -392,10 +460,8 @@ class TransformerLM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model, device=dev,
-                                dtype=cfg.param_dtype)
-        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model, device=dev,
-                                dtype=cfg.param_dtype)
+        self.wte = Embed(cfg.vocab_size, cfg.d_model, cfg, dev)
+        self.wpe = Embed(cfg.max_seq_len, cfg.d_model, cfg, dev)
         self.stack = TransformerStack(cfg, dev)
         self.ln_f = LayerNorm(cfg.d_model, cfg, dev)
         self.reset_parameters()
@@ -423,7 +489,52 @@ class TransformerLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.wte.weight.device
+        return self.ln_f.weight.device
+
+    # ----------------------------------------------------- quantization
+    def quantize_weights(self, weight_dtype: str,
+                         group_size: Optional[int] = None) -> "TransformerLM":
+        """Quantize every matrix in place (JAX ``quantize_params`` on the
+        flax-layout views, so the codes and scales are JAX's) and drop
+        the f32 copies. Returns the model."""
+        from ray_lightning_tpu_torch.interop import flax_weights
+        with torch.no_grad():
+            self.load_quantized(quantize_params(flax_weights(self),
+                                                weight_dtype, group_size))
+        return self
+
+    def load_quantized(self, weights: Mapping[str, QTensor]) -> None:
+        """Install quantized matrices, keyed by the state-dict names of
+        the f32 weights they replace (``"wte.weight"``,
+        ``"stack.blocks.0.attn.qkv.weight"``, ...), each a
+        :class:`QTensor` of the flax-layout leaf; the f32 weights go."""
+        from ray_lightning_tpu_torch.interop import flax_layout
+        for name, qt in weights.items():
+            path, leaf = name.rsplit(".", 1)
+            mod = self.get_submodule(path)
+            if leaf != "weight" or not isinstance(mod, (Dense, Embed)):
+                raise ValueError(f"{name} is not a quantizable weight")
+            if mod.qweight is not None:
+                raise ValueError(f"{name} is already quantized")
+            want = tuple(flax_layout(name, mod.weight,
+                                     self.cfg.n_heads).shape)
+            if not isinstance(qt, QTensor) or qt.shape != want:
+                raise ValueError(f"{name} needs a QTensor of the flax-layout "
+                                 f"shape {want}, got {qt!r}")
+            qt = qt.to(mod.weight.device)
+            del mod.weight
+            mod.qweight = qt
+
+    def named_weights(self) -> Dict[str, Union[torch.Tensor, QTensor]]:
+        """Every parameter by its state-dict name, quantized matrices as
+        their :class:`QTensor` (``quant.param_bytes`` of this is the
+        model's at-rest bytes)."""
+        out: Dict[str, Union[torch.Tensor, QTensor]] = dict(
+            self.named_parameters())
+        for name, mod in self.named_modules():
+            if isinstance(mod, (Dense, Embed)) and mod.qweight is not None:
+                out[f"{name}.weight"] = mod.qweight
+        return out
 
     def forward(self, tokens: torch.Tensor, positions=None,
                 kv_positions=None, page_table=None,
@@ -435,13 +546,10 @@ class TransformerLM(nn.Module):
             positions = torch.arange(T, device=tokens.device)[None]
         if page_table is not None and kv_positions is None:
             raise ValueError("page_table needs kv_positions")
-        # gather the f32 rows, then round them: the lookup of a
-        # compute-dtype table, without casting the whole table
-        x = (self.wte.weight[tokens.long()].to(cfg.dtype)
-             + self.wpe.weight[positions.long()].to(cfg.dtype))
+        x = self.wte(tokens) + self.wpe(positions)
         x = self.stack(x, kv_positions=kv_positions, page_table=page_table,
                        cache=cache)
         x = self.ln_f(x)
         # the LM head is tied to the token embedding (wte.attend in flax)
-        logits = F.linear(x, self.wte.weight.to(cfg.dtype))
+        logits = self.wte.attend(x)
         return logits.float()

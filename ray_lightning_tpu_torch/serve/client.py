@@ -66,6 +66,9 @@ class ServeClient:
                  kv_dtype: Optional[str] = None,
                  page_native: bool = False,
                  attention_kernel: Optional[str] = None,
+                 weight_dtype: Optional[str] = None,
+                 weight_group_size: Optional[int] = None,
+                 matmul_kernel: Optional[str] = None,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
         self.engine = ServeEngine(
@@ -73,7 +76,9 @@ class ServeClient:
             prefill_len=prefill_len, steps_per_dispatch=steps_per_dispatch,
             seed=seed, page_size=page_size, num_pages=num_pages,
             kv_dtype=kv_dtype, page_native=page_native,
-            attention_kernel=attention_kernel, device=device)
+            attention_kernel=attention_kernel, weight_dtype=weight_dtype,
+            weight_group_size=weight_group_size,
+            matmul_kernel=matmul_kernel, device=device)
         self.scheduler = FifoScheduler(scheduler_config)
         self._clock = clock
         self._t0: Optional[float] = None

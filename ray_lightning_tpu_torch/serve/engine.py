@@ -17,6 +17,13 @@ Iteration-level scheduling over a fixed batch of **KV slots**:
    own eos; finished rows retire mid-flight and their slot and pages go
    to the next queued request.
 
+``weight_dtype="int8"|"int4"`` quantizes the engine's own model after it
+loads the weights (every matrix to codes plus scales, the f32 copies
+dropped: :meth:`ServeEngine.param_bytes` is then the codes and scales);
+``matmul_kernel="cuda"`` runs each projection and the tied LM head
+through the fused dequant-matmul kernel, ``"torch"`` through its plain
+version.
+
 Inactive slots still run (the batch is fixed): the page table they see
 is write-masked to −1, so their K/V writes land in the arena's sink page
 and their tokens are masked out. Row state (current token, position,
@@ -42,7 +49,10 @@ from ray_lightning_tpu_torch.models.generate import (_prefill_impl,
                                                     decode_step_paged,
                                                     row_seed,
                                                     sample_logits_rows)
+from ray_lightning_tpu_torch.models.quant import (check_weight_dtype,
+                                                  param_bytes)
 from ray_lightning_tpu_torch.models.transformer import (ATTENTION_KERNELS,
+                                                        MATMUL_KERNELS,
                                                         TransformerLM,
                                                         latch_eos)
 from ray_lightning_tpu_torch.serve.pages import (PagePool, SlotPoolFull,
@@ -67,9 +77,6 @@ UNPORTED = {
     "max_resident_adapters": "S4 (multi-LoRA serving, tenancy)",
     "lora_rank": "S4 (multi-LoRA serving, tenancy)",
     "tenant_classes": "S4 (multi-LoRA serving, tenancy)",
-    "weight_dtype": "Q1 (quantized serving, kernel K5)",
-    "weight_group_size": "Q1 (quantized serving, kernel K5)",
-    "matmul_kernel": "Q1 (quantized serving, kernel K5)",
     "telemetry": "S6 (serving reliability and observability)",
 }
 
@@ -135,6 +142,12 @@ class ServeEngine:
     pool and the dense-view paged path are not ported. ``kv_dtype="int8"``
     stores K/V as absmax int8 codes with per-page-per-head scales.
 
+    ``weight_dtype="int8"|"int4"`` (``weight_group_size=`` sizes the int4
+    groups, default 64) quantizes the engine's model;
+    ``matmul_kernel="cuda"`` (needs ``weight_dtype=``) runs its quantized
+    matmuls through the fused kernel, ``"torch"`` (the default) through
+    the plain version; ``None`` keeps the model config's choice.
+
     Drive it with :class:`~ray_lightning_tpu_torch.serve.client.ServeClient`
     or directly: ``prefill([reqs])`` starts requests, ``step()`` advances
     every in-flight one; each returns newly finished
@@ -149,6 +162,9 @@ class ServeEngine:
                  kv_dtype: Optional[str] = None,
                  page_native: bool = False,
                  attention_kernel: Optional[str] = None,
+                 weight_dtype: Optional[str] = None,
+                 weight_group_size: Optional[int] = None,
+                 matmul_kernel: Optional[str] = None,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
         if page_size is None:
@@ -170,6 +186,24 @@ class ServeEngine:
                     f"{ATTENTION_KERNELS}, got {attention_kernel!r}")
             cfg = dataclasses.replace(cfg, attention_kernel=attention_kernel)
         self.attention_kernel = cfg.attention_kernel
+        check_weight_dtype(weight_dtype)  # unknown dtypes refused here
+        if matmul_kernel is not None:
+            if matmul_kernel not in MATMUL_KERNELS:
+                raise ValueError(
+                    f"matmul_kernel must be None or one of "
+                    f"{MATMUL_KERNELS}, got {matmul_kernel!r}")
+            cfg = dataclasses.replace(cfg, matmul_kernel=matmul_kernel)
+        self.matmul_kernel = cfg.matmul_kernel
+        if self.matmul_kernel == "cuda" and weight_dtype is None:
+            raise ValueError(
+                "matmul_kernel='cuda' is the fused dequant-matmul kernel for "
+                "QUANTIZED weights: pass weight_dtype='int8'|'int4' too, or "
+                "drop the kernel")
+        if weight_group_size is not None and weight_dtype != "int4":
+            raise ValueError(
+                "weight_group_size is an int4 grouping option: pass "
+                "weight_dtype='int4' to enable it -- int8 scales are "
+                "per-output-channel")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if prefill_len > cfg.max_seq_len:
@@ -195,6 +229,9 @@ class ServeEngine:
             device=self.device)
         self.model.load_state_dict(params)
         self.model.requires_grad_(False).eval()
+        self.weight_dtype = weight_dtype
+        if weight_dtype is not None:
+            self.model.quantize_weights(weight_dtype, weight_group_size)
         self.num_slots = num_slots
         self.prefill_len = prefill_len
         self.steps_per_dispatch = steps_per_dispatch
@@ -223,6 +260,11 @@ class ServeEngine:
         self.tokens_generated = 0
 
     # ------------------------------------------------------------- state
+    def param_bytes(self) -> int:
+        """At-rest bytes of the engine's model: f32 parameters, or codes
+        plus scales for quantized matrices."""
+        return param_bytes(self.model.named_weights())
+
     @property
     def free_slots(self) -> int:
         return self.pool.free_slots

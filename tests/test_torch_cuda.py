@@ -10,8 +10,11 @@ inputs. Paged attention: f32 to 1e-5 (only the order of the f32 sums
 differs), bf16 to 2e-2 (both round the softmax weights and the output to
 bf16 at the same points; a summation-order difference can flip one such
 rounding, one bf16 ulp of an output below 4). Flash attention (K2-K4):
-see ``FLASH_TOL``. ``chip_smoke.py`` repeats this at the serving and
-training paths' full shapes.
+see ``FLASH_TOL``. Fused dequant-matmul (K5): f32 to 1e-5 x max(1,
+max|ref|), bf16 to one bf16 ulp of the largest magnitude, 2**-7 x max(1,
+max|ref|) (the same rounded operands, f32 sums in another order).
+``chip_smoke.py`` repeats this at the serving and training paths' full
+shapes.
 """
 import numpy as np
 import pytest
@@ -19,9 +22,11 @@ import torch
 
 from ray_lightning_tpu_torch import GPTModule, RayStrategy, Trainer
 from ray_lightning_tpu_torch.models import paged_attention as pa
+from ray_lightning_tpu_torch.models import quantized_matmul as qmm
 from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
 from ray_lightning_tpu_torch.ops import cuda_flash as cf
-from ray_lightning_tpu_torch.models.quant import kv_quantize, kv_scales
+from ray_lightning_tpu_torch.models.quant import (QTensor, kv_quantize,
+                                                  kv_scales, quantize_params)
 from ray_lightning_tpu_torch.serve import ServeClient
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
@@ -239,3 +244,112 @@ def test_training_runs_through_the_flash_kernels(cuda):
                                     "flash_bwd_dkv": n * 6,
                                     "flash_bwd_dq": n * 6}
     assert np.isfinite(trainer.callback_metrics["val_loss"])
+
+
+# ------------------------------------------------ fused dequant-matmul
+# (bits, leaf shape, transpose, int4 group): K = 200 leaves a ragged
+# contraction tile, the (200, 3, 2, 16) leaf repeats its 16 int8 scales
+# over 6 heads, 257 rows / columns leave a ragged output tile, K = 1100 and
+# 1100 span several staged chunks of x, and group 2 or 4 splits a lane's
+# codes over groups. At M <= 16 the first kind of each orientation runs
+# the GEMVs; N % 4 != 0 (dense) and K % 4 or K % 8 != 0 (int8 or int4,
+# transposed) run the tiled kernel there, as every case does at M = 40.
+QMM_CASES = [(8, (200, 3, 2, 16), False, None), (4, (200, 3, 2, 16), False, 8),
+             (4, (200, 96), False, 2), (8, (1100, 128), False, None),
+             (8, (200, 257), False, None), (4, (200, 198), False, 2),
+             (8, (257, 200), True, None), (4, (257, 200), True, 8),
+             (8, (64, 1100), True, None), (4, (64, 1104), True, 8),
+             (8, (257, 198), True, None), (4, (96, 196), True, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [1, 7, 40])
+@pytest.mark.parametrize(
+    "bits,shape,transpose,group", QMM_CASES,
+    ids=[f"int{b}-{'x'.join(map(str, s))}-{'attend' if t else 'dense'}"
+         + (f"-g{g}" if g else "") for b, s, t, g in QMM_CASES])
+def test_quantized_matmul_matches_plain(cuda, bits, shape, transpose, group,
+                                        M, dtype):
+    g = torch.Generator().manual_seed(M + bits)
+    w = torch.randn(shape, generator=g) * 0.05
+    qt = quantize_params({"w": w}, f"int{bits}", group)["w"].to(cuda)
+    K = shape[-1] if transpose else shape[0]
+    x = torch.randn(M, K, generator=g).to(dtype).to(cuda)
+    before = qmm.kernel_launches()
+    out = qmm.quantized_matmul(x, qt, transpose)
+    torch.cuda.synchronize()
+    assert qmm.kernel_launches() == before + 1
+    ref = qmm.quantized_matmul_reference(x, qt, transpose)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    top = max(1.0, float(ref.float().abs().max()))
+    tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * top
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("gemv", [True, False], ids=["gemv", "tiled"])
+@pytest.mark.parametrize("transpose", [False, True], ids=["dense", "attend"])
+def test_quantized_matmul_int4_sign_extension_all_bytes(cuda, transpose,
+                                                        gemv):
+    """All 256 packed bytes as codes, unit scales, x rows of the
+    identity: the output is the dequantized leaf exactly, through the
+    decode GEMVs (8 rows at a time) and the tiled kernel (the identity
+    three times over, M > 16)."""
+    packed = torch.arange(-128, 128, dtype=torch.int32).to(
+        torch.int8).reshape(16, 16)
+    qt = QTensor(packed, torch.ones(16, 1, 1), 4, 32, (16, 32),
+                 torch.float32).to(cuda)
+    w = qt.dequantize()                     # (16, 32), codes -8..7
+    w2d = w.T if transpose else w
+    eye = torch.eye(w2d.shape[0], device=cuda)
+    if gemv:
+        for r0 in range(0, eye.shape[0], 8):
+            out = qmm.quantized_matmul(eye[r0:r0 + 8].contiguous(), qt,
+                                       transpose)
+            assert torch.equal(out, w2d[r0:r0 + 8])
+    else:
+        out = qmm.quantized_matmul(eye.repeat(3, 1), qt, transpose)
+        assert torch.equal(out, w2d.repeat(3, 1))
+
+
+def test_quantized_matmul_refuses_what_it_does_not_take(cuda):
+    qt = quantize_params({"w": torch.randn(64, 96)}, "int8")["w"].to(cuda)
+    x = torch.randn(4, 128, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        qmm.quantized_matmul(x[:, ::2], qt)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qmm.quantized_matmul(x[:, :64].contiguous().half(), qt)
+    with pytest.raises(ValueError, match="devices"):
+        qmm.quantized_matmul(x[:, :64].cpu(), qt)
+
+
+@pytest.mark.parametrize("weight_dtype", ["int8", "int4"])
+def test_quantized_serving_runs_through_the_kernel(cuda, weight_dtype):
+    """A small f32 engine with quantized weights on the card: the kernel
+    launches 4 x n_layers + 1 times per forward (every decode step and
+    every prefill), and its greedy tokens equal the plain path's."""
+    cfg = gpt2_config("nano", vocab_size=128, max_seq_len=32,
+                      dtype=torch.float32)
+    torch.manual_seed(0)
+    sd = TransformerLM(cfg, device="cpu").state_dict()
+    trace = [(0, dict(prompt=[5, 17, 3, 9], max_new_tokens=6)),
+             (0, dict(prompt=[9, 2, 44], max_new_tokens=6)),
+             (3, dict(prompt=[42, 7], max_new_tokens=6))]
+    group = 32 if weight_dtype == "int4" else None
+    out = {}
+    for kernel in ("torch", "cuda"):
+        qmm.reset_kernel_launches()
+        client = ServeClient(TransformerLM(cfg, device="meta"), sd,
+                             num_slots=2, prefill_len=8, page_size=4,
+                             page_native=True, attention_kernel="cuda",
+                             weight_dtype=weight_dtype,
+                             weight_group_size=group, matmul_kernel=kernel,
+                             device=cuda)
+        out[kernel] = client.serve_trace(list(trace))
+        eng = client.engine
+        expect = ((4 * cfg.n_layers + 1) * (eng.decode_substeps
+                                            + eng.prefills)
+                  if kernel == "cuda" else 0)
+        assert qmm.kernel_launches() == expect
+    assert {r: c.tokens for r, c in out["cuda"].items()} == \
+        {r: c.tokens for r, c in out["torch"].items()}

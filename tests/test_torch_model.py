@@ -23,6 +23,8 @@ from ray_lightning_tpu.models.generate import \
     _prefill_impl as jax_prefill_impl
 from ray_lightning_tpu.models.generate import \
     decode_step_paged as jax_decode_step_paged
+from ray_lightning_tpu.models.quant import \
+    quantize_params as jax_quantize_params
 from ray_lightning_tpu.serve.pages import PagePool as JaxPagePool
 from ray_lightning_tpu.serve.pages import scatter_pages as jax_scatter_pages
 from ray_lightning_tpu.serve.request import Request as JaxRequest
@@ -57,10 +59,13 @@ def nano(serve_nano_family):
 
 
 def paged_logits(dec, params, prompts, *, kv_dtype=None, page_size=4,
-                 steps=3, attention_kernel="torch", forced=None):
+                 steps=3, attention_kernel="torch", forced=None,
+                 weight_dtype=None, group_size=None):
     """The serving split in both frameworks on the same prompts: ragged
     prefill, page scatter, then ``steps`` ``decode_step_paged`` calls fed
-    the JAX greedy tokens (or ``forced`` (steps, B) tokens). Returns
+    the JAX greedy tokens (or ``forced`` (steps, B) tokens). With
+    ``weight_dtype`` both sides quantize the weights first (JAX
+    ``quantize_params``, the port's ``quantize_weights``). Returns
     ``(jax_logits, port_logits)``, lists of (B, V) arrays (the prefill's
     last logits first)."""
     n = len(prompts)
@@ -76,7 +81,9 @@ def paged_logits(dec, params, prompts, *, kv_dtype=None, page_size=4,
         jpool.acquire(JaxRequest(id=i, prompt=p,
                                  max_new_tokens=steps + 1))
     jpt = jnp.asarray(jpool.page_table)
-    cache, last = jax_prefill_impl(dec, params, jnp.asarray(tokens),
+    jparams = (params if weight_dtype is None else
+               jax_quantize_params(params, weight_dtype, group_size))
+    cache, last = jax_prefill_impl(dec, jparams, jnp.asarray(tokens),
                                    jnp.asarray(lengths))
     arena = jax_scatter_pages(dec, jpool.arena, cache, jpt)
     jax_out = [np.asarray(last)]
@@ -87,13 +94,15 @@ def paged_logits(dec, params, prompts, *, kv_dtype=None, page_size=4,
                else jax_out[-1].argmax(-1).astype(np.int32))
         feed.append(cur)
         logits, arena = jax_decode_step_paged(
-            dec, params, arena, jnp.asarray(cur[:, None]),
+            dec, jparams, arena, jnp.asarray(cur[:, None]),
             jnp.asarray(pos[:, None]), jpt)
         jax_out.append(np.asarray(logits))
         pos = pos + 1
 
     # the port, fed the same tokens
     model = port_model(params, attention_kernel=attention_kernel)
+    if weight_dtype is not None:
+        model.quantize_weights(weight_dtype, group_size)
     pool = PagePool(model.cfg, n, page_size, kv_dtype=kv_dtype,
                     device="cpu")
     for i, p in enumerate(prompts):

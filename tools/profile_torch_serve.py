@@ -1,11 +1,14 @@
 """Where a decode dispatch of the PyTorch/CUDA port's serving path spends its time.
 
     python3 tools/profile_torch_serve.py [--kv-dtype int8] [--steps 20]
+        [--weight-dtype int8|int4] [--matmul-kernel cuda|torch]
 
 Needs one NVIDIA GPU. Builds the serving path of ``chip_smoke.py`` phase 2
 (GPT-2-small at full width, random weights from
 ``np.random.default_rng(0)``, 8 slots, page_size 16, page-native,
-``attention_kernel="cuda"``), admits the trace's first 8 requests, runs 5
+``attention_kernel="cuda"``; ``--weight-dtype`` quantizes the weights and
+``--matmul-kernel`` picks the quantized matmuls' path, the fused kernel
+by default), admits the trace's first 8 requests, runs 5
 decode dispatches to warm up, then times ``--steps`` dispatches twice:
 once on the host clock alone, once under ``torch.profiler`` (CPU and CUDA
 activity). Prints one JSON line with the card, the host ms per dispatch,
@@ -40,7 +43,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--weight-dtype", default=None,
+                    choices=[None, "int8", "int4"])
+    ap.add_argument("--matmul-kernel", default=None,
+                    choices=[None, "cuda", "torch"])
     args = ap.parse_args()
+    matmul_kernel = args.matmul_kernel
+    if args.weight_dtype is not None and matmul_kernel is None:
+        matmul_kernel = "cuda"
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
@@ -53,7 +63,8 @@ def main() -> int:
     trace = chip_smoke.make_trace(rng, cfg.vocab_size)
     eng = ServeEngine(TransformerLM(cfg, device="meta"), sd,
                       device="cuda", attention_kernel="cuda",
-                      kv_dtype=args.kv_dtype, **chip_smoke.SERVE)
+                      kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
+                      matmul_kernel=matmul_kernel, **chip_smoke.SERVE)
     reqs = [Request(id=i, prompt=kw["prompt"], max_new_tokens=64,
                     temperature=kw.get("temperature", 0.0),
                     top_k=kw.get("top_k"))
@@ -79,6 +90,8 @@ def main() -> int:
     n = args.steps
     out = dict(
         card=chip_smoke.card_line(), kv_dtype=args.kv_dtype or "bf16",
+        weight_dtype=args.weight_dtype or "f32", matmul_kernel=matmul_kernel,
+        param_bytes=eng.param_bytes(),
         slots=8, dispatches=n, host_ms_per_dispatch=host_ms,
         device_busy_ms_per_dispatch=(busy_us / 1e3 / n if kernels
                                      else "not measured"),
