@@ -7,8 +7,9 @@ own into ``_build/lib<name>-<hash>.so`` (the directory is listed in
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. :func:`build` starts one
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused. :func:`build` starts one
 ``nvcc`` per source, all together, and waits for every one of them.
 Nothing here runs at import time: the CPU tests import every module and
 this machine may have no ``nvcc``.
@@ -52,6 +53,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -84,6 +87,19 @@ def build(names: Sequence[str]) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def check_routes(lib, symbol: str, routes: Sequence[str]) -> None:
+    """Raise unless the library numbers its routes as ``routes`` does.
+    ``symbol`` is a C function returning the route names, comma-separated,
+    in the numbering its launch takes; a wrapper passes a route as its
+    index in ``routes``."""
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_char_p
+    names = tuple(fn().decode().split(","))
+    if names != tuple(routes):
+        raise RuntimeError(f"{symbol}: the library numbers its routes "
+                           f"{names}, the wrapper {tuple(routes)}")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,6 +2,7 @@
 //
 // Replaces the three Pallas kernels of ray_lightning_tpu/ops/pallas_flash.py:
 //
+//   flash_fwd_tc_kernel  <- _flash_kernel      (forward, bf16: tensor cores)
 //   flash_fwd_kernel     <- _flash_kernel      (forward: out and logsumexp)
 //   flash_bwd_dkv_kernel <- _flash_dkv_kernel  (backward: dK and dV)
 //   flash_bwd_dq_kernel  <- _flash_dq_kernel   (backward: dQ)
@@ -11,7 +12,7 @@
 // carries the online-softmax state (or the dK/dV, dQ sums) from one grid
 // step to the next in scratch memory. Here that axis is a loop inside one
 // thread block, which keeps its running state in registers: a block owns
-// one (batch row, head, 64-row tile) and walks the tiles of the other
+// one (batch row, head, q or kv tile) and walks the tiles of the other
 // operand itself. Nothing is carried between blocks and nothing is added
 // with atomics, so every result repeats bitwise from run to run.
 //
@@ -36,7 +37,13 @@
 //     dO's dtype for dV, ds to q's dtype for dK and to k's dtype for dQ,
 //     and each tile's dK / dQ product is multiplied by the scale before it
 //     joins the f32 sum; every output is rounded to its input's dtype.
-// Only the order of the f32 sums differs from the Pallas kernels.
+// The order of the f32 sums differs from the Pallas kernels, and so, in
+// flash_fwd_tc_kernel, does each exp: it computes p = 2^(s * scale * log2 e
+// - m) by ex2.approx and lse = m * ln 2 + log(l), where _flash_kernel takes
+// exp(s * scale - m) and m + log(l). The two p differ by a few f32 ulps,
+// enough to flip an occasional bf16 rounding of p. On the H100 lse stays
+// within 9.5e-7 of the plain version, as on the f32 route's expf, and out
+// within the element-wise bound of ops/cuda_flash.py:flash_out_bound.
 //
 // Bound on the H100 (dense peaks: 989 TFLOP/s bf16 and 67 TFLOP/s f32 for
 // these products, 3.35 TB/s of device memory). With N = B*H*T*S*D, about
@@ -48,14 +55,40 @@
 //   dQ:      6N (Q.K^T, dO.V^T, dS.K); bytes = read q, k, v, dO, lse,
 //            delta, write dq.
 // At the training shapes (T = S = 1024, D = 64) all three are bound by
-// operations, by far. This first version is simple and right rather than
-// fast: the products run on the CUDA cores in f32 (one FMA per pair of
-// values, from shared-memory tiles, 4x4 register blocking per thread), not
-// on the tensor cores, so it cannot approach the bf16 bound; wgmma and TMA
-// are the later step. 256 threads per block as 16 x 16; a thread owns 4
-// rows x 4 columns of each 64 x 64 score tile (rows ty + 16a, columns
-// tx + 16b), so a row's reductions are shuffles within 16 lanes, and
-// 4 rows x D/16 columns of each 64 x D output tile.
+// operations, by far.
+//
+// The forward has two kernels; the caller names the one that runs
+// (`route`, ops/cuda_flash.py:_fwd_route):
+//   * flash_fwd_tc_kernel (bf16 q/k/v whose rows allow 16-byte copies:
+//     the training path's views of one fused qkv projection). The
+//     products run on the tensor cores (wgmma, bf16 in, f32 accumulators:
+//     the same f32 sums of exact bf16 products). One block per (batch
+//     row, head, 128-row q tile), two warpgroups of 64 rows; Q is copied
+//     into shared memory once, K and V tiles of 64 keys go through a
+//     3-stage ring filled one tile ahead by 16-byte cp.async (one barrier
+//     a tile), all in the 128-byte swizzle (head dims 32 and 128 as one
+//     or two 64-column blocks, 32 zero-padded). S = Q K^T is one wgmma
+//     per 16 of D (A = Q, B = K, both K-major); the online softmax runs
+//     in registers on the accumulator fragment's rows (a row's 64 scores
+//     in one quad of threads, reduced by two shuffles); p, rounded to
+//     bf16, is repacked
+//     in registers as the A operand of P V (B = V, MN-major: its rows are
+//     keys, D contiguous). The softmax keeps scores in the log2 domain
+//     (s * scale * log2 e), so each exp is one ex2.approx on the MUFU
+//     unit; lse returns to the natural log at the end. Tiles that every
+//     row of a warp admits whole skip the mask. What bounds it
+//     now: the softmax's instructions a score and the synchronous wait on
+//     each wgmma -- the tensor cores idle while a warpgroup does its
+//     softmax, unless the other warpgroups of the SM fill the gap.
+//   * flash_fwd_kernel (f32, and bf16 views the tc kernel cannot copy):
+//     the products on the CUDA cores in f32, one FMA per pair of values,
+//     from shared-memory tiles -- f32 keeps f32 products (TF32 would not
+//     hold the f32 path's 1e-5).
+// The backward (K3, K4) is still the CUDA-core design: 256 threads per
+// block as 16 x 16; a thread owns 4 rows x 4 columns of each 64 x 64
+// score tile (rows ty + 16a, columns tx + 16b), so a row's reductions are
+// shuffles within 16 lanes, and 4 rows x D/16 columns of each 64 x D
+// output tile; wgmma is its next step.
 //
 // Plain C interface (bound with ctypes). Each launch runs on the caller's
 // stream and returns the CUDA error code of the launch (0 on success).
@@ -63,6 +96,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -269,6 +304,254 @@ flash_fwd_kernel(Params p) {
     if (tx == 0)
       p.lse_out[((long long)b * p.H + h) * p.T + row] =
           l[a] > 0.0f ? m[a] + logf(safe_l) : kPadLse;
+  }
+}
+
+// ------------------------------------------------------------- K2, tc
+// bf16 q/k/v on the tensor cores (the header says why and how).
+constexpr int kTcQ = 128;        // q rows per block: two warpgroups of 64
+constexpr int kTcK = 64;         // keys per kv tile
+constexpr int kTcThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// 2^x by the MUFU unit (ex2.approx: about 2 ulp; 2^x of kBigNeg - m is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kTcStages = 3;     // K/V tiles in the ring
+
+template <int D>
+struct TcFwd {
+  static constexpr int kDP = D < 64 ? 64 : D;  // whole 128-byte rows
+  static constexpr int kNB = kDP / 64;         // 64-column blocks a row
+  static constexpr int kQBytes = kTcQ * 128;   // one Q block
+  static constexpr int kKBytes = kTcK * 128;   // one K or V block
+  // Q, then the stages of K, then those of V
+  static constexpr int kSmem =
+      kNB * (kQBytes + 2 * kTcStages * kKBytes) + 1024;
+};
+
+// One kv tile's online-softmax update on the thread's two accumulator
+// rows: s (the tile's scores, f32 sums of exact bf16 products) is scaled
+// into the log2 domain and masked (MASK: key kpos is admitted iff kpos <
+// lim[r]; without MASK every key is), m and l advance, o is rescaled by
+// alpha, and p = 2^(s - m), rounded to bf16, is packed as the A fragments
+// of the P.V wgmma (the S fragment's columns 16t..16t+15 are the A
+// fragment of k16 slice t). A row's 64 scores sit in one quad of threads.
+template <bool MASK, int kNB>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], uint32_t (&pa)[4][4], float (&m)[2], float (&l)[2],
+    float (&o)[kNB][32], const int (&lim)[2], int kbase, float scale2) {
+  const int lane = threadIdx.x % 32;
+  float mx[2] = {kBigNeg, kBigNeg};
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kpos = kbase + 8 * c + 2 * (lane & 3) + e;
+        float& v = s[4 * c + 2 * r + e];
+        v = !MASK || kpos < lim[r] ? v * scale2 : kBigNeg;
+        mx[r] = fmaxf(mx[r], v);
+      }
+  float m_new[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    m_new[r] = fmaxf(m[r], mx[r]);
+    const float alpha = ex2(m[r] - m_new[r]);
+    m[r] = m_new[r];
+    l[r] *= alpha;
+#pragma unroll
+    for (int c = 0; c < kNB; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        o[c][4 * jj + 2 * r] *= alpha;
+        o[c][4 * jj + 2 * r + 1] *= alpha;
+      }
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = kbase + 8 * c + 2 * (lane & 3);
+      const float e0 = !MASK || kpos < lim[r]
+                           ? ex2(s[4 * c + 2 * r] - m_new[r]) : 0.0f;
+      const float e1 = !MASK || kpos + 1 < lim[r]
+                           ? ex2(s[4 * c + 2 * r + 1] - m_new[r]) : 0.0f;
+      l[r] += e0 + e1;
+      pa[c / 2][(c % 2) * 2 + r] = hopper::pack_bf16(e0, e1);
+    }
+}
+
+// Copy rows [row0, row0 + rows) of (b, h) of `x` into kNB swizzled blocks
+// of 64 columns at `dst` (`blk` bytes apart): 16-byte cp.async, zeros for
+// rows past L and for the padding columns past D.
+template <int D>
+__device__ __forceinline__ void tc_stage(uint32_t dst, int blk,
+                                         const Operand& x, int b, int h,
+                                         int row0, int rows, int L) {
+  constexpr int kCh = TcFwd<D>::kDP / 8;       // 16-byte chunks a row
+  const __nv_bfloat16* base =
+      static_cast<const __nv_bfloat16*>(x.ptr) + b * x.sb + h * x.sh;
+  for (int e = threadIdx.x; e < rows * kCh; e += kTcThreads) {
+    const int r = e / kCh, c = e % kCh;
+    const uint32_t at = dst + (c / 8) * blk + hopper::swz(r, c % 8);
+    if (c * 8 < D) {
+      const int row = row0 + r;
+      const bool in = row < L;
+      hopper::cp_async16(at, in ? base + (long long)row * x.sl + c * 8 : base,
+                         in ? 16 : 0);
+    } else {
+      hopper::st_shared16(at, make_uint4(0u, 0u, 0u, 0u));
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
+flash_fwd_tc_kernel(Params p) {
+  using S = TcFwd<D>;
+  constexpr int kNB = S::kNB;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  const uint32_t raw = hopper::smem_u32(tc_smem);
+  const uint32_t q_s = raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t k_s = q_s + kNB * S::kQBytes;
+  const uint32_t v_s = k_s + kTcStages * kNB * S::kKBytes;
+
+  const int n_q = (p.T + kTcQ - 1) / kTcQ;
+  // the q tiles with the most causal work start first
+  const int i = n_q - 1 - (int)(blockIdx.x % n_q);
+  const int bh = blockIdx.x / n_q;
+  const int b = bh / p.H, h = bh % p.H;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+
+  // kv tiles this q tile visits: causal stops at the tile holding the key
+  // its last real row reaches (0 if no row admits any key)
+  const int n_k = (p.S + kTcK - 1) / kTcK;
+  int n_j = n_k;
+  if (p.causal) {
+    const int last_q = min(i * kTcQ + kTcQ - 1, p.T - 1) + (p.S - p.T);
+    n_j = last_q < 0 ? 0 : min(n_k, last_q / kTcK + 1);
+  }
+
+  // this thread's rows of the accumulator fragments: r and r + 8 of its
+  // warpgroup's 64; lim[r] = keys [0, lim) are admitted (0 past T)
+  const int q_warp = i * kTcQ + wg * 64 + warp * 16;   // the warp's first
+  const int q_lo = q_warp + lane / 4;
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q_lo + 8 * r;
+    lim[r] = qpos >= p.T ? 0
+             : p.causal  ? max(0, min(p.S, qpos + (p.S - p.T) + 1))
+                         : p.S;
+  }
+
+  if (n_j > 0) {
+    tc_stage<D>(q_s, S::kQBytes, p.q, b, h, i * kTcQ, kTcQ, p.T);
+    tc_stage<D>(k_s, S::kKBytes, p.k, b, h, 0, kTcK, p.S);
+    tc_stage<D>(v_s, S::kKBytes, p.v, b, h, 0, kTcK, p.S);
+  }
+  hopper::cp_async_commit();
+
+  const float scale2 = p.scale * kLog2e;
+  float m[2] = {kBigNeg, kBigNeg}, l[2] = {0.0f, 0.0f};
+  float o[kNB][32];
+#pragma unroll
+  for (int c = 0; c < kNB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[c][e] = 0.0f;
+
+  for (int j = 0; j < n_j; ++j) {
+    const int st = j % kTcStages;
+    const uint32_t k_t = k_s + st * kNB * S::kKBytes;
+    const uint32_t v_t = v_s + st * kNB * S::kKBytes;
+    // the next tile's copies fly while this one is computed; its stage
+    // last held tile j - 2, which every thread finished before the
+    // barrier of iteration j - 1
+    if (j + 1 < n_j) {
+      const int nx = (j + 1) % kTcStages;
+      tc_stage<D>(k_s + nx * kNB * S::kKBytes, S::kKBytes, p.k, b, h,
+                  (j + 1) * kTcK, kTcK, p.S);
+      tc_stage<D>(v_s + nx * kNB * S::kKBytes, S::kKBytes, p.v, b, h,
+                  (j + 1) * kTcK, kTcK, p.S);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();          // Q and tile j have landed
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T: f32 sums of exact bf16 products
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.0f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < S::kDP / 16; ++ks)
+      hopper::mma_ss_n64(
+          s,
+          hopper::desc_kmajor(q_s + (ks / 4) * S::kQBytes + wg * 64 * 128 +
+                              (ks % 4) * 32),
+          hopper::desc_kmajor(k_t + (ks / 4) * S::kKBytes + (ks % 4) * 32),
+          1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+
+    // a tile every row of the warp admits whole skips the mask
+    const int kend = (j + 1) * kTcK;
+    uint32_t pa[4][4];
+    if (kend <= p.S && q_warp + 15 < p.T &&
+        (!p.causal || kend - 1 <= q_warp + (p.S - p.T)))
+      softmax_tile<false, kNB>(s, pa, m, l, o, lim, j * kTcK, scale2);
+    else
+      softmax_tile<true, kNB>(s, pa, m, l, o, lim, j * kTcK, scale2);
+
+    // O += P V, V read MN-major (the tile's rows are keys, D contiguous)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < kNB; ++c)
+        hopper::mma_rs_n64_mn(
+            o[c], pa[t],
+            hopper::desc_mnmajor(v_t + c * S::kKBytes + t * 16 * 128), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+  }
+  hopper::cp_async_wait<0>();
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(
+                           const_cast<void*>(p.out.ptr)) +
+                       b * p.out.sb + h * p.out.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = q_lo + 8 * r;
+    if (row >= p.T) continue;
+    const float safe_l = fmaxf(l[r], 1e-30f);
+    const bool any = l[r] > 0.0f;
+#pragma unroll
+    for (int c = 0; c < kNB; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 64 * c + 8 * jj + 2 * (lane & 3);
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(out + (long long)row * p.out.sl + col) =
+              hopper::pack_bf16(any ? o[c][4 * jj + 2 * r] / safe_l : 0.0f,
+                                any ? o[c][4 * jj + 2 * r + 1] / safe_l
+                                    : 0.0f);
+      }
+    if ((lane & 3) == 0)            // back from the log2 domain
+      p.lse_out[((long long)b * p.H + h) * p.T + row] =
+          any ? m[r] * kLn2 + logf(safe_l) : kPadLse;
   }
 }
 
@@ -543,10 +826,51 @@ int launch_d(Which w, int D, const Params& p, cudaStream_t stream) {
   }
 }
 
-int dispatch(Which w, int dtype, int D, const Params& p, void* stream) {
+template <int D>
+int launch_fwd_tc(const Params& p, cudaStream_t stream) {
+  const long long blocks =
+      (long long)p.B * p.H * ((p.T + kTcQ - 1) / kTcQ);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TcFwd<D>::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_tc_kernel<D>
+      <<<(unsigned)blocks, kTcThreads, TcFwd<D>::kSmem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core forward reads q, k and v in 16-byte copies: every base
+// pointer 16-byte aligned and every batch, sequence and head stride a
+// multiple of 8 elements; the output (a fresh allocation) 4-byte aligned.
+bool rows_aligned(const Operand& x, int bytes, int elems) {
+  return reinterpret_cast<uintptr_t>(x.ptr) % bytes == 0 &&
+         x.sb % elems == 0 && x.sl % elems == 0 && x.sh % elems == 0;
+}
+
+bool tc_aligned(const Params& p) {
+  return rows_aligned(p.q, 16, 8) && rows_aligned(p.k, 16, 8) &&
+         rows_aligned(p.v, 16, 8) && rows_aligned(p.out, 4, 2);
+}
+
+enum FwdRoute { kSimt = 0, kTensorCores = 1 };
+
+int dispatch(Which w, int dtype, int D, const Params& p, void* stream,
+             int route = kSimt) {
   if (p.B < 1 || p.H < 1 || p.T < 1 || p.S < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kTensorCores) {          // the forward on the tensor cores
+    if (w != kFwd || dtype != 1 || !tc_aligned(p))
+      return (int)cudaErrorInvalidValue;
+    switch (D) {
+      case 32: return launch_fwd_tc<32>(p, s);
+      case 64: return launch_fwd_tc<64>(p, s);
+      case 128: return launch_fwd_tc<128>(p, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (route != kSimt) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return launch_d<float>(w, D, p, s);
   if (dtype == 1) return launch_d<__nv_bfloat16>(w, D, p, s);
   return (int)cudaErrorInvalidValue;
@@ -566,20 +890,23 @@ Params params(int B, int H, int T, int S, int causal, float scale) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and every output alike).
 // `strides` holds (batch, sequence, head) element strides for each operand,
-// three per operand, in the order the pointers are given.
+// three per operand, in the order the pointers are given. The forward's
+// route is the caller's choice (ops/cuda_flash.py:_fwd_route): 0 the
+// CUDA-core kernel, 1 the tensor-core one (bf16, 16-byte-aligned rows);
+// a route that does not take the call returns cudaErrorInvalidValue.
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse,
                                 const long long* strides, int B, int H,
                                 int T, int S, int D, int dtype, int causal,
-                                float scale, void* stream) {
+                                float scale, int route, void* stream) {
   Params p = params(B, H, T, S, causal, scale);
   p.q = operand(q, strides);
   p.k = operand(k, strides + 3);
   p.v = operand(v, strides + 6);
   p.out = operand(out, strides + 9);
   p.lse_out = lse;
-  return dispatch(kFwd, dtype, D, p, stream);
+  return dispatch(kFwd, dtype, D, p, stream, route);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
@@ -617,6 +944,10 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   p.delta = delta;
   return dispatch(kDq, dtype, D, p, stream);
 }
+
+// The forward's routes' names in enum FwdRoute's numbering; the wrapper
+// checks its own numbering against them when it loads the library.
+extern "C" const char* flash_fwd_route_names() { return "simt,tc"; }
 
 extern "C" const char* flash_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

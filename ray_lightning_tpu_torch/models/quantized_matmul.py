@@ -18,37 +18,68 @@ pieces:
   knob) has no counterpart, and its ``tile_m``/``tile_n`` are the
   kernel's own block shapes.
 - :func:`quantized_matmul` -- the wrapper: CPU tensors take the plain
-  version; CUDA tensors launch the kernel or raise. It counts its
-  launches (:func:`kernel_launches`).
+  version; CUDA tensors launch the kernel or raise. :func:`_route` picks
+  which of the source's four kernels runs -- the decode GEMVs
+  (``"gemv_dense"``, ``"gemv_attend"``) where they take the shape, else
+  the tensor-core kernel (``"tc"``) for bf16 x and the CUDA-core tiled
+  kernel (``"tiled_f32"``) for f32 x -- and the C side launches that one
+  or refuses. It counts its launches in total (:func:`kernel_launches`)
+  and per route (:func:`route_launches`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ray_lightning_tpu_torch.models.quant import QTensor, matmul_view
 
 __all__ = ["quantized_matmul", "quantized_matmul_reference",
-           "kernel_launches", "reset_kernel_launches", "KERNEL"]
+           "kernel_launches", "route_launches", "reset_kernel_launches",
+           "KERNEL", "ROUTES"]
 
 KERNEL = "quantized_matmul"
+#: the source's kernels, in the C side's route numbering
+ROUTES = ("gemv_dense", "gemv_attend", "tc", "tiled_f32")
 _PARAM_DTYPES = (torch.float32, torch.bfloat16)
+_GEMV_ROWS = 16              # the decode GEMVs take M <= 16
 
-_launches = 0
+_launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 _lib: Optional[ctypes.CDLL] = None
 
 
 def kernel_launches() -> int:
     """Kernel launches since the last :func:`reset_kernel_launches`
     (CPU calls of the plain version are not launches)."""
-    return _launches
+    return sum(_launches.values())
+
+
+def route_launches() -> Dict[str, int]:
+    """Launches of each route (:data:`ROUTES`) since the last
+    :func:`reset_kernel_launches`; they sum to :func:`kernel_launches`."""
+    return dict(_launches)
 
 
 def reset_kernel_launches() -> None:
-    global _launches
-    _launches = 0
+    for route in _launches:
+        _launches[route] = 0
+
+
+def _route(M: int, N: int, K: int, bits: int, transpose: bool,
+           x_dtype: torch.dtype) -> str:
+    """Which kernel takes ``x (M, K) @ W (K, N)``: a decode GEMV where M
+    is small and its 32-bit code loads align (``"gemv_dense"``: N % 4 ==
+    0; ``"gemv_attend"``, the transposed head: K % 4 == 0 for int8, K % 8
+    for int4), else the tensor cores for bf16 x (``"tc"``, any shape) and
+    the CUDA cores for f32 x (``"tiled_f32"``: tensor-core TF32 would not
+    hold f32's 1e-5)."""
+    if M <= _GEMV_ROWS:
+        if not transpose and N % 4 == 0:
+            return "gemv_dense"
+        if transpose and K % (4 if bits == 8 else 8) == 0:
+            return "gemv_attend"
+    return "tc" if x_dtype == torch.bfloat16 else "tiled_f32"
 
 
 def _weight_2d(qt: QTensor, transpose: bool) -> torch.Tensor:
@@ -69,10 +100,11 @@ def quantized_matmul_reference(x: torch.Tensor, qt: QTensor,
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from ray_lightning_tpu_torch._build import load
+        from ray_lightning_tpu_torch._build import check_routes, load
         lib = load(KERNEL)
+        check_routes(lib, "quantized_matmul_route_names", ROUTES)
         lib.quantized_matmul_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.quantized_matmul_launch.restype = ctypes.c_int
         lib.quantized_matmul_error_string.argtypes = [ctypes.c_int]
         lib.quantized_matmul_error_string.restype = ctypes.c_char_p
@@ -121,6 +153,7 @@ def quantized_matmul(x: torch.Tensor, qt: QTensor,
     M = x.numel() // K
     if M < 1:
         raise ValueError("quantized_matmul needs at least one row of x")
+    route = _route(M, N, K, qt.bits, transpose, x.dtype)
     out = torch.empty((*lead, N), dtype=x.dtype, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
@@ -130,10 +163,10 @@ def quantized_matmul(x: torch.Tensor, qt: QTensor,
             out.data_ptr(), M, N, K, qt.bits, int(transpose),
             qt.group_size or 0, scales.shape[1],
             0 if x.dtype == torch.float32 else 1,
-            int(qt.dtype == torch.bfloat16), stream)
+            int(qt.dtype == torch.bfloat16), ROUTES.index(route), stream)
     if err != 0:
         msg = lib.quantized_matmul_error_string(err).decode()
-        raise RuntimeError(f"quantized_matmul kernel launch failed: {msg}")
-    global _launches
-    _launches += 1
+        raise RuntimeError(f"quantized_matmul kernel launch failed ({route}): "
+                           f"{msg}")
+    _launches[route] += 1
     return out

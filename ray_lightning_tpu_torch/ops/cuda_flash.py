@@ -17,11 +17,16 @@ JAX package's: q (B, T, H, D), k and v (B, S, H, D); lse and delta
   row that admits no key, and the rounding points of the Pallas kernels
   (p to v's dtype before P.V; p to dO's, ds to q's and k's dtype in the
   backward). CPU tensors, the tests and ``chip_smoke.py`` use them;
-  nothing on the CUDA path does.
+  nothing on the CUDA path does. :func:`flash_out_bound` is how far a
+  bf16 forward may stray from them, element by element.
 - The wrappers :func:`flash_fwd`, :func:`flash_bwd_dkv` and
   :func:`flash_bwd_dq`: CPU tensors take the plain version; CUDA tensors
   launch the kernel on the current stream or raise -- nothing falls back.
-  Each counts its launches (:func:`kernel_launches`).
+  Each counts its launches (:func:`kernel_launches`). The forward has two
+  kernels, chosen by :func:`_fwd_route`: the tensor-core one (``"tc"``)
+  for bf16 operands whose rows allow 16-byte copies, the CUDA-core one
+  (``"simt"``) for f32 and for bf16 views that do not; its launches are
+  also counted per route (:func:`route_launches`).
 - :class:`_Flash`, the counterpart of the ``custom_vjp`` ``_flash``: the
   forward saves q, k, v, out and lse; the backward computes
   ``delta = rowsum(dO * out)`` in plain PyTorch (as ``_flash_bwd_impl``
@@ -42,17 +47,22 @@ import torch
 __all__ = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd",
            "flash_fwd_reference", "flash_bwd_dkv_reference",
            "flash_bwd_dq_reference", "flash_bwd_reference", "flash_delta",
-           "kernel_launches", "reset_kernel_launches", "KERNELS"]
+           "flash_out_bound",
+           "kernel_launches", "route_launches", "reset_kernel_launches",
+           "KERNELS", "FWD_ROUTES"]
 
 SOURCE = "flash_attention"
 #: kernel names, in path order: forward, dK/dV, dQ
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+#: the forward's kernels, in the C side's route numbering
+FWD_ROUTES = ("simt", "tc")
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIG_NEG = -0.7 * float(torch.finfo(torch.float32).max)
 _PAD_LSE = 1e30
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_fwd_routes: Dict[str, int] = dict.fromkeys(FWD_ROUTES, 0)
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -62,9 +72,32 @@ def kernel_launches() -> Dict[str, int]:
     return dict(_launches)
 
 
+def route_launches() -> Dict[str, int]:
+    """The forward's launches per route (:data:`FWD_ROUTES`) since
+    :func:`reset_kernel_launches`; they sum to
+    ``kernel_launches()["flash_fwd"]``."""
+    return dict(_fwd_routes)
+
+
 def reset_kernel_launches() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    for counts in (_launches, _fwd_routes):
+        for name in counts:
+            counts[name] = 0
+
+
+def _fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which forward kernel takes these operands: ``"tc"`` (tensor cores)
+    for bf16 q, k and v whose rows it can copy 16 bytes at a time -- each
+    base address 16-byte aligned and each batch, sequence and head stride
+    a multiple of 8 elements, as the views of one fused qkv projection
+    are -- else ``"simt"`` (CUDA cores: f32, and bf16 views that are
+    not so aligned)."""
+    if q.dtype != torch.bfloat16:
+        return "simt"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            return "simt"
+    return "tc"
 
 
 # ------------------------------------------------------ plain versions
@@ -97,6 +130,28 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.where(l_t > 0, acc / safe_t, 0.0).to(q.dtype)
     lse = torch.where(l > 0, m + torch.log(safe_l), _PAD_LSE)[..., 0]
     return out, lse
+
+
+def flash_out_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, ref_out: torch.Tensor) -> torch.Tensor:
+    """Element-wise bound on ``|out - ref_out|`` (f32, out's shape) for a
+    bf16 ``out`` of any flash forward that keeps the Pallas rounding
+    points -- the kernels, the blockwise path, ``_flash_kernel`` itself --
+    against the plain version's ``ref_out`` on the same bf16 q, k, v.
+
+    Both round each p = exp(s - m) to bf16 once before P.V, within 2**-8
+    of p: the plain version against the final maximum, a flash forward
+    against its running one (K2's tensor-core kernel also computes p as
+    ``ex2.approx`` in the log2 domain, a few f32 ulps from ``exp``). Over
+    the same f32 denominator l, their P.V sums then differ by at most
+    2**-7 * sum(p |v|) / l = 2**-7 * A, A being the plain version's out
+    for |v| with p unrounded. Each rounds out to bf16 once, within 2**-8
+    of its magnitude, so a flipped rounding is at most 2**-7 |ref_out|.
+    Hence 2**-7 * (|ref_out| + A), times (1 + 2**-6) for the f32 sums'
+    order and the second-order terms. A row that admits no key is bound
+    to 0."""
+    a, _ = flash_fwd_reference(q.float(), k.float(), v.float().abs(), causal)
+    return 2.0 ** -7 * (1 + 2.0 ** -6) * (ref_out.float().abs() + a)
 
 
 def flash_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -145,11 +200,13 @@ def flash_bwd_reference(q, k, v, out, lse, do, causal: bool):
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from ray_lightning_tpu_torch._build import load
+        from ray_lightning_tpu_torch._build import check_routes, load
         lib = load(SOURCE)
+        check_routes(lib, "flash_fwd_route_names", FWD_ROUTES)
         tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         ptr, strides = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
-        lib.flash_fwd_launch.argtypes = [ptr] * 5 + [strides] + tail
+        lib.flash_fwd_launch.argtypes = ([ptr] * 5 + [strides] + tail[:-1]
+                                         + [ctypes.c_int, ctypes.c_void_p])
         lib.flash_bwd_dkv_launch.argtypes = [ptr] * 8 + [strides] + tail
         lib.flash_bwd_dq_launch.argtypes = [ptr] * 7 + [strides] + tail
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch,
@@ -229,6 +286,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _device(q, k, v).type == "cpu":
         return flash_fwd_reference(q, k, v, causal)
     B, H, T, S, D = _check(q, k, v)
+    route = _fwd_route(q, k, v)
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -237,7 +295,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _launch("flash_fwd", lib.flash_fwd_launch, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 _rows(q, k, v, out), B, H, T, S, D, DTYPES[q.dtype],
-                int(causal), D ** -0.5, stream)
+                int(causal), D ** -0.5, FWD_ROUTES.index(route), stream)
+    _fwd_routes[route] += 1
     return out, lse
 
 

@@ -10,11 +10,13 @@ inputs. Paged attention: f32 to 1e-5 (only the order of the f32 sums
 differs), bf16 to 2e-2 (both round the softmax weights and the output to
 bf16 at the same points; a summation-order difference can flip one such
 rounding, one bf16 ulp of an output below 4). Flash attention (K2-K4):
-see ``FLASH_TOL``. Fused dequant-matmul (K5): f32 to 1e-5 x max(1,
+see :func:`flash_tol`. Fused dequant-matmul (K5): f32 to 1e-5 x max(1,
 max|ref|), bf16 to one bf16 ulp of the largest magnitude, 2**-7 x max(1,
 max|ref|) (the same rounded operands, f32 sums in another order).
-``chip_smoke.py`` repeats this at the serving and training paths' full
-shapes.
+Both bf16 kernels run on the tensor cores and their f32 counterparts on
+the CUDA cores; every test checks which route (``route_launches()``)
+took the call. ``chip_smoke.py`` repeats this at the serving and training
+paths' full shapes.
 """
 import numpy as np
 import pytest
@@ -130,24 +132,38 @@ def test_serving_runs_through_the_kernel(cuda, kv_dtype):
 
 
 # ------------------------------------------------------- flash attention
-def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool) -> float:
-    """Bound on |kernel - plain| for one output.
+def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
+              causal: bool):
+    """Bound on |kernel - plain| for one output: a number, or a tensor of
+    ref's shape bounding each element.
 
     f32: the kernels sum in another order (tiles of 64, an online softmax
     whose running maximum rescales earlier tiles) -- 1e-5 for out and lse,
     1e-4 of the largest magnitude for a gradient summed over up to S or T
     terms. lse is f32 sums of exact products in both dtypes: 1e-5 (rows
-    that admit no key are 1e30 in both, exactly). bf16: the softmax weights are rounded to bf16 relative to the
-    running maximum in the kernel and to the final one in the plain
-    version, p and ds are rounded before each product, and each output is
-    rounded once: 2e-2 of max(1, largest magnitude) (one output rounding
-    is at most 2**-8 of it, one flipped rounding 2**-7)."""
+    that admit no key are 1e30 in both, exactly). bf16 out, element by
+    element: ``cf.flash_out_bound`` -- the kernel rounds the softmax
+    weights to bf16 relative to its running maximum and the plain version
+    relative to the final one, and each rounds out once. bf16 gradients:
+    p and ds are rounded before each product and each output once: 2e-2 of
+    max(1, largest magnitude) (one output rounding is at most 2**-8 of it,
+    one flipped rounding 2**-7)."""
     if name == "lse":
         return 1e-5
     top = float(ref.float().abs().max())
     if dtype == torch.float32:
         return 1e-4 * max(top, 1e-30) if grad else 1e-5
+    if name == "out":
+        return cf.flash_out_bound(q, k, v, causal, ref)
     return 2e-2 * max(1.0, top)
+
+
+def _assert_within(got, ref, tol, what):
+    """|got - ref| <= tol, a number or an element-wise tensor."""
+    d = (got.float() - ref.float()).abs()
+    used = float(torch.where(d > 0, d / tol, 0.0).max())
+    assert used <= 1.0, f"{what}: max error {float(d.max())}, {used} of " \
+                        f"the bound"
 
 
 def _flash_inputs(B, T, S, H, D, dtype, device, seed=0):
@@ -160,15 +176,25 @@ def _flash_inputs(B, T, S, H, D, dtype, device, seed=0):
     return qkv[:, :, 0], kv[:, :, 0], kv[:, :, 1], do
 
 
+# (T, S, D): square, ragged tails (T not a multiple of the 128-row or
+# 64-key tiles), end-aligned T < S, and T > S, whose first causal rows
+# admit no key; each head_dim the kernels take
+FLASH_CASES = {"square": (64, 64, 64), "ragged": (100, 100, 32),
+               "t<s": (96, 160, 128), "empty-rows": (80, 48, 64),
+               "ragged-d64": (200, 200, 64), "ragged-d128": (130, 130, 128),
+               "t<s-d32": (96, 160, 32), "t<s-d64": (100, 300, 64),
+               "empty-rows-d128": (150, 64, 128),
+               "empty-rows-d32": (200, 72, 32)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("T,S,D", [(64, 64, 64), (100, 100, 32),
-                                   (96, 160, 128), (80, 48, 64)],
-                         ids=["square", "ragged", "t<s", "empty-rows"])
+@pytest.mark.parametrize("T,S,D", list(FLASH_CASES.values()),
+                         ids=list(FLASH_CASES))
 def test_flash_kernels_match_plain(cuda, dtype, causal, T, S, D):
     q, k, v, do = _flash_inputs(2, T, S, 3, D, dtype, cuda)
-    before = cf.kernel_launches()
+    before, routes = cf.kernel_launches(), cf.route_launches()
     out, lse = cf.flash_fwd(q, k, v, causal)
     delta = cf.flash_delta(out, do)
     dk, dv = cf.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -176,6 +202,10 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, T, S, D):
     torch.cuda.synchronize()
     after = cf.kernel_launches()
     assert all(after[n] == before[n] + 1 for n in cf.KERNELS)
+    # bf16 views of one fused projection go to the tensor cores
+    route = "tc" if dtype == torch.bfloat16 else "simt"
+    routes[route] += 1
+    assert cf.route_launches() == routes
     ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
     # the same inputs for both: the kernel's lse and delta
     ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -188,15 +218,50 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, T, S, D):
                                  ("dv", dv, ref_dv, True)):
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
         assert bool(torch.isfinite(got).all()), name
-        torch.testing.assert_close(got.float(), ref.float(), rtol=0,
-                                   atol=flash_tol(dtype, name, ref, grad),
-                                   msg=name)
+        _assert_within(got, ref,
+                       flash_tol(dtype, name, ref, grad, q, k, v, causal),
+                       name)
     if causal and T > S:
         # rows that admit no key: out 0, lse 1e30, no gradient
         empty = T - S
         assert torch.count_nonzero(out[:, :empty]) == 0
         assert bool((lse[:, :, :empty] == 1e30).all())
         assert torch.count_nonzero(dq[:, :empty]) == 0
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_misaligned_bf16_views_take_the_simt_route(cuda, causal):
+    """A bf16 view whose rows start off a 16-byte boundary cannot be
+    copied 16 bytes at a time: the forward goes, counted, to the CUDA-core
+    kernel, and agrees with the plain version and the tensor-core kernel
+    on an aligned copy of the same values."""
+    g = torch.Generator().manual_seed(1)
+    base = torch.randn(2, 100, 3, 3, 65, generator=g).to(torch.bfloat16)
+    base = base.to(cuda)
+    q, k, v = (base[:, :, i, :, 1:] for i in range(3))   # 2-byte offset
+    assert cf._fwd_route(q, k, v) == "simt"
+    routes = cf.route_launches()
+    out, lse = cf.flash_fwd(q, k, v, causal)
+    routes["simt"] += 1
+    assert cf.route_launches() == routes
+    ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
+    aligned = [x.contiguous() for x in (q, k, v)]
+    assert cf._fwd_route(*aligned) == "tc"
+    tc_out, tc_lse = cf.flash_fwd(*aligned, causal)
+    bound = flash_tol(torch.bfloat16, "out", ref_out, False, q, k, v, causal)
+    for got in (out, tc_out):
+        _assert_within(got, ref_out, bound, "out")
+    for got in (lse, tc_lse):
+        torch.testing.assert_close(got, ref_lse, rtol=0, atol=1e-5)
+
+
+def test_flash_tc_repeats_bitwise(cuda):
+    """No atomics and a fixed order of sums: two calls of the tensor-core
+    forward give the same bits."""
+    q, k, v, _ = _flash_inputs(2, 300, 300, 3, 64, torch.bfloat16, cuda)
+    out1, lse1 = cf.flash_fwd(q, k, v, True)
+    out2, lse2 = cf.flash_fwd(q, k, v, True)
+    assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
 
 
 def test_flash_cuda_tensors_never_reach_the_plain_versions(cuda,
@@ -243,6 +308,8 @@ def test_training_runs_through_the_flash_kernels(cuda):
     assert cf.kernel_launches() == {"flash_fwd": n * 8,
                                     "flash_bwd_dkv": n * 6,
                                     "flash_bwd_dq": n * 6}
+    # bf16 compute: every forward on the tensor cores
+    assert cf.route_launches() == {"simt": 0, "tc": n * 8}
     assert np.isfinite(trainer.callback_metrics["val_loss"])
 
 
@@ -276,25 +343,67 @@ def test_quantized_matmul_matches_plain(cuda, bits, shape, transpose, group,
     qt = quantize_params({"w": w}, f"int{bits}", group)["w"].to(cuda)
     K = shape[-1] if transpose else shape[0]
     x = torch.randn(M, K, generator=g).to(dtype).to(cuda)
-    before = qmm.kernel_launches()
+    _check_quantized_matmul(x, qt, transpose)
+
+
+def _check_quantized_matmul(x, qt, transpose):
+    """One call against the plain version, counted on the route
+    ``_route`` names; returns the output."""
+    from ray_lightning_tpu_torch.models.quant import matmul_view
+    _, _, K, N = matmul_view(qt, transpose)
+    route = qmm._route(x.shape[0], N, K, qt.bits, transpose, x.dtype)
+    routes = qmm.route_launches()
     out = qmm.quantized_matmul(x, qt, transpose)
     torch.cuda.synchronize()
-    assert qmm.kernel_launches() == before + 1
+    routes[route] += 1
+    assert qmm.route_launches() == routes
     ref = qmm.quantized_matmul_reference(x, qt, transpose)
     assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
     top = max(1.0, float(ref.float().abs().max()))
-    tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * top
+    tol = (1e-5 if x.dtype == torch.float32 else 2.0 ** -7) * top
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    return out
 
 
-@pytest.mark.parametrize("gemv", [True, False], ids=["gemv", "tiled"])
+# The tensor-core kernel at the serving path's widths: (bits, leaf shape,
+# transpose, int4 group) for qkv (its 64 head_dim scales over 36 heads),
+# out, up, down and the tied head (N = 50257: odd rows of the output)
+TC_CASES = [(8, (768, 3, 12, 64), False, None), (8, (768, 768), False, None),
+            (8, (768, 3072), False, None), (8, (3072, 768), False, None),
+            (8, (50257, 768), True, None), (4, (768, 2304), False, 64),
+            (4, (3072, 768), False, 64), (4, (50257, 768), True, 64)]
+
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-leaf", "bf16-leaf"])
+@pytest.mark.parametrize("M", [17, 100, 1024])
+@pytest.mark.parametrize(
+    "bits,shape,transpose,group", TC_CASES,
+    ids=[f"int{b}-{'x'.join(map(str, s))}-{'attend' if t else 'dense'}"
+         for b, s, t, _ in TC_CASES])
+def test_quantized_matmul_tc_at_path_widths(cuda, bits, shape, transpose,
+                                            group, M, param_dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + bits)
+    w = (torch.randn(shape, generator=g, device=cuda) * 0.02).to(param_dtype)
+    qt = quantize_params({"w": w}, f"int{bits}", group)["w"]
+    K = shape[-1] if transpose else shape[0]
+    x = torch.randn(M, K, generator=g, device=cuda).to(torch.bfloat16)
+    assert qmm._route(M, 0, K, bits, transpose, x.dtype) == "tc"
+    out = _check_quantized_matmul(x, qt, transpose)
+    if M == 100:     # no atomics, a fixed order of sums: the same bits
+        assert torch.equal(out, qmm.quantized_matmul(x, qt, transpose))
+
+
+@pytest.mark.parametrize("gemv", ["gemv", "tiled", "tc"])
 @pytest.mark.parametrize("transpose", [False, True], ids=["dense", "attend"])
 def test_quantized_matmul_int4_sign_extension_all_bytes(cuda, transpose,
                                                         gemv):
     """All 256 packed bytes as codes, unit scales, x rows of the
     identity: the output is the dequantized leaf exactly, through the
-    decode GEMVs (8 rows at a time) and the tiled kernel (the identity
-    three times over, M > 16)."""
+    decode GEMVs (8 rows at a time), the tiled kernel (f32, the identity
+    three times over, M > 16) and the tensor-core kernel (the same in
+    bf16: codes -8..7 are exact there)."""
     packed = torch.arange(-128, 128, dtype=torch.int32).to(
         torch.int8).reshape(16, 16)
     qt = QTensor(packed, torch.ones(16, 1, 1), 4, 32, (16, 32),
@@ -302,14 +411,20 @@ def test_quantized_matmul_int4_sign_extension_all_bytes(cuda, transpose,
     w = qt.dequantize()                     # (16, 32), codes -8..7
     w2d = w.T if transpose else w
     eye = torch.eye(w2d.shape[0], device=cuda)
-    if gemv:
+    routes = qmm.route_launches()
+    if gemv == "gemv":
         for r0 in range(0, eye.shape[0], 8):
             out = qmm.quantized_matmul(eye[r0:r0 + 8].contiguous(), qt,
                                        transpose)
             assert torch.equal(out, w2d[r0:r0 + 8])
+        routes["gemv_attend" if transpose else "gemv_dense"] += \
+            eye.shape[0] // 8
     else:
-        out = qmm.quantized_matmul(eye.repeat(3, 1), qt, transpose)
-        assert torch.equal(out, w2d.repeat(3, 1))
+        dtype = torch.bfloat16 if gemv == "tc" else torch.float32
+        out = qmm.quantized_matmul(eye.repeat(3, 1).to(dtype), qt, transpose)
+        assert torch.equal(out, w2d.repeat(3, 1).to(dtype))
+        routes["tc" if gemv == "tc" else "tiled_f32"] += 1
+    assert qmm.route_launches() == routes
 
 
 def test_quantized_matmul_refuses_what_it_does_not_take(cuda):
@@ -321,6 +436,30 @@ def test_quantized_matmul_refuses_what_it_does_not_take(cuda):
         qmm.quantized_matmul(x[:, :64].contiguous().half(), qt)
     with pytest.raises(ValueError, match="devices"):
         qmm.quantized_matmul(x[:, :64].cpu(), qt)
+
+
+@pytest.mark.parametrize("weight_dtype", ["int8", "int4"])
+def test_bf16_quantized_prefill_takes_only_the_tc_route(cuda, weight_dtype):
+    """A bf16 prefill of 4 x 16 tokens (M = 64 rows for every projection
+    and the head) through a quantized nano model: all 4 x n_layers + 1
+    calls on the tensor cores, none on another route."""
+    from ray_lightning_tpu_torch.models.generate import _prefill_impl
+    cfg = gpt2_config("nano", vocab_size=256, max_seq_len=32,
+                      matmul_kernel="cuda")
+    torch.manual_seed(0)
+    model = TransformerLM(cfg, device="cpu").to(cuda)
+    # int4 groups of 32: nano's head_dim
+    model.quantize_weights(weight_dtype, 32 if weight_dtype == "int4" else None)
+    model.requires_grad_(False).eval()
+    tokens = torch.randint(0, 256, (4, 16), device=cuda)
+    qmm.reset_kernel_launches()
+    with torch.inference_mode():
+        _, last = _prefill_impl(model, tokens, None)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(last.float()).all())
+    assert qmm.route_launches() == {
+        "gemv_dense": 0, "gemv_attend": 0, "tc": 4 * cfg.n_layers + 1,
+        "tiled_f32": 0}
 
 
 @pytest.mark.parametrize("weight_dtype", ["int8", "int4"])

@@ -86,6 +86,28 @@ def test_plain_versions_match_pallas_interpret(causal, T, S, block):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("T,S,block", PALLAS_SHAPES, ids=lambda x: str(x))
+def test_bf16_out_within_the_element_wise_bound(causal, T, S, block):
+    """bf16: the Pallas kernel (interpret mode) and the blockwise path
+    round p against their running maximum, the plain version against the
+    final one; out agrees within ``flash_out_bound`` (the bound the CUDA
+    kernels are held to on the card), lse to 1e-5."""
+    q, k, v, _ = _inputs(T, S, seed=6)
+    jout, jlse = _flash_fwd_impl(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)), causal,
+        block, block, True)
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    out, lse = cf.flash_fwd_reference(tq, tk, tv, causal)
+    bound = cf.flash_out_bound(tq, tk, tv, causal, out)
+    blockwise = flash_attention(tq, tk, tv, causal=causal, block_q=block,
+                                block_k=block, use_kernel=False)
+    for got in (torch.from_numpy(np.array(jout.astype(jnp.float32))),
+                blockwise.float()):
+        assert bool(((got - out.float()).abs() <= bound).all())
+    _close(lse, np.array(jlse)[:, :, :T, 0], "lse")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("T,S,block", PALLAS_SHAPES[1:3],
                          ids=lambda x: str(x))
 def test_flash_autograd_matches_jax_custom_vjp(causal, T, S, block):

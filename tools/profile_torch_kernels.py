@@ -1,0 +1,88 @@
+"""Time the port's K2 and K5 kernels at the main paths' shapes, for one checkout.
+
+    python3 tools/profile_torch_kernels.py [--tree DIR]
+
+Needs one NVIDIA GPU. Imports ``ray_lightning_tpu_torch`` from ``--tree``
+(default: this checkout), builds its kernels and times, with
+``chip_smoke.py``'s cold-L2 timing (median of 50 launches, a 256 MB
+memset and a device spin before each):
+
+- K2, the flash forward, at the training path's shapes: bf16, B=8,
+  T=S=1024, H=12, D=64, causal, q/k/v views of fused projections;
+- K5 at prefill: one forward's 49 calls at M=1024 (12 x qkv, out, up,
+  down and the tied head) with bf16 x, int8 and int4 codes, summed.
+
+The wrappers' Python API is the same in every checkout of the port, so
+two versions compare on one card by running this once per tree in one
+command, in turns -- parent, change, change, parent -- with the parent
+unpacked by ``git archive`` into a directory ``.gitignore`` lists.
+Prints one JSON line: the card, the tree, and the times.
+"""
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+
+
+def _chip_smoke():
+    """This checkout's ``chip_smoke`` (its timing, shapes and inputs),
+    whatever tree the port is imported from."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tree", default=ROOT,
+                    help="checkout whose ray_lightning_tpu_torch is timed")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    cs = _chip_smoke()
+    from ray_lightning_tpu_torch import _build
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.models.quant import (matmul_view,
+                                                      quantize_params)
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    if not os.path.abspath(_build.__file__).startswith(tree):
+        raise RuntimeError(f"imported the port from {_build.__file__}, "
+                           f"not from {tree}")
+    _build.build(_build.SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    q, k, v, _ = cs.flash_inputs(torch.bfloat16, 8, 1024, 1024)
+    out = dict(card=cs.card_line(), tree=tree,
+               k2_path_ms=cs.time_ms(lambda: cf.flash_fwd(q, k, v, True),
+                                     flush))
+    del q, k, v
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for weight_dtype in ("int8", "int4"):
+        total = 0.0
+        for label, shape, transpose in cs.PROJECTIONS:
+            w = torch.randn(shape, generator=gen, device="cuda") * 0.02
+            qt = quantize_params({"w": w}, weight_dtype)["w"]
+            _, _, K, _ = matmul_view(qt, transpose)
+            x = torch.randn(1024, K, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            calls = 1 if label == "head" else 12
+            total += calls * cs.time_ms(
+                lambda: qmm.quantized_matmul(x, qt, transpose), flush)
+        out[f"k5_prefill_forward_{weight_dtype}_ms"] = total
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

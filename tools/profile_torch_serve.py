@@ -1,7 +1,8 @@
-"""Where a decode dispatch of the PyTorch/CUDA port's serving path spends its time.
+"""Where a decode or prefill dispatch of the PyTorch/CUDA port's serving path spends its time.
 
     python3 tools/profile_torch_serve.py [--kv-dtype int8] [--steps 20]
         [--weight-dtype int8|int4] [--matmul-kernel cuda|torch]
+        [--phase decode|prefill]
 
 Needs one NVIDIA GPU. Builds the serving path of ``chip_smoke.py`` phase 2
 (GPT-2-small at full width, random weights from
@@ -11,8 +12,13 @@ Needs one NVIDIA GPU. Builds the serving path of ``chip_smoke.py`` phase 2
 by default), admits the trace's first 8 requests, runs 5
 decode dispatches to warm up, then times ``--steps`` dispatches twice:
 once on the host clock alone, once under ``torch.profiler`` (CPU and CUDA
-activity). Prints one JSON line with the card, the host ms per dispatch,
-the device's busy ms per dispatch (sum of kernel times in the profile),
+activity). ``--phase prefill`` times prefill dispatches instead: the
+trace's first 8 prompts admitted together (one dispatch of 8 x 128
+tokens, ending in the first tokens' host copy), then cancelled -- 3
+times to warm up, then ``--steps`` times in each window, the cancels
+outside the host timing. Prints one JSON line with the card, the host
+ms per dispatch, the device's busy ms per dispatch (sum of kernel times
+in the profile),
 the device's idle share (1 - busy / host ms of the unprofiled window),
 kernel launches per dispatch and the kernels that take the most device
 time.
@@ -47,6 +53,8 @@ def main() -> int:
                     choices=[None, "int8", "int4"])
     ap.add_argument("--matmul-kernel", default=None,
                     choices=[None, "cuda", "torch"])
+    ap.add_argument("--phase", default="decode",
+                    choices=["decode", "prefill"])
     args = ap.parse_args()
     matmul_kernel = args.matmul_kernel
     if args.weight_dtype is not None and matmul_kernel is None:
@@ -65,23 +73,44 @@ def main() -> int:
                       device="cuda", attention_kernel="cuda",
                       kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
                       matmul_kernel=matmul_kernel, **chip_smoke.SERVE)
-    reqs = [Request(id=i, prompt=kw["prompt"], max_new_tokens=64,
-                    temperature=kw.get("temperature", 0.0),
-                    top_k=kw.get("top_k"))
-            for i, (_, kw) in enumerate(trace[:8])]
-    eng.prefill(reqs)
-    for _ in range(5):
-        eng.step()
+    rounds = iter(range(1 << 30))
 
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        eng.step()                      # each ends in a host copy
-    host_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    def admit():
+        """The trace's first 8 requests, under fresh ids, in one prefill
+        dispatch (it ends in a host copy)."""
+        base = 8 * next(rounds)
+        reqs = [Request(id=base + i, prompt=kw["prompt"], max_new_tokens=64,
+                        temperature=kw.get("temperature", 0.0),
+                        top_k=kw.get("top_k"))
+                for i, (_, kw) in enumerate(trace[:8])]
+        eng.prefill(reqs)
+        return reqs
+
+    if args.phase == "decode":
+        admit()
+
+        def dispatch() -> float:
+            t = time.perf_counter()
+            eng.step()                  # ends in a host copy
+            return time.perf_counter() - t
+        warmup = 5
+    else:
+        def dispatch() -> float:
+            t = time.perf_counter()
+            reqs = admit()              # ends in the first tokens' copy
+            spent = time.perf_counter() - t
+            for r in reqs:              # free the slots, outside the timing
+                eng.cancel(r.id)
+            return spent
+        warmup = 3
+    for _ in range(warmup):
+        dispatch()
+    host_ms = 1e3 * sum(dispatch() for _ in range(args.steps)) / args.steps
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
-            eng.step()
+            dispatch()
         torch.cuda.synchronize()
     kernels = [a for a in prof.key_averages()
                if a.device_type == DeviceType.CUDA]
@@ -89,7 +118,8 @@ def main() -> int:
     top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:10]
     n = args.steps
     out = dict(
-        card=chip_smoke.card_line(), kv_dtype=args.kv_dtype or "bf16",
+        card=chip_smoke.card_line(), phase=args.phase,
+        kv_dtype=args.kv_dtype or "bf16",
         weight_dtype=args.weight_dtype or "f32", matmul_kernel=matmul_kernel,
         param_bytes=eng.param_bytes(),
         slots=8, dispatches=n, host_ms_per_dispatch=host_ms,

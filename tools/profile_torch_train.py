@@ -11,11 +11,13 @@ host clock alone (synchronized at both ends), then ``--steps`` more under
 card, the host ms per step, the device's busy ms per step (sum of kernel
 times in the profile), the device's idle share (1 - busy / host ms of the
 unprofiled window), kernel launches per step, the flash-attention kernels'
-device ms per step, and the kernels that take the most device time.
+device ms per step (all, and the forward's alone) and launches by kernel,
+and the kernels that take the most device time.
 """
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -30,7 +32,6 @@ import chip_smoke  # noqa: E402
 from ray_lightning_tpu_torch import (GPTModule, RayStrategy,  # noqa: E402
                                      Trainer, gpt2_config)
 from ray_lightning_tpu_torch.core import LambdaCallback  # noqa: E402
-from ray_lightning_tpu_torch.ops.cuda_flash import KERNELS  # noqa: E402
 
 
 def main() -> int:
@@ -77,8 +78,16 @@ def main() -> int:
                if a.device_type == DeviceType.CUDA
                and not getattr(a, "is_user_annotation", False)]
     busy_us = sum(a.self_device_time_total for a in kernels)
-    flash_us = sum(a.self_device_time_total for a in kernels
-                   if any(k + "_kernel" in a.key for k in KERNELS))
+    # the flash kernels by their source names (flash_fwd_tc_kernel,
+    # flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel)
+    flash = [a for a in kernels if re.search(r"flash_\w*_kernel", a.key)]
+    flash_us = sum(a.self_device_time_total for a in flash)
+    fwd_us = sum(a.self_device_time_total for a in flash
+                 if "flash_fwd" in a.key)
+    flash_launches = {}
+    for a in flash:
+        name = re.search(r"flash_\w*_kernel", a.key).group(0)
+        flash_launches[name] = flash_launches.get(name, 0) + a.count / n
     top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:12]
     measured = bool(kernels)
     out = dict(
@@ -95,6 +104,9 @@ def main() -> int:
                                    else "not measured"),
         flash_share_of_busy=(flash_us / busy_us if measured
                              else "not measured"),
+        flash_fwd_ms_per_step=(fwd_us / 1e3 / n if measured
+                               else "not measured"),
+        flash_launches_per_step=flash_launches,
         top_kernels=[dict(name=a.key[:90], ms_per_step=(
             a.self_device_time_total / 1e3 / n),
             launches_per_step=a.count / n) for a in top])
