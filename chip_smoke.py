@@ -7,7 +7,9 @@ without printing its result line:
 
 0. Require a CUDA device; print the card's name and power limit; build
    every kernel from ``ray_lightning_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together); turn TF32 off.
+   source, all started together); check with ``cuobjdump -sass`` that
+   every tensor-core kernel (``*tc_kernel``) holds ``HGMMA`` instructions
+   (``wgmma``); turn TF32 off.
 1. The paged-attention kernel (K1) against its plain PyTorch version at
    the shapes of the GPT-2-small serving path (B=8 slots, H=12, D=64,
    page_size 16, pages_per_slot 64, ragged positions 0..1000, unmapped −1
@@ -17,15 +19,18 @@ without printing its result line:
    one PyTorch library call of the same function, and the least time the
    card could take (bytes over 3.35 TB/s or operations over the peak rate
    of their type, whichever is larger).
-T1. The flash-attention kernels (K2 forward -- on the tensor cores in
-   bf16, the CUDA cores in f32 --, K3 dK/dV, K4 dQ) against
-   their plain versions at the training path's shapes (B=8, T=S=1024,
-   H=12, D=64, causal) in bf16 and f32, and on a ragged length
-   (T=S=1000), end-aligned T=512 < S=1024, non-causal, and T=64 > S=32
-   (rows that admit no key): the max abs error of out, lse, dq, dk and dv
-   against stated bounds. At the path shapes, each kernel's time on a
-   cold L2 beside its bound, its plain version's time and the library's
-   (``F.scaled_dot_product_attention`` forward; its backward for K3+K4).
+T1. The flash-attention kernels (K2 forward, K3 dK/dV, K4 dQ -- each on
+   the tensor cores in bf16 and the CUDA cores in f32, every call's route
+   checked) against their plain versions at the training path's shapes
+   (B=8, T=S=1024, H=12, D=64, causal) in bf16 and f32, and on a ragged
+   length (T=S=1000), end-aligned T=512 < S=1024, non-causal, and T=64 >
+   S=32 (rows that admit no key): the max abs error of out, lse, dq, dk
+   and dv against stated bounds (bf16 out and gradients element by
+   element) and the share of each bound used. At the path shapes, each
+   kernel's time on a cold L2 beside its bound, its plain version's time
+   and the library's (``F.scaled_dot_product_attention`` under each
+   backend that runs these inputs -- flash, efficient, cuDNN --, the
+   fastest forward; its fastest backward for K3+K4).
 2. The serving path: GPT-2-small at full width (random weights from
    ``np.random.default_rng(0)``, a flax-layout tree carried across by
    ``interop.load_flax_params``) served by ``ServeClient(...,
@@ -68,8 +73,8 @@ T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
    bf16 compute over f32 master weights, AdamW (lr 3e-4, b2 0.95, weight
    decay 0.1). Every loss finite, the last 5 steps' mean below the first
    step's, K2 launched n_layers x (train steps + validation batches)
-   times, every one on the tensor-core route, and K3 and K4 n_layers x
-   train steps. Prints the median step,
+   times and K3 and K4 n_layers x train steps, every launch of the three
+   on the tensor-core route. Prints the median step,
    tokens/s, the share of bf16 peak, peak memory and the attention
    kernels' share of a step.
 T3. Training, kernel path against plain path end to end, in f32: one
@@ -88,6 +93,9 @@ T3. Training, kernel path against plain path end to end, in f32: one
 """
 import dataclasses
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -149,6 +157,35 @@ def time_ms(fn, flush: torch.Tensor) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# every tensor-core kernel of the port (K2-K4, and K5 at prefill)
+TC_KERNELS = {"flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+              "flash_bwd_dq_tc_kernel", "tc_kernel"}
+
+
+def hgmma_counts() -> dict:
+    """``HGMMA`` (``wgmma``) instructions in each kernel of the built
+    libraries, by ``cuobjdump -sass``: ``{kernel: [n for each template
+    instantiation]}``."""
+    from ray_lightning_tpu_torch import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    counts = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        found = None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                kernel = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)",
+                                   line).group(1)
+                found = counts.setdefault(kernel, [])
+                found.append(0)
+            elif found is not None and "HGMMA" in line:
+                found[-1] += 1
+    return counts
 
 
 # --------------------------------------------------------------- phase 1
@@ -628,9 +665,10 @@ FLASH_CASES = [  # (label, B, T, S, causal); H=12, D=64 throughout
 
 
 def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
-              causal: bool):
+              causal: bool, grad_bounds=None):
     """Bound on |kernel - plain| of one flash output, in f32 units: a
-    number, or a tensor of ref's shape bounding each element.
+    number, or a tensor of ref's shape bounding each element
+    (``grad_bounds``: bf16 dq, dk, dv's, from ``cf.flash_grad_bound``).
 
     f32: only the order of the f32 sums differs (64-key tiles, an online
     softmax whose running maximum rescales earlier tiles) -- 1e-5 for out
@@ -644,9 +682,14 @@ def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
     and ragged; 0.22-0.24 in the other cases); the former bound, 2e-2 of
     max(1, largest magnitude), was 0.08 on the path, as large as a
     typical |out| of a long row.
-    bf16 gradients (K3, K4): p and ds are rounded before each product and
-    each output once -- 2e-2 of max(1, largest magnitude) (one output
-    rounding is at most 2**-8 of it, a flipped one 2**-7)."""
+    bf16 gradients (K3, K4), element by element: ``cf.flash_grad_bound``,
+    2**-7 (1 + 2**-6) (|plain| + A), A the sum of the rounded factor's
+    magnitudes times the other's (p |dO| for dv, scale |ds| |q| for dk,
+    scale |ds| |k| for dq, |ds| with a term for dp - delta's f32
+    cancellation) -- the two may flip a bf16 rounding of p or ds and of
+    the output. Predicted before its first run: the kernels use at most
+    half of it. The former bound, 2e-2 of max(1, largest magnitude), was
+    ~0.08 on the path, where a long key row's dv is ~0.05."""
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
     if name == "lse":
         return 1e-5
@@ -655,7 +698,7 @@ def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
         return 1e-4 * max(top, 1e-30) if grad else 1e-5
     if name == "out":
         return cf.flash_out_bound(q, k, v, causal, ref)
-    return 2e-2 * max(1.0, top)
+    return grad_bounds[name]
 
 
 def bound_used(got: torch.Tensor, ref: torch.Tensor, tol) -> float:
@@ -707,10 +750,17 @@ def flash_bound(kind: str, q, k, causal: bool):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
 def sdpa_times(q, k, v, do, causal, flush):
     """``F.scaled_dot_product_attention`` on (B, H, T, D) views of the same
-    inputs: its forward, and its backward (forward + backward minus
-    forward). The port never calls it; it is the yardstick."""
+    inputs, once under each backend of ``SDPA_BACKENDS`` that
+    ``torch.nn.attention.sdpa_kernel`` lets run them: its forward, and its
+    backward (forward + backward minus forward). Returns ``{backend:
+    (fwd_ms, bwd_ms)}``; a backend that refuses these inputs is left out
+    and named. The port never calls it; it is the yardstick."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
     leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
@@ -725,8 +775,22 @@ def sdpa_times(q, k, v, do, causal, flush):
         F.scaled_dot_product_attention(*leaves, is_causal=causal) \
             .backward(doh)
 
-    fwd_ms = time_ms(fwd, flush)
-    return fwd_ms, time_ms(fwd_bwd, flush) - fwd_ms
+    times = {}
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel(getattr(SDPBackend, name)):
+            try:            # does this backend take these inputs?
+                fwd_bwd()
+                torch.cuda.synchronize()
+            except RuntimeError as err:
+                print(f"phaseT1 sdpa {name} does not run these inputs: "
+                      f"{str(err).splitlines()[0]}", flush=True)
+                continue
+            fwd_ms = time_ms(fwd, flush)
+            times[name] = (fwd_ms, time_ms(fwd_bwd, flush) - fwd_ms)
+        print(f"phaseT1 sdpa {name}: forward {times[name][0]:.4f} ms, "
+              f"backward {times[name][1]:.4f} ms", flush=True)
+    check(bool(times), "no SDPA backend runs the path's inputs")
+    return times
 
 
 def phase_t1_flash_vs_plain(flush):
@@ -735,19 +799,33 @@ def phase_t1_flash_vs_plain(flush):
     for label, B, T, S, causal in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = flash_inputs(dtype, B, T, S)
+            cf.reset_kernel_launches()
             out, lse = cf.flash_fwd(q, k, v, causal)
             delta = cf.flash_delta(out, do)
             dk, dv = cf.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
             dq = cf.flash_bwd_dq(q, k, v, do, lse, delta, causal)
             torch.cuda.synchronize()
+            # views of fused projections: bf16 on the tensor cores, f32
+            # on the CUDA cores, every kernel
+            route = "tc" if dtype == torch.bfloat16 else "simt"
+            routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+            check(all(r == {"simt": 0, "tc": 0, route: 1}
+                      for r in routes.values()),
+                  f"flash {label} {dtype}: routes {routes}, want {route}")
             # the same inputs for both: the kernels' lse and delta
             ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
             ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse,
                                                         delta, causal)
             ref_dq = cf.flash_bwd_dq_reference(q, k, v, do, lse, delta,
                                                causal)
+            grad_bounds = None
+            if dtype == torch.bfloat16:
+                grad_bounds = dict(zip(("dq", "dk", "dv"),
+                                       cf.flash_grad_bound(
+                                           q, k, v, do, lse, delta, causal,
+                                           ref_dq, ref_dk, ref_dv)))
             row = dict(case=label, dtype=str(dtype).split(".")[-1], B=B,
-                       T=T, S=S, causal=causal)
+                       T=T, S=S, causal=causal, route=route)
             for name, got, ref, grad in (("out", out, ref_out, False),
                                          ("lse", lse, ref_lse, False),
                                          ("dq", dq, ref_dq, True),
@@ -758,7 +836,8 @@ def phase_t1_flash_vs_plain(flush):
                 check(bool(torch.isfinite(got).all()),
                       f"flash {label} {dtype} {name} not finite")
                 err = (got.float() - ref.float()).abs().max().item()
-                tol = flash_tol(dtype, name, ref, grad, q, k, v, causal)
+                tol = flash_tol(dtype, name, ref, grad, q, k, v, causal,
+                                grad_bounds)
                 used = bound_used(got, ref, tol)
                 row[f"{name}_err"], row[f"{name}_used"] = err, used
                 row[f"{name}_tol"] = (None if torch.is_tensor(tol)
@@ -771,8 +850,11 @@ def phase_t1_flash_vs_plain(flush):
                       and float(dq[:, :T - S].abs().max()) == 0.0,
                       "rows that admit no key must give out 0, lse 1e30, "
                       "dq 0")
+            del grad_bounds
             if label == "path":
-                lib_fwd, lib_bwd = sdpa_times(q, k, v, do, causal, flush)
+                lib = sdpa_times(q, k, v, do, causal, flush)
+                fwd_backend = min(lib, key=lambda n: lib[n][0])
+                bwd_backend = min(lib, key=lambda n: lib[n][1])
                 for kind, fn, plain in (
                         ("fwd", lambda: cf.flash_fwd(q, k, v, causal),
                          lambda: cf.flash_fwd_reference(q, k, v, causal)),
@@ -789,8 +871,12 @@ def phase_t1_flash_vs_plain(flush):
                     row[f"{kind}_plain_ms"] = time_ms(plain, flush)
                     row[f"{kind}_bound_ms"] = bound_ms
                     row[f"{kind}_bound_by"] = bound_by
-                row["library_fwd_ms"], row["library_bwd_ms"] = (lib_fwd,
-                                                                lib_bwd)
+                row["library_ms_by_backend"] = {
+                    n: dict(fwd=f, bwd=b) for n, (f, b) in lib.items()}
+                row["library_fwd_ms"] = lib[fwd_backend][0]
+                row["library_fwd_backend"] = fwd_backend
+                row["library_bwd_ms"] = lib[bwd_backend][1]
+                row["library_bwd_backend"] = bwd_backend
             rows[(label, row["dtype"])] = row
             print("phaseT1 flash", json.dumps(row), flush=True)
             del q, k, v, do, out, lse, delta, dk, dv, dq
@@ -827,7 +913,8 @@ def phase_t2_training(card, flash_path):
     t0 = time.perf_counter()
     trainer.fit(module)
     fit_s = time.perf_counter() - t0
-    launches, routes = cf.kernel_launches(), cf.route_launches()
+    launches = cf.kernel_launches()
+    routes = {name: cf.route_launches(name) for name in cf.KERNELS}
     n = cfg.n_layers
     check(trainer.global_step == TRAIN_STEPS,
           f"global_step {trainer.global_step} != {TRAIN_STEPS}")
@@ -842,10 +929,10 @@ def phase_t2_training(card, flash_path):
               "flash_bwd_dkv": n * TRAIN_STEPS,
               "flash_bwd_dq": n * TRAIN_STEPS}
     check(launches == expect, f"flash launches {launches} != {expect}")
-    # bf16 views of the fused qkv projection: every forward on the tensor
-    # cores
-    want = {"simt": 0, "tc": expect["flash_fwd"]}
-    check(routes == want, f"flash forward routes {routes} != {want}")
+    # bf16 views of the fused qkv projection and autograd's dO: every
+    # forward and backward launch on the tensor cores
+    want = {name: {"simt": 0, "tc": expect[name]} for name in cf.KERNELS}
+    check(routes == want, f"flash routes {routes} != {want}")
     steps_s = np.diff(ends)[WARMUP_STEPS - 1:]      # steps 4..20
     step_ms = 1e3 * float(np.median(steps_s))
     tokens = module.batch_size * module.seq_len
@@ -862,7 +949,7 @@ def phase_t2_training(card, flash_path):
         first_loss=losses[0], last5_mean_loss=last5,
         val_loss=trainer.callback_metrics["val_loss"],
         expected_first_loss=float(np.log(cfg.vocab_size)),
-        launches=launches, fwd_routes=routes, params=n_params, fit_s=fit_s,
+        launches=launches, routes=routes, params=n_params, fit_s=fit_s,
         step_ms_median=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
         model_flops_per_step=flops,
         bf16_peak_share=flops / (step_ms / 1e3) / PEAK_OPS_PER_S[
@@ -947,6 +1034,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         print(f"--- nvcc {name}\n{log.strip()}", file=sys.stderr)
+    hgmma = hgmma_counts()
+    tc = {k: hgmma.get(k) for k in sorted(TC_KERNELS)}
+    print(f"phase0 HGMMA instructions per tensor-core kernel "
+          f"(per instantiation): {json.dumps(tc)}", flush=True)
+    check(all(n and all(n) for n in tc.values()),
+          f"tensor-core kernels without HGMMA: {tc}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("phase0 allow_tf32 matmul="
@@ -998,8 +1091,9 @@ def main() -> int:
     flash_source = "ray_lightning_tpu_torch/csrc/flash_attention.cu"
     for name, kind, line, errs, lib in (
             ("flash_fwd", "fwd", 41, ("out",), fpath["library_fwd_ms"]),
-            # SDPA's backward computes dq, dk and dv together: it stands
-            # beside K3, and K4 has no library call of its own
+            # SDPA's backward (its fastest backend) computes dq, dk and dv
+            # together: it stands beside K3, and K4 has no library call of
+            # its own
             ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
              fpath["library_bwd_ms"]),
             ("flash_bwd_dq", "dq", 173, ("dq",), None)):

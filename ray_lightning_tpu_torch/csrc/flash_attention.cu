@@ -2,10 +2,14 @@
 //
 // Replaces the three Pallas kernels of ray_lightning_tpu/ops/pallas_flash.py:
 //
-//   flash_fwd_tc_kernel  <- _flash_kernel      (forward, bf16: tensor cores)
-//   flash_fwd_kernel     <- _flash_kernel      (forward: out and logsumexp)
-//   flash_bwd_dkv_kernel <- _flash_dkv_kernel  (backward: dK and dV)
-//   flash_bwd_dq_kernel  <- _flash_dq_kernel   (backward: dQ)
+//   flash_fwd_tc_kernel     <- _flash_kernel      (forward, bf16: tensor
+//                                                  cores)
+//   flash_fwd_kernel        <- _flash_kernel      (forward: out and lse)
+//   flash_bwd_dkv_tc_kernel <- _flash_dkv_kernel  (dK and dV, bf16: tensor
+//                                                  cores)
+//   flash_bwd_dkv_kernel    <- _flash_dkv_kernel  (backward: dK and dV)
+//   flash_bwd_dq_tc_kernel  <- _flash_dq_kernel   (dQ, bf16: tensor cores)
+//   flash_bwd_dq_kernel     <- _flash_dq_kernel   (backward: dQ)
 //
 // Each computes the same function as its Pallas kernel; none copies the
 // Pallas grid. The TPU grid's innermost axis runs in order on one core and
@@ -57,8 +61,8 @@
 // At the training shapes (T = S = 1024, D = 64) all three are bound by
 // operations, by far.
 //
-// The forward has two kernels; the caller names the one that runs
-// (`route`, ops/cuda_flash.py:_fwd_route):
+// Each kernel has two versions; the caller names the one that runs
+// (`route`). The forward's (ops/cuda_flash.py:_fwd_route):
 //   * flash_fwd_tc_kernel (bf16 q/k/v whose rows allow 16-byte copies:
 //     the training path's views of one fused qkv projection). The
 //     products run on the tensor cores (wgmma, bf16 in, f32 accumulators:
@@ -84,11 +88,53 @@
 //     the products on the CUDA cores in f32, one FMA per pair of values,
 //     from shared-memory tiles -- f32 keeps f32 products (TF32 would not
 //     hold the f32 path's 1e-5).
-// The backward (K3, K4) is still the CUDA-core design: 256 threads per
-// block as 16 x 16; a thread owns 4 rows x 4 columns of each 64 x 64
-// score tile (rows ty + 16a, columns tx + 16b), so a row's reductions are
-// shuffles within 16 lanes, and 4 rows x D/16 columns of each 64 x D
-// output tile; wgmma is its next step.
+// The backward has two kernels for each of K3 and K4, chosen the same way
+// (ops/cuda_flash.py:_bwd_route: bf16 q, k, v and dO with 16-byte-aligned
+// rows take `tc`):
+//   * flash_bwd_dkv_tc_kernel (K3): one block per (batch row, head, 128
+//     keys), two warpgroups of 64 keys. K and V are copied once; the q
+//     tiles (64 rows) from the first that admits the block's first key
+//     come, with their lse and delta, through a 3-stage cp.async ring one
+//     tile ahead. The scores are computed transposed, S^T = K Q^T and
+//     dP^T = V dO^T (one wgmma group, A = K or V, B = the q tile, both
+//     K-major), so that p^T and ds^T = p^T (dp^T - delta), computed in
+//     registers with lse and delta indexed by the fragment's column (the
+//     query), come out in the layout of the A fragments of dV += P^T dO
+//     and dK += dS^T Q (register-sourced wgmma, B = dO or Q read MN-major
+//     from the same swizzled copy that served the K-major reads).
+//   * flash_bwd_dq_tc_kernel (K4): one block per (batch row, head, 128 q
+//     rows), two warpgroups of 64 rows, as the tc forward; Q, dO, lse and
+//     delta copied once, K and V tiles of 64 keys through the forward's
+//     3-stage ring, the causal loop stopping at the forward's n_j, the q
+//     tiles with the most work first. S = Q K^T and dP = dO V^T (K-major),
+//     ds in registers, dQ += dS K (B = K, MN-major).
+//   Both keep every Pallas rounding point of the list above: p rounded
+//   to bf16 for dV, ds for dK and dQ, each output once; masked entries are
+//   exactly 0, keys past S masked explicitly (a zero-filled K row scores 0,
+//   and exp(0 - lse) is not 0), rows past T staged with lse = 1e30 and
+//   delta = 0; a tile with no work writes zeros. p = 2^(s * scale * log2 e
+//   - lse * log2 e) by ex2.approx, a few f32 ulps from Pallas's exp, so an
+//   occasional bf16 rounding of p or ds flips (ops/cuda_flash.py:
+//   flash_grad_bound covers it). dK and dQ take the scale once, on the f32
+//   sum at the end, where Pallas scales each tile's product: at D = 64 the
+//   scale is 2^-3 and the two are bitwise the same; at D = 32 and 128 they
+//   differ by f32 rounding only. D = 32 runs as one zero-padded 64-column
+//   block (its score sums take two k16 slices), D = 128 as two. No
+//   atomics, no split of a sum across blocks: results repeat bitwise. B
+//   descriptors are uniform across a block (only A, the warpgroup's rows,
+//   varies): the card's ptxas crashes otherwise. Registers at D = 64: dK,
+//   dV (K3) or dQ (K4) accumulators, S and dP fragments, the packed A
+//   fragments; one 256-thread K3 block an SM, two K4 blocks. What bounds
+//   them now: each warpgroup waits on its score wgmmas, does its
+//   element-wise work, then waits on its gradient wgmmas; the tensor cores
+//   idle unless the SM's other warpgroups fill the gaps.
+//   * flash_bwd_dkv_kernel, flash_bwd_dq_kernel (f32, and bf16 views the
+//     tc kernels cannot copy): the CUDA-core design -- 256 threads per
+//     block as 16 x 16; a thread owns 4 rows x 4 columns of each 64 x 64
+//     score tile (rows ty + 16a, columns tx + 16b), so a row's reductions
+//     are shuffles within 16 lanes, and 4 rows x D/16 columns of each 64 x
+//     D output tile; f32 keeps f32 products (TF32 would not hold the f32
+//     path's 1e-4).
 //
 // Plain C interface (bound with ctypes). Each launch runs on the caller's
 // stream and returns the CUDA error code of the launch (0 on success).
@@ -786,6 +832,446 @@ flash_bwd_dq_kernel(Params p) {
   }
 }
 
+// --------------------------------------------------------- K3, K4, tc
+// bf16 backward on the tensor cores (the header says why and how).
+constexpr int kBwdKeys = 128;    // K3: keys per block, two warpgroups of 64
+constexpr int kBwdRows = 64;     // K3: q rows per staged q tile
+
+template <int D>
+struct TcBwd {
+  static constexpr int kDP = D < 64 ? 64 : D;  // whole 128-byte rows
+  static constexpr int kNB = kDP / 64;         // 64-column blocks a row
+  static constexpr int kKS = D / 16;           // k16 slices of a D-sum
+  static constexpr int kBig = 128 * 128;       // one 128-row block
+  static constexpr int kSmall = 64 * 128;      // one 64-row block
+  // K3: K and V (128 keys), then the stages of Q, dO and lse | delta
+  static constexpr int kDkvSmem = kNB * (2 * kBig + 2 * kTcStages * kSmall) +
+                                  kTcStages * 2 * kBwdRows * 4 + 1024;
+  // K4: Q and dO (128 rows), lse | delta, then the stages of K and V
+  static constexpr int kDqSmem = kNB * (2 * kBig + 2 * kTcStages * kSmall) +
+                                 2 * kTcQ * 4 + 1024;
+};
+
+// Stage lse and delta of rows [row0, row0 + rows) of (b, h) into
+// lse_dst[0, rows) and delta_dst[0, rows): 4-byte cp.async (a row of lse
+// starts wherever (b H + h) T puts it); rows past T get lse = 1e30 and
+// delta = 0, so p = 0 there.
+__device__ __forceinline__ void tc_stage_rows(float* lse_dst, float* delta_dst,
+                                              const Params& p, int b, int h,
+                                              int row0, int rows) {
+  const long long base = ((long long)b * p.H + h) * p.T;
+  for (int e = threadIdx.x; e < 2 * rows; e += kTcThreads) {
+    const bool lse = e < rows;
+    const int r = lse ? e : e - rows;
+    float* dst = (lse ? lse_dst : delta_dst) + r;
+    const int row = row0 + r;
+    if (row < p.T)
+      hopper::cp_async4(hopper::smem_u32(dst),
+                        (lse ? p.lse_in : p.delta) + base + row);
+    else
+      *dst = lse ? kPadLse : 0.0f;
+  }
+}
+
+// K3's scores of one (kv, q) tile pair, transposed: s = S^T and dp = dP^T,
+// rows the thread's two keys, columns 16 of the tile's 64 queries. Writes
+// p^T = 2^(s * scale * log2 e - lse * log2 e) and ds^T = p^T (dp^T -
+// delta), each rounded to bf16, as the A fragments of dV += P^T dO and
+// dK += dS^T Q (columns 16t..16t+15 are the fragment of k16 slice t).
+// MASK: query q is admitted for row r iff qmin[r] <= q < T; without MASK
+// every entry is. Masked entries are exactly 0 in both.
+template <bool MASK>
+__device__ __forceinline__ void dkv_p_ds(const float (&s)[32],
+                                         const float (&dp)[32],
+                                         uint32_t (&pp)[4][4],
+                                         uint32_t (&pds)[4][4],
+                                         const float* lse_t,
+                                         const float* delta_t,
+                                         const int (&qmin)[2], int q0, int T,
+                                         float scale2) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int col = 8 * c + 2 * (lane & 3);
+    const float2 l = *reinterpret_cast<const float2*>(lse_t + col);
+    const float2 dl = *reinterpret_cast<const float2*>(delta_t + col);
+    const float n0 = -l.x * kLog2e, n1 = -l.y * kLog2e;
+    const int qpos = q0 + col;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool a0 = !MASK || (qpos >= qmin[r] && qpos < T);
+      const bool a1 = !MASK || (qpos + 1 >= qmin[r] && qpos + 1 < T);
+      const float e0 = a0 ? ex2(fmaf(s[4 * c + 2 * r], scale2, n0)) : 0.0f;
+      const float e1 = a1 ? ex2(fmaf(s[4 * c + 2 * r + 1], scale2, n1))
+                          : 0.0f;
+      // p.astype(dO.dtype), ds.astype(q.dtype)
+      pp[c / 2][(c % 2) * 2 + r] = hopper::pack_bf16(e0, e1);
+      pds[c / 2][(c % 2) * 2 + r] =
+          hopper::pack_bf16(e0 * (dp[4 * c + 2 * r] - dl.x),
+                            e1 * (dp[4 * c + 2 * r + 1] - dl.y));
+    }
+  }
+}
+
+// K3's q tile i into ring stage st: Q and dO (64 rows each, swizzled),
+// then its 64 lse and 64 delta values.
+template <int D>
+__device__ __forceinline__ void dkv_stage_q(uint32_t q_s, uint32_t do_s,
+                                            float* rows_s, const Params& p,
+                                            int b, int h, int i, int st) {
+  using S = TcBwd<D>;
+  tc_stage<D>(q_s + st * S::kNB * S::kSmall, S::kSmall, p.q, b, h,
+              i * kBwdRows, kBwdRows, p.T);
+  tc_stage<D>(do_s + st * S::kNB * S::kSmall, S::kSmall, p.dout, b, h,
+              i * kBwdRows, kBwdRows, p.T);
+  tc_stage_rows(rows_s + st * 2 * kBwdRows,
+                rows_s + st * 2 * kBwdRows + kBwdRows, p, b, h,
+                i * kBwdRows, kBwdRows);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_kernel(Params p) {
+  using S = TcBwd<D>;
+  constexpr int kNB = S::kNB;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  const uint32_t raw = hopper::smem_u32(tc_smem);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t k_s = raw + pad;
+  const uint32_t v_s = k_s + kNB * S::kBig;
+  const uint32_t q_s = v_s + kNB * S::kBig;
+  const uint32_t do_s = q_s + kTcStages * kNB * S::kSmall;
+  // per stage: 64 lse, then 64 delta
+  float* rows_s = reinterpret_cast<float*>(
+      tc_smem + pad + kNB * (2 * S::kBig + 2 * kTcStages * S::kSmall));
+
+  const int BH = p.B * p.H;
+  // the kv tiles with the most causal work (the first) start first
+  const int j = (int)(blockIdx.x / BH);
+  const int bh = (int)(blockIdx.x % BH);
+  const int b = bh / p.H, h = bh % p.H;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int n_q = (p.T + kBwdRows - 1) / kBwdRows;
+  const int key0 = j * kBwdKeys;
+
+  // the first q row that may admit key key0, and its tile
+  int i0 = 0;
+  if (p.causal) {
+    const int first_q = key0 - (p.S - p.T);
+    i0 = first_q >= p.T ? n_q : max(first_q, 0) / kBwdRows;
+  }
+
+  // this thread's keys: rows r and r + 8 of its warpgroup's 64; query q is
+  // admitted for key r iff qmin[r] <= q < T (never for a key past S)
+  const int key_warp = key0 + wg * 64 + warp * 16;
+  int qmin[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = key_warp + lane / 4 + 8 * r;
+    qmin[r] = kpos >= p.S ? 0x7fffffff : p.causal ? kpos - (p.S - p.T) : 0;
+  }
+
+  if (i0 < n_q) {
+    tc_stage<D>(k_s, S::kBig, p.k, b, h, key0, kBwdKeys, p.S);
+    tc_stage<D>(v_s, S::kBig, p.v, b, h, key0, kBwdKeys, p.S);
+    dkv_stage_q<D>(q_s, do_s, rows_s, p, b, h, i0, 0);
+  }
+  hopper::cp_async_commit();
+
+  const float scale2 = p.scale * kLog2e;
+  float dk[kNB][32], dv[kNB][32];
+#pragma unroll
+  for (int c = 0; c < kNB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dk[c][e] = dv[c][e] = 0.0f;
+
+  for (int i = i0; i < n_q; ++i) {
+    const int st = (i - i0) % kTcStages;
+    const uint32_t q_t = q_s + st * kNB * S::kSmall;
+    const uint32_t do_t = do_s + st * kNB * S::kSmall;
+    // the next q tile's copies fly while this one is computed; its stage
+    // last held tile i - 2, which every thread finished before the
+    // barrier of iteration i - 1
+    if (i + 1 < n_q)
+      dkv_stage_q<D>(q_s, do_s, rows_s, p, b, h, i + 1,
+                     (i + 1 - i0) % kTcStages);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();          // K, V and tile i have landed
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T, one group: A (keys) varies by
+    // warpgroup, B (the q tile, K-major) is the block's
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < S::kKS; ++ks)
+      hopper::mma_ss_n64(
+          s,
+          hopper::desc_kmajor(k_s + (ks / 4) * S::kBig + wg * 64 * 128 +
+                              (ks % 4) * 32),
+          hopper::desc_kmajor(q_t + (ks / 4) * S::kSmall + (ks % 4) * 32), 1);
+#pragma unroll
+    for (int ks = 0; ks < S::kKS; ++ks)
+      hopper::mma_ss_n64(
+          dp,
+          hopper::desc_kmajor(v_s + (ks / 4) * S::kBig + wg * 64 * 128 +
+                              (ks % 4) * 32),
+          hopper::desc_kmajor(do_t + (ks / 4) * S::kSmall + (ks % 4) * 32),
+          1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+
+    const float* lse_t = rows_s + st * 2 * kBwdRows;
+    const int q0 = i * kBwdRows;
+    uint32_t pp[4][4], pds[4][4];
+    // a tile that every key of the warp admits whole skips the mask
+    if (q0 + kBwdRows <= p.T && key_warp + 15 < p.S &&
+        (!p.causal || key_warp + 15 - (p.S - p.T) <= q0))
+      dkv_p_ds<false>(s, dp, pp, pds, lse_t, lse_t + kBwdRows, qmin, q0, p.T,
+                      scale2);
+    else
+      dkv_p_ds<true>(s, dp, pp, pds, lse_t, lse_t + kBwdRows, qmin, q0, p.T,
+                     scale2);
+
+    // dV += P^T dO and dK += dS^T Q: A in registers, B (the q tile's rows
+    // are queries, D contiguous) read MN-major from the same copies
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < kNB; ++c)
+        hopper::mma_rs_n64_mn(
+            dv[c], pp[t],
+            hopper::desc_mnmajor(do_t + c * S::kSmall + t * 16 * 128), 1);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < kNB; ++c)
+        hopper::mma_rs_n64_mn(
+            dk[c], pds[t],
+            hopper::desc_mnmajor(q_t + c * S::kSmall + t * 16 * 128), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+  }
+  hopper::cp_async_wait<0>();
+
+  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(
+                              const_cast<void*>(p.dk.ptr)) +
+                          b * p.dk.sb + h * p.dk.sh;
+  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(
+                              const_cast<void*>(p.dv.ptr)) +
+                          b * p.dv.sb + h * p.dv.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = key_warp + lane / 4 + 8 * r;
+    if (row >= p.S) continue;
+#pragma unroll
+    for (int c = 0; c < kNB; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 64 * c + 8 * jj + 2 * (lane & 3);
+        if (col >= D) continue;
+        // the scale once, on the f32 sum
+        *reinterpret_cast<uint32_t*>(dk_out + (long long)row * p.dk.sl +
+                                     col) =
+            hopper::pack_bf16(dk[c][4 * jj + 2 * r] * p.scale,
+                              dk[c][4 * jj + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dv_out + (long long)row * p.dv.sl +
+                                     col) =
+            hopper::pack_bf16(dv[c][4 * jj + 2 * r],
+                              dv[c][4 * jj + 2 * r + 1]);
+      }
+  }
+}
+
+// K4's ds of one (q, kv) tile pair on the thread's two rows: p = 2^(s *
+// scale * log2 e - lse * log2 e) (nl[r] = -lse * log2 e of row r), ds = p
+// (dp - delta), rounded to bf16 as the A fragments of dQ += dS K. MASK:
+// key kpos is admitted iff kpos < lim[r]; without MASK every key is.
+template <bool MASK>
+__device__ __forceinline__ void dq_ds(const float (&s)[32],
+                                      const float (&dp)[32],
+                                      uint32_t (&pds)[4][4],
+                                      const float (&nl)[2],
+                                      const float (&dl)[2],
+                                      const int (&lim)[2], int kbase,
+                                      float scale2) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kpos = kbase + 8 * c + 2 * (lane & 3);
+      const float e0 = !MASK || kpos < lim[r]
+                           ? ex2(fmaf(s[4 * c + 2 * r], scale2, nl[r])) : 0.0f;
+      const float e1 = !MASK || kpos + 1 < lim[r]
+                           ? ex2(fmaf(s[4 * c + 2 * r + 1], scale2, nl[r]))
+                           : 0.0f;
+      // ds.astype(k.dtype)
+      pds[c / 2][(c % 2) * 2 + r] =
+          hopper::pack_bf16(e0 * (dp[4 * c + 2 * r] - dl[r]),
+                            e1 * (dp[4 * c + 2 * r + 1] - dl[r]));
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 2 : 1)
+flash_bwd_dq_tc_kernel(Params p) {
+  using S = TcBwd<D>;
+  constexpr int kNB = S::kNB;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  const uint32_t raw = hopper::smem_u32(tc_smem);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t q_s = raw + pad;
+  const uint32_t do_s = q_s + kNB * S::kBig;
+  const uint32_t k_s = do_s + kNB * S::kBig;
+  const uint32_t v_s = k_s + kTcStages * kNB * S::kSmall;
+  float* lse_s = reinterpret_cast<float*>(
+      tc_smem + pad + kNB * (2 * S::kBig + 2 * kTcStages * S::kSmall));
+  float* delta_s = lse_s + kTcQ;
+
+  const int BH = p.B * p.H;
+  const int n_q = (p.T + kTcQ - 1) / kTcQ;
+  // the q tiles with the most causal work (the last) start first
+  const int i = n_q - 1 - (int)(blockIdx.x / BH);
+  const int bh = (int)(blockIdx.x % BH);
+  const int b = bh / p.H, h = bh % p.H;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+
+  // kv tiles this q tile visits: causal stops at the tile holding the key
+  // its last real row reaches (0 if no row admits any key)
+  const int n_k = (p.S + kTcK - 1) / kTcK;
+  int n_j = n_k;
+  if (p.causal) {
+    const int last_q = min(i * kTcQ + kTcQ - 1, p.T - 1) + (p.S - p.T);
+    n_j = last_q < 0 ? 0 : min(n_k, last_q / kTcK + 1);
+  }
+
+  // this thread's rows: r and r + 8 of its warpgroup's 64; keys [0, lim)
+  // are admitted (0 past T)
+  const int q_warp = i * kTcQ + wg * 64 + warp * 16;
+  const int q_lo = q_warp + lane / 4;
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q_lo + 8 * r;
+    lim[r] = qpos >= p.T ? 0
+             : p.causal  ? max(0, min(p.S, qpos + (p.S - p.T) + 1))
+                         : p.S;
+  }
+
+  if (n_j > 0) {
+    tc_stage<D>(q_s, S::kBig, p.q, b, h, i * kTcQ, kTcQ, p.T);
+    tc_stage<D>(do_s, S::kBig, p.dout, b, h, i * kTcQ, kTcQ, p.T);
+    tc_stage_rows(lse_s, delta_s, p, b, h, i * kTcQ, kTcQ);
+    tc_stage<D>(k_s, S::kSmall, p.k, b, h, 0, kTcK, p.S);
+    tc_stage<D>(v_s, S::kSmall, p.v, b, h, 0, kTcK, p.S);
+  }
+  hopper::cp_async_commit();
+
+  const float scale2 = p.scale * kLog2e;
+  float dq[kNB][32];
+#pragma unroll
+  for (int c = 0; c < kNB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dq[c][e] = 0.0f;
+
+  for (int j = 0; j < n_j; ++j) {
+    const int st = j % kTcStages;
+    const uint32_t k_t = k_s + st * kNB * S::kSmall;
+    const uint32_t v_t = v_s + st * kNB * S::kSmall;
+    // the forward's ring: tile j + 1 flies while tile j is computed
+    if (j + 1 < n_j) {
+      const int nx = (j + 1) % kTcStages;
+      tc_stage<D>(k_s + nx * kNB * S::kSmall, S::kSmall, p.k, b, h,
+                  (j + 1) * kTcK, kTcK, p.S);
+      tc_stage<D>(v_s + nx * kNB * S::kSmall, S::kSmall, p.v, b, h,
+                  (j + 1) * kTcK, kTcK, p.S);
+    }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();          // Q, dO, the rows and tile j
+    hopper::fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, one group: A (rows) varies by
+    // warpgroup, B (the kv tile, K-major) is the block's
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.0f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < S::kKS; ++ks)
+      hopper::mma_ss_n64(
+          s,
+          hopper::desc_kmajor(q_s + (ks / 4) * S::kBig + wg * 64 * 128 +
+                              (ks % 4) * 32),
+          hopper::desc_kmajor(k_t + (ks / 4) * S::kSmall + (ks % 4) * 32), 1);
+#pragma unroll
+    for (int ks = 0; ks < S::kKS; ++ks)
+      hopper::mma_ss_n64(
+          dp,
+          hopper::desc_kmajor(do_s + (ks / 4) * S::kBig + wg * 64 * 128 +
+                              (ks % 4) * 32),
+          hopper::desc_kmajor(v_t + (ks / 4) * S::kSmall + (ks % 4) * 32), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+
+    float nl[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int at = wg * 64 + warp * 16 + lane / 4 + 8 * r;
+      nl[r] = -lse_s[at] * kLog2e;
+      dl[r] = delta_s[at];
+    }
+    uint32_t pds[4][4];
+    // a tile every row of the warp admits whole skips the mask
+    const int kend = (j + 1) * kTcK;
+    if (kend <= p.S && q_warp + 15 < p.T &&
+        (!p.causal || kend - 1 <= q_warp + (p.S - p.T)))
+      dq_ds<false>(s, dp, pds, nl, dl, lim, j * kTcK, scale2);
+    else
+      dq_ds<true>(s, dp, pds, nl, dl, lim, j * kTcK, scale2);
+
+    // dQ += dS K, K read MN-major (the tile's rows are keys, D contiguous)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < kNB; ++c)
+        hopper::mma_rs_n64_mn(
+            dq[c], pds[t],
+            hopper::desc_mnmajor(k_t + c * S::kSmall + t * 16 * 128), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+  }
+  hopper::cp_async_wait<0>();
+
+  __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(
+                              const_cast<void*>(p.dq.ptr)) +
+                          b * p.dq.sb + h * p.dq.sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q_lo + 8 * r;
+    if (row >= p.T) continue;
+#pragma unroll
+    for (int c = 0; c < kNB; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 64 * c + 8 * jj + 2 * (lane & 3);
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(dq_out + (long long)row * p.dq.sl +
+                                       col) =
+              hopper::pack_bf16(dq[c][4 * jj + 2 * r] * p.scale,
+                                dq[c][4 * jj + 2 * r + 1] * p.scale);
+      }
+  }
+}
+
 // ------------------------------------------------------------ launchers
 enum Which { kFwd = 0, kDkv = 1, kDq = 2 };
 
@@ -840,33 +1326,63 @@ int launch_fwd_tc(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The tensor-core forward reads q, k and v in 16-byte copies: every base
-// pointer 16-byte aligned and every batch, sequence and head stride a
-// multiple of 8 elements; the output (a fresh allocation) 4-byte aligned.
+template <int D>
+int launch_bwd_tc(Which w, const Params& p, cudaStream_t stream) {
+  const bool dkv = w == kDkv;
+  const long long tiles = dkv ? (p.S + kBwdKeys - 1) / kBwdKeys
+                              : (p.T + kTcQ - 1) / kTcQ;
+  const long long blocks = (long long)p.B * p.H * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int smem = dkv ? TcBwd<D>::kDkvSmem : TcBwd<D>::kDqSmem;
+  void (*kernel)(Params) = dkv ? flash_bwd_dkv_tc_kernel<D>
+                               : flash_bwd_dq_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kTcThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core kernels read q, k, v (and dO) in 16-byte copies: every
+// base pointer 16-byte aligned and every batch, sequence and head stride a
+// multiple of 8 elements; the outputs (fresh allocations) 4-byte aligned.
 bool rows_aligned(const Operand& x, int bytes, int elems) {
   return reinterpret_cast<uintptr_t>(x.ptr) % bytes == 0 &&
          x.sb % elems == 0 && x.sl % elems == 0 && x.sh % elems == 0;
 }
 
-bool tc_aligned(const Params& p) {
-  return rows_aligned(p.q, 16, 8) && rows_aligned(p.k, 16, 8) &&
-         rows_aligned(p.v, 16, 8) && rows_aligned(p.out, 4, 2);
+bool tc_aligned(Which w, const Params& p) {
+  const bool in = rows_aligned(p.q, 16, 8) && rows_aligned(p.k, 16, 8) &&
+                  rows_aligned(p.v, 16, 8);
+  switch (w) {
+    case kFwd: return in && rows_aligned(p.out, 4, 2);
+    case kDkv: return in && rows_aligned(p.dout, 16, 8) &&
+                      rows_aligned(p.dk, 4, 2) && rows_aligned(p.dv, 4, 2);
+    default:   return in && rows_aligned(p.dout, 16, 8) &&
+                      rows_aligned(p.dq, 4, 2);
+  }
 }
 
-enum FwdRoute { kSimt = 0, kTensorCores = 1 };
+// Each kernel's routes, one numbering for the forward and the backward.
+enum Route { kSimt = 0, kTensorCores = 1 };
+
+template <int D>
+int launch_tc(Which w, const Params& p, cudaStream_t stream) {
+  return w == kFwd ? launch_fwd_tc<D>(p, stream)
+                   : launch_bwd_tc<D>(w, p, stream);
+}
 
 int dispatch(Which w, int dtype, int D, const Params& p, void* stream,
-             int route = kSimt) {
+             int route) {
   if (p.B < 1 || p.H < 1 || p.T < 1 || p.S < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kTensorCores) {          // the forward on the tensor cores
-    if (w != kFwd || dtype != 1 || !tc_aligned(p))
-      return (int)cudaErrorInvalidValue;
+  if (route == kTensorCores) {          // bf16 on the tensor cores
+    if (dtype != 1 || !tc_aligned(w, p)) return (int)cudaErrorInvalidValue;
     switch (D) {
-      case 32: return launch_fwd_tc<32>(p, s);
-      case 64: return launch_fwd_tc<64>(p, s);
-      case 128: return launch_fwd_tc<128>(p, s);
+      case 32: return launch_tc<32>(w, p, s);
+      case 64: return launch_tc<64>(w, p, s);
+      case 128: return launch_tc<128>(w, p, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
@@ -890,10 +1406,11 @@ Params params(int B, int H, int T, int S, int causal, float scale) {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and every output alike).
 // `strides` holds (batch, sequence, head) element strides for each operand,
-// three per operand, in the order the pointers are given. The forward's
-// route is the caller's choice (ops/cuda_flash.py:_fwd_route): 0 the
-// CUDA-core kernel, 1 the tensor-core one (bf16, 16-byte-aligned rows);
-// a route that does not take the call returns cudaErrorInvalidValue.
+// three per operand, in the order the pointers are given. The route of
+// each launch is the caller's choice (ops/cuda_flash.py:_fwd_route,
+// _bwd_route): 0 the CUDA-core kernel, 1 the tensor-core one (bf16,
+// 16-byte-aligned rows); a route that does not take the call returns
+// cudaErrorInvalidValue -- nothing falls back to another kernel.
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, float* lse,
@@ -915,7 +1432,8 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     void* dk, void* dv,
                                     const long long* strides, int B, int H,
                                     int T, int S, int D, int dtype,
-                                    int causal, float scale, void* stream) {
+                                    int causal, float scale, int route,
+                                    void* stream) {
   Params p = params(B, H, T, S, causal, scale);
   p.q = operand(q, strides);
   p.k = operand(k, strides + 3);
@@ -925,7 +1443,7 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   p.dv = operand(dv, strides + 15);
   p.lse_in = lse;
   p.delta = delta;
-  return dispatch(kDkv, dtype, D, p, stream);
+  return dispatch(kDkv, dtype, D, p, stream, route);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -933,7 +1451,8 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const float* lse, const float* delta,
                                    void* dq, const long long* strides, int B,
                                    int H, int T, int S, int D, int dtype,
-                                   int causal, float scale, void* stream) {
+                                   int causal, float scale, int route,
+                                   void* stream) {
   Params p = params(B, H, T, S, causal, scale);
   p.q = operand(q, strides);
   p.k = operand(k, strides + 3);
@@ -942,12 +1461,14 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
   p.dq = operand(dq, strides + 12);
   p.lse_in = lse;
   p.delta = delta;
-  return dispatch(kDq, dtype, D, p, stream);
+  return dispatch(kDq, dtype, D, p, stream, route);
 }
 
-// The forward's routes' names in enum FwdRoute's numbering; the wrapper
-// checks its own numbering against them when it loads the library.
+// The routes' names in enum Route's numbering, the forward's and the
+// backward's (both kernels); the wrapper checks its own numbering against
+// them when it loads the library.
 extern "C" const char* flash_fwd_route_names() { return "simt,tc"; }
+extern "C" const char* flash_bwd_route_names() { return "simt,tc"; }
 
 extern "C" const char* flash_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -46,6 +46,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
+// 4 bytes global -> shared, asynchronous (through L1: rows of f32 whose
+// starts are only 4-byte aligned).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -4,10 +4,12 @@ Counterpart of ``ray_lightning_tpu/ops/pallas_flash.py``. Shapes are the
 JAX package's: q (B, T, H, D), k and v (B, S, H, D); lse and delta
 (B, H, T) float32.
 
-- ``csrc/flash_attention.cu`` -- three hand-written CUDA kernels for
-  ``sm_90a`` (built by :mod:`ray_lightning_tpu_torch._build`): the forward
-  (K2, ``_flash_kernel``), dK/dV (K3, ``_flash_dkv_kernel``) and dQ (K4,
-  ``_flash_dq_kernel``). The source says how each is bound on the H100.
+- ``csrc/flash_attention.cu`` -- hand-written CUDA kernels for
+  ``sm_90a`` (built by :mod:`ray_lightning_tpu_torch._build`), two for
+  each of the forward (K2, ``_flash_kernel``), dK/dV (K3,
+  ``_flash_dkv_kernel``) and dQ (K4, ``_flash_dq_kernel``): one on the
+  tensor cores (route ``"tc"``, bf16) and one on the CUDA cores
+  (``"simt"``). The source says how each is bound on the H100.
 - The plain versions, :func:`flash_fwd_reference`,
   :func:`flash_bwd_dkv_reference` and :func:`flash_bwd_dq_reference`
   (with :func:`flash_bwd_reference` for all three gradients): dense
@@ -17,16 +19,18 @@ JAX package's: q (B, T, H, D), k and v (B, S, H, D); lse and delta
   row that admits no key, and the rounding points of the Pallas kernels
   (p to v's dtype before P.V; p to dO's, ds to q's and k's dtype in the
   backward). CPU tensors, the tests and ``chip_smoke.py`` use them;
-  nothing on the CUDA path does. :func:`flash_out_bound` is how far a
-  bf16 forward may stray from them, element by element.
+  nothing on the CUDA path does. :func:`flash_out_bound` and
+  :func:`flash_grad_bound` are how far a bf16 forward and a bf16 backward
+  may stray from them, element by element.
 - The wrappers :func:`flash_fwd`, :func:`flash_bwd_dkv` and
   :func:`flash_bwd_dq`: CPU tensors take the plain version; CUDA tensors
   launch the kernel on the current stream or raise -- nothing falls back.
-  Each counts its launches (:func:`kernel_launches`). The forward has two
-  kernels, chosen by :func:`_fwd_route`: the tensor-core one (``"tc"``)
-  for bf16 operands whose rows allow 16-byte copies, the CUDA-core one
-  (``"simt"``) for f32 and for bf16 views that do not; its launches are
-  also counted per route (:func:`route_launches`).
+  Each counts its launches (:func:`kernel_launches`). Each has two
+  kernels, chosen by :func:`_fwd_route` (q, k, v) and :func:`_bwd_route`
+  (q, k, v, dO): the tensor-core one (``"tc"``) for bf16 operands whose
+  rows allow 16-byte copies, the CUDA-core one (``"simt"``) for f32 and
+  for bf16 views that do not; the launches are also counted per route
+  (:func:`route_launches`).
 - :class:`_Flash`, the counterpart of the ``custom_vjp`` ``_flash``: the
   forward saves q, k, v, out and lse; the backward computes
   ``delta = rowsum(dO * out)`` in plain PyTorch (as ``_flash_bwd_impl``
@@ -34,8 +38,8 @@ JAX package's: q (B, T, H, D), k and v (B, S, H, D); lse and delta
 
 The kernels take q/k/v/dO with any batch, sequence and head strides as
 long as the last axis is contiguous, so the q, k and v views of one fused
-qkv projection are read in place. Their tiles (64 rows) are chosen for
-the H100, not carried over from the TPU's block sizes.
+qkv projection are read in place. Their tiles (64 and 128 rows) are
+chosen for the H100, not carried over from the TPU's block sizes.
 """
 from __future__ import annotations
 
@@ -47,22 +51,26 @@ import torch
 __all__ = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd",
            "flash_fwd_reference", "flash_bwd_dkv_reference",
            "flash_bwd_dq_reference", "flash_bwd_reference", "flash_delta",
-           "flash_out_bound",
+           "flash_out_bound", "flash_grad_bound",
            "kernel_launches", "route_launches", "reset_kernel_launches",
-           "KERNELS", "FWD_ROUTES"]
+           "KERNELS", "FWD_ROUTES", "BWD_ROUTES"]
 
 SOURCE = "flash_attention"
 #: kernel names, in path order: forward, dK/dV, dQ
 KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 #: the forward's kernels, in the C side's route numbering
 FWD_ROUTES = ("simt", "tc")
+#: the backward's kernels (dK/dV and dQ alike), in the C side's numbering
+BWD_ROUTES = ("simt", "tc")
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIG_NEG = -0.7 * float(torch.finfo(torch.float32).max)
 _PAD_LSE = 1e30
 
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-_fwd_routes: Dict[str, int] = dict.fromkeys(FWD_ROUTES, 0)
+_routes: Dict[str, Dict[str, int]] = {
+    name: dict.fromkeys(FWD_ROUTES if name == "flash_fwd" else BWD_ROUTES, 0)
+    for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -72,32 +80,41 @@ def kernel_launches() -> Dict[str, int]:
     return dict(_launches)
 
 
-def route_launches() -> Dict[str, int]:
-    """The forward's launches per route (:data:`FWD_ROUTES`) since
-    :func:`reset_kernel_launches`; they sum to
-    ``kernel_launches()["flash_fwd"]``."""
-    return dict(_fwd_routes)
+def route_launches(kernel: str = "flash_fwd") -> Dict[str, int]:
+    """``kernel``'s launches per route since :func:`reset_kernel_launches`
+    (the forward's by default, :data:`FWD_ROUTES`; ``"flash_bwd_dkv"`` and
+    ``"flash_bwd_dq"`` count on :data:`BWD_ROUTES`); they sum to
+    ``kernel_launches()[kernel]``."""
+    return dict(_routes[kernel])
 
 
 def reset_kernel_launches() -> None:
-    for counts in (_launches, _fwd_routes):
+    for counts in (_launches, *_routes.values()):
         for name in counts:
             counts[name] = 0
 
 
-def _fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+def _fwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               *more: torch.Tensor) -> str:
     """Which forward kernel takes these operands: ``"tc"`` (tensor cores)
     for bf16 q, k and v whose rows it can copy 16 bytes at a time -- each
     base address 16-byte aligned and each batch, sequence and head stride
     a multiple of 8 elements, as the views of one fused qkv projection
     are -- else ``"simt"`` (CUDA cores: f32, and bf16 views that are
-    not so aligned)."""
+    not so aligned). ``more`` operands are held to the same test."""
     if q.dtype != torch.bfloat16:
         return "simt"
-    for t in (q, k, v):
+    for t in (q, k, v, *more):
         if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
             return "simt"
     return "tc"
+
+
+def _bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               do: torch.Tensor) -> str:
+    """Which dK/dV and dQ kernels take q, k, v and dO: the forward's test
+    applied to dO as well."""
+    return _fwd_route(q, k, v, do)
 
 
 # ------------------------------------------------------ plain versions
@@ -196,6 +213,45 @@ def flash_bwd_reference(q, k, v, out, lse, do, causal: bool):
     return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal), dk, dv
 
 
+def flash_grad_bound(q, k, v, do, lse, delta, causal: bool, ref_dq, ref_dk,
+                     ref_dv) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Element-wise bounds on ``|dq - ref_dq|``, ``|dk - ref_dk|`` and
+    ``|dv - ref_dv|`` (f32, each its gradient's shape) for a bf16 backward
+    of any flash kernel that keeps the Pallas rounding points -- the CUDA
+    kernels, ``_flash_dkv_kernel`` and ``_flash_dq_kernel`` themselves --
+    against the plain versions' ``ref_*`` on the same bf16 q, k, v, dO and
+    the same lse and delta.
+
+    Both compute p = exp(s * scale - lse) and ds = p (dp - delta) in f32,
+    a few f32 ulps apart (the sums run in another order; the tensor-core
+    kernels take ``ex2.approx`` in the log2 domain), and round p (for dV)
+    and ds (for dK, dQ) to bf16 once: a rounding that flips is at most
+    2**-7 of the value. Over dV = sum_q bf16(p) dO, dK = scale sum_q
+    bf16(ds) q and dQ = scale sum_k bf16(ds) k, the two then differ by at
+    most 2**-7 A: A = sum_q p |dO| for dV, scale sum_q |ds|' |q| for dK,
+    scale sum_k |ds|' |k| for dQ. |ds|' = |ds| + 2**-8 p sum_d |dO| |v|
+    adds dp - delta's cancellation: dp is an f32 sum of D exact products
+    taken in another order, within about D 2**-24 sum_d |dO| |v| on each
+    side (2**-17 of it at D = 128), an absolute error of ds that is no
+    share of |ds|. Each output is rounded to bf16 once, a flipped rounding
+    at most 2**-7 |ref|. Hence 2**-7 (|ref| + A), times (1 + 2**-6) for
+    the f32 sums' order and the second-order terms. Rows and keys that
+    admit nothing are bound to 0."""
+    p, ds = _recomputed_p_ds(q, k, v, do, lse, delta, causal)
+    scale = q.shape[-1] ** -0.5
+    ado = do.float().abs()
+    ds = ds.abs() + 2.0 ** -8 * p * torch.einsum(
+        "bqhd,bkhd->bhqk", ado, v.float().abs())
+    a_dv = torch.einsum("bhqk,bqhd->bkhd", p, ado)
+    a_dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()) * scale
+    a_dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()) * scale
+    c = 2.0 ** -7 * (1 + 2.0 ** -6)
+    return (c * (ref_dq.float().abs() + a_dq),
+            c * (ref_dk.float().abs() + a_dk),
+            c * (ref_dv.float().abs() + a_dv))
+
+
 # ------------------------------------------------------------ wrappers
 def _library() -> ctypes.CDLL:
     global _lib
@@ -203,10 +259,12 @@ def _library() -> ctypes.CDLL:
         from ray_lightning_tpu_torch._build import check_routes, load
         lib = load(SOURCE)
         check_routes(lib, "flash_fwd_route_names", FWD_ROUTES)
-        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        check_routes(lib, "flash_bwd_route_names", BWD_ROUTES)
+        # B, H, T, S, D, dtype, causal, scale, route, stream
+        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p]
         ptr, strides = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
-        lib.flash_fwd_launch.argtypes = ([ptr] * 5 + [strides] + tail[:-1]
-                                         + [ctypes.c_int, ctypes.c_void_p])
+        lib.flash_fwd_launch.argtypes = [ptr] * 5 + [strides] + tail
         lib.flash_bwd_dkv_launch.argtypes = [ptr] * 8 + [strides] + tail
         lib.flash_bwd_dq_launch.argtypes = [ptr] * 7 + [strides] + tail
         for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch,
@@ -270,12 +328,15 @@ def _check_rows(x: torch.Tensor, B: int, H: int, T: int, what: str):
         raise ValueError(f"{what} must be contiguous float32 ({B}, {H}, {T})")
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, route: str, fn, *args) -> None:
+    """Launch ``name`` on ``route`` (the route's number is the last
+    argument but the stream); raise if the launch fails."""
     err = fn(*args)
     if err != 0:
         msg = _library().flash_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg}")
+        raise RuntimeError(f"{name} kernel launch ({route}) failed: {msg}")
     _launches[name] += 1
+    _routes[name][route] += 1
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -292,11 +353,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_fwd", lib.flash_fwd_launch, q.data_ptr(),
+        _launch("flash_fwd", route, lib.flash_fwd_launch, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 _rows(q, k, v, out), B, H, T, S, D, DTYPES[q.dtype],
                 int(causal), D ** -0.5, FWD_ROUTES.index(route), stream)
-    _fwd_routes[route] += 1
     return out, lse
 
 
@@ -310,16 +370,18 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool
     B, H, T, S, D = _check(q, k, v, do)
     _check_rows(lse, B, H, T, "lse")
     _check_rows(delta, B, H, T, "delta")
+    route = _bwd_route(q, k, v, do)
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=v.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_bwd_dkv", lib.flash_bwd_dkv_launch, q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                _rows(q, k, v, do, dk, dv), B, H, T, S, D, DTYPES[q.dtype],
-                int(causal), D ** -0.5, stream)
+        _launch("flash_bwd_dkv", route, lib.flash_bwd_dkv_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), _rows(q, k, v, do, dk, dv), B, H, T, S, D,
+                DTYPES[q.dtype], int(causal), D ** -0.5,
+                BWD_ROUTES.index(route), stream)
     return dk, dv
 
 
@@ -331,14 +393,16 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     B, H, T, S, D = _check(q, k, v, do)
     _check_rows(lse, B, H, T, "lse")
     _check_rows(delta, B, H, T, "delta")
+    route = _bwd_route(q, k, v, do)
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_bwd_dq", lib.flash_bwd_dq_launch, q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), _rows(q, k, v, do, dq), B,
-                H, T, S, D, DTYPES[q.dtype], int(causal), D ** -0.5, stream)
+        _launch("flash_bwd_dq", route, lib.flash_bwd_dq_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                _rows(q, k, v, do, dq), B, H, T, S, D, DTYPES[q.dtype],
+                int(causal), D ** -0.5, BWD_ROUTES.index(route), stream)
     return dq
 
 

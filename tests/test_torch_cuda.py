@@ -13,7 +13,7 @@ rounding, one bf16 ulp of an output below 4). Flash attention (K2-K4):
 see :func:`flash_tol`. Fused dequant-matmul (K5): f32 to 1e-5 x max(1,
 max|ref|), bf16 to one bf16 ulp of the largest magnitude, 2**-7 x max(1,
 max|ref|) (the same rounded operands, f32 sums in another order).
-Both bf16 kernels run on the tensor cores and their f32 counterparts on
+Every bf16 kernel runs on the tensor cores and its f32 counterpart on
 the CUDA cores; every test checks which route (``route_launches()``)
 took the call. ``chip_smoke.py`` repeats this at the serving and training
 paths' full shapes.
@@ -133,9 +133,10 @@ def test_serving_runs_through_the_kernel(cuda, kv_dtype):
 
 # ------------------------------------------------------- flash attention
 def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
-              causal: bool):
+              causal: bool, grad_bounds=None):
     """Bound on |kernel - plain| for one output: a number, or a tensor of
-    ref's shape bounding each element.
+    ref's shape bounding each element (``grad_bounds``: bf16 dq, dk, dv's,
+    from ``cf.flash_grad_bound``).
 
     f32: the kernels sum in another order (tiles of 64, an online softmax
     whose running maximum rescales earlier tiles) -- 1e-5 for out and lse,
@@ -144,10 +145,10 @@ def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
     that admit no key are 1e30 in both, exactly). bf16 out, element by
     element: ``cf.flash_out_bound`` -- the kernel rounds the softmax
     weights to bf16 relative to its running maximum and the plain version
-    relative to the final one, and each rounds out once. bf16 gradients:
-    p and ds are rounded before each product and each output once: 2e-2 of
-    max(1, largest magnitude) (one output rounding is at most 2**-8 of it,
-    one flipped rounding 2**-7)."""
+    relative to the final one, and each rounds out once. bf16 gradients,
+    element by element: ``cf.flash_grad_bound`` -- p and ds are rounded
+    to bf16 once before each product (a few f32 ulps apart in kernel and
+    plain version, so a rounding may flip) and each output once."""
     if name == "lse":
         return 1e-5
     top = float(ref.float().abs().max())
@@ -155,7 +156,16 @@ def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
         return 1e-4 * max(top, 1e-30) if grad else 1e-5
     if name == "out":
         return cf.flash_out_bound(q, k, v, causal, ref)
-    return 2e-2 * max(1.0, top)
+    return grad_bounds[name]
+
+
+def _grad_bounds(dtype, q, k, v, do, lse, delta, causal, ref_dq, ref_dk,
+                 ref_dv):
+    """bf16: ``cf.flash_grad_bound`` by gradient name; f32: None."""
+    if dtype != torch.bfloat16:
+        return None
+    return dict(zip(("dq", "dk", "dv"), cf.flash_grad_bound(
+        q, k, v, do, lse, delta, causal, ref_dq, ref_dk, ref_dv)))
 
 
 def _assert_within(got, ref, tol, what):
@@ -194,7 +204,8 @@ FLASH_CASES = {"square": (64, 64, 64), "ragged": (100, 100, 32),
                          ids=list(FLASH_CASES))
 def test_flash_kernels_match_plain(cuda, dtype, causal, T, S, D):
     q, k, v, do = _flash_inputs(2, T, S, 3, D, dtype, cuda)
-    before, routes = cf.kernel_launches(), cf.route_launches()
+    before = cf.kernel_launches()
+    routes = {n: cf.route_launches(n) for n in cf.KERNELS}
     out, lse = cf.flash_fwd(q, k, v, causal)
     delta = cf.flash_delta(out, do)
     dk, dv = cf.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
@@ -202,15 +213,19 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, T, S, D):
     torch.cuda.synchronize()
     after = cf.kernel_launches()
     assert all(after[n] == before[n] + 1 for n in cf.KERNELS)
-    # bf16 views of one fused projection go to the tensor cores
+    # bf16 views of one fused projection (and a contiguous dO) go to the
+    # tensor cores, every kernel
     route = "tc" if dtype == torch.bfloat16 else "simt"
-    routes[route] += 1
-    assert cf.route_launches() == routes
+    for n in cf.KERNELS:
+        routes[n][route] += 1
+        assert cf.route_launches(n) == routes[n], n
     ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
     # the same inputs for both: the kernel's lse and delta
     ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                 causal)
     ref_dq = cf.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    bounds = _grad_bounds(dtype, q, k, v, do, lse, delta, causal, ref_dq,
+                          ref_dk, ref_dv)
     for name, got, ref, grad in (("out", out, ref_out, False),
                                  ("lse", lse, ref_lse, False),
                                  ("dq", dq, ref_dq, True),
@@ -219,7 +234,8 @@ def test_flash_kernels_match_plain(cuda, dtype, causal, T, S, D):
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
         assert bool(torch.isfinite(got).all()), name
         _assert_within(got, ref,
-                       flash_tol(dtype, name, ref, grad, q, k, v, causal),
+                       flash_tol(dtype, name, ref, grad, q, k, v, causal,
+                                 bounds),
                        name)
     if causal and T > S:
         # rows that admit no key: out 0, lse 1e30, no gradient
@@ -255,13 +271,69 @@ def test_flash_misaligned_bf16_views_take_the_simt_route(cuda, causal):
         torch.testing.assert_close(got, ref_lse, rtol=0, atol=1e-5)
 
 
+def test_flash_misaligned_do_takes_the_simt_backward(cuda):
+    """A bf16 dO whose rows start off a 16-byte boundary: both backward
+    kernels go, counted, to the CUDA cores and agree with the plain
+    versions within the element-wise bound; the forward stays on the
+    tensor cores."""
+    q, k, v, _ = _flash_inputs(2, 100, 100, 3, 64, torch.bfloat16, cuda)
+    g = torch.Generator().manual_seed(2)
+    do = torch.randn(2, 100, 3, 65, generator=g).to(torch.bfloat16)
+    do = do.to(cuda)[..., 1:]                        # 2-byte offset
+    assert cf._fwd_route(q, k, v) == "tc"
+    assert cf._bwd_route(q, k, v, do) == "simt"
+    routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+    out, lse = cf.flash_fwd(q, k, v, True)
+    delta = cf.flash_delta(out, do)
+    dk, dv = cf.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    dq = cf.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    for n, route in zip(cf.KERNELS, ("tc", "simt", "simt")):
+        routes[n][route] += 1
+        assert cf.route_launches(n) == routes[n], n
+    ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                True)
+    ref_dq = cf.flash_bwd_dq_reference(q, k, v, do, lse, delta, True)
+    bounds = _grad_bounds(torch.bfloat16, q, k, v, do, lse, delta, True,
+                          ref_dq, ref_dk, ref_dv)
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        _assert_within(got, ref, bounds[name], name)
+
+
+def test_flash_tc_launch_that_fails_raises(cuda, monkeypatch):
+    """The C side launches the route it is given or refuses: f32 named
+    onto the tensor-core route raises, and nothing is counted."""
+    q, k, v, do = _flash_inputs(1, 64, 64, 2, 64, torch.float32, cuda)
+    out, lse = cf.flash_fwd(q, k, v, True)
+    delta = cf.flash_delta(out, do)
+    monkeypatch.setattr(cf, "_fwd_route", lambda *a: "tc")
+    monkeypatch.setattr(cf, "_bwd_route", lambda *a: "tc")
+    before = cf.kernel_launches()
+    routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+    with pytest.raises(RuntimeError, match=r"flash_fwd kernel launch \(tc\)"):
+        cf.flash_fwd(q, k, v, True)
+    with pytest.raises(RuntimeError, match=r"flash_bwd_dkv kernel launch"):
+        cf.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    with pytest.raises(RuntimeError, match=r"flash_bwd_dq kernel launch"):
+        cf.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    assert cf.kernel_launches() == before
+    assert {n: cf.route_launches(n) for n in cf.KERNELS} == routes
+
+
 def test_flash_tc_repeats_bitwise(cuda):
-    """No atomics and a fixed order of sums: two calls of the tensor-core
-    forward give the same bits."""
-    q, k, v, _ = _flash_inputs(2, 300, 300, 3, 64, torch.bfloat16, cuda)
+    """No atomics and a fixed order of sums: two calls of each
+    tensor-core kernel give the same bits."""
+    q, k, v, do = _flash_inputs(2, 300, 300, 3, 64, torch.bfloat16, cuda)
     out1, lse1 = cf.flash_fwd(q, k, v, True)
     out2, lse2 = cf.flash_fwd(q, k, v, True)
     assert torch.equal(out1, out2) and torch.equal(lse1, lse2)
+    delta = cf.flash_delta(out1, do)
+    assert cf._bwd_route(q, k, v, do) == "tc"
+    grads = [(*cf.flash_bwd_dkv(q, k, v, do, lse1, delta, True),
+              cf.flash_bwd_dq(q, k, v, do, lse1, delta, True))
+             for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 def test_flash_cuda_tensors_never_reach_the_plain_versions(cuda,
@@ -308,8 +380,10 @@ def test_training_runs_through_the_flash_kernels(cuda):
     assert cf.kernel_launches() == {"flash_fwd": n * 8,
                                     "flash_bwd_dkv": n * 6,
                                     "flash_bwd_dq": n * 6}
-    # bf16 compute: every forward on the tensor cores
+    # bf16 compute: every forward and backward on the tensor cores
     assert cf.route_launches() == {"simt": 0, "tc": n * 8}
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        assert cf.route_launches(name) == {"simt": 0, "tc": n * 6}
     assert np.isfinite(trainer.callback_metrics["val_loss"])
 
 

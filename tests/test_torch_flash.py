@@ -11,7 +11,11 @@ through the JAX function and its counterpart, in f32 on the CPU:
   ``jax.grad`` of ``pallas_flash_attention(..., interpret=True)``;
 - the blockwise ``use_kernel=False`` path against the JAX XLA path
   (``flash_attention(use_pallas=False)``), output and gradients;
-- a mask falls back to ``dot_product_attention``.
+- a mask falls back to ``dot_product_attention``;
+- in bf16, the element-wise bounds the CUDA kernels are held to on the
+  card: ``flash_out_bound`` (the forward) and ``flash_grad_bound`` (the
+  backward) hold the Pallas kernels in interpret mode, and a gradient
+  with one tile's contribution dropped falls outside the latter.
 
 The CUDA kernels themselves are held against these plain versions on the
 card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -105,6 +109,96 @@ def test_bf16_out_within_the_element_wise_bound(causal, T, S, block):
                 blockwise.float()):
         assert bool(((got - out.float()).abs() <= bound).all())
     _close(lse, np.array(jlse)[:, :, :T, 0], "lse")
+
+
+def _bf16_backward(T, S, causal, block, seed=7):
+    """bf16 q, k, v, dO through the Pallas forward and backward (interpret
+    mode); returns the torch inputs, the Pallas gradients as f32 tensors,
+    and the plain versions' gradients on the same lse and delta (delta as
+    ``_flash_bwd_impl`` computes it)."""
+    q, k, v, do = (jnp.asarray(x).astype(jnp.bfloat16)
+                   for x in _inputs(T, S, seed=seed))
+    jout, jlse = _flash_fwd_impl(q, k, v, causal, block, block, True)
+    grads = _flash_bwd_impl(q, k, v, jout, jlse, do, causal, block, block,
+                            True)
+    delta = jnp.sum(do.astype(jnp.float32) * jout.astype(jnp.float32),
+                    axis=-1).transpose(0, 2, 1)
+
+    def t(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32)))
+
+    tq, tk, tv, tdo = (t(x).to(torch.bfloat16) for x in (q, k, v, do))
+    lse = torch.from_numpy(np.array(jlse)[:, :, :T, 0])
+    delta = torch.from_numpy(np.array(delta))
+    rdk, rdv = cf.flash_bwd_dkv_reference(tq, tk, tv, tdo, lse, delta, causal)
+    rdq = cf.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, causal)
+    return ((tq, tk, tv, tdo, lse, delta), [t(g) for g in grads],
+            (rdq, rdk, rdv))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("T,S,block", PALLAS_SHAPES, ids=lambda x: str(x))
+def test_bf16_grads_within_the_element_wise_bound(causal, T, S, block):
+    """bf16: ``_flash_dkv_kernel`` and ``_flash_dq_kernel`` (interpret
+    mode) keep the rounding points ``flash_grad_bound`` is derived from;
+    their dq, dk and dv agree with the plain versions on the same lse and
+    delta within it, element by element."""
+    args, pallas, refs = _bf16_backward(T, S, causal, block)
+    bounds = cf.flash_grad_bound(*args, causal, *refs)
+    for name, got, ref, bound in zip(("dq", "dk", "dv"), pallas, refs,
+                                     bounds):
+        assert got.shape == ref.shape == bound.shape, name
+        assert bool(((got - ref.float()).abs() <= bound).all()), name
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("T,S,block", PALLAS_SHAPES, ids=lambda x: str(x))
+def test_bf16_blockwise_dv_within_the_element_wise_bound(causal, T, S,
+                                                         block):
+    """The blockwise path differentiated by autograd in bf16: its dv
+    (p rounded once in the forward's P.V, the transposed product summed)
+    stays within ``flash_grad_bound``. Its dq and dk are not held to it:
+    autograd rounds dP to bf16 before ds = p (dP - delta), a rounding
+    point the Pallas kernels do not have, whose cancellation the bound
+    does not cover."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in _inputs(T, S, seed=7))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    flash_attention(*leaves, causal=causal, block_q=block, block_k=block,
+                    use_kernel=False).backward(do)
+    out, lse = cf.flash_fwd_reference(q, k, v, causal)
+    delta = cf.flash_delta(out, do)
+    refs = cf.flash_bwd_reference(q, k, v, out, lse, do, causal)
+    bound = cf.flash_grad_bound(q, k, v, do, lse, delta, causal, *refs)[2]
+    assert bool(((leaves[2].grad.float() - refs[2].float()).abs()
+                 <= bound).all())
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_grad_bound_catches_a_dropped_tile(causal):
+    """A backward that misses one tile -- q rows [32, 64) in dK/dV, keys
+    [32, 64) in dQ -- falls outside ``flash_grad_bound``."""
+    T = S = 96
+    args, _, refs = _bf16_backward(T, S, causal, 32)
+    q, k, v, do, lse, delta = args
+    p, ds = cf._recomputed_p_ds(q, k, v, do, lse, delta, causal)
+    scale = q.shape[-1] ** -0.5
+    rows, keys = p.clone(), ds.clone()
+    rows[:, :, 32:64], keys[:, :, :, 32:64] = 0.0, 0.0
+    ds_rows = ds.clone()
+    ds_rows[:, :, 32:64] = 0.0
+    dropped = (
+        torch.einsum("bhqk,bkhd->bqhd", keys.to(torch.bfloat16).float(),
+                     k.float()) * scale,
+        torch.einsum("bhqk,bqhd->bkhd", ds_rows.to(torch.bfloat16).float(),
+                     q.float()) * scale,
+        torch.einsum("bhqk,bqhd->bkhd", rows.to(torch.bfloat16).float(),
+                     do.float()))
+    bounds = cf.flash_grad_bound(*args, causal, *refs)
+    for name, got, ref, bound in zip(("dq", "dk", "dv"), dropped, refs,
+                                     bounds):
+        got = got.to(torch.bfloat16).float()
+        assert bool(((got - ref.float()).abs() > bound).any()), name
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])

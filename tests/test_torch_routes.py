@@ -1,10 +1,11 @@
 """Which kernel takes a call: the wrappers' route functions, on the CPU.
 
-The port's K5 (``models/quantized_matmul.py``) and K2
+The port's K5 (``models/quantized_matmul.py``) and K2-K4
 (``ops/cuda_flash.py``) each have more than one CUDA kernel, and the
-wrapper -- not the C side -- decides which one runs: ``_route`` and
-``_fwd_route`` are pure functions of shapes, dtypes, addresses and
-strides, so the decision is tested here without a card. The C side
+wrapper -- not the C side -- decides which one runs: ``_route``,
+``_fwd_route`` and ``_bwd_route`` are pure functions of shapes,
+dtypes, addresses and strides, so the decision is tested here without a
+card. The C side
 launches the route it is given or refuses, and names its routes in its
 numbering for the wrapper to check when it loads the library;
 ``tests/test_torch_cuda.py`` checks on the card that each call was
@@ -76,23 +77,29 @@ def test_gemv_edges_and_the_rest(M, N, K, bits, transpose, gemv):
 # its numbering, and the wrapper's own numbering
 WRAPPERS = {"quantized_matmul": (qmm, "quantized_matmul_route_names",
                                  qmm.ROUTES),
-            "flash_attention": (cf, "flash_fwd_route_names", cf.FWD_ROUTES)}
+            "flash_attention": (cf, "flash_fwd_route_names", cf.FWD_ROUTES),
+            "flash_attention_bwd": (cf, "flash_bwd_route_names",
+                                    cf.BWD_ROUTES)}
 
 
 @pytest.mark.parametrize("which", list(WRAPPERS))
 def test_routes_name_the_c_sides_numbering(which, monkeypatch):
     """A wrapper passes a route as its index in its own tuple; it loads a
     library whose route names come in that order and refuses one that
-    numbers them otherwise."""
+    numbers them otherwise (the module's other route lists numbered
+    right)."""
     module, symbol, routes = WRAPPERS[which]
 
-    def library(names):
+    def library(wrong):
+        names = {sym: r[::-1] if wrong and sym == symbol else r
+                 for mod, sym, r in WRAPPERS.values() if mod is module}
         return types.SimpleNamespace(
-            **{symbol: lambda: ",".join(names).encode()})
+            **{sym: (lambda n=n: ",".join(n).encode())
+               for sym, n in names.items()})
 
-    _build.check_routes(library(routes), symbol, routes)
+    _build.check_routes(library(False), symbol, routes)
     monkeypatch.setattr(module, "_lib", None)
-    monkeypatch.setattr(_build, "load", lambda name: library(routes[::-1]))
+    monkeypatch.setattr(_build, "load", lambda name: library(True))
     with pytest.raises(RuntimeError, match="numbers its routes"):
         module._library()
 
@@ -106,8 +113,13 @@ def test_cpu_calls_launch_nothing():
     assert set(qmm.route_launches().values()) == {0}
     cf.reset_kernel_launches()
     q = torch.randn(1, 16, 2, 32).to(BF16)
-    cf.flash_fwd(q, q, q, True)
+    out, lse = cf.flash_fwd(q, q, q, True)
+    delta = cf.flash_delta(out, q)
+    cf.flash_bwd_dkv(q, q, q, q, lse, delta, True)
+    cf.flash_bwd_dq(q, q, q, q, lse, delta, True)
     assert cf.route_launches() == {"simt": 0, "tc": 0}
+    for name in cf.KERNELS:
+        assert cf.route_launches(name) == {"simt": 0, "tc": 0}
 
 
 def _fused(B, T, H, D, dtype, pad=0, offset=0):
@@ -127,6 +139,17 @@ def test_flash_fused_qkv_views_take_the_tensor_cores(D):
     assert cf._fwd_route(*(x.float() for x in (q, k, v))) == "simt"
 
 
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_backward_takes_the_tensor_cores_in_bf16(D):
+    """The training path's backward: the fused views and autograd's
+    contiguous dO go to the tensor-core dK/dV and dQ kernels; f32 to the
+    CUDA-core ones."""
+    q, k, v = _fused(2, 100, 12, D, BF16)
+    do = torch.zeros(2, 100, 12, D, dtype=BF16)
+    assert cf._bwd_route(q, k, v, do) == "tc"
+    assert cf._bwd_route(*(x.float() for x in (q, k, v, do))) == "simt"
+
+
 @pytest.mark.parametrize("pad,offset", [(1, 1), (2, 0), (8, 4), (4, 1)])
 def test_flash_misaligned_views_take_the_simt_route(pad, offset):
     """Rows that do not start on 16-byte boundaries, or strides that are
@@ -141,3 +164,14 @@ def test_flash_one_misaligned_operand_is_enough():
     assert cf._fwd_route(q, k, v) == "tc"
     for args in ((odd, k, v), (q, odd, v), (q, k, odd)):
         assert cf._fwd_route(*args) == "simt"
+
+
+@pytest.mark.parametrize("pad,offset", [(1, 1), (2, 0), (8, 4), (4, 1)])
+def test_flash_misaligned_do_takes_the_simt_backward(pad, offset):
+    """Aligned q, k, v with a dO whose rows do not allow 16-byte copies:
+    the backward goes (counted) to the CUDA-core kernels; the forward,
+    which never reads dO, stays on the tensor cores."""
+    q, k, v = _fused(2, 64, 3, 64, BF16)
+    do = torch.zeros(2, 64, 3, 64 + pad, dtype=BF16)[..., offset:offset + 64]
+    assert cf._fwd_route(q, k, v) == "tc"
+    assert cf._bwd_route(q, k, v, do) == "simt"

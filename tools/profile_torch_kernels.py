@@ -1,4 +1,4 @@
-"""Time the port's K2 and K5 kernels at the main paths' shapes, for one checkout.
+"""Time the port's K2-K5 kernels at the main paths' shapes, for one checkout.
 
     python3 tools/profile_torch_kernels.py [--tree DIR]
 
@@ -7,8 +7,10 @@ Needs one NVIDIA GPU. Imports ``ray_lightning_tpu_torch`` from ``--tree``
 ``chip_smoke.py``'s cold-L2 timing (median of 50 launches, a 256 MB
 memset and a device spin before each):
 
-- K2, the flash forward, at the training path's shapes: bf16, B=8,
-  T=S=1024, H=12, D=64, causal, q/k/v views of fused projections;
+- K2, the flash forward, and K3 (dK/dV) and K4 (dQ), the flash
+  backward, at the training path's shapes: bf16, B=8, T=S=1024, H=12,
+  D=64, causal, q/k/v views of fused projections, dO and the forward's
+  lse and delta;
 - K5 at prefill: one forward's 49 calls at M=1024 (12 x qkv, out, up,
   down and the tied head) with bf16 x, int8 and int4 codes, summed.
 
@@ -62,11 +64,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device="cuda")
 
-    q, k, v, _ = cs.flash_inputs(torch.bfloat16, 8, 1024, 1024)
+    q, k, v, do = cs.flash_inputs(torch.bfloat16, 8, 1024, 1024)
+    o, lse = cf.flash_fwd(q, k, v, True)
+    delta = cf.flash_delta(o, do)
     out = dict(card=cs.card_line(), tree=tree,
                k2_path_ms=cs.time_ms(lambda: cf.flash_fwd(q, k, v, True),
-                                     flush))
-    del q, k, v
+                                     flush),
+               k3_path_ms=cs.time_ms(lambda: cf.flash_bwd_dkv(
+                   q, k, v, do, lse, delta, True), flush),
+               k4_path_ms=cs.time_ms(lambda: cf.flash_bwd_dq(
+                   q, k, v, do, lse, delta, True), flush))
+    del q, k, v, do, o, lse, delta
     gen = torch.Generator(device="cuda").manual_seed(0)
     for weight_dtype in ("int8", "int4"):
         total = 0.0

@@ -11,7 +11,8 @@ host clock alone (synchronized at both ends), then ``--steps`` more under
 card, the host ms per step, the device's busy ms per step (sum of kernel
 times in the profile), the device's idle share (1 - busy / host ms of the
 unprofiled window), kernel launches per step, the flash-attention kernels'
-device ms per step (all, and the forward's alone) and launches by kernel,
+device ms per step (all, the forward's and the backward's) and launches by
+kernel,
 and the kernels that take the most device time.
 """
 import argparse
@@ -79,7 +80,8 @@ def main() -> int:
                and not getattr(a, "is_user_annotation", False)]
     busy_us = sum(a.self_device_time_total for a in kernels)
     # the flash kernels by their source names (flash_fwd_tc_kernel,
-    # flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel)
+    # flash_fwd_kernel, flash_bwd_dkv_tc_kernel, flash_bwd_dkv_kernel,
+    # flash_bwd_dq_tc_kernel, flash_bwd_dq_kernel)
     flash = [a for a in kernels if re.search(r"flash_\w*_kernel", a.key)]
     flash_us = sum(a.self_device_time_total for a in flash)
     fwd_us = sum(a.self_device_time_total for a in flash
@@ -105,6 +107,8 @@ def main() -> int:
         flash_share_of_busy=(flash_us / busy_us if measured
                              else "not measured"),
         flash_fwd_ms_per_step=(fwd_us / 1e3 / n if measured
+                               else "not measured"),
+        flash_bwd_ms_per_step=((flash_us - fwd_us) / 1e3 / n if measured
                                else "not measured"),
         flash_launches_per_step=flash_launches,
         top_kernels=[dict(name=a.key[:90], ms_per_step=(
