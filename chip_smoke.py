@@ -15,10 +15,12 @@ without printing its result line:
    page_size 16, pages_per_slot 64, ragged positions 0..1000, unmapped −1
    page-table entries, one row with every key masked): f32, bf16 and int8
    pages, T=1 and T=4. Prints each case's max abs error against its
-   stated bound, the kernel's time, the plain version's time, the time of
-   one PyTorch library call of the same function, and the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak rate
-   of their type, whichever is larger).
+   stated bound, the kernel's launch geometry (grid, cluster size,
+   shared memory, clusters the card holds at once), the kernel's time, the
+   plain version's time, the time of one PyTorch library call of the same
+   function, and the least time the card could take (bytes over 3.35 TB/s
+   or operations over the peak rate of their type, whichever is larger).
+   A second call of each case must give the same bits.
 T1. The flash-attention kernels (K2 forward, K3 dK/dV, K4 dQ -- each on
    the tensor cores in bf16 and the CUDA cores in f32, every call's route
    checked) against their plain versions at the training path's shapes
@@ -47,7 +49,10 @@ Q1. The fused dequant-matmul kernel (K5) against its plain PyTorch
    3072 -> 768, and the tied head 768 -> 50257, transposed) at M=8 (a
    decode step) and M=1024 (a prefill dispatch), int8 and int4 codes
    (group 64), bf16 and f32 x, plus a ragged M=7; bounds f32 1e-5 and
-   bf16 2**-7 of max(1, max|ref|). Each path case prints its cold-L2
+   bf16 2**-7 of max(1, max|ref|); a second call of each case must give
+   the same bits, and each M=8 case prints its GEMV's launch geometry
+   (grid, cluster size that splits K, columns a block, bytes per code
+   load, clusters the card holds at once). Each path case prints its cold-L2
    time, its bound and what bounds it, the plain version's time and the
    time of ``torch.matmul`` by the weight already dequantized to x's dtype
    (cuBLAS, no dequant in the timed call). M=8 runs the decode GEMVs,
@@ -271,7 +276,11 @@ def phase1_kernel_vs_plain(flush):
             for T in (1, 4):
                 args = attention_inputs(dtype, quantized, T, gen)
                 out = pa.paged_attention(*args)
+                again = pa.paged_attention(*args)
                 torch.cuda.synchronize()
+                check(torch.equal(out, again),
+                      "K1: a second call must give the same bits")
+                geometry = pa.launch_geometry(args[0], args[1], args[6])
                 ref = pa.paged_attention_reference(*args)
                 check(out.shape == ref.shape and out.dtype == ref.dtype,
                       f"kernel output {out.shape} {out.dtype}")
@@ -284,7 +293,7 @@ def phase1_kernel_vs_plain(flush):
                 row = dict(
                     q=str(dtype).split(".")[-1],
                     pages="int8" if quantized else str(dtype).split(".")[-1],
-                    T=T, max_abs_err=err, tol=tol,
+                    T=T, geometry=geometry, max_abs_err=err, tol=tol,
                     ms=time_ms(lambda: pa.paged_attention(*args), flush),
                     plain_ms=time_ms(
                         lambda: pa.paged_attention_reference(*args), flush),
@@ -556,7 +565,10 @@ def phase_q1_matmul_vs_plain(flush):
                     x = torch.randn(M, K, generator=gen,
                                     device=DEVICE).to(dtype)
                     out = qmm.quantized_matmul(x, qt, transpose)
+                    again = qmm.quantized_matmul(x, qt, transpose)
                     torch.cuda.synchronize()
+                    check(torch.equal(out, again),
+                          "K5: a second call must give the same bits")
                     ref = qmm.quantized_matmul_reference(x, qt, transpose)
                     check(out.shape == ref.shape and out.dtype == ref.dtype,
                           f"K5 output {out.shape} {out.dtype}")
@@ -568,6 +580,9 @@ def phase_q1_matmul_vs_plain(flush):
                     row = dict(proj=label, weights=weight_dtype,
                                x=str(dtype).split(".")[-1], M=M, K=K, N=N,
                                max_abs_err=err, tol=tol)
+                    if M == 8:      # a decode step: the GEMVs' launch
+                        row["geometry"] = qmm.launch_geometry(x, qt,
+                                                              transpose)
                     if M != 7:      # the ragged case is checked, not timed
                         bound_ms, bound_by = matmul_bound(x, qt, N)
                         row.update(

@@ -31,7 +31,8 @@ import torch
 from ray_lightning_tpu_torch.models.quant import kv_dequantize
 
 __all__ = ["paged_attention", "paged_attention_reference",
-           "kernel_launches", "reset_kernel_launches"]
+           "kernel_launches", "reset_kernel_launches", "cluster_size",
+           "smem_bytes", "launch_geometry"]
 
 _BIG_NEG = torch.finfo(torch.float32).min
 KERNEL = "paged_attention"
@@ -39,7 +40,10 @@ HEAD_DIMS = (32, 64, 128)
 MAX_T = 8
 # shared memory one thread block may use on Hopper (dynamic, opted in)
 _MAX_SMEM = 232448
-_WARPS = 8          # warps per thread block (kWarps in the .cu)
+_WARPS = 4          # warps per thread block (kWarps in the .cu)
+MAX_CLUSTER = 8     # blocks per (row, head): the portable cluster size
+_KEYS_PER_BLOCK = 64   # a full row gives each block at least this many keys
+_CHUNK_BYTES = 16384   # most bytes of K (or of V) a block stages at once
 
 _launches = 0
 _lib: Optional[ctypes.CDLL] = None
@@ -135,15 +139,45 @@ def _check(q, k_pages, v_pages, k_scales, v_scales, kv_positions,
             or page_table.shape[0] != B:
         raise ValueError(f"page_table must be int32 ({B}, pages_per_slot)")
     pp = page_table.shape[1]
-    # scores (T, pp*ps) f32, per-warp partial outputs (warps, T, D) f32,
-    # reduction scratch, positions and the row's page ids
-    smem = 4 * (T * pp * ps + _WARPS * T * D + _WARPS + T + pp)
+    cluster = cluster_size(pp * ps)
+    smem = smem_bytes(T, D, pp * ps, pp, cluster, k_pages.element_size(),
+                      quantized)
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"T * pages_per_slot * page_size = {T * pp * ps} scores need "
-            f"{smem} bytes of shared memory, over the {_MAX_SMEM} a block "
-            "may use")
+            f"T * ceil(pages_per_slot * page_size / {cluster}) = "
+            f"{T * -(-pp * ps // cluster)} scores a block need {smem} bytes "
+            f"of shared memory, over the {_MAX_SMEM} a block may use")
     return quantized
+
+
+def cluster_size(S: int) -> int:
+    """Blocks of the thread-block cluster that shares one (row, head): the
+    largest power of two up to :data:`MAX_CLUSTER` that leaves each block
+    at least 64 of the S = pages_per_slot * page_size keys (1 below 128
+    keys). The kernel splits each row's admitted keys, not S, into that
+    many equal shares."""
+    cs = 1
+    while cs < MAX_CLUSTER and 2 * cs * _KEYS_PER_BLOCK <= S:
+        cs *= 2
+    return cs
+
+
+def smem_bytes(T: int, D: int, S: int, pp: int, cluster: int,
+               page_bytes: int = 2, quantized: bool = False) -> int:
+    """Dynamic shared memory of one block (``smem_words`` in the .cu): a
+    chunk of its keys' K (then V) rows (all of its ceil(S / cluster) keys,
+    or 16 KB; ``page_bytes`` a page element) and their int8 page scales,
+    its scores (T, ceil(S / cluster)) f32, the warps' partial outputs
+    (warps, T, D) and every block's (MAX_CLUSTER, T, D) f32 (rank 0 adds
+    them), every block's (max, sum) pair and the reduction scratch of up
+    to 8 queries, positions and the row's page ids."""
+    kb_max = -(-S // cluster)
+    row_bytes = D * page_bytes
+    chunk = min(kb_max, _CHUNK_BYTES // row_bytes)
+    words = (chunk * (row_bytes // 4 + (1 if quantized else 0))
+             + T * kb_max + (_WARPS + MAX_CLUSTER) * T * D
+             + 2 * MAX_CLUSTER * MAX_T + 2 * _WARPS * MAX_T + MAX_T + pp)
+    return 4 * words
 
 
 def _library() -> ctypes.CDLL:
@@ -152,9 +186,12 @@ def _library() -> ctypes.CDLL:
         from ray_lightning_tpu_torch._build import load
         lib = load(KERNEL)
         lib.paged_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
             + [ctypes.c_float, ctypes.c_void_p])
         lib.paged_attention_launch.restype = ctypes.c_int
+        lib.paged_attention_geometry.argtypes = (
+            [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)])
+        lib.paged_attention_geometry.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -216,10 +253,33 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             kv_positions.data_ptr(), page_table.data_ptr(), out.data_ptr(),
             B, T, H, D, P, ps, page_table.shape[1],
             0 if q.dtype == torch.float32 else 1, int(quantized),
-            D ** -0.5, stream)
+            cluster_size(ps * page_table.shape[1]), D ** -0.5, stream)
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: {msg}")
     global _launches
     _launches += 1
     return out
+
+
+def launch_geometry(q: torch.Tensor, k_pages: torch.Tensor,
+                    page_table: torch.Tensor) -> dict:
+    """The launch :func:`paged_attention` makes for these shapes and
+    dtypes: grid, cluster size, threads and dynamic shared memory a block,
+    and how many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). Needs the card; launches
+    nothing."""
+    B, T, H, D = q.shape
+    P, ps = k_pages.shape[0], k_pages.shape[1]
+    pp = page_table.shape[1]
+    out = (ctypes.c_int * 5)()
+    lib = _library()
+    with torch.cuda.device(q.device):
+        err = lib.paged_attention_geometry(
+            B, T, H, D, P, ps, pp, 0 if q.dtype == torch.float32 else 1,
+            int(k_pages.dtype == torch.int8), cluster_size(ps * pp), out)
+    if err != 0:
+        msg = lib.paged_attention_error_string(err).decode()
+        raise RuntimeError(f"paged_attention geometry query failed: {msg}")
+    return dict(zip(("grid", "cluster", "threads", "smem_bytes",
+                     "max_active_clusters"), list(out)))

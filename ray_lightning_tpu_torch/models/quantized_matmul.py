@@ -37,7 +37,7 @@ from ray_lightning_tpu_torch.models.quant import QTensor, matmul_view
 
 __all__ = ["quantized_matmul", "quantized_matmul_reference",
            "kernel_launches", "route_launches", "reset_kernel_launches",
-           "KERNEL", "ROUTES"]
+           "launch_geometry", "KERNEL", "ROUTES"]
 
 KERNEL = "quantized_matmul"
 #: the source's kernels, in the C side's route numbering
@@ -106,6 +106,10 @@ def _library() -> ctypes.CDLL:
         lib.quantized_matmul_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.quantized_matmul_launch.restype = ctypes.c_int
+        lib.quantized_matmul_geometry.argtypes = (
+            [ctypes.c_void_p] + [ctypes.c_int] * 8
+            + [ctypes.POINTER(ctypes.c_int)])
+        lib.quantized_matmul_geometry.restype = ctypes.c_int
         lib.quantized_matmul_error_string.argtypes = [ctypes.c_int]
         lib.quantized_matmul_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -170,3 +174,37 @@ def quantized_matmul(x: torch.Tensor, qt: QTensor,
                            f"{msg}")
     _launches[route] += 1
     return out
+
+
+def launch_geometry(x: torch.Tensor, qt: QTensor,
+                    transpose: bool = False) -> Dict[str, int]:
+    """How the decode GEMV that :func:`quantized_matmul` routes this call
+    to is launched: grid, cluster size (gemv_dense splits K over the
+    blocks of a cluster), threads a block, output columns a block (dense:
+    a cluster), bytes per code load (dense: per asynchronous copy), K rows
+    a block, how many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``), and whether the products run on
+    the tensor cores (gemv_dense with bf16 x).
+    Needs the card; launches nothing; raises for a call no GEMV takes."""
+    codes, _, K, N = matmul_view(qt, transpose)
+    M = x.numel() // K
+    route = _route(M, N, K, qt.bits, transpose, x.dtype)
+    if route not in ("gemv_dense", "gemv_attend"):
+        raise ValueError(f"({M}, {K}) x ({K}, {N}) takes route {route}, "
+                         "not a GEMV")
+    out = (ctypes.c_int * 9)()
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.quantized_matmul_geometry(
+            codes.data_ptr(), M, N, K, qt.bits, int(transpose),
+            qt.group_size or 0, 0 if x.dtype == torch.float32 else 1,
+            ROUTES.index(route), out)
+    if err != 0:
+        msg = lib.quantized_matmul_error_string(err).decode()
+        raise RuntimeError(f"quantized_matmul geometry query failed "
+                           f"({route}): {msg}")
+    geometry = dict(zip(
+        ("grid_x", "grid_y", "cluster", "threads", "cols", "load_bytes",
+         "k_rows", "max_active_clusters", "tensor_cores"), list(out)))
+    geometry["tensor_cores"] = bool(geometry["tensor_cores"])
+    return dict(route=route, **geometry)

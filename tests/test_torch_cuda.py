@@ -15,8 +15,13 @@ max|ref|), bf16 to one bf16 ulp of the largest magnitude, 2**-7 x max(1,
 max|ref|) (the same rounded operands, f32 sums in another order).
 Every bf16 kernel runs on the tensor cores and its f32 counterpart on
 the CUDA cores; every test checks which route (``route_launches()``)
-took the call. ``chip_smoke.py`` repeats this at the serving and training
-paths' full shapes.
+took the call. The decode kernels split their work over thread-block
+clusters (paged attention: the keys of a (row, head); the dense GEMV: K):
+they are held at cluster sizes 4 and 8, at GPT-2-small's projections and
+M of 1 to 16, at the longest rows the wrapper admits, for bitwise
+repeatability, for a launch geometry that fills the card, and for a CUDA
+graph replay equal to the eager call. ``chip_smoke.py`` repeats this at
+the serving and training paths' full shapes.
 """
 import numpy as np
 import pytest
@@ -102,6 +107,124 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         pa.paged_attention(q[..., :16].contiguous(),
                            kp[..., :16].contiguous(),
                            vp[..., :16].contiguous(), None, None, pos, pt)
+
+
+def _cluster_inputs(dtype, quantized, T, D, ps, pp, B=6, H=3, seed=0):
+    """Rows that split over a cluster of blocks: row 0 admits only its
+    first T positions (one key for T=1), row 1 every position of the
+    slot (the longest S), rows 2.. ragged, the last row nothing."""
+    g = torch.Generator().manual_seed(seed)
+    P = B * pp
+    S = pp * ps
+    q = torch.randn(B, T, H, D, generator=g).to(dtype)
+    kp = torch.randn(P, ps, H, D, generator=g)
+    vp = torch.randn(P, ps, H, D, generator=g)
+    ks = vs = None
+    if quantized:
+        ks, vs = kv_scales(kp, (1, 3)), kv_scales(vp, (1, 3))
+        kp, vp = kv_quantize(kp, ks), kv_quantize(vp, vs)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    start = np.linspace(0, S - T, B).astype(np.int32)
+    start[0], start[1] = 0, S - T
+    pos = torch.from_numpy(start[:, None] + np.arange(T, dtype=np.int32))
+    pos[-1] = -1
+    pt = torch.full((B, pp), -1, dtype=torch.int32)
+    perm = torch.randperm(P, generator=g).to(torch.int32)
+    for b in range(B - 1):
+        n = int(pos[b].max()) // ps + 1
+        pt[b, :n] = perm[b * pp:b * pp + n]
+    return q, kp, vp, ks, vs, pos, pt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["same", "int8"])
+@pytest.mark.parametrize("T", [1, 4, 8])
+@pytest.mark.parametrize("D,ps,pp", [(32, 16, 40), (64, 16, 64),
+                                     (128, 8, 33)])
+def test_kernel_clusters_match_plain(cuda, dtype, quantized, T, D, ps, pp):
+    """Rows split over clusters of 4 or 8 blocks (S = 640, 1024, 264):
+    one-key rows, full rows, ragged rows and an all-masked row, within the
+    tolerance; a second call gives the same bits."""
+    args = [None if a is None else a.to(cuda)
+            for a in _cluster_inputs(dtype, quantized, T, D, ps, pp)]
+    assert pa.cluster_size(ps * pp) in (4, 8)
+    before = pa.kernel_launches()
+    out = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.kernel_launches() == before + 2
+    assert torch.equal(out, again)
+    ref = pa.paged_attention_reference(*args)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert torch.count_nonzero(out[-1]) == 0
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_at_the_longest_rows_it_admits(cuda, dtype):
+    """T = 8, D = 128: the most pages per slot whose scores fit one
+    block's shared memory (one page more is refused), with a row at its
+    last position."""
+    T, D, ps, H = 8, 128, 16, 1
+    pp = 1
+    while pa.smem_bytes(T, D, (pp + 1) * ps, pp + 1,
+                        pa.cluster_size((pp + 1) * ps),
+                        4 if dtype == torch.float32 else 2) <= pa._MAX_SMEM:
+        pp += 1
+    args = [None if a is None else a.to(cuda)
+            for a in _cluster_inputs(dtype, False, T, D, ps, pp, B=3, H=H)]
+    out = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+    q, kp, vp, ks, vs, pos, pt = args
+    wide = torch.full((3, pp + 1), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.paged_attention(q, kp, vp, ks, vs, pos, wide)
+
+
+def test_kernel_geometry_fills_the_card(cuda):
+    """Phase 1's bf16 T=1 shape: clusters of 8 blocks, every cluster of
+    the grid resident at once."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    q = torch.zeros(8, 1, 12, 64, dtype=torch.bfloat16, device=cuda)
+    kp = torch.zeros(512, 16, 12, 64, dtype=torch.bfloat16, device=cuda)
+    pt = torch.zeros(8, 64, dtype=torch.int32, device=cuda)
+    geo = pa.launch_geometry(q, kp, pt)
+    assert geo["cluster"] == 8 and geo["grid"] == 8 * 12 * 8
+    assert geo["grid"] >= sms
+    assert geo["max_active_clusters"] * 8 >= sms
+
+
+def _graph_replays_equal_eager(fn):
+    """Capture one call of ``fn`` in a CUDA graph; its replay equals the
+    eager call bit for bit."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_kernel_replays_in_a_cuda_graph(cuda, quantized):
+    args = [None if a is None else a.to(cuda)
+            for a in _cluster_inputs(torch.bfloat16, quantized, 1, 64, 16,
+                                     64)]
+    _graph_replays_equal_eager(lambda: pa.paged_attention(*args))
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
@@ -395,12 +518,15 @@ def test_training_runs_through_the_flash_kernels(cuda):
 # codes over groups. At M <= 16 the first kind of each orientation runs
 # the GEMVs; N % 4 != 0 (dense) and K % 4 or K % 8 != 0 (int8 or int4,
 # transposed) run the tiled kernel there, as every case does at M = 40.
+# int4 (200, 100): code rows of 50 bytes, too ragged for any asynchronous
+# copy, so the dense GEMV loads its tiles element by element.
 QMM_CASES = [(8, (200, 3, 2, 16), False, None), (4, (200, 3, 2, 16), False, 8),
              (4, (200, 96), False, 2), (8, (1100, 128), False, None),
              (8, (200, 257), False, None), (4, (200, 198), False, 2),
              (8, (257, 200), True, None), (4, (257, 200), True, 8),
              (8, (64, 1100), True, None), (4, (64, 1104), True, 8),
-             (8, (257, 198), True, None), (4, (96, 196), True, 4)]
+             (8, (257, 198), True, None), (4, (96, 196), True, 4),
+             (4, (200, 100), False, 2)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -566,3 +692,69 @@ def test_quantized_serving_runs_through_the_kernel(cuda, weight_dtype):
         assert qmm.kernel_launches() == expect
     assert {r: c.tokens for r, c in out["cuda"].items()} == \
         {r: c.tokens for r, c in out["torch"].items()}
+
+
+# ------------------------------------------------ the decode GEMVs
+GPT2_SMALL = {"qkv": ((768, 3, 12, 64), False), "out": ((768, 768), False),
+              "up": ((768, 3072), False), "down": ((3072, 768), False),
+              "head": ((50257, 768), True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [1, 7, 8, 16])
+@pytest.mark.parametrize("proj", list(GPT2_SMALL))
+def test_gemv_at_gpt2_small_projections(cuda, proj, M, bits, dtype):
+    """Every GPT-2-small projection at decode sizes on its GEMV route,
+    int8 and int4 (group 64), bf16 and f32 x: within the tolerance, and a
+    second call gives the same bits."""
+    shape, transpose = GPT2_SMALL[proj]
+    g = torch.Generator(device=cuda).manual_seed(M + bits)
+    w = torch.randn(shape, generator=g, device=cuda) * 0.02
+    qt = quantize_params({"w": w}, f"int{bits}")["w"]
+    K = shape[-1] if transpose else shape[0]
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    N = shape[0] if transpose else int(np.prod(shape[1:]))
+    assert qmm._route(M, N, K, bits, transpose, dtype) == (
+        "gemv_attend" if transpose else "gemv_dense")
+    out = _check_quantized_matmul(x, qt, transpose)
+    assert torch.equal(out, qmm.quantized_matmul(x, qt, transpose))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("proj", list(GPT2_SMALL))
+def test_gemv_geometry_fills_the_card(cuda, proj, bits):
+    """At M = 8 every projection puts a block on every SM: the dense ones
+    with 16-column tiles (out and down by splitting K over a cluster),
+    bf16 x on the tensor cores; the head by 128 columns a block. Codes
+    arrive in 16-byte loads or copies (8-byte copies of int4's 16-column
+    tiles)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    shape, transpose = GPT2_SMALL[proj]
+    qt = quantize_params({"w": torch.zeros(shape, device=cuda)},
+                         f"int{bits}")["w"]
+    K = shape[-1] if transpose else shape[0]
+    x = torch.zeros(8, K, dtype=torch.bfloat16, device=cuda)
+    geo = qmm.launch_geometry(x, qt, transpose)
+    assert geo["grid_x"] * geo["grid_y"] >= sms
+    assert geo["max_active_clusters"] * geo["cluster"] >= min(
+        sms, geo["grid_x"] * geo["grid_y"])
+    assert geo["load_bytes"] >= 8
+    if transpose:
+        assert geo["route"] == "gemv_attend" and geo["cluster"] == 1
+    else:
+        assert geo["route"] == "gemv_dense" and geo["tensor_cores"]
+        # N = 768 has too few column tiles: K is split over a cluster
+        assert geo["cluster"] > 1 or proj not in ("out", "down")
+
+
+@pytest.mark.parametrize("proj", ["out", "head"])
+def test_gemv_replays_in_a_cuda_graph(cuda, proj):
+    shape, transpose = GPT2_SMALL[proj]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(shape, generator=g, device=cuda) * 0.02
+    qt = quantize_params({"w": w}, "int8")["w"]
+    K = shape[-1] if transpose else shape[0]
+    x = torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16)
+    _graph_replays_equal_eager(lambda: qmm.quantized_matmul(x, qt, transpose))

@@ -10,7 +10,8 @@ through the JAX function and its counterpart, in f32 on the CPU:
 - ``_Flash`` on CPU tensors (autograd through the plain versions) against
   ``jax.grad`` of ``pallas_flash_attention(..., interpret=True)``;
 - the blockwise ``use_kernel=False`` path against the JAX XLA path
-  (``flash_attention(use_pallas=False)``), output and gradients;
+  (``flash_attention(use_pallas=False)``), output and gradients, in f32
+  and in bf16;
 - a mask falls back to ``dot_product_attention``;
 - in bf16, the element-wise bounds the CUDA kernels are held to on the
   card: ``flash_out_bound`` (the forward) and ``flash_grad_bound`` (the
@@ -245,6 +246,43 @@ def test_blockwise_path_matches_jax_xla_path(causal, T, S, block):
     out.backward(torch.from_numpy(do))
     for name, got, w in zip("qkv", (tq, tk, tv), vjp(do)):
         _close(got.grad, w, f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("T,S,block", [(64, 64, 16), (48, 80, 32),
+                                       (100, 100, 64), (64, 40, 16)],
+                         ids=lambda x: str(x))
+def test_bf16_blockwise_path_matches_jax_xla_path(causal, T, S, block):
+    """The same inputs and shapes in bf16: ``use_kernel=False``
+    differentiated by autograd against ``jax.vjp`` of
+    ``flash_attention(use_pallas=False)``. Both round p to bf16 before
+    P.V, and both round dP to bf16 before ds = p (dP - delta) -- the
+    cotangent of a bf16 operand is bf16 in JAX as in torch -- so that
+    rounding point is the reference's own. Bound: one bf16 rounding of the
+    largest magnitude, 2**-7 max(1, max|jax|), for out, dq, dk and dv
+    (f32 sums in another order can flip a rounding)."""
+    q, k, v, do = _inputs(T, S, H=2, D=16, seed=2)
+
+    def f(q, k, v):
+        return jax_flash_attention(q, k, v, causal=causal, block_q=block,
+                                   block_k=block, use_pallas=False)
+
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in (q, k, v, do))
+    jout, vjp = jax.vjp(f, jq, jk, jv)
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+              for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, block_q=block,
+                          block_k=block, use_kernel=False)
+    out.backward(torch.from_numpy(do).to(torch.bfloat16))
+    for name, got, want in zip(("out", "dq", "dk", "dv"),
+                               (out, *(x.grad for x in leaves)),
+                               (jout, *vjp(jdo))):
+        assert got.dtype == torch.bfloat16, name
+        want = np.asarray(want.astype(jnp.float32))
+        bound = 2.0 ** -7 * max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.detach().float().numpy(), want,
+                                   rtol=0, atol=bound, err_msg=name)
 
 
 def test_blockwise_path_matches_the_plain_versions():

@@ -164,7 +164,9 @@ def test_kernel_input_checks(what):
     elif what == "table_dtype":
         args["page_table"] = pt.long()
     elif what == "shared_memory":
-        big = torch.zeros((1, 8192), dtype=torch.int32)
+        # T = 8 queries over 16384 pages of 4 keys: a block of a cluster of
+        # 8 holds 8 x 8192 f32 scores, over the 227 KB it may use
+        big = torch.zeros((1, 16384), dtype=torch.int32)
         args.update(q=q[:1].expand(1, 8, H, D).contiguous(),
                     kv_positions=torch.zeros((1, 8), dtype=torch.int32),
                     page_table=big)
@@ -177,3 +179,45 @@ def test_kernel_input_checks_accept_the_serving_shapes():
         args = _torch(_inputs(4, quantized))
         assert pa._check(*args) is quantized
 
+
+@pytest.mark.parametrize("S,cluster", [(16, 1), (127, 1), (128, 2),
+                                       (255, 2), (256, 4), (511, 4),
+                                       (512, 8), (1024, 8), (65536, 8)])
+def test_cluster_size_follows_the_slot_length(S, cluster):
+    """Blocks per (row, head): at least 64 keys a block over a full slot,
+    at most the portable cluster of 8 (phase 1's S = 1024 takes 8)."""
+    assert pa.cluster_size(S) == cluster
+
+
+@pytest.mark.parametrize("T,D,ps", [(1, 64, 16), (8, 128, 16), (4, 32, 1)])
+def test_kernel_input_checks_shared_memory_edge(T, D, ps):
+    """The longest slot the wrapper admits: its scores per block (T x
+    ceil(S / cluster) f32) and partial outputs fill at most the 227 KB a
+    block may use, and one page more is refused."""
+    def call(pp):
+        q = torch.zeros(1, T, 2, D)
+        pages = torch.zeros(2, ps, 2, D)
+        pos = torch.zeros(1, T, dtype=torch.int32)
+        return pa._check(q, pages, pages, None, None, pos,
+                         torch.zeros(1, pp, dtype=torch.int32))
+
+    def fits(pp):
+        S = pp * ps
+        return pa.smem_bytes(T, D, S, pp, pa.cluster_size(S),
+                             4) <= pa._MAX_SMEM
+
+    pp = 1
+    while fits(pp + 1):
+        pp += 1
+    assert call(pp) is False
+    with pytest.raises(ValueError, match="shared memory"):
+        call(pp + 1)
+    S = pp * ps
+    kb = -(-S // pa.cluster_size(S))
+    chunk = min(kb, 16384 // (4 * D))      # f32 rows of K (then V) staged
+    # the K or V chunk, scores, the 4 warps' and up to 8 blocks' partial
+    # outputs, 8 blocks' (max, sum) pairs and 4 warps' scratch for 8
+    # queries, 8 positions
+    assert pa.smem_bytes(T, D, S, pp, pa.cluster_size(S), 4) == 4 * (
+        chunk * D + T * kb + (4 + 8) * T * D + 2 * 8 * 8 + 2 * 4 * 8
+        + 8 + pp)
