@@ -88,6 +88,29 @@ T3. Training, kernel path against plain path end to end, in f32: one
    plain PyTorch attention differentiated by autograd
    (``attention_impl="dot"``); loss to 1e-5 relative, every gradient to
    its stated bound.
+R. Checkpoint and resume on the card, at T2's configuration (12 steps,
+   no validation): (a) uninterrupted, saving a stream checkpoint at step
+   8; (b) the same run with ``ModelCheckpoint(every_n_train_steps=4,
+   save_format="orbax", keep_last_n=1)``, killed by
+   ``FaultPlan.at("train.step", [9])``; (c) a new
+   ``Trainer(resume="auto")``, which restores step 8 and finishes: its
+   final params and optimizer state equal (a)'s bitwise, so do its losses
+   for steps 9-12, and K2-K4 ran on the tensor cores for every resumed
+   step; (d) ``fit(ckpt_path=)`` of (a)'s stream checkpoint, bitwise (a)
+   again. A directory save killed at ``ckpt.save`` leaves nothing resume
+   picks up. Prints each format's checkpoint bytes, save and load ms and
+   GB/s. Checkpoints live in a temporary directory the phase removes.
+O. The optimizer presets, predict and the guard on the card, at T2's
+   shapes: 10 steps each with ``adamw``, ``adamw_bf16m`` and
+   ``adafactor`` -- every loss finite, the last 5 steps' mean below the
+   first, K2-K4 on the tensor cores -- with each preset's
+   ``opt_state_bytes``, peak device memory and median step ms;
+   ``Trainer.predict`` over 2 validation batches, its logits equal to the
+   ``model.eval()`` forward bitwise, K2 launched n_layers times a batch;
+   ``nonfinite_action="skip_batch"`` over 6 batches of a loss-weighted
+   module with one batch NaN-poisoned by ``FaultPlan.at("loader.next",
+   [2], mode="nan")``: one skipped batch, every param finite, one AdamW
+   step fewer than batches.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K5 has two entries, each with
    Q2's int8 launches on its routes: ``quantized_matmul`` holds one
@@ -97,6 +120,7 @@ T3. Training, kernel path against plain path end to end, in f32: one
    their sums, the error the largest of them.
 """
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -1028,6 +1052,346 @@ def phase_t3_train_kernel_vs_plain():
     return rel, worst[0]
 
 
+# -------------------------------------------------------------- phase R
+R_STEPS, R_EVERY, R_KILL = 12, 4, 9   # save every 4 steps, die at step 10
+
+
+def train_module(weighted: bool = False, **kw):
+    """T2's module -- GPT-2-small at full width on the flash kernels --
+    predicting the logits of its validation batches; ``weighted`` adds a
+    float per-token loss weight (all ones) to every batch: the float leaf
+    a NaN fault poisons."""
+    import torch.nn.functional as F
+    from ray_lightning_tpu_torch import GPTModule
+    from ray_lightning_tpu_torch.data import (ArrayDataset, DataLoader,
+                                              synthetic_tokens)
+    from ray_lightning_tpu_torch.models import gpt2_config
+
+    class Module(GPTModule):
+        def predict_dataloader(self):
+            return self.val_dataloader()
+
+        def predict_step(self, model, batch, generator):
+            return model(batch[0])
+
+    class Weighted(Module):
+        def _loader(self, seed, shuffle=False):
+            toks = synthetic_tokens(self.num_samples, self.seq_len + 1,
+                                    self.cfg.vocab_size, seed=seed)
+            ones = np.ones(toks[:, 1:].shape, np.float32)
+            return DataLoader(ArrayDataset((toks[:, :-1], toks[:, 1:], ones)),
+                              batch_size=self.batch_size, shuffle=shuffle)
+
+        def training_step(self, model, batch, generator):
+            inputs, targets, weight = batch
+            logits = model(inputs)
+            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 targets.reshape(-1).long(),
+                                 reduction="none")
+            return (ce * weight.reshape(-1)).mean()
+
+    return (Weighted if weighted else Module)(
+        config=gpt2_config("small", attention_impl="flash"), batch_size=8,
+        seq_len=1024, **kw)
+
+
+def train_strategy():
+    from ray_lightning_tpu_torch import RayStrategy
+    return RayStrategy(num_workers=1)
+
+
+def check_flash_launches(what: str, steps: int, fwd_extra: int = 0,
+                         n: int = 12) -> dict:
+    """K2-K4 launched ``n`` (n_layers) times per step, K2 also per extra
+    forward, every launch on the tensor-core route, since the last
+    reset."""
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    expect = {"flash_fwd": n * (steps + fwd_extra),
+              "flash_bwd_dkv": n * steps, "flash_bwd_dq": n * steps}
+    routes = {name: cf.route_launches(name) for name in cf.KERNELS}
+    want = {name: {"simt": 0, "tc": expect[name]} for name in cf.KERNELS}
+    check(routes == want, f"{what}: flash routes {routes} != {want}")
+    return {name: expect[name] for name in cf.KERNELS}
+
+
+def host_state(trainer) -> dict:
+    """The train state's tensors copied to the host (params, optimizer
+    state, counters), for bitwise comparison."""
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        return x
+    return copy(trainer.train_state.state_dict())
+
+
+def bitwise_diff(a, b, where="") -> list:
+    """Paths at which two host states differ (values, dtypes or keys)."""
+    if isinstance(a, torch.Tensor):
+        same = (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+        return [] if same else [where]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [where]
+        return [d for k in a for d in bitwise_diff(a[k], b[k],
+                                                   f"{where}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in bitwise_diff(x, y, f"{where}/{i}")]
+    return [] if a == b else [where]
+
+
+def tree_bytes(path: str) -> int:
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def r_trainer(root, losses, **kw):
+    from ray_lightning_tpu_torch import Trainer
+    from ray_lightning_tpu_torch.core import LambdaCallback
+    rec = LambdaCallback(on_train_batch_end=lambda tr, m, out, b, i:
+                         losses.append((tr.global_step,
+                                        float(out["loss"]))))
+    kw["callbacks"] = [rec, *kw.get("callbacks", [])]
+    return Trainer(strategy=train_strategy(), max_epochs=1,
+                   limit_train_batches=R_STEPS, limit_val_batches=0,
+                   seed=0, default_root_dir=root, **kw)
+
+
+def phase_r_resume(card):
+    """Checkpoint and resume on the card: returns its measurements."""
+    import tempfile
+    from ray_lightning_tpu_torch import FaultPlan, ModelCheckpoint
+    from ray_lightning_tpu_torch.core.checkpoint import (
+        find_resume_candidates, is_committed_checkpoint)
+    from ray_lightning_tpu_torch.core import LambdaCallback
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    from ray_lightning_tpu_torch.reliability import InjectedFault
+    release()
+    root = tempfile.mkdtemp(prefix="chip_smoke_r_")
+    res = {"card": card}
+    try:
+        # (a) uninterrupted, with a stream checkpoint taken at step 8
+        stream_path = os.path.join(root, "stream", "step8.ckpt")
+        saved = {}
+
+        def save_stream(tr, m, out, b, i):
+            if tr.global_step == 2 * R_EVERY:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.save_checkpoint(stream_path, save_format="stream")
+                saved["ms"] = 1e3 * (time.perf_counter() - t0)
+        losses_a = []
+        ta = r_trainer(root, losses_a, callbacks=[LambdaCallback(
+            on_train_batch_end=save_stream)])
+        ta.fit(train_module())
+        state_a = host_state(ta)
+        check(len(losses_a) == R_STEPS
+              and all(np.isfinite(v) for _, v in losses_a),
+              f"R (a) losses {losses_a}")
+        res["stream_bytes"] = tree_bytes(stream_path)
+        res["stream_save_ms"] = saved["ms"]
+
+        # the directory format's save of the same run's final state
+        dir_path = os.path.join(root, "dir", "final.orbax")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ta.save_checkpoint(dir_path, save_format="orbax")
+        res["dir_save_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["dir_bytes"] = tree_bytes(dir_path)
+        # each read into the live state on the card; the directory (the
+        # final state) last, so the state ends as (a) left it
+        for fmt, path in (("stream", stream_path), ("dir", dir_path)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt = ta._read_checkpoint(path)
+            ta.train_state.load_state_dict(ckpt["state"])
+            torch.cuda.synchronize()
+            res[f"{fmt}_load_ms"] = 1e3 * (time.perf_counter() - t0)
+            del ckpt
+            for op in ("save", "load"):
+                res[f"{fmt}_{op}_gb_per_s"] = (
+                    res[f"{fmt}_bytes"] / 1e9
+                    / (res[f"{fmt}_{op}_ms"] / 1e3))
+        check(not bitwise_diff(state_a, host_state(ta)),
+              "R: loading the directory checkpoint changed the state")
+        shutil.rmtree(os.path.dirname(dir_path))
+        del ta
+        release()
+
+        # (b) the same run, periodic directory saves, killed at step 10
+        ck = os.path.join(root, "ck")
+        mc = dict(dirpath=ck, every_n_train_steps=R_EVERY,
+                  save_format="orbax", keep_last_n=1)
+        losses_b = []
+        tb = r_trainer(root, losses_b, callbacks=[ModelCheckpoint(**mc)])
+        try:
+            with FaultPlan.at("train.step", [R_KILL]).armed():
+                tb.fit(train_module())
+            check(False, "R (b) was not killed")
+        except InjectedFault:
+            pass
+        del tb
+        release()
+        names = sorted(os.listdir(ck))
+        check(names == [f"epoch=0-step={2 * R_EVERY}.orbax"],
+              f"R (b) left {names}")
+
+        # (c) resume="auto" restores step 8 and finishes
+        losses_c = []
+        cf.reset_kernel_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tc = r_trainer(root, losses_c, resume="auto",
+                       callbacks=[ModelCheckpoint(**mc)])
+        tc.fit(train_module())
+        res["resume_fit_s"] = time.perf_counter() - t0
+        resumed = R_STEPS - 2 * R_EVERY
+        res["resumed_launches"] = check_flash_launches("R (c)", resumed)
+        check([s for s, _ in losses_c] == list(range(2 * R_EVERY + 1,
+                                                      R_STEPS + 1)),
+              f"R (c) steps {losses_c}")
+        check(losses_c == losses_a[-resumed:],
+              f"R (c) losses {losses_c} != (a) {losses_a[-resumed:]}")
+        diff = bitwise_diff(state_a, host_state(tc))
+        check(not diff, f"R (c) differs from (a) at {diff[:5]}")
+        res["resumed_losses"] = [v for _, v in losses_c]
+
+        # a save killed at ckpt.save leaves nothing that resume picks up
+        torn = os.path.join(ck, "epoch=0-step=99.orbax")
+        try:
+            with FaultPlan.at("ckpt.save", [0]).armed():
+                tc.save_checkpoint(torn, save_format="orbax")
+            check(False, "R: the ckpt.save fault did not fire")
+        except InjectedFault:
+            pass
+        left = sorted(os.listdir(ck))
+        cands = find_resume_candidates(ck)
+        check(not os.path.exists(torn) and not any(".tmp-" in n
+                                                   for n in left)
+              and cands and is_committed_checkpoint(cands[0])
+              and cands[0].endswith(f"step={R_STEPS}.orbax"),
+              f"R: after the killed save {left}, candidates {cands}")
+        del tc
+        release()
+
+        # (d) the stream checkpoint of (a) at step 8, through ckpt_path=
+        losses_d = []
+        td = r_trainer(root, losses_d)
+        td.fit(train_module(), ckpt_path=stream_path)
+        check(losses_d == losses_a[-resumed:],
+              f"R (d) losses {losses_d} != (a) {losses_a[-resumed:]}")
+        diff = bitwise_diff(state_a, host_state(td))
+        check(not diff, f"R (d) differs from (a) at {diff[:5]}")
+        del td
+        release()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print("phaseR checkpoint and resume", json.dumps(res), flush=True)
+    return res
+
+
+# -------------------------------------------------------------- phase O
+O_STEPS, O_GUARD_STEPS, O_POISON = 10, 6, 2
+O_PREDICT = 2
+
+
+def release() -> None:
+    """Free what dropped trainers held: a trainer and its module refer to
+    each other, so only the cycle collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_o_optimizers(card):
+    """The optimizer presets, predict and the guard on the card."""
+    from ray_lightning_tpu_torch import FaultPlan, Trainer
+    from ray_lightning_tpu_torch.core import LambdaCallback, opt_state_bytes
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    res = {"card": card, "presets": {}}
+    for name in ("adamw", "adamw_bf16m", "adafactor"):
+        ends, losses = [], []
+
+        def on_end(tr, m, out, b, i):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            losses.append(float(out["loss"]))
+        release()
+        module = train_module(optimizer=name)
+        trainer = Trainer(strategy=train_strategy(), max_epochs=1,
+                          limit_train_batches=O_STEPS, limit_val_batches=0,
+                          seed=0, callbacks=[LambdaCallback(
+                              on_train_batch_end=on_end)])
+        torch.cuda.reset_peak_memory_stats()
+        cf.reset_kernel_launches()
+        trainer.fit(module)
+        check_flash_launches(f"O {name}", O_STEPS)
+        first, last5 = losses[0], float(np.mean(losses[-5:]))
+        check(len(losses) == O_STEPS and all(np.isfinite(losses)),
+              f"O {name} losses {losses}")
+        check(last5 < first, f"O {name}: loss did not fall: first {first}, "
+              f"last-5 mean {last5}")
+        res["presets"][name] = dict(
+            opt_state_bytes=opt_state_bytes(trainer.train_state.optimizer),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            step_ms_median=1e3 * float(np.median(
+                np.diff(ends)[WARMUP_STEPS - 1:])),
+            first_loss=first, last5_mean_loss=last5)
+        if name == "adamw":
+            res["predict"] = predict_check(trainer, module)
+        del trainer, module
+
+    # the guard: one NaN-weighted batch skipped, params finite, one
+    # AdamW step fewer than batches
+    release()
+    trainer = Trainer(strategy=train_strategy(), max_epochs=1,
+                      limit_train_batches=O_GUARD_STEPS, limit_val_batches=0,
+                      seed=0, nonfinite_action="skip_batch")
+    with FaultPlan.at("loader.next", [O_POISON], mode="nan").armed():
+        trainer.fit(train_module(weighted=True))
+    steps = {int(s["step"]) for s in
+             trainer.train_state.optimizer.state.values()}
+    finite = all(torch.isfinite(p).all().item()
+                 for p in trainer.model.parameters())
+    check(trainer.nonfinite_batches == 1 and finite
+          and steps == {O_GUARD_STEPS - 1},
+          f"O guard: nonfinite_batches {trainer.nonfinite_batches}, "
+          f"finite {finite}, optimizer steps {steps}")
+    res["guard"] = dict(batches=O_GUARD_STEPS, poisoned=O_POISON,
+                        nonfinite_batches=trainer.nonfinite_batches,
+                        optimizer_steps=sorted(steps))
+    del trainer
+    release()
+    print("phaseO optimizers, predict, guard", json.dumps(res), flush=True)
+    return res
+
+
+def predict_check(trainer, module) -> dict:
+    """``Trainer.predict`` over O_PREDICT validation batches: n_layers K2
+    launches a batch, logits equal to the ``model.eval()`` forward."""
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    trainer.limit_predict_batches = O_PREDICT
+    cf.reset_kernel_launches()
+    outs = trainer.predict(module)
+    check_flash_launches("O predict", 0, fwd_extra=O_PREDICT)
+    check(len(outs) == O_PREDICT, f"O predict gave {len(outs)} batches")
+    model = trainer.model.eval()
+    with torch.no_grad():
+        for out, batch in zip(outs, module.val_dataloader(), strict=False):
+            want = model(torch.from_numpy(batch[0]).to(DEVICE)).cpu()
+            check(out.shape == want.shape and torch.equal(out, want),
+                  "O predict logits differ from model.eval() forward")
+    return dict(batches=len(outs), shape=list(outs[0].shape),
+                dtype=str(outs[0].dtype), bitwise=True)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1090,6 +1454,8 @@ def main() -> int:
     fpath = flash[("path", "bfloat16")]
     trained = phase_t2_training(card, fpath)
     phase_t3_train_kernel_vs_plain()
+    phase_r_resume(card)
+    phase_o_optimizers(card)
 
     # the main paths' own calls: bf16 q and pages, T=1 (serving); bf16,
     # B=8, T=S=1024, causal (training)

@@ -8,7 +8,15 @@ read side in a hand-written CUDA paged-attention kernel
 (``csrc/paged_attention.cu``). Slice 2 is training on one device:
 ``Trainer(strategy=RayStrategy(num_workers=1)).fit(GPTModule(...))``,
 with ``attention_impl="flash"`` running hand-written CUDA flash-attention
-kernels forward and backward (``csrc/flash_attention.cu``).
+kernels forward and backward (``csrc/flash_attention.cu``). Slice 3 is
+weight-quantized serving (``csrc/quantized_matmul.cu``). Slice 7 finishes
+the one-process Trainer: crash-safe checkpoints in two formats and
+``resume="auto"``/``ckpt_path=``, ``ModelCheckpoint``, ``EarlyStopping``,
+``EMAWeightAveraging``, ``LearningRateMonitor``, ``CSVLogger``, the
+profilers, the non-finite guard, ``predict()`` and the memory-efficient
+optimizer presets. Still raising ``NotImplementedError``, each naming its
+``ROADMAP.md`` item: ``telemetry=`` (S6/T7), dropout and remat (T3), and
+more than one worker (T6).
 
 Ground rules of the port:
 
@@ -33,18 +41,26 @@ Ground rules of the port:
 Kernels are compiled from ``csrc/`` with ``nvcc`` at first use into
 ``_build/`` (listed in ``.gitignore``); see :mod:`._build`.
 """
-from ray_lightning_tpu_torch.core import (Callback, TpuDataModule,
-                                          TpuModule, Trainer, make_optimizer)
+from ray_lightning_tpu_torch.core import (Callback, CSVLogger,
+                                          EarlyStopping, EMAWeightAveraging,
+                                          LearningRateMonitor,
+                                          ModelCheckpoint, SimpleProfiler,
+                                          TpuDataModule, TpuModule, Trainer,
+                                          make_optimizer)
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.interop import (load_flax_params,
                                              load_flax_quantized)
-from ray_lightning_tpu_torch.models import (GPTModule, TransformerConfig,
-                                            TransformerLM, gpt2_config)
+from ray_lightning_tpu_torch.models import (BoringModel, GPTModule,
+                                            TransformerConfig, TransformerLM,
+                                            gpt2_config)
+from ray_lightning_tpu_torch.reliability import FaultPlan, NonFiniteError
 from ray_lightning_tpu_torch.serve import ServeClient, ServeEngine
 from ray_lightning_tpu_torch.strategies import RayStrategy
 
-__all__ = ["Callback", "TpuDataModule", "TpuModule", "Trainer",
-           "make_optimizer", "resolve_device", "load_flax_params",
-           "load_flax_quantized",
-           "GPTModule", "TransformerConfig", "TransformerLM", "gpt2_config",
-           "ServeClient", "ServeEngine", "RayStrategy"]
+__all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
+           "LearningRateMonitor", "ModelCheckpoint", "SimpleProfiler",
+           "TpuDataModule", "TpuModule", "Trainer", "make_optimizer",
+           "resolve_device", "load_flax_params", "load_flax_quantized",
+           "BoringModel", "GPTModule", "TransformerConfig", "TransformerLM",
+           "gpt2_config", "FaultPlan", "NonFiniteError", "ServeClient",
+           "ServeEngine", "RayStrategy"]

@@ -20,8 +20,13 @@ parameters:
   ``(loss, logs)``; ``validation_step``/``test_step(model, batch,
   generator)`` return a dict of metric scalars. JAX's ``variables``
   argument is gone: the model holds its parameters.
+- ``predict_step(model, batch, generator)`` returns what
+  ``Trainer.predict`` collects (default: ``model(batch)``).
 - ``self.log(name, value)`` keeps the device tensor; the trainer reduces
   every logged value once per epoch, not per step.
+- ``on_save_checkpoint(checkpoint)`` / ``on_load_checkpoint(checkpoint)``
+  put the module's own state into a checkpoint's ``module`` entry and
+  read it back.
 """
 from __future__ import annotations
 
@@ -91,6 +96,11 @@ class TpuModule:
     def test_step(self, model, batch, generator) -> Dict[str, Any]:
         return self.validation_step(model, batch, generator)
 
+    def predict_step(self, model, batch, generator):
+        """What ``Trainer.predict`` collects for one batch (run under
+        ``torch.no_grad`` with the model in eval mode)."""
+        return model(batch)
+
     # ------------------------------------------------------------------ #
     # logging
     # ------------------------------------------------------------------ #
@@ -116,6 +126,9 @@ class TpuModule:
     def test_dataloader(self) -> Optional[Iterable]:
         return None
 
+    def predict_dataloader(self) -> Optional[Iterable]:
+        return None
+
     # ------------------------------------------------------------------ #
     # hooks
     # ------------------------------------------------------------------ #
@@ -137,6 +150,11 @@ class TpuModule:
         the first batch on)."""
         ...
 
+    # checkpointable custom state: written into / read from the
+    # checkpoint's "module" entry
+    def on_save_checkpoint(self, checkpoint: Dict[str, Any]) -> None: ...
+    def on_load_checkpoint(self, checkpoint: Dict[str, Any]) -> None: ...
+
 
 class TpuDataModule:
     """Datamodule: the loaders, apart from the model."""
@@ -152,4 +170,7 @@ class TpuDataModule:
         return None
 
     def test_dataloader(self) -> Optional[Iterable]:
+        return None
+
+    def predict_dataloader(self) -> Optional[Iterable]:
         return None

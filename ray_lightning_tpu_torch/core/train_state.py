@@ -2,12 +2,16 @@
 
 JAX keeps params and optimizer state in one immutable pytree that the
 compiled step returns anew. Here the model and the optimizer hold their
-tensors and are updated in place; the state names them together with the
-step count and the generator the steps draw from.
+tensors and are updated in place; the state names them together with
+everything else a resumed run needs to continue bit for bit: the step
+count, the generator the steps draw from, and the strategy step's
+gradient-accumulation position, running mean and update count (what
+optax's ``MultiSteps`` keeps inside its state).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -16,8 +20,45 @@ import torch
 class TrainState:
     """``step``: training batches taken; ``model``: the ``nn.Module``;
     ``optimizer``: its ``torch.optim.Optimizer``; ``generator``: the CPU
-    ``torch.Generator`` handed to ``training_step``."""
+    ``torch.Generator`` handed to ``training_step``; ``mini_step``:
+    batches already averaged into ``acc`` (the running mean of the
+    gradients of an accumulation, None between updates); ``updates``:
+    optimizer updates taken (the learning-rate schedule's argument)."""
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator
+    mini_step: int = 0
+    updates: int = 0
+    acc: Optional[List[torch.Tensor]] = None
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The checkpoint's ``state``, under the JAX TrainState's field
+        names where one exists. Tensors alias the live ones: a writer
+        copies them out before training goes on."""
+        return {"step": self.step,
+                "params": self.model.state_dict(),
+                "opt_state": self.optimizer.state_dict(),
+                "rng": self.generator.get_state(),
+                "mini_step": self.mini_step,
+                "updates": self.updates,
+                "acc": self.acc}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy a checkpoint's ``state`` in: params into the live
+        parameters (their device and dtype), optimizer state onto each
+        param's device, the generator's state, and the counters."""
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        self.generator.set_state(state["rng"].to("cpu", torch.uint8))
+        self.step = int(state["step"])
+        self.mini_step = int(state.get("mini_step", 0))
+        self.updates = int(state.get("updates", 0))
+        acc = state.get("acc")
+        if acc is None:
+            self.acc = None
+        else:
+            params = [p for g in self.optimizer.param_groups
+                      for p in g["params"]]
+            self.acc = [a.to(p.device, p.dtype)
+                        for a, p in zip(acc, params, strict=True)]

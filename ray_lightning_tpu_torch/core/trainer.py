@@ -3,17 +3,24 @@
 ``fit`` runs through the strategy's launcher, hook for hook as the JAX
 trainer does: setup, the first batch, the state (model placed on the
 strategy's device and initialised from a ``torch.Generator`` seeded from
-``seed``, then its optimizer), optional sanity validation, then per
-epoch: ``set_epoch``, the training batches through the strategy's step,
-validation (per epoch or every ``val_check_interval`` batches), the epoch
-aggregation of the logs -- one host transfer per epoch, not per step --
-and the epoch-end hooks. ``validate`` and ``test`` run the evaluation
-loop alone.
+``seed``, then its optimizer -- or all of it restored from a
+checkpoint), optional sanity validation, then per epoch: ``set_epoch``,
+the training batches through the strategy's step, validation (per epoch
+or every ``val_check_interval`` batches), the epoch aggregation of the
+logs -- one host transfer per epoch, not per step -- and the epoch-end
+hooks. ``validate``, ``test`` and ``predict`` run their loops alone.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): checkpointing (``enable_checkpointing=True``,
-``ckpt_path=``, ``resume=``), ``nonfinite_action=``, ``telemetry=``, a
-``profiler=``, and ``predict()`` with ``limit_predict_batches=``.
+Everything the JAX trainer does in one process is here: crash-safe
+checkpoints in two formats (``save_checkpoint``, ``ModelCheckpoint``,
+``enable_checkpointing``), ``resume="auto"`` and ``ckpt_path=`` (with
+``"auto"``) on ``fit``, ``validate``, ``test`` and ``predict``, a resumed
+epoch fast-forwarding its loader to the saved batch, ``profiler=``, the
+non-finite guard (``nonfinite_action=``), ``predict()`` with
+``limit_predict_batches=``, and the fault sites ``train.step``,
+``loader.next`` and ``ckpt.save``. ``telemetry=`` raises
+``NotImplementedError`` (``ROADMAP.md`` S6/T7); the in-memory checkpoint
+tier's seats (``_memory_checkpoint``, ``_memory_resume``) do nothing, as
+the JAX trainer's do with no store installed.
 """
 from __future__ import annotations
 
@@ -26,12 +33,18 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ray_lightning_tpu_torch.core.callbacks import Callback
+from ray_lightning_tpu_torch import util as _util
+from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
 from ray_lightning_tpu_torch.core.module import TpuDataModule, TpuModule
+from ray_lightning_tpu_torch.core.profiler import resolve_profiler
 from ray_lightning_tpu_torch.core.seed import seed_everything
 from ray_lightning_tpu_torch.core.train_state import TrainState
-from ray_lightning_tpu_torch.data.loader import tree_map
+from ray_lightning_tpu_torch.data.loader import fast_forward, tree_map
 from ray_lightning_tpu_torch.launchers.utils import WorkerOutput
+from ray_lightning_tpu_torch.reliability import faults as _faults
+from ray_lightning_tpu_torch.reliability import log_suppressed
+from ray_lightning_tpu_torch.reliability.guard import (NonFiniteError,
+                                                       poison_nan)
 
 
 def _normalize_step_output(out: Any):
@@ -48,11 +61,6 @@ def _normalize_step_output(out: Any):
 def _detached(logs: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v.detach() if isinstance(v, torch.Tensor) else v
             for k, v in logs.items()}
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 class Trainer:
@@ -81,19 +89,9 @@ class Trainer:
                  resume: Optional[str] = None,
                  nonfinite_action: Optional[str] = None,
                  telemetry=None):
-        unported = {
-            "enable_checkpointing=True (ModelCheckpoint)":
-                (enable_checkpointing, "T1"),
-            "resume=": (resume is not None, "T1"),
-            "nonfinite_action=": (nonfinite_action is not None, "T5"),
-            "telemetry=": (telemetry is not None, "T5"),
-            "profiler=": (profiler is not None, "T5"),
-            "limit_predict_batches= (predict)":
-                (limit_predict_batches is not None, "T4"),
-        }
-        for what, (bad, item) in unported.items():
-            if bad:
-                raise _unported(f"Trainer({what})", item)
+        if telemetry is not None:
+            raise NotImplementedError(
+                "Trainer(telemetry=) is not ported yet (ROADMAP.md S6/T7)")
         from ray_lightning_tpu_torch.strategies.ddp import RayStrategy
         self.strategy = strategy if strategy is not None else RayStrategy(
             num_workers=1)
@@ -103,6 +101,7 @@ class Trainer:
         self.limit_train_batches = limit_train_batches
         self.limit_val_batches = limit_val_batches
         self.limit_test_batches = limit_test_batches
+        self.limit_predict_batches = limit_predict_batches
         self.num_sanity_val_steps = num_sanity_val_steps
         self.check_val_every_n_epoch = check_val_every_n_epoch
         if val_check_interval is not None:
@@ -116,6 +115,7 @@ class Trainer:
                     f"int val_check_interval must be >= 1, got "
                     f"{val_check_interval}")
         self.val_check_interval = val_check_interval
+        self.enable_checkpointing = enable_checkpointing
         self.default_root_dir = default_root_dir or os.path.join(
             os.getcwd(), "tpu_lightning_logs")
         self.enable_progress_bar = enable_progress_bar
@@ -124,7 +124,30 @@ class Trainer:
         self.gradient_clip_val = gradient_clip_val
         self.accumulate_grad_batches = int(accumulate_grad_batches)
         self.track_grad_norm = bool(track_grad_norm)
+        self.profiler = resolve_profiler(profiler)
         self.seed = seed_everything(seed) if seed is not None else None
+        # resume="auto": fit() without a ckpt_path restores the newest
+        # valid checkpoint (corrupt candidates skipped with a warning) and
+        # continues at its step, mid-epoch saves included
+        if resume not in (None, "auto"):
+            raise ValueError(
+                f"resume must be None or 'auto', got {resume!r}")
+        self.resume = resume
+        # NaN/Inf guard over the loss and every gradient: None = off (no
+        # per-step host read), "raise", "skip_batch" (the update is not
+        # applied) or "restore_last_ckpt" (state rolled back to the last
+        # checkpoint this run saved)
+        if nonfinite_action not in (None, "raise", "skip_batch",
+                                    "restore_last_ckpt"):
+            raise ValueError(
+                "nonfinite_action must be None, 'raise', 'skip_batch' or "
+                f"'restore_last_ckpt', got {nonfinite_action!r}")
+        self.nonfinite_action = nonfinite_action
+        self.nonfinite_batches = 0   # guarded steps that came back bad
+        self.nonfinite_restores = 0  # times restore_last_ckpt fired
+        if self.enable_checkpointing and not any(
+                isinstance(cb, ModelCheckpoint) for cb in self.callbacks):
+            self.callbacks.append(ModelCheckpoint())
 
         # progress / results (user-visible, PTL names)
         self.current_epoch = 0
@@ -139,6 +162,12 @@ class Trainer:
         self._module: Optional[TpuModule] = None
         self._datamodule: Optional[TpuDataModule] = None
         self._launcher = None
+        self._lr_schedule = None
+        self._last_ckpt_path: str = ""   # newest save_checkpoint target
+        # batches completed in the current epoch (-1 = epoch boundary):
+        # checkpointed so resume can fast-forward a mid-epoch save
+        self._batch_in_epoch: int = -1
+        self._resume_skip: int = 0
 
     # ------------------------------------------------------------------ #
     # properties
@@ -148,8 +177,33 @@ class Trainer:
         return self.strategy.global_rank
 
     @property
+    def world_size(self) -> int:
+        return self.strategy.world_size
+
+    @property
     def model(self) -> Optional[torch.nn.Module]:
         return None if self.train_state is None else self.train_state.model
+
+    @property
+    def checkpoint_callback(self) -> Optional[ModelCheckpoint]:
+        for cb in self.callbacks:
+            if isinstance(cb, ModelCheckpoint):
+                return cb
+        return None
+
+    @property
+    def current_lr(self) -> Optional[float]:
+        """The learning rate of the next update when the module returned
+        ``(factory, schedule)``; None otherwise. The schedule advances
+        once per ``accumulate_grad_batches`` batches, as optax's
+        ``MultiSteps`` advances its inner schedule."""
+        schedule = self._lr_schedule
+        if schedule is None and self._module is not None:
+            schedule = self._optimizer()[1]
+        if schedule is None:
+            return None
+        step = self.global_step // max(1, self.accumulate_grad_batches)
+        return float(schedule(step))
 
     def block_until_ready(self) -> None:
         if self.strategy.root_device.type == "cuda":
@@ -161,10 +215,11 @@ class Trainer:
     def fit(self, module: TpuModule,
             datamodule: Optional[TpuDataModule] = None,
             ckpt_path: Optional[str] = None) -> None:
-        if ckpt_path is not None:
-            raise _unported("fit(ckpt_path=) (checkpoint resume)", "T1")
+        if ckpt_path is None and self.resume is not None:
+            ckpt_path = self.resume  # "auto": scan and restore
         self.state = "fitting"
-        output = self._launch(self._fit_worker, module, datamodule)
+        output = self._launch(self._fit_worker, module, datamodule,
+                              ckpt_path)
         self._recover_results(output)
         self.state = "finished"
 
@@ -178,8 +233,17 @@ class Trainer:
              ckpt_path: Optional[str] = None) -> List[Dict[str, Any]]:
         return self._run_evaluate(module, datamodule, ckpt_path, "test")
 
-    def predict(self, module: TpuModule, datamodule=None, ckpt_path=None):
-        raise _unported("Trainer.predict()", "T4")
+    def predict(self, module: TpuModule,
+                datamodule: Optional[TpuDataModule] = None,
+                ckpt_path: Optional[str] = None) -> List[Any]:
+        """``module.predict_step`` over ``predict_dataloader`` (at most
+        ``limit_predict_batches`` batches), each output moved to the
+        host, in order."""
+        self.state = "predicting"
+        output = self._launch(self._predict_worker, module, datamodule,
+                              ckpt_path)
+        self.state = "finished"
+        return output.results
 
     def _launch(self, fn, *args) -> WorkerOutput:
         if self._launcher is None:
@@ -188,12 +252,9 @@ class Trainer:
 
     def _run_evaluate(self, module, datamodule, ckpt_path,
                       stage: str) -> List[Dict[str, Any]]:
-        if ckpt_path is not None:
-            raise _unported(f"{stage}(ckpt_path=) (checkpoint restore)",
-                            "T1")
         self.state = f"{stage[:-1] if stage.endswith('e') else stage}ing"
         output = self._launch(self._evaluate_worker, module, datamodule,
-                              stage)
+                              ckpt_path, stage)
         self.callback_metrics.update(output.callback_metrics)
         self.state = "finished"
         return output.results
@@ -229,6 +290,7 @@ class Trainer:
         out = self._module.configure_optimizers()
         return out if isinstance(out, tuple) else (out, None)
 
+
     def _to_device(self, batch: Any) -> Any:
         """numpy/tensor leaves onto the strategy's device; floating leaves
         cast to bf16 under ``precision="bf16..."``."""
@@ -255,9 +317,12 @@ class Trainer:
         return (torch.Generator().manual_seed(seed),
                 torch.Generator().manual_seed(step_seed), eval_seed)
 
-    def _setup_state(self, sample_batch: Any) -> TrainState:
+    def _setup_state(self, sample_batch: Any,
+                     restored: Optional[Dict[str, Any]] = None
+                     ) -> TrainState:
         """Place and initialise the model, build its optimizer and the
-        training and evaluation steps."""
+        training and evaluation steps; then copy a checkpoint's
+        ``state`` in when one is given."""
         module = self._module
         device = self.strategy.root_device
         model = module.configure_model()
@@ -268,6 +333,7 @@ class Trainer:
         init_gen, step_gen, self._eval_seed = self._seeds()
         module.init_variables(model, init_gen, self._to_device(sample_batch))
         factory, lr_schedule = self._optimizer()
+        self._lr_schedule = lr_schedule
         optimizer = factory(model.parameters())
 
         def loss_fn(model, batch, generator):
@@ -288,23 +354,35 @@ class Trainer:
             loss_fn, log_grad_norm=self.track_grad_norm,
             gradient_clip_val=self.gradient_clip_val,
             accumulate_grad_batches=self.accumulate_grad_batches,
-            lr_schedule=lr_schedule)
+            lr_schedule=lr_schedule,
+            guard_nonfinite=self.nonfinite_action is not None)
         self._val_step = strategy.make_eval_step(
             eval_fn_builder("validation_step"))
         self._test_step = strategy.make_eval_step(
             eval_fn_builder("test_step"))
-        self.train_state = TrainState(step=0, model=model,
-                                      optimizer=optimizer,
-                                      generator=step_gen)
-        return self.train_state
+        state = TrainState(step=0, model=model, optimizer=optimizer,
+                           generator=step_gen)
+        if restored is not None:
+            from ray_lightning_tpu_torch.core.checkpoint import \
+                CorruptCheckpointError
+            try:
+                state.load_state_dict(restored)
+            except (KeyError, RuntimeError, ValueError) as exc:
+                raise CorruptCheckpointError(
+                    "checkpoint state does not match the resuming run's "
+                    f"state: {type(exc).__name__}: {exc}") from exc
+        self.train_state = state
+        return state
 
     # ------------------------------------------------------------------ #
     # fit loop
     # ------------------------------------------------------------------ #
     def _fit_worker(self, module: TpuModule,
-                    datamodule: Optional[TpuDataModule]) -> WorkerOutput:
+                    datamodule: Optional[TpuDataModule],
+                    ckpt_path: Optional[str]) -> WorkerOutput:
         self._attach(module, datamodule)
         self.should_stop = False
+        self.profiler.reset()  # per-fit scope
         module.prepare_data()
         if datamodule is not None:
             datamodule.prepare_data()
@@ -316,7 +394,39 @@ class Trainer:
         train_loader = self._dataloader("train_dataloader")
         val_loader = self._dataloader("val_dataloader")
         sample_batch, train_loader = self._peek_first_batch(train_loader)
-        state = self._setup_state(sample_batch)
+        restored_ckpt = None
+        if ckpt_path == "auto":
+            ckpt_path, restored_ckpt = self._resolve_auto_resume()
+        elif ckpt_path is not None:
+            restored_ckpt = self._read_checkpoint(ckpt_path)
+        state = self._setup_state(
+            sample_batch,
+            restored_ckpt["state"] if restored_ckpt else None)
+        start_epoch = 0
+        self._resume_skip = 0
+        if restored_ckpt is not None:
+            saved_epoch = int(restored_ckpt.get("epoch", -1))
+            # a mid-epoch save recorded how many batches of its epoch were
+            # done: resume re-enters that epoch and fast-forwards the
+            # loader; -1 = saved at the epoch boundary
+            bie = int((restored_ckpt.get("loop") or {})
+                      .get("batch_in_epoch", -1))
+            if bie < 0:
+                start_epoch = saved_epoch + 1
+            else:
+                start_epoch = max(0, saved_epoch)
+                self._resume_skip = bie
+            self.global_step = int(restored_ckpt.get("global_step", 0))
+            for cb in self.callbacks:
+                cb_state = restored_ckpt.get("callbacks", {}).get(
+                    type(cb).__name__)
+                if cb_state:
+                    cb.load_state_dict(cb_state)
+                cb_tree = (restored_ckpt.get("callback_arrays") or {}).get(
+                    type(cb).__name__)
+                if cb_tree is not None:
+                    cb.load_sharded_state(cb_tree)
+            module.on_load_checkpoint(restored_ckpt.get("module", {}))
 
         module.on_fit_start()
         for cb in self.callbacks:
@@ -337,7 +447,7 @@ class Trainer:
             cb.on_train_start(self, module)
 
         stop = False
-        for epoch in range(self.max_epochs):
+        for epoch in range(start_epoch, self.max_epochs):
             self.current_epoch = epoch
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
@@ -367,9 +477,19 @@ class Trainer:
                                            * n_batches))
                 else:
                     val_every = int(self.val_check_interval)
+            # resume fast-forward: skip exactly the batches the mid-epoch
+            # checkpoint had done (the loader is deterministic per epoch,
+            # so the rest matches the uninterrupted run)
+            skip = self._resume_skip if epoch == start_epoch else 0
+            self._batch_in_epoch = skip
+            feed = fast_forward(train_loader, skip)
             t0 = time.perf_counter()
             for batch_idx, batch in enumerate(
-                    self._prefetch(train_loader, n_batches)):
+                    self.profiler.profile_iterable(
+                        self._prefetch(feed, max(0, n_batches - skip)),
+                        "get_train_batch"), start=skip):
+                if _faults.fire("train.step") == _faults.MODE_NAN:
+                    batch = poison_nan(batch)
                 module.on_train_batch_start(batch, batch_idx)
                 for cb in self.callbacks:
                     cb.on_train_batch_start(self, module, batch, batch_idx)
@@ -377,9 +497,14 @@ class Trainer:
                 for cb in self.callbacks:
                     cb.on_before_optimizer_step(self, module,
                                                 state.optimizer)
-                state, logs = self._train_step(state, batch)
+                with self.profiler.profile("train_step"):
+                    state, logs = self._train_step(state, batch)
+                if self.nonfinite_action is not None and \
+                        bool(logs["nonfinite"]):
+                    state = self._handle_nonfinite(state)
                 self.train_state = state
                 self.global_step += 1
+                self._batch_in_epoch = batch_idx + 1
                 epoch_logs.append(logs)
                 module.on_train_batch_end(logs, batch, batch_idx)
                 for cb in self.callbacks:
@@ -391,12 +516,17 @@ class Trainer:
                         self.val_check_interval, float)
                         else self.global_step)
                     if count % val_every == 0:
-                        self._run_validation(val_loader, module)
+                        with self.profiler.profile("validation"):
+                            self._run_validation(val_loader, module)
                 if 0 <= self.max_steps <= self.global_step:
                     stop = True
                     break
                 if self.should_stop:
                     break
+
+            # checkpoints taken from here on (epoch-end saves) resume at
+            # the next epoch, not inside this one
+            self._batch_in_epoch = -1
 
             # epoch aggregation: one host transfer per epoch
             agg = self._aggregate_epoch_logs(epoch_logs, prefix="train_")
@@ -420,11 +550,13 @@ class Trainer:
                                                 float)
                                  and n_batches % val_every != 0)
             if run_epoch_val:
-                self._run_validation(val_loader, module)
+                with self.profiler.profile("validation"):
+                    self._run_validation(val_loader, module)
 
             module.on_train_epoch_end()
-            for cb in self.callbacks:
-                cb.on_train_epoch_end(self, module)
+            with self.profiler.profile("epoch_end_callbacks"):
+                for cb in self.callbacks:
+                    cb.on_train_epoch_end(self, module)
             if stop or self.should_stop:
                 break
 
@@ -437,7 +569,83 @@ class Trainer:
         module.teardown("fit")
         for cb in self.callbacks:
             cb.teardown(self, module, "fit")
+        from ray_lightning_tpu_torch.core.checkpoint import \
+            wait_for_async_saves
+        wait_for_async_saves()
+        if self.global_rank == 0:
+            self.profiler.describe()
         return self._collect_results()
+
+    def _handle_nonfinite(self, state: TrainState) -> TrainState:
+        """Apply ``nonfinite_action`` to a step whose loss or gradients
+        were not finite. The step already left params and optimizer state
+        untouched, so ``skip_batch`` only accounts for it;
+        ``restore_last_ckpt`` also rolls the state back to the newest
+        checkpoint this run saved."""
+        self.nonfinite_batches += 1
+        where = (f"global step {self.global_step} "
+                 f"(epoch {self.current_epoch})")
+        if self.nonfinite_action == "raise":
+            raise NonFiniteError(
+                f"non-finite loss/gradients at {where}; use "
+                "nonfinite_action='skip_batch' or 'restore_last_ckpt' "
+                "to continue past poisoned batches instead")
+        if self.nonfinite_action == "skip_batch":
+            log_suppressed("train.step",
+                           NonFiniteError(f"non-finite update at {where}"),
+                           "update skipped, weights untouched")
+            return state
+        path = self._last_ckpt_path
+        if path and not os.path.exists(path):
+            # pruned under us (top-k kept better ones): fall back to the
+            # newest valid candidate in the same directory
+            from ray_lightning_tpu_torch.core.checkpoint import \
+                find_resume_candidates
+            candidates = find_resume_candidates(os.path.dirname(path))
+            path = candidates[0] if candidates else ""
+        if not path:
+            raise NonFiniteError(
+                f"non-finite loss/gradients at {where} and "
+                "nonfinite_action='restore_last_ckpt', but no checkpoint "
+                "is available -- enable checkpointing (e.g. "
+                "ModelCheckpoint(every_n_train_steps=...)) or use "
+                "'skip_batch'")
+        state.load_state_dict(self._read_checkpoint(path)["state"])
+        self.nonfinite_restores += 1
+        log_suppressed("train.step",
+                       NonFiniteError(f"non-finite update at {where}"),
+                       f"state rolled back to {path}")
+        return state
+
+    def _resolve_auto_resume(self):
+        """``resume="auto"``: the newest *valid* checkpoint -- the
+        in-memory tier first, then the on-disk scan -- or ``(None,
+        None)`` for a fresh start. Only corruption-class errors skip to an
+        older candidate; anything else propagates."""
+        from ray_lightning_tpu_torch.core.checkpoint import (
+            CorruptCheckpointError, find_resume_candidates)
+        ckpt_cb = self.checkpoint_callback
+        root = ckpt_cb.dirpath if ckpt_cb is not None and ckpt_cb.dirpath \
+            else os.path.join(self.default_root_dir, "checkpoints")
+        candidates = find_resume_candidates(root)
+        mem = self._memory_resume(candidates)
+        if mem is not None:
+            return mem
+        for path in candidates:
+            try:
+                return path, self._read_checkpoint(path)
+            except (CorruptCheckpointError, OSError, EOFError,
+                    ValueError) as exc:
+                log_suppressed(
+                    "ckpt.load", exc,
+                    f"resume='auto' skipping corrupt candidate {path}")
+        return None, None
+
+    def _memory_resume(self, disk_candidates):
+        """The in-memory checkpoint tier's seat (``ROADMAP.md`` T7): no
+        store is installed in this slice, so it offers nothing."""
+        del disk_candidates
+        return None
 
     def _run_validation(self, val_loader, module, limit=None):
         module.on_validation_epoch_start()
@@ -509,6 +717,8 @@ class Trainer:
         for batch in loader:
             if count >= n_batches:
                 break
+            if _faults.fire("loader.next") == _faults.MODE_NAN:
+                batch = poison_nan(batch)
             buf.append(self._to_device(batch))
             count += 1
             if len(buf) >= depth:
@@ -533,24 +743,37 @@ class Trainer:
         return int(limit)
 
     # ------------------------------------------------------------------ #
-    # evaluate
+    # evaluate / predict
     # ------------------------------------------------------------------ #
-    def _evaluate_worker(self, module, datamodule,
-                         stage: str) -> WorkerOutput:
+    def _prepare_eval(self, module, datamodule, ckpt_path, stage: str,
+                      loader_name: str):
         self._attach(module, datamodule)
         module.prepare_data()
         if datamodule is not None:
             datamodule.prepare_data()
             datamodule.setup(stage)
         module.setup(stage)
-        loader_name = ("val_dataloader" if stage == "validate" else
-                       "test_dataloader")
         loader = self._dataloader(loader_name)
         if loader is None:
             raise ValueError(f"No {loader_name} defined for {stage}")
-        if self.train_state is None:
+        if ckpt_path == "auto":
+            _path, restored = self._resolve_auto_resume()
+        elif ckpt_path:
+            restored = self._read_checkpoint(ckpt_path)
+        else:
+            restored = None
+        if self.train_state is None or restored is not None:
             sample, loader = self._peek_first_batch(loader)
-            self._setup_state(sample)
+            self._setup_state(sample, restored["state"] if restored
+                              else None)
+        return loader
+
+    def _evaluate_worker(self, module, datamodule, ckpt_path,
+                         stage: str) -> WorkerOutput:
+        loader_name = ("val_dataloader" if stage == "validate" else
+                       "test_dataloader")
+        loader = self._prepare_eval(module, datamodule, ckpt_path, stage,
+                                    loader_name)
         if stage == "validate":
             agg = self._run_validation(loader, module)
         else:
@@ -571,12 +794,50 @@ class Trainer:
             callback_metrics=dict(self.callback_metrics),
             logged_metrics={}, results=[agg])
 
-    # ------------------------------------------------------------------ #
-    # results (the worker <-> driver contract)
-    # ------------------------------------------------------------------ #
-    def _collect_results(self) -> WorkerOutput:
+    def _predict_worker(self, module, datamodule,
+                        ckpt_path) -> WorkerOutput:
+        loader = self._prepare_eval(module, datamodule, ckpt_path, "predict",
+                                    "predict_dataloader")
+        model = self.train_state.model
+        generator = torch.Generator().manual_seed(
+            (self._eval_seed + self.global_step) % 2**63)
+        n = self._resolve_limit(loader, self.limit_predict_batches)
+        outs = []
+        for cb in self.callbacks:
+            cb.on_predict_start(self, module)
+            cb.on_predict_epoch_start(self, module)
+        model.eval()
+        for batch_idx, batch in enumerate(loader):
+            if batch_idx >= n:
+                break
+            for cb in self.callbacks:
+                cb.on_predict_batch_start(self, module, batch, batch_idx)
+            batch = self._to_device(batch)
+            with torch.no_grad():
+                out = module.predict_step(model, batch, generator)
+            out = tree_map(lambda t: t.cpu() if isinstance(
+                t, torch.Tensor) else t, out)
+            outs.append(out)
+            for cb in self.callbacks:
+                cb.on_predict_batch_end(self, module, out, batch,
+                                        batch_idx)
+        for cb in self.callbacks:
+            cb.on_predict_epoch_end(self, module)
+            cb.on_predict_end(self, module)
         return WorkerOutput(
             best_model_path=None, state_stream=None,
+            trainer_state=dict(epoch=self.current_epoch,
+                               global_step=self.global_step),
+            callback_metrics={}, logged_metrics={}, results=outs)
+
+    # ------------------------------------------------------------------ #
+    # results and checkpoints (the worker <-> driver contract)
+    # ------------------------------------------------------------------ #
+    def _collect_results(self) -> WorkerOutput:
+        ckpt_cb = self.checkpoint_callback
+        return WorkerOutput(
+            best_model_path=ckpt_cb.best_model_path if ckpt_cb else None,
+            state_stream=None,
             trainer_state=dict(epoch=self.current_epoch,
                                global_step=self.global_step,
                                should_stop=self.should_stop),
@@ -600,3 +861,94 @@ class Trainer:
             st = (output.callback_states or {}).get(type(cb).__name__)
             if st:
                 cb.load_state_dict(st)
+
+    def save_checkpoint(self, filepath: str,
+                        save_format: str = "stream",
+                        async_save: bool = False) -> None:
+        """Write a full resumable checkpoint.
+
+        ``save_format="stream"``: one ``torch.save`` file, written to a
+        tmp file and ``os.replace``\\ d into place. ``"orbax"``: a committed
+        directory through ``torch.distributed.checkpoint``
+        (:mod:`ray_lightning_tpu_torch.core.checkpoint`); ``async_save``
+        (directories only) overlaps the write with training, and the
+        trainer waits for it at fit end.
+        """
+        if async_save and save_format != "orbax":
+            raise ValueError(
+                "async_save requires save_format='orbax' (the stream "
+                "format is one synchronous host write)")
+        ckpt = self.dump_checkpoint()
+        if save_format == "orbax":
+            from ray_lightning_tpu_torch.core.checkpoint import \
+                save_sharded_checkpoint
+            save_sharded_checkpoint(filepath, ckpt, async_save=async_save)
+        else:
+            os.makedirs(os.path.dirname(os.path.abspath(filepath)),
+                        exist_ok=True)
+            tmp = f"{filepath}.tmp-{os.getpid()}"
+            try:
+                with open(tmp, "wb") as f:
+                    _util.save_state_stream(ckpt, f)
+                # pre-commit fault seat + atomic publish: a crash
+                # mid-write leaves only the tmp file, which scans ignore
+                _faults.fire("ckpt.save")
+                os.replace(tmp, filepath)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+        self._last_ckpt_path = filepath
+        self._memory_checkpoint(ckpt)
+
+    def _memory_checkpoint(self, ckpt: Dict[str, Any]) -> None:
+        """The in-memory checkpoint tier's seat (``ROADMAP.md`` T7): no
+        store is installed in this slice, so nothing is mirrored."""
+        del ckpt
+
+    def dump_checkpoint(self) -> Dict[str, Any]:
+        """The checkpoint dict: progress, loop position, world size, the
+        train state, callback states and tensors, and the module's own
+        state. Its tensors alias the live ones."""
+        module_state: Dict[str, Any] = {}
+        if self._module is not None:
+            self._module.on_save_checkpoint(module_state)
+        ckpt = {
+            "epoch": self.current_epoch,
+            "global_step": self.global_step,
+            "loop": {"batch_in_epoch": int(self._batch_in_epoch)},
+            "world": {"world_size": int(self.strategy.num_workers)},
+            "state": self.train_state.state_dict(),
+            "callbacks": {type(cb).__name__: cb.state_dict()
+                          for cb in self.callbacks},
+            "module": module_state,
+        }
+        cb_arrays = {type(cb).__name__: cb.sharded_state()
+                     for cb in self.callbacks
+                     if cb.sharded_state() is not None}
+        if cb_arrays:
+            ckpt["callback_arrays"] = cb_arrays
+        for cb in self.callbacks:
+            cb.on_save_checkpoint(self, self._module, ckpt)
+        return ckpt
+
+    def _read_checkpoint(self, path: str) -> Dict[str, Any]:
+        """A checkpoint file or directory, its tensors on the CPU (the
+        train state's ``load_state_dict`` puts each on its param's
+        device)."""
+        from ray_lightning_tpu_torch.core.checkpoint import (
+            CorruptCheckpointError, is_sharded_checkpoint,
+            load_sharded_checkpoint, wait_for_async_saves)
+        wait_for_async_saves()  # never read a half-committed directory
+        if is_sharded_checkpoint(path):
+            ckpt = load_sharded_checkpoint(path, map_location="cpu")
+        else:
+            with open(path, "rb") as f:
+                try:
+                    ckpt = _util.load_state_stream(f, map_location="cpu")
+                except (RuntimeError, EOFError, ValueError) as exc:
+                    raise CorruptCheckpointError(
+                        f"unreadable checkpoint {path}: "
+                        f"{type(exc).__name__}: {exc}") from exc
+        for cb in self.callbacks:
+            cb.on_load_checkpoint(self, self._module, ckpt)
+        return ckpt

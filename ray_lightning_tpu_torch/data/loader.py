@@ -4,10 +4,13 @@ The same global-batch loader as the JAX package, with tuples, lists and
 dicts of numpy arrays in place of ``jax.tree_util`` pytrees: one logical
 batch per step, the same per-epoch shuffle (``default_rng(seed + epoch)``)
 and ``drop_last=True`` by default. Batches stay numpy; the trainer moves
-them to the device.
+them to the device. :func:`fast_forward` skips the batches a mid-epoch
+checkpoint had already trained on, so a resumed epoch draws exactly the
+batches the uninterrupted run drew after them.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Callable, Iterator, List
 
@@ -87,6 +90,11 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Any]:
         """This epoch's batches; a finished pass advances the epoch."""
+        return self.iter_from(0)
+
+    def iter_from(self, start: int) -> Iterator[Any]:
+        """This epoch's batches from the ``start``-th on (the earlier ones
+        are not gathered); a finished pass advances the epoch."""
         n = len(self.dataset)
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
@@ -95,6 +103,17 @@ class DataLoader:
             order = np.arange(n)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last \
             else n
-        for s in range(0, stop, self.batch_size):
+        for s in range(start * self.batch_size, stop, self.batch_size):
             yield self.dataset.take(order[s:s + self.batch_size])
         self._epoch += 1
+
+
+def fast_forward(loader: Any, skip: int) -> Any:
+    """``loader``'s batches after its first ``skip`` (the resume
+    fast-forward): a :class:`DataLoader` starts at batch ``skip`` of its
+    epoch's order; any other iterable is advanced past them."""
+    if skip <= 0:
+        return loader
+    if isinstance(loader, DataLoader):
+        return loader.iter_from(skip)
+    return itertools.islice(iter(loader), skip, None)

@@ -1,3 +1,4 @@
+from ray_lightning_tpu_torch.models.boring import BoringModel
 from ray_lightning_tpu_torch.models.generate import (decode_step_paged,
                                                     row_seed,
                                                     sample_logits_rows)
@@ -14,6 +15,7 @@ from ray_lightning_tpu_torch.models.transformer import (DenseKV, PagedKV,
                                                         new_cache)
 
 __all__ = [
+    "BoringModel",
     "decode_step_paged", "row_seed", "sample_logits_rows", "GPT2_SIZES",
     "GPTModule", "gpt2_config", "DenseKV", "PagedKV", "TransformerConfig",
     "TransformerLM", "latch_eos", "new_arena", "new_cache", "QTensor",

@@ -3,15 +3,16 @@
 This slice runs one process on one device: ranks are 0 and the world
 size is 1, ``configure_launcher()`` returns the in-process
 :class:`~ray_lightning_tpu_torch.launchers.local.LocalLauncher`, and the
-strategy is the seat of the training step (:meth:`Strategy.make_train_step`)
-and the evaluation step. Data parallelism (``num_workers > 1``), Ray
-(``use_ray=True``), gang supervision (``gang=``), warm standbys
-(``standby=``) and the per-worker resource arguments raise
-``NotImplementedError``: they come with ``ROADMAP.md`` T6.
+strategy is the seat of the training step (:meth:`Strategy.make_train_step`,
+with the trainer's non-finite guard) and the evaluation step. Data
+parallelism (``num_workers > 1``), Ray (``use_ray=True``), gang
+supervision (``gang=``), warm standbys (``standby=``) and the per-worker
+resource arguments raise ``NotImplementedError``: they come with
+``ROADMAP.md`` T6.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +21,7 @@ from ray_lightning_tpu_torch.core.optim import (clip_by_global_norm_,
 from ray_lightning_tpu_torch.core.train_state import TrainState
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.launchers.local import LocalLauncher
+from ray_lightning_tpu_torch.reliability.guard import tree_all_finite
 
 _DDP_ITEM = "ROADMAP.md T6, data parallel"
 
@@ -92,7 +94,8 @@ class Strategy:
                         log_grad_norm: bool = False,
                         gradient_clip_val: Optional[float] = None,
                         accumulate_grad_batches: int = 1,
-                        lr_schedule: Optional[Callable] = None
+                        lr_schedule: Optional[Callable] = None,
+                        guard_nonfinite: bool = False
                         ) -> Callable[[TrainState, Any],
                                       Tuple[TrainState, Dict[str, Any]]]:
         """The training step: ``state, logs = step(state, batch)``.
@@ -105,15 +108,20 @@ class Strategy:
         optimizer steps on every k-th batch, after clipping the mean with
         optax's rule. ``lr_schedule(n)`` sets the learning rate of the
         n-th update. Returns ``{"loss": ..., **logs}`` as device tensors.
+
+        ``guard_nonfinite`` (the trainer's ``nonfinite_action`` seat)
+        tests the loss and every gradient element for NaN/Inf with one
+        device flag and one host read of it, before anything is applied:
+        a poisoned batch leaves params, optimizer state and the
+        accumulation untouched (what the JAX step's device-side select
+        keeps) and reports ``logs["nonfinite"] = 1.0`` as a host tensor.
+        ``state.step`` still advances: the batch was attempted.
         """
         k = int(accumulate_grad_batches)
         if k < 1:
             raise ValueError(f"accumulate_grad_batches must be >= 1, got {k}")
-        acc: List[torch.Tensor] = []
-        updates = 0
 
         def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-            nonlocal acc, updates
             model, opt = state.model, state.optimizer
             params = [p for g in opt.param_groups for p in g["params"]]
             model.train()
@@ -125,29 +133,36 @@ class Strategy:
                      for p in params]
             if log_grad_norm:
                 logs = {**logs, "grad_norm": global_norm(grads).detach()}
-            mini = state.step % k
+            state.step += 1
+            if guard_nonfinite:
+                bad = not bool(tree_all_finite([loss.detach(), grads]))
+                logs = {**logs, "nonfinite": torch.tensor(float(bad))}
+                if bad:
+                    for p in params:
+                        p.grad = None
+                    return state, {"loss": loss.detach(), **logs}
             if k > 1:
-                if not acc:
-                    acc = [torch.zeros_like(g) for g in grads]
+                if state.acc is None:
+                    state.acc = [torch.zeros_like(g) for g in grads]
                 with torch.no_grad():
-                    for a, g in zip(acc, grads):
-                        a.add_((g - a) / (mini + 1))
-                grads = acc
-            if mini == k - 1:
+                    for a, g in zip(state.acc, grads):
+                        a.add_((g - a) / (state.mini_step + 1))
+                grads = state.acc
+            state.mini_step += 1
+            if state.mini_step == k:
                 if gradient_clip_val:
                     clip_by_global_norm_(grads, gradient_clip_val)
                 for p, g in zip(params, grads):
                     p.grad = g
                 if lr_schedule is not None:
                     for group in opt.param_groups:
-                        group["lr"] = float(lr_schedule(updates))
+                        group["lr"] = float(lr_schedule(state.updates))
                 opt.step()
-                updates += 1
-                for p in params:
-                    p.grad = None
-                if k > 1:
-                    acc = []
-            state.step += 1
+                state.updates += 1
+                state.mini_step = 0
+                state.acc = None
+            for p in params:
+                p.grad = None
             return state, {"loss": loss.detach(), **logs}
 
         return step

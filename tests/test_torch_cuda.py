@@ -20,8 +20,11 @@ clusters (paged attention: the keys of a (row, head); the dense GEMV: K):
 they are held at cluster sizes 4 and 8, at GPT-2-small's projections and
 M of 1 to 16, at the longest rows the wrapper admits, for bitwise
 repeatability, for a launch geometry that fills the card, and for a CUDA
-graph replay equal to the eager call. ``chip_smoke.py`` repeats this at
-the serving and training paths' full shapes.
+graph replay equal to the eager call. The trainer on the card:
+checkpoints round-trip in both formats with the optimizer state back on
+the card, nano GPT on the flash kernels resumes bitwise after a kill,
+and the non-finite guard skips a poisoned batch. ``chip_smoke.py``
+repeats this at the serving and training paths' full shapes.
 """
 import numpy as np
 import pytest
@@ -758,3 +761,95 @@ def test_gemv_replays_in_a_cuda_graph(cuda, proj):
     K = shape[-1] if transpose else shape[0]
     x = torch.randn(8, K, generator=g, device=cuda).to(torch.bfloat16)
     _graph_replays_equal_eager(lambda: qmm.quantized_matmul(x, qt, transpose))
+
+
+# ------------------------------------------- checkpoint, resume, guard
+def _card_fit(root, module, ckpt_path=None, **kw):
+    for k, v in dict(max_epochs=2, limit_train_batches=4,
+                     limit_val_batches=1, seed=0).items():
+        kw.setdefault(k, v)
+    trainer = Trainer(strategy=RayStrategy(), default_root_dir=str(root),
+                      **kw)
+    trainer.fit(module, ckpt_path=ckpt_path)
+    return trainer
+
+
+def _boring(name):
+    from ray_lightning_tpu_torch import BoringModel, make_optimizer
+
+    class Boring(BoringModel):
+        def configure_optimizers(self):
+            return make_optimizer(name, 1e-2)
+
+    return Boring()
+
+
+@pytest.mark.parametrize("fmt", ["stream", "orbax"])
+@pytest.mark.parametrize("name", ["adamw", "adamw_bf16m", "adafactor"])
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path, fmt, name):
+    """A checkpoint of a card run, both formats, restored by a fresh
+    trainer: params bitwise, every optimizer state tensor back on the
+    card in its dtype (torch's AdamW step counts and the presets' int32
+    counts stay on the host, as torch keeps them)."""
+    from ray_lightning_tpu_torch import ModelCheckpoint
+    t = _card_fit(tmp_path, _boring(name),
+                  callbacks=[ModelCheckpoint(save_format=fmt)])
+    best = t.checkpoint_callback.best_model_path
+    t2 = _card_fit(tmp_path, _boring(name), ckpt_path=best, max_epochs=0)
+    for (n, a), b in zip(t.model.state_dict().items(),
+                         t2.model.state_dict().values()):
+        assert b.device.type == "cuda" and torch.equal(a, b), n
+    opt, opt2 = t.train_state.optimizer, t2.train_state.optimizer
+    for p, p2 in zip(t.model.parameters(), t2.model.parameters()):
+        for key, v in opt.state[p].items():
+            v2 = opt2.state[p2][key]
+            assert v2.dtype == v.dtype and torch.equal(v2.cpu(), v.cpu())
+            assert v2.device.type == ("cpu" if key == "step" else "cuda")
+    assert all(opt2.state[k].device.type == "cpu"
+               for k in ("count", "ema_count") if k in opt2.state)
+
+
+@pytest.mark.parametrize("fmt", ["stream", "orbax"])
+def test_gpt_kill_and_resume_is_bitwise_on_the_card(cuda, tmp_path, fmt):
+    """Nano GPT on the flash kernels in bf16 over f32 master weights,
+    killed after a mid-epoch save and resumed with resume="auto": the
+    final params and optimizer state equal the uninterrupted run's."""
+    from ray_lightning_tpu_torch import ModelCheckpoint
+    from ray_lightning_tpu_torch.reliability import FaultPlan, InjectedFault
+    cfg = gpt2_config("nano", attention_impl="flash", vocab_size=256,
+                      max_seq_len=64)
+
+    def module():
+        return GPTModule(config=cfg, batch_size=4, num_samples=32)
+
+    ref = _card_fit(tmp_path / "ref", module())
+    cb = dict(dirpath=str(tmp_path / "ck"), save_format=fmt,
+              every_n_train_steps=3, save_top_k=-1)
+    with pytest.raises(InjectedFault):   # dies after the step-3 save
+        with FaultPlan.at("train.step", [3]).armed():
+            _card_fit(tmp_path, module(), callbacks=[ModelCheckpoint(**cb)])
+    cf.reset_kernel_launches()
+    resumed = _card_fit(tmp_path, module(), resume="auto",
+                        callbacks=[ModelCheckpoint(**cb)])
+    assert cf.route_launches("flash_bwd_dkv")["tc"] == cfg.n_layers * 5
+    for (n, a), b in zip(ref.model.state_dict().items(),
+                         resumed.model.state_dict().values()):
+        assert torch.equal(a, b), n
+    for p, p2 in zip(ref.model.parameters(), resumed.model.parameters()):
+        for key, v in ref.train_state.optimizer.state[p].items():
+            assert torch.equal(v, resumed.train_state.optimizer.state[p2][
+                key]), key
+
+
+def test_guarded_step_skips_a_nan_batch_on_the_card(cuda, tmp_path):
+    """nonfinite_action="skip_batch" with one batch NaN-poisoned: one
+    skipped batch, every param finite, one optimizer step fewer than
+    batches."""
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    with FaultPlan.at("loader.next", [1], mode="nan").armed():
+        t = _card_fit(tmp_path, _boring("adamw"), limit_val_batches=0,
+                      nonfinite_action="skip_batch")
+    assert t.nonfinite_batches == 1
+    assert all(torch.isfinite(p).all() for p in t.model.parameters())
+    steps = {int(s["step"]) for s in t.train_state.optimizer.state.values()}
+    assert steps == {t.global_step - 1} and t.global_step == 8

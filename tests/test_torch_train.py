@@ -14,7 +14,9 @@ In f32 on the CPU, with the JAX package's weights carried across by
   -- with SGD the per-step losses and final params at atol 1e-5, with the
   default AdamW the loss trajectory at 1e-4, plus ``callback_metrics``,
   ``global_step`` and the order of the callback hooks;
-- the device rule, every unported argument, and explicit generators.
+- the device rule, every argument still unported (each raises naming
+  its ``ROADMAP.md`` item), each argument earlier slices raised on now
+  running, and explicit generators.
 """
 import numpy as np
 import optax
@@ -31,11 +33,13 @@ from ray_lightning_tpu.data.loader import ArrayDataset as JaxArrayDataset
 from ray_lightning_tpu.data.loader import DataLoader as JaxDataLoader
 from ray_lightning_tpu.models.gpt import GPTModule as JaxGPTModule
 from ray_lightning_tpu.models.gpt import gpt2_config as jax_gpt2_config
-from ray_lightning_tpu_torch import (GPTModule, RayStrategy, Trainer,
-                                     TransformerLM, gpt2_config,
-                                     make_optimizer)
+from ray_lightning_tpu_torch import (BoringModel, GPTModule,
+                                     ModelCheckpoint, RayStrategy,
+                                     SimpleProfiler, Trainer, TransformerLM,
+                                     gpt2_config, make_optimizer)
 from ray_lightning_tpu_torch.core import (Callback, EpochStatsCallback,
                                           LambdaCallback, TrainState)
+from ray_lightning_tpu_torch.core import optim
 from ray_lightning_tpu_torch.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.interop import (flax_state_dict,
                                              load_flax_params)
@@ -320,30 +324,9 @@ def test_trainer_and_strategy_default_to_the_card():
         Trainer()
 
 
-def _fit_with_ckpt_path():
-    Trainer(strategy=RayStrategy(device="cpu")).fit(
-        GPTModule(config=port_cfg()), ckpt_path="last.ckpt")
-
-
 UNPORTED = {
-    "enable_checkpointing": lambda: Trainer(
-        strategy=RayStrategy(device="cpu"), enable_checkpointing=True),
-    "resume": lambda: Trainer(strategy=RayStrategy(device="cpu"),
-                              resume="auto"),
-    "nonfinite_action": lambda: Trainer(
-        strategy=RayStrategy(device="cpu"), nonfinite_action="raise"),
     "telemetry": lambda: Trainer(strategy=RayStrategy(device="cpu"),
                                  telemetry=object()),
-    "profiler": lambda: Trainer(strategy=RayStrategy(device="cpu"),
-                                profiler="simple"),
-    "limit_predict_batches": lambda: Trainer(
-        strategy=RayStrategy(device="cpu"), limit_predict_batches=2),
-    "ckpt_path": _fit_with_ckpt_path,
-    "predict": lambda: Trainer(strategy=RayStrategy(device="cpu")).predict(
-        GPTModule(config=port_cfg())),
-    "validate_ckpt_path": lambda: Trainer(
-        strategy=RayStrategy(device="cpu")).validate(
-            GPTModule(config=port_cfg()), ckpt_path="best"),
     "num_workers": lambda: RayStrategy(num_workers=2, device="cpu"),
     "use_ray": lambda: RayStrategy(use_ray=True, device="cpu"),
     "gang": lambda: RayStrategy(gang=object(), device="cpu"),
@@ -352,20 +335,73 @@ UNPORTED = {
         resources_per_worker={"CPU": 2}, device="cpu"),
     "ddp_kwargs": lambda: RayStrategy(find_unused_parameters=True,
                                       device="cpu"),
-    "adamw_bf16m": lambda: make_optimizer("adamw_bf16m"),
-    "adafactor": lambda: make_optimizer("adafactor"),
-    "factored": lambda: make_optimizer("adamw", factored=True),
-    "moment_dtype": lambda: make_optimizer("adamw",
-                                           moment_dtype=torch.bfloat16),
-    "gpt_adafactor": lambda: Trainer(strategy=RayStrategy(
-        device="cpu")).fit(GPTModule(config=port_cfg(),
-                                     optimizer="adafactor")),
     "dropout": lambda: gpt2_config("nano", dropout=0.1),
     "remat": lambda: gpt2_config("nano", remat=True),
     "ring": lambda: gpt2_config("nano", attention_impl="ring"),
     "ulysses": lambda: gpt2_config("nano", attention_impl="ulysses"),
     "attention_dropout": lambda: flash_attention(
         *(torch.zeros(1, 4, 2, 32),) * 3, dropout_rate=0.1),
+}
+
+
+def _boring_fit(tmp_path, **kw):
+    """A short checkpointed BoringModel fit: the trainer and its best
+    checkpoint."""
+    trainer = Trainer(strategy=RayStrategy(device="cpu"), max_epochs=1,
+                      limit_train_batches=2, limit_val_batches=1, seed=0,
+                      default_root_dir=str(tmp_path),
+                      enable_checkpointing=True, **kw)
+    trainer.fit(BoringModel())
+    return trainer, trainer.checkpoint_callback.best_model_path
+
+
+def _resumed_step(tmp_path, resume=None):
+    """The step a new trainer restores: from the best checkpoint's path,
+    or found by ``resume="auto"``."""
+    _t, best = _boring_fit(tmp_path)
+    trainer = Trainer(strategy=RayStrategy(device="cpu"), max_epochs=1,
+                      default_root_dir=str(tmp_path), resume=resume)
+    trainer.fit(BoringModel(), ckpt_path=None if resume else best)
+    return trainer.global_step
+
+
+def _optimizer_class(**kw):
+    return type(make_optimizer(**kw)(torch.nn.Linear(2, 2).parameters()))
+
+
+# the arguments earlier slices raised on, each now ported (held against
+# the JAX package by tests/test_torch_checkpoint.py, test_torch_callbacks.py
+# and test_torch_optim.py): each runs
+PORTED = {
+    "enable_checkpointing": lambda tmp: isinstance(
+        _boring_fit(tmp)[0].checkpoint_callback, ModelCheckpoint),
+    "resume": lambda tmp: _resumed_step(tmp, resume="auto") == 2,
+    "nonfinite_action": lambda tmp: _boring_fit(
+        tmp, nonfinite_action="raise")[0].nonfinite_batches == 0,
+    "profiler": lambda tmp: isinstance(
+        _boring_fit(tmp, profiler="simple")[0].profiler, SimpleProfiler),
+    "limit_predict_batches": lambda tmp: len(Trainer(
+        strategy=RayStrategy(device="cpu"), limit_predict_batches=2,
+        seed=0).predict(BoringModel())) == 2,
+    "ckpt_path": lambda tmp: _resumed_step(tmp) == 2,
+    "predict": lambda tmp: len(Trainer(
+        strategy=RayStrategy(device="cpu"), seed=0).predict(
+            BoringModel())) == 8,
+    "validate_ckpt_path": lambda tmp: "x" in Trainer(
+        strategy=RayStrategy(device="cpu"), limit_val_batches=1).validate(
+            BoringModel(), ckpt_path=_boring_fit(tmp)[1])[0],
+    "adamw_bf16m": lambda tmp: _optimizer_class(name="adamw_bf16m")
+    is optim.AdamW,
+    "adafactor": lambda tmp: _optimizer_class(name="adafactor")
+    is optim.Adafactor,
+    "factored": lambda tmp: _optimizer_class(name="adamw", factored=True)
+    is optim.Adafactor,
+    "moment_dtype": lambda tmp: _optimizer_class(
+        name="adamw", moment_dtype=torch.bfloat16) is optim.AdamW,
+    "gpt_adafactor": lambda tmp: Trainer(
+        strategy=RayStrategy(device="cpu"), max_steps=1,
+        limit_val_batches=0, seed=0).fit(GPTModule(
+            config=port_cfg(), optimizer="adafactor")) is None,
 }
 
 
@@ -378,6 +414,11 @@ def test_a_schedule_goes_beside_the_factory():
 def test_unported_arguments_raise(what):
     with pytest.raises(NotImplementedError, match="not ported"):
         UNPORTED[what]()
+
+
+@pytest.mark.parametrize("what", sorted(PORTED))
+def test_ported_arguments_run(what, tmp_path):
+    assert PORTED[what](tmp_path)
 
 
 def test_init_draws_only_from_the_given_generator():
