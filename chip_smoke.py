@@ -111,6 +111,23 @@ O. The optimizer presets, predict and the guard on the card, at T2's
    module with one batch NaN-poisoned by ``FaultPlan.at("loader.next",
    [2], mode="nan")``: one skipped batch, every param finite, one AdamW
    step fewer than batches.
+D. Data parallelism, one process per device: T2's module and optimizer
+   (``limit_val_batches=0``, seed 0) for 6 steps under each of
+   ``RayStrategy`` (DDP), ``HorovodRayStrategy`` (explicit all-reduce),
+   ``RayShardedStrategy`` (ZeRO-1) and ``FSDPStrategy`` (FSDP2), each fit
+   launched by a ``RayLauncher`` over ``ProcessRay`` on one spawned worker
+   that owns the card, in an NCCL process group of world size 1 (the
+   script needs one card; NCCL refuses two ranks on one device), all four
+   reusing that worker (``workers=``). DDP's and the all-reduce's losses
+   must equal T2's first 6 bitwise (an all-reduce of one rank is a copy,
+   and dividing by 1 is exact); ZeRO's and FSDP2's must lie within
+   ``D_LOSS_RTOL`` of them (whether they are bitwise is printed). In the
+   worker, K2 launches 12 x 6 times per fit and K3 and K4 12 x 6 each, all
+   on ``tc``. Printed per strategy: the median step ms beside T2's, peak
+   device memory, ``opt_state_bytes``, the spawn and launch-to-first-hook
+   seconds, and the bytes and seconds of rank 0's ``state_stream``
+   return. First, ``RayStrategy(num_workers=2)`` must raise ``ValueError``
+   before anything is spawned.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K5 has two entries, each with
    Q2's int8 launches on its routes: ``quantized_matmul`` holds one
@@ -122,6 +139,7 @@ O. The optimizer presets, predict and the guard on the card, at T2's
 import dataclasses
 import gc
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -132,6 +150,10 @@ import time
 
 import numpy as np
 import torch
+
+# the spawned workers of phase D import this script to unpickle its
+# callback, so the port is imported here, not only inside the phases
+from ray_lightning_tpu_torch.core.callbacks import Callback
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
@@ -985,7 +1007,7 @@ def phase_t2_training(card, flash_path):
     attn_ms = n * sum(flash_path[f"{k}_ms"] for k in ("fwd", "dkv", "dq"))
     res = dict(
         train_steps=TRAIN_STEPS, val_batches=VAL_BATCHES,
-        first_loss=losses[0], last5_mean_loss=last5,
+        first_loss=losses[0], last5_mean_loss=last5, losses=losses,
         val_loss=trainer.callback_metrics["val_loss"],
         expected_first_loss=float(np.log(cfg.vocab_size)),
         launches=launches, routes=routes, params=n_params, fit_s=fit_s,
@@ -1392,6 +1414,153 @@ def predict_check(trainer, module) -> dict:
     return dict(batches=len(outs), shape=list(outs[0].shape),
                 dtype=str(outs[0].dtype), bitwise=True)
 
+# -------------------------------------------------------------- phase D
+D_STEPS = 6
+# ZeRO and FSDP2 against T2's losses, relative: bf16 activations, and the
+# sharded or gathered paths may sum in another order, which can flip a
+# bf16 rounding; over 6 AdamW steps that moves a loss of ~11 far less
+# than this
+D_LOSS_RTOL = 1e-3
+
+
+class WorkerProbe(Callback):
+    """Measures a fit from inside the process that trains it: the flash
+    kernels' launches per route (reset at fit start), step end times and
+    losses, peak device memory and ``opt_state_bytes``; the counts and
+    sizes ride back in ``callback_metrics``, the per-step series as this
+    callback's state (both reach the driver from rank 0)."""
+
+    def __init__(self, launched_at: float):
+        self.launched_at = launched_at
+        self.losses, self.ends, self.fit_start = [], [], None
+
+    def on_fit_start(self, trainer, module):
+        from ray_lightning_tpu_torch.ops import cuda_flash as cf
+        self.fit_start = time.time()
+        cf.reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, idx):
+        torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        self.losses.append(float(outputs["loss"]))
+
+    def on_train_end(self, trainer, module):
+        from ray_lightning_tpu_torch.core import opt_state_bytes
+        from ray_lightning_tpu_torch.ops import cuda_flash as cf
+        m = trainer.callback_metrics
+        for name in cf.KERNELS:
+            for route, n in cf.route_launches(name).items():
+                m[f"launches/{name}/{route}"] = n
+        m["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        m["opt_state_bytes"] = opt_state_bytes(trainer.train_state.optimizer)
+        m["launch_to_fit_start_s"] = self.fit_start - self.launched_at
+        m["device"] = str(trainer.strategy.root_device)
+
+    def state_dict(self):
+        return {"losses": self.losses, "ends": self.ends}
+
+    def load_state_dict(self, state):
+        self.losses, self.ends = state["losses"], state["ends"]
+
+
+def t2_module():
+    """T2's module itself: a worker unpickles it by import path (the
+    subclasses ``train_module`` defines inside a function do not
+    pickle)."""
+    from ray_lightning_tpu_torch import GPTModule
+    from ray_lightning_tpu_torch.models import gpt2_config
+    return GPTModule(config=gpt2_config("small", attention_impl="flash"),
+                     batch_size=8, seq_len=1024)
+
+
+def phase_d_data_parallel(card, t2):
+    """Data parallelism through spawned workers on the card."""
+    from ray_lightning_tpu_torch import (FSDPStrategy, HorovodRayStrategy,
+                                         RayShardedStrategy, RayStrategy,
+                                         Trainer)
+    from ray_lightning_tpu_torch.launchers import (ExecutorBase, ProcessRay,
+                                                   RayLauncher)
+    release()
+    before = len(multiprocessing.active_children())
+    try:
+        Trainer(strategy=RayStrategy(num_workers=2), max_steps=1).fit(
+            t2_module())
+        check(False, "D: RayStrategy(num_workers=2) on one card did not "
+              "raise")
+    except ValueError as exc:
+        refusal = str(exc)
+    check(len(multiprocessing.active_children()) == before,
+          "D: the refused launch spawned a process")
+    want = t2["losses"][:D_STEPS]
+    n = 12
+    expect = {"flash_fwd": n * D_STEPS, "flash_bwd_dkv": n * D_STEPS,
+              "flash_bwd_dq": n * D_STEPS}
+    ray = ProcessRay()
+    ray.init()
+    res = {"card": card, "refused_two_workers": refusal, "fits": {}}
+    try:
+        t0 = time.perf_counter()
+        workers = [ray.remote(ExecutorBase).options(
+            construct_timeout=300).remote()]
+        res["spawn_s"] = time.perf_counter() - t0
+        for name, cls in (("ddp", RayStrategy),
+                          ("allreduce", HorovodRayStrategy),
+                          ("zero", RayShardedStrategy),
+                          ("fsdp2", FSDPStrategy)):
+            release()
+            probe = WorkerProbe(time.time())
+            strategy = cls(num_workers=1)
+            trainer = Trainer(strategy=strategy, max_epochs=1,
+                              limit_train_batches=D_STEPS,
+                              limit_val_batches=0, seed=0,
+                              callbacks=[probe])
+            trainer._launcher = RayLauncher(strategy, ray_module=ray,
+                                            workers=workers)
+            t0 = time.perf_counter()
+            trainer.fit(t2_module())
+            fit_s = time.perf_counter() - t0
+            m = trainer.callback_metrics
+            launches = {k: {r: int(m[f"launches/{k}/{r}"])
+                            for r in ("simt", "tc")} for k in expect}
+            check(launches == {k: {"simt": 0, "tc": v}
+                               for k, v in expect.items()},
+                  f"D {name}: worker launches {launches}, want {expect} "
+                  "all on tc")
+            got = probe.losses
+            check(len(got) == D_STEPS and all(np.isfinite(got)),
+                  f"D {name}: losses {got}")
+            bitwise = got == want
+            diff = max(abs(a - b) for a, b in zip(got, want))
+            if name in ("ddp", "allreduce"):
+                check(bitwise, f"D {name}: losses {got} != T2's {want}")
+            else:
+                check(all(abs(a - b) <= D_LOSS_RTOL * abs(b)
+                          for a, b in zip(got, want)),
+                      f"D {name}: losses {got} vs T2's {want} past "
+                      f"{D_LOSS_RTOL} relative")
+            check(trainer.global_step == D_STEPS and
+                  trainer.train_state_dict is not None,
+                  f"D {name}: global_step {trainer.global_step}")
+            steps = np.diff(probe.ends)[WARMUP_STEPS - 1:]
+            res["fits"][name] = dict(
+                losses=got, bitwise_vs_t2=bitwise, max_loss_diff=diff,
+                step_ms_median=1e3 * float(np.median(steps)),
+                t2_step_ms_median=t2["step_ms_median"],
+                peak_memory_gib=m["peak_memory_gib"],
+                opt_state_bytes=int(m["opt_state_bytes"]),
+                launch_to_fit_start_s=m["launch_to_fit_start_s"],
+                fit_s=fit_s, worker_device=m["device"],
+                state_stream=trainer.state_stream_stats, launches=launches)
+            print(f"phaseD {name}", json.dumps(res["fits"][name]), flush=True)
+            del trainer
+    finally:
+        ray.shutdown()
+    check(ray.live_actor_count() == 0, "D: a worker outlived the phase")
+    print("phaseD data parallel", json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1456,6 +1625,7 @@ def main() -> int:
     phase_t3_train_kernel_vs_plain()
     phase_r_resume(card)
     phase_o_optimizers(card)
+    phase_d_data_parallel(card, trained)
 
     # the main paths' own calls: bf16 q and pages, T=1 (serving); bf16,
     # B=8, T=S=1024, causal (training)

@@ -14,9 +14,15 @@ the one-process Trainer: crash-safe checkpoints in two formats and
 ``resume="auto"``/``ckpt_path=``, ``ModelCheckpoint``, ``EarlyStopping``,
 ``EMAWeightAveraging``, ``LearningRateMonitor``, ``CSVLogger``, the
 profilers, the non-finite guard, ``predict()`` and the memory-efficient
-optimizer presets. Still raising ``NotImplementedError``, each naming its
-``ROADMAP.md`` item: ``telemetry=`` (S6/T7), dropout and remat (T3), and
-more than one worker (T6).
+optimizer presets. Slice 8 is data parallelism with one process per
+device: ``RayStrategy``, ``HorovodRayStrategy``, ``RayShardedStrategy``
+and ``FSDPStrategy`` with ``num_workers > 1``, each worker a spawned
+process (``launchers/process_backend.py``, or a Ray actor when a Ray
+runtime is attached) in a ``torch.distributed`` process group -- NCCL
+between cards, gloo between CPU workers. Still raising
+``NotImplementedError``, each naming its ``ROADMAP.md`` item:
+``telemetry=``, ``gang=`` and ``standby=`` (S6/T7), dropout and remat
+(T3).
 
 Ground rules of the port:
 
@@ -55,7 +61,10 @@ from ray_lightning_tpu_torch.models import (BoringModel, GPTModule,
                                             gpt2_config)
 from ray_lightning_tpu_torch.reliability import FaultPlan, NonFiniteError
 from ray_lightning_tpu_torch.serve import ServeClient, ServeEngine
-from ray_lightning_tpu_torch.strategies import RayStrategy
+from ray_lightning_tpu_torch.strategies import (FSDPStrategy,
+                                                HorovodRayStrategy,
+                                                RayShardedStrategy,
+                                                RayStrategy)
 
 __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "LearningRateMonitor", "ModelCheckpoint", "SimpleProfiler",
@@ -63,4 +72,5 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "resolve_device", "load_flax_params", "load_flax_quantized",
            "BoringModel", "GPTModule", "TransformerConfig", "TransformerLM",
            "gpt2_config", "FaultPlan", "NonFiniteError", "ServeClient",
-           "ServeEngine", "RayStrategy"]
+           "ServeEngine", "RayStrategy", "HorovodRayStrategy",
+           "RayShardedStrategy", "FSDPStrategy"]

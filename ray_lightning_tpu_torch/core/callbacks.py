@@ -201,6 +201,7 @@ class ModelCheckpoint(Callback):
         self._saved: list = []  # (score, path)
         self._last_saved_path: str = ""
         self._last_periodic_path: str = ""
+        self._deletes = True   # this rank removes pruned files (rank 0)
 
     def setup(self, trainer, pl_module, stage: str) -> None:
         if self.dirpath is None:
@@ -241,8 +242,10 @@ class ModelCheckpoint(Callback):
     def _save(self, trainer, monitor_val, periodic: bool = False) -> None:
         if self.save_top_k == 0 or monitor_val is self._SKIP:
             return
-        if trainer.global_rank != 0:
-            return
+        # every rank saves (a collective under a process group: the
+        # trainer has rank 0 write the stream file, each rank its shards
+        # of a directory) and keeps the same ledger; rank 0 deletes
+        self._deletes = trainer.global_rank == 0
         name = self.filename.format(
             epoch=trainer.current_epoch, step=trainer.global_step)
         if monitor_val is not None:
@@ -266,7 +269,7 @@ class ModelCheckpoint(Callback):
             if prev and prev != path and prev != self.best_model_path \
                     and all(prev != p for _s, p in self._saved):
                 self._wait_if_pending(prev)
-                if os.path.exists(prev):
+                if self._deletes and os.path.exists(prev):
                     _remove(prev)
             self._last_periodic_path = path
             self._retention_prune()
@@ -297,7 +300,7 @@ class ModelCheckpoint(Callback):
         """``keep_last_n`` retention; everything the callback still
         tracks (top-k ledger, best, last, the rolling periodic save, the
         save just issued) is protected."""
-        if not self.keep_last_n or not self.dirpath:
+        if not self.keep_last_n or not self.dirpath or not self._deletes:
             return
         from ray_lightning_tpu_torch.core.checkpoint import prune_checkpoints
         protect = {p for _s, p in self._saved}
@@ -313,7 +316,7 @@ class ModelCheckpoint(Callback):
             _score, path = self._saved.pop()
             if path != self.best_model_path:
                 self._wait_if_pending(path)
-                if os.path.exists(path):
+                if self._deletes and os.path.exists(path):
                     _remove(path)
 
     def state_dict(self) -> Dict[str, Any]:

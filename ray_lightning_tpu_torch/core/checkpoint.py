@@ -35,6 +35,16 @@ Crash-safety contract, both writers:
 host memory; a background thread finishes the write, then the marker and
 the rename. :func:`wait_for_async_saves` waits for every such commit; the
 trainer calls it at fit end and before it reads a checkpoint.
+
+Under a process group (a multi-worker strategy) a directory save is a
+collective: rank 0 stages the directory and broadcasts its name, every
+rank writes its shards through DCP (replicated tensors are written
+once), and after a barrier rank 0 writes the marker and commits. DCP's
+exchanges run on the strategy's own gloo group, also from the async
+thread, and one async save is in flight at a time, so the collectives
+of two saves never interleave. ``async_save`` needs that process group:
+in one process DCP refuses it and it raises. Loading reads the whole
+state on every rank, with no collective.
 """
 from __future__ import annotations
 
@@ -84,7 +94,7 @@ def _dcp():
 @contextlib.contextmanager
 def _quiet():
     """DCP warns on every call that it runs in one process without a
-    process group, which is this slice's design (``ROADMAP.md`` T6)."""
+    process group, which is the one-process trainer's design."""
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore",
                                 message="torch.distributed is disabled")
@@ -156,14 +166,17 @@ def wait_for_async_saves() -> None:
 
 
 def save_sharded_checkpoint(dirpath: str, ckpt: Dict[str, Any],
-                            async_save: bool = False) -> None:
+                            async_save: bool = False,
+                            strategy: Any = None) -> None:
     """Write ``ckpt`` as a committed directory, through DCP where
     :func:`have_dcp`, else through the plain ``torch.save`` writer.
 
     ``async_save`` (DCP only) returns once the tensors are staged in
     host memory; call :func:`wait_for_async_saves` before relying on the
-    files.
+    files. ``strategy``: the trainer's, whose process group (when it is
+    up) makes the save the collective the module docstring describes.
     """
+    world = strategy is not None and strategy.in_world
     if not have_dcp():
         if async_save:
             raise ValueError(
@@ -171,10 +184,18 @@ def save_sharded_checkpoint(dirpath: str, ckpt: Dict[str, Any],
                 "plain writer is a synchronous host write)")
         _save_torch_checkpoint(dirpath, ckpt)
         return
-    if not async_save:
-        # an async save still in flight must not commit over this one
+    if not async_save or world:
+        # an async save still in flight must not commit over this one,
+        # nor run its collectives beside this one's
         wait_for_async_saves()
-    dirpath, tmp = _stage(dirpath)
+    lead = not world or strategy.global_rank == 0
+    group = strategy.checkpoint_group() if world else None
+    if lead:
+        dirpath, tmp = _stage(dirpath)
+    else:
+        dirpath, tmp = os.path.abspath(dirpath), None
+    if world:
+        tmp = strategy.broadcast_object(tmp)
     tensors: Dict[str, torch.Tensor] = {}
     layout = _split({"state": ckpt.get("state"),
                      "callback_arrays": ckpt.get("callback_arrays")},
@@ -183,26 +204,35 @@ def save_sharded_checkpoint(dirpath: str, ckpt: Dict[str, Any],
     target = os.path.join(tmp, _STATE_NAME)
 
     def finish():
+        if not lead:
+            return
         with open(os.path.join(tmp, _META_NAME), "wb") as f:
             torch.save(meta, f)                 # the marker, last
         _commit(tmp, dirpath)
+
+    def discard():
+        if lead:
+            shutil.rmtree(tmp, ignore_errors=True)
 
     if async_save:
         global _COMMITS
         try:
             faults.fire("ckpt.save")
             with _quiet():
-                future = _dcp().async_save(tensors, checkpoint_id=target)
+                future = _dcp().async_save(tensors, checkpoint_id=target,
+                                           process_group=group)
         except faults.InjectedFault:
-            shutil.rmtree(tmp, ignore_errors=True)
+            discard()
             raise
         except (RuntimeError, ValueError) as exc:
-            shutil.rmtree(tmp, ignore_errors=True)
+            discard()
+            if world:
+                raise
             raise NotImplementedError(
-                "async_save needs torch.distributed.checkpoint.async_save "
-                "to run without a process group, which it refused here; "
-                "the multi-process save comes with ROADMAP.md T6"
-            ) from exc
+                "async_save needs a process group "
+                "(torch.distributed.checkpoint.async_save refused to run "
+                "in one process): fit through a multi-worker strategy, or "
+                "save synchronously") from exc
         if _COMMITS is None:
             _COMMITS = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="ckpt-commit")
@@ -211,24 +241,30 @@ def save_sharded_checkpoint(dirpath: str, ckpt: Dict[str, Any],
             atexit.register(wait_for_async_saves)
 
         def commit():
+            # DCP's last exchange gathers every rank's write results on
+            # rank 0, so rank 0's future resolves after every shard is in
             try:
                 future.result()
                 finish()
             except BaseException:
-                shutil.rmtree(tmp, ignore_errors=True)
+                discard()
                 raise
 
         _PENDING.append(_COMMITS.submit(commit))
         return
     try:
         with _quiet():
-            _dcp().save(tensors, checkpoint_id=target)
+            _dcp().save(tensors, checkpoint_id=target, process_group=group)
         # pre-commit point: a raise here = the process died mid-save;
         # only the staging directory (ignored by resume scans) remains
         faults.fire("ckpt.save")
+        if world:
+            strategy.barrier()      # every rank's shards are written
         finish()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        discard()
+    if world:
+        strategy.barrier()          # committed before any rank reads it
 
 
 def _save_torch_checkpoint(dirpath: str, ckpt: Dict[str, Any]) -> None:
@@ -308,7 +344,7 @@ def _load_dcp(path: str, map_location) -> Dict[str, torch.Tensor]:
                 k: torch.empty(tuple(m.size), dtype=m.properties.dtype,
                                device=map_location or "cpu")
                 for k, m in md.state_dict_metadata.items()}
-            dcp.load(tensors, checkpoint_id=path)
+            dcp.load(tensors, checkpoint_id=path, no_dist=True)
     except Exception as exc:
         raise CorruptCheckpointError(
             f"failed to load the DCP state from {path}: "

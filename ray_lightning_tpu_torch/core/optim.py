@@ -308,20 +308,59 @@ class Adafactor(_OptaxLike):
 
 
 def opt_state_bytes(optimizer: torch.optim.Optimizer) -> int:
-    """Total bytes of an optimizer's state tensors (the memory claims'
-    measure, as the JAX package's ``opt_state_bytes``)."""
+    """Total bytes of the optimizer state this process holds (the memory
+    claims' measure, as the JAX package's ``opt_state_bytes``): under
+    ZeRO its local optimizer's, under FSDP each tensor's local shard."""
+    try:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+    except ImportError:  # a torch built without distributed support
+        ZeroRedundancyOptimizer = ()
+    if isinstance(optimizer, ZeroRedundancyOptimizer):
+        optimizer = optimizer.optim
     total = 0
     for value in optimizer.state.values():
         for t in (value.values() if isinstance(value, dict) else [value]):
             if isinstance(t, torch.Tensor):
+                t = local_tensor(t)
                 total += t.numel() * t.element_size()
     return total
 
 
+def _dtensor_type():
+    try:
+        from torch.distributed.tensor import DTensor
+        return DTensor
+    except ImportError:  # a torch built without distributed support
+        return ()
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: writing it writes the DTensor);
+    any other tensor itself."""
+    return t.to_local() if isinstance(t, _dtensor_type()) else t
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum of squares)`` over every tensor, in f32 (optax's
-    ``global_norm``); a device scalar."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    ``global_norm``); a device scalar. Sharded DTensors (FSDP's
+    gradients) add their local shards' squares, summed over the mesh in
+    one collective."""
+    DTensor = _dtensor_type()
+    if not any(isinstance(t, DTensor) for t in tensors):
+        return torch.sqrt(sum(torch.sum(t.float() * t.float())
+                              for t in tensors))
+    plain, shards, mesh = [], [], None
+    for t in tensors:
+        if isinstance(t, DTensor) and all(p.is_shard() for p in t.placements):
+            shards.append(t.to_local())
+            mesh = t.device_mesh
+        else:
+            plain.append(t.full_tensor() if isinstance(t, DTensor) else t)
+    part = sum(torch.sum(t.float() * t.float()) for t in shards)
+    import torch.distributed as dist
+    dist.all_reduce(part, group=mesh.get_group())
+    return torch.sqrt(part + sum((torch.sum(t.float() * t.float())
+                                  for t in plain), torch.zeros_like(part)))
 
 
 @torch.no_grad()
@@ -331,5 +370,6 @@ def clip_by_global_norm_(tensors: List[torch.Tensor],
     norm = global_norm(tensors)
     keep = norm < max_norm
     for t in tensors:
+        t = local_tensor(t)
         t.copy_(torch.where(keep, t, t / norm.to(t.dtype) * max_norm))
     return norm

@@ -6,7 +6,10 @@ tensors and are updated in place; the state names them together with
 everything else a resumed run needs to continue bit for bit: the step
 count, the generator the steps draw from, and the strategy step's
 gradient-accumulation position, running mean and update count (what
-optax's ``MultiSteps`` keeps inside its state).
+optax's ``MultiSteps`` keeps inside its state). Under data parallelism
+``model`` is what the step calls (e.g. the ``DistributedDataParallel``
+wrapper); the state dict keeps the bare module's names, so checkpoints
+move between world sizes.
 """
 from __future__ import annotations
 
@@ -14,6 +17,13 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+
+
+def bare_model(model: torch.nn.Module) -> torch.nn.Module:
+    """The user's module inside a ``DistributedDataParallel`` wrapper."""
+    if isinstance(model, torch.nn.parallel.DistributedDataParallel):
+        return model.module
+    return model
 
 
 @dataclasses.dataclass
@@ -32,13 +42,15 @@ class TrainState:
     updates: int = 0
     acc: Optional[List[torch.Tensor]] = None
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, optimizer: bool = True) -> Dict[str, Any]:
         """The checkpoint's ``state``, under the JAX TrainState's field
         names where one exists. Tensors alias the live ones: a writer
-        copies them out before training goes on."""
+        copies them out before training goes on. ``optimizer=False``
+        leaves ``opt_state`` None (a rank that does not hold it)."""
         return {"step": self.step,
-                "params": self.model.state_dict(),
-                "opt_state": self.optimizer.state_dict(),
+                "params": bare_model(self.model).state_dict(),
+                "opt_state": (self.optimizer.state_dict() if optimizer
+                              else None),
                 "rng": self.generator.get_state(),
                 "mini_step": self.mini_step,
                 "updates": self.updates,
@@ -48,7 +60,7 @@ class TrainState:
         """Copy a checkpoint's ``state`` in: params into the live
         parameters (their device and dtype), optimizer state onto each
         param's device, the generator's state, and the counters."""
-        self.model.load_state_dict(state["params"])
+        bare_model(self.model).load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
         self.generator.set_state(state["rng"].to("cpu", torch.uint8))
         self.step = int(state["step"])

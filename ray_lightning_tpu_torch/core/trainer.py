@@ -21,6 +21,16 @@ non-finite guard (``nonfinite_action=``), ``predict()`` with
 ``NotImplementedError`` (``ROADMAP.md`` S6/T7); the in-memory checkpoint
 tier's seats (``_memory_checkpoint``, ``_memory_resume``) do nothing, as
 the JAX trainer's do with no store installed.
+
+Under a multi-worker strategy every stage runs in each worker process
+(``launchers/ray_launcher.py``): every rank takes its rows of each batch
+(``Strategy.shard_batch``), checkpoints are written collectively (the
+stream file by rank 0, a directory's shards by every rank, its commit
+marker by rank 0), ``predict`` gathers the outputs in rank order, and
+rank 0 returns its results with the final train state as a byte stream,
+which the driver keeps as ``train_state_dict`` (and loads into a
+driver-side state where there is one). Printing and the loggers stay
+rank 0's.
 """
 from __future__ import annotations
 
@@ -158,6 +168,11 @@ class Trainer:
         self.should_stop = False  # settable by callbacks
         self.state = "idle"
         self.train_state: Optional[TrainState] = None
+        # the final state a remote fit returned (its "state" dict), and
+        # what that return cost: bytes, seconds to serialize on rank 0,
+        # to reach the driver, and to load there
+        self.train_state_dict: Optional[Dict[str, Any]] = None
+        self.state_stream_stats: Dict[str, float] = {}
 
         self._module: Optional[TpuModule] = None
         self._datamodule: Optional[TpuDataModule] = None
@@ -182,7 +197,10 @@ class Trainer:
 
     @property
     def model(self) -> Optional[torch.nn.Module]:
-        return None if self.train_state is None else self.train_state.model
+        """The trained module, unwrapped from a data-parallel wrapper."""
+        if self.train_state is None:
+            return None
+        return self.strategy.unwrap(self.train_state.model)
 
     @property
     def checkpoint_callback(self) -> Optional[ModelCheckpoint]:
@@ -206,8 +224,9 @@ class Trainer:
         return float(schedule(step))
 
     def block_until_ready(self) -> None:
-        if self.strategy.root_device.type == "cuda":
-            torch.cuda.synchronize(self.strategy.root_device)
+        device = self.strategy.device
+        if device is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     # ------------------------------------------------------------------ #
     # entry points
@@ -292,8 +311,10 @@ class Trainer:
 
 
     def _to_device(self, batch: Any) -> Any:
-        """numpy/tensor leaves onto the strategy's device; floating leaves
+        """This rank's rows of a global batch (all of it in one process),
+        numpy/tensor leaves onto the strategy's device; floating leaves
         cast to bf16 under ``precision="bf16..."``."""
+        batch = self.strategy.shard_batch(batch)
         device = self.strategy.root_device
         bf16 = self.precision.startswith("bf16")
 
@@ -320,9 +341,9 @@ class Trainer:
     def _setup_state(self, sample_batch: Any,
                      restored: Optional[Dict[str, Any]] = None
                      ) -> TrainState:
-        """Place and initialise the model, build its optimizer and the
-        training and evaluation steps; then copy a checkpoint's
-        ``state`` in when one is given."""
+        """Place and initialise the model, wrap it for the strategy,
+        build its optimizer and the training and evaluation steps; then
+        copy a checkpoint's ``state`` in when one is given."""
         module = self._module
         device = self.strategy.root_device
         model = module.configure_model()
@@ -332,9 +353,11 @@ class Trainer:
             model = model.to(device)
         init_gen, step_gen, self._eval_seed = self._seeds()
         module.init_variables(model, init_gen, self._to_device(sample_batch))
+        strategy = self.strategy
+        model = strategy.wrap_model(model)
         factory, lr_schedule = self._optimizer()
         self._lr_schedule = lr_schedule
-        optimizer = factory(model.parameters())
+        optimizer = strategy.make_optimizer(factory, model)
 
         def loss_fn(model, batch, generator):
             out = module.training_step(model, batch, generator)
@@ -349,7 +372,6 @@ class Trainer:
                 return _detached({**(logs or {}), **logged})
             return eval_fn
 
-        strategy = self.strategy
         self._train_step = strategy.make_train_step(
             loss_fn, log_grad_norm=self.track_grad_norm,
             gradient_clip_val=self.gradient_clip_val,
@@ -366,7 +388,7 @@ class Trainer:
             from ray_lightning_tpu_torch.core.checkpoint import \
                 CorruptCheckpointError
             try:
-                state.load_state_dict(restored)
+                strategy.load_state_dict(state, restored)
             except (KeyError, RuntimeError, ValueError) as exc:
                 raise CorruptCheckpointError(
                     "checkpoint state does not match the resuming run's "
@@ -610,7 +632,8 @@ class Trainer:
                 "is available -- enable checkpointing (e.g. "
                 "ModelCheckpoint(every_n_train_steps=...)) or use "
                 "'skip_batch'")
-        state.load_state_dict(self._read_checkpoint(path)["state"])
+        self.strategy.load_state_dict(state,
+                                      self._read_checkpoint(path)["state"])
         self.nonfinite_restores += 1
         log_suppressed("train.step",
                        NonFiniteError(f"non-finite update at {where}"),
@@ -760,6 +783,8 @@ class Trainer:
             _path, restored = self._resolve_auto_resume()
         elif ckpt_path:
             restored = self._read_checkpoint(ckpt_path)
+        elif self.train_state is None and self.train_state_dict is not None:
+            restored = {"state": self.train_state_dict}  # a remote fit's
         else:
             restored = None
         if self.train_state is None or restored is not None:
@@ -798,7 +823,7 @@ class Trainer:
                         ckpt_path) -> WorkerOutput:
         loader = self._prepare_eval(module, datamodule, ckpt_path, "predict",
                                     "predict_dataloader")
-        model = self.train_state.model
+        model = self.model
         generator = torch.Generator().manual_seed(
             (self._eval_seed + self.global_step) % 2**63)
         n = self._resolve_limit(loader, self.limit_predict_batches)
@@ -814,7 +839,8 @@ class Trainer:
                 cb.on_predict_batch_start(self, module, batch, batch_idx)
             batch = self._to_device(batch)
             with torch.no_grad():
-                out = module.predict_step(model, batch, generator)
+                out = self.strategy.gather_outputs(
+                    module.predict_step(model, batch, generator))
             out = tree_map(lambda t: t.cpu() if isinstance(
                 t, torch.Tensor) else t, out)
             outs.append(out)
@@ -834,33 +860,67 @@ class Trainer:
     # results and checkpoints (the worker <-> driver contract)
     # ------------------------------------------------------------------ #
     def _collect_results(self) -> WorkerOutput:
+        """Best checkpoint path, progress counters, metrics as plain
+        numbers, callback states and, in a worker, the final train state
+        as a byte stream (the reference's ``ray_launcher.py:313-350``).
+        Every rank calls it -- the full state is a collective where the
+        state is sharded -- and only rank 0 serializes; the stream's
+        serialize seconds and send time ride in ``trainer_state``."""
         ckpt_cb = self.checkpoint_callback
+        trainer_state = dict(epoch=self.current_epoch,
+                             global_step=self.global_step,
+                             should_stop=self.should_stop)
+        stream = None
+        if self.strategy.is_remote:
+            state = self.strategy.state_dict(self.train_state, full=True)
+            if self.global_rank == 0:
+                t0 = time.perf_counter()
+                stream = _util.to_state_stream(state)
+                trainer_state.update(
+                    state_stream_serialize_s=time.perf_counter() - t0,
+                    state_stream_sent_at=time.time())
+            del state
         return WorkerOutput(
             best_model_path=ckpt_cb.best_model_path if ckpt_cb else None,
-            state_stream=None,
-            trainer_state=dict(epoch=self.current_epoch,
-                               global_step=self.global_step,
-                               should_stop=self.should_stop),
-            callback_metrics=dict(self.callback_metrics),
-            logged_metrics=dict(self.logged_metrics),
+            state_stream=stream,
+            trainer_state=trainer_state,
+            callback_metrics=_util.tensor_metrics_to_numpy(
+                self.callback_metrics),
+            logged_metrics=_util.tensor_metrics_to_numpy(
+                self.logged_metrics),
             callback_states={type(cb).__name__: cb.state_dict()
                              for cb in self.callbacks})
 
     def _recover_results(self, output: WorkerOutput) -> None:
-        """Progress counters, metrics and callback states back into the
-        driver-side objects (the same objects in-process)."""
-        self.current_epoch = output.trainer_state.get(
-            "epoch", self.current_epoch)
-        self.global_step = output.trainer_state.get(
-            "global_step", self.global_step)
-        self.should_stop = output.trainer_state.get(
-            "should_stop", self.should_stop)
-        self.callback_metrics.update(output.callback_metrics)
-        self.logged_metrics.update(output.logged_metrics)
+        """Progress counters, metrics, callback states and a remote fit's
+        final state back into the driver-side objects (the same objects
+        in-process; the reference's ``ray_launcher.py:352-380``)."""
+        state = dict(output.trainer_state)
+        sent_at = state.pop("state_stream_sent_at", None)
+        serialize_s = state.pop("state_stream_serialize_s", None)
+        self.current_epoch = state.get("epoch", self.current_epoch)
+        self.global_step = state.get("global_step", self.global_step)
+        self.should_stop = state.get("should_stop", self.should_stop)
+        self.callback_metrics.update(
+            _util.numpy_metrics_to_device(output.callback_metrics))
+        self.logged_metrics.update(
+            _util.numpy_metrics_to_device(output.logged_metrics))
         for cb in self.callbacks:
             st = (output.callback_states or {}).get(type(cb).__name__)
             if st:
                 cb.load_state_dict(st)
+        if output.state_stream is not None:
+            arrived = time.time()
+            t0 = time.perf_counter()
+            restored = _util.load_state_stream(output.state_stream,
+                                               map_location="cpu")
+            self.state_stream_stats = dict(
+                bytes=len(output.state_stream), serialize_s=serialize_s,
+                transfer_s=arrived - sent_at,
+                load_s=time.perf_counter() - t0)
+            if self.train_state is not None:
+                self.strategy.load_state_dict(self.train_state, restored)
+            self.train_state_dict = restored
 
     def save_checkpoint(self, filepath: str,
                         save_format: str = "stream",
@@ -872,31 +932,37 @@ class Trainer:
         directory through ``torch.distributed.checkpoint``
         (:mod:`ray_lightning_tpu_torch.core.checkpoint`); ``async_save``
         (directories only) overlaps the write with training, and the
-        trainer waits for it at fit end.
+        trainer waits for it at fit end. Under a process group every rank
+        calls it: rank 0 writes the stream file, every rank its shards of
+        a directory.
         """
         if async_save and save_format != "orbax":
             raise ValueError(
                 "async_save requires save_format='orbax' (the stream "
                 "format is one synchronous host write)")
-        ckpt = self.dump_checkpoint()
+        ckpt = self.dump_checkpoint(full=save_format != "orbax")
         if save_format == "orbax":
             from ray_lightning_tpu_torch.core.checkpoint import \
                 save_sharded_checkpoint
-            save_sharded_checkpoint(filepath, ckpt, async_save=async_save)
+            save_sharded_checkpoint(filepath, ckpt, async_save=async_save,
+                                    strategy=self.strategy)
         else:
-            os.makedirs(os.path.dirname(os.path.abspath(filepath)),
-                        exist_ok=True)
-            tmp = f"{filepath}.tmp-{os.getpid()}"
-            try:
-                with open(tmp, "wb") as f:
-                    _util.save_state_stream(ckpt, f)
-                # pre-commit fault seat + atomic publish: a crash
-                # mid-write leaves only the tmp file, which scans ignore
-                _faults.fire("ckpt.save")
-                os.replace(tmp, filepath)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
+            if self.global_rank == 0:
+                os.makedirs(os.path.dirname(os.path.abspath(filepath)),
+                            exist_ok=True)
+                tmp = f"{filepath}.tmp-{os.getpid()}"
+                try:
+                    with open(tmp, "wb") as f:
+                        _util.save_state_stream(ckpt, f)
+                    # pre-commit fault seat + atomic publish: a crash
+                    # mid-write leaves only the tmp file, which scans
+                    # ignore
+                    _faults.fire("ckpt.save")
+                    os.replace(tmp, filepath)
+                finally:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+            self.strategy.barrier()   # on disk before any rank reads it
         self._last_ckpt_path = filepath
         self._memory_checkpoint(ckpt)
 
@@ -905,10 +971,12 @@ class Trainer:
         store is installed in this slice, so nothing is mirrored."""
         del ckpt
 
-    def dump_checkpoint(self) -> Dict[str, Any]:
+    def dump_checkpoint(self, full: bool = True) -> Dict[str, Any]:
         """The checkpoint dict: progress, loop position, world size, the
         train state, callback states and tensors, and the module's own
-        state. Its tensors alias the live ones."""
+        state. Its tensors alias the live ones. A collective under a
+        process group where the state is sharded; ``full=False`` keeps
+        FSDP's shards (the directory format writes them)."""
         module_state: Dict[str, Any] = {}
         if self._module is not None:
             self._module.on_save_checkpoint(module_state)
@@ -917,7 +985,7 @@ class Trainer:
             "global_step": self.global_step,
             "loop": {"batch_in_epoch": int(self._batch_in_epoch)},
             "world": {"world_size": int(self.strategy.num_workers)},
-            "state": self.train_state.state_dict(),
+            "state": self.strategy.state_dict(self.train_state, full=full),
             "callbacks": {type(cb).__name__: cb.state_dict()
                           for cb in self.callbacks},
             "module": module_state,
@@ -939,6 +1007,7 @@ class Trainer:
             CorruptCheckpointError, is_sharded_checkpoint,
             load_sharded_checkpoint, wait_for_async_saves)
         wait_for_async_saves()  # never read a half-committed directory
+        self.strategy.barrier()  # nor one another rank still commits
         if is_sharded_checkpoint(path):
             ckpt = load_sharded_checkpoint(path, map_location="cpu")
         else:

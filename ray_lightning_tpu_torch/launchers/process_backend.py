@@ -1,0 +1,417 @@
+"""Subprocess-backed execution: real OS processes, no Ray needed (copied from ``ray_lightning_tpu/launchers/process_backend.py``).
+
+A **ray-compatible module** (``init/is_initialized/remote/put/get/wait/
+kill`` and the actor ``.options().remote()`` / ``method.remote()``
+protocol) whose actors are spawned OS processes:
+
+- every argument and result crosses a real pickle boundary,
+- actors run concurrently (one process each; the calls on one actor are
+  FIFO, as Ray's are),
+- workers form a real ``torch.distributed`` process group (gloo on the
+  CPU, NCCL on the cards): one process per device, the reference's own
+  design (``ray_lightning/ray_ddp.py:171-213``).
+
+This is what ``Strategy.configure_launcher`` uses for ``num_workers > 1``
+when no Ray runtime is attached::
+
+    ray_mod = ProcessRay(worker_env={...}, num_threads=1)
+    launcher = RayLauncher(strategy, ray_module=ray_mod)
+
+Each worker applies its environment (``CUDA_VISIBLE_DEVICES`` among it)
+and torch's thread count before anything touches a device. A pickled
+call or result above ``INLINE_BYTES`` (rank 0's final train state, 1.49
+GB for GPT-2-small with AdamW) travels through a temporary file instead
+of the pipe: ``multiprocessing`` reads a pipe message 64 KiB at a time,
+and on an H100 host a 1.49 GB result had not arrived after minutes
+(``PERF.md`` §6). The JAX
+module's orphan guard belongs to the serving fleet (``ROADMAP.md`` S8)
+and is not copied: a worker exits when its pipe to the driver closes.
+"""
+from __future__ import annotations
+
+import multiprocessing as mp
+import os
+import pickle
+import tempfile
+import threading
+import time
+import traceback
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+#: pickled payloads larger than this cross through a temporary file
+INLINE_BYTES = 64 << 20
+
+
+def _pack(payload: bytes) -> Union[bytes, Tuple[str, str, int]]:
+    """A pickled payload as it goes down the pipe: itself, or, above
+    :data:`INLINE_BYTES`, the name of a temporary file holding it (in
+    ``TMPDIR``; :func:`_unpack` reads and removes it)."""
+    if len(payload) <= INLINE_BYTES:
+        return payload
+    fd, path = tempfile.mkstemp(prefix="processray-")
+    with os.fdopen(fd, "wb") as f:
+        f.write(payload)
+    return ("file", path, len(payload))
+
+
+def _unpack(packed) -> Union[bytes, bytearray]:
+    """Inverse of :func:`_pack`: the file is read into one buffer made
+    up front, then removed."""
+    if isinstance(packed, (bytes, bytearray)):
+        return packed
+    _kind, path, size = packed
+    buf = bytearray(size)
+    view = memoryview(buf)
+    try:
+        with open(path, "rb", buffering=0) as f:
+            got = 0
+            while got < size:
+                n = f.readinto(view[got:])
+                if not n:
+                    raise EOFError(f"{path} ends at {got} of {size} bytes")
+                got += n
+    finally:
+        os.remove(path)
+    return buf
+
+
+def _worker_main(conn, env: Dict[str, str],
+                 num_threads: Optional[int] = None) -> None:
+    """Actor process body: apply the environment and torch's thread count
+    before anything initialises a device, then serve construct/call
+    messages over the pipe until exit/EOF."""
+    # stamp the process as a disposable spawned worker: this is what
+    # authorizes the fault plan's hard-exit mode (faults.MODE_EXIT) to
+    # really os._exit here instead of degrading to a raise
+    os.environ.setdefault("TL_WORKER_PROCESS", "1")
+    os.environ.update(env)
+    if num_threads is not None:
+        import torch
+        torch.set_num_threads(int(num_threads))
+    actor = None
+    while True:
+        try:
+            msg = conn.recv()
+        except (EOFError, OSError):
+            return
+        kind = msg[0]
+        if kind == "exit":
+            try:
+                conn.close()
+            finally:
+                return
+        try:
+            if kind == "construct":
+                cls, args, kwargs = pickle.loads(_unpack(msg[1]))
+                actor = cls(*args, **kwargs)
+                conn.send(("ok", pickle.dumps(None)))
+            elif kind == "call":
+                name = msg[1]
+                args, kwargs = pickle.loads(_unpack(msg[2]))
+                result = getattr(actor, name)(*args, **kwargs)
+                conn.send(("ok", _pack(pickle.dumps(result))))
+            else:
+                conn.send(("err", pickle.dumps(
+                    RuntimeError(f"unknown message kind {kind!r}"))))
+        except BaseException as exc:  # noqa: BLE001 - must cross the pipe
+            try:
+                payload = pickle.dumps(exc)
+            except Exception as pickle_exc:
+                from ray_lightning_tpu_torch.reliability import \
+                    log_suppressed
+                log_suppressed("process_backend.pickle", pickle_exc,
+                               "unpicklable worker exception; shipping "
+                               "the traceback as RuntimeError instead")
+                payload = pickle.dumps(
+                    RuntimeError(traceback.format_exc()))
+            try:
+                conn.send(("err", payload))
+            except (BrokenPipeError, OSError):
+                return
+
+
+class ProcessFuture:
+    """Resolvable once; ``ProcessRay.get`` re-raises worker exceptions."""
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._value: Any = None
+        self._error: Optional[BaseException] = None
+
+    def _resolve(self, value: Any = None,
+                 error: Optional[BaseException] = None) -> None:
+        self._value, self._error = value, error
+        self._event.set()
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> Any:
+        if not self._event.wait(timeout):
+            raise TimeoutError("ProcessFuture not resolved in time")
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+class ProcessObjectRef:
+    """Driver-held ref; the object is re-pickled into each task's args
+    (Ray resolves top-level refs in args the same way)."""
+
+    def __init__(self, value: Any):
+        self.value = value
+
+    def __repr__(self) -> str:
+        return f"ProcessObjectRef({type(self.value).__name__})"
+
+
+def _resolve_arg(obj: Any) -> Any:
+    if isinstance(obj, ProcessObjectRef):
+        return obj.value
+    if isinstance(obj, ProcessFuture):
+        return obj.result()
+    return obj
+
+
+class ProcessActorMethod:
+    def __init__(self, handle: "ProcessActorHandle", name: str):
+        self._handle = handle
+        self._name = name
+
+    def remote(self, *args: Any, **kwargs: Any) -> ProcessFuture:
+        return self._handle._submit(self._name, args, kwargs)
+
+
+class ProcessActorHandle:
+    """One spawned process per actor; FIFO call pipeline + reader thread."""
+
+    def __init__(self, cls: type, args: Tuple, kwargs: Dict,
+                 env: Dict[str, str], construct_timeout: float = 60.0,
+                 num_threads: Optional[int] = None):
+        ctx = mp.get_context("spawn")  # fork is unsafe with CUDA and threads
+        self._conn, child_conn = ctx.Pipe()
+        self._proc = ctx.Process(target=_worker_main,
+                                 args=(child_conn, env, num_threads),
+                                 daemon=True)
+        self._proc.start()
+        child_conn.close()
+        self._send_lock = threading.Lock()
+        self._pending: List[ProcessFuture] = []
+        self._pending_lock = threading.Lock()
+        self._killed = False
+        self._dead = False  # latched by the reader on process death
+        self._reader = threading.Thread(target=self._read_loop, daemon=True)
+        self._reader.start()
+        # construction is itself a pipelined call
+        fut = self._enqueue(
+            ("construct", _pack(pickle.dumps((cls, args, kwargs)))))
+        fut.result(timeout=construct_timeout)
+
+    def _enqueue(self, message: Tuple) -> ProcessFuture:
+        """Append the future and send its request atomically: the worker
+        replies FIFO, so pending order must equal send order even when
+        several driver threads submit concurrently."""
+        fut = ProcessFuture()
+        with self._send_lock:
+            with self._pending_lock:
+                if self._dead:
+                    # the reader already drained the pipe and exited: a
+                    # send could still "succeed" into the broken pipe's
+                    # buffer and this future would never resolve
+                    fut._resolve(error=self._death_error())
+                    return fut
+                self._pending.append(fut)
+            try:
+                self._conn.send(message)
+            except (BrokenPipeError, OSError) as exc:
+                with self._pending_lock:
+                    if fut in self._pending:
+                        self._pending.remove(fut)
+                fut._resolve(error=self._death_error(exc))
+        return fut
+
+    def _death_error(self, exc: Optional[BaseException] = None
+                     ) -> RuntimeError:
+        """The one actor-died error, shared by every failure path."""
+        suffix = f": {exc}" if exc is not None else ""
+        return RuntimeError(
+            f"actor process pid={self._proc.pid} died "
+            f"(exitcode={self._proc.exitcode}){suffix}")
+
+    def _read_loop(self) -> None:
+        while True:
+            try:
+                status, payload = self._conn.recv()
+            except (EOFError, OSError):
+                # process died: latch death first (under the lock, so a
+                # racing _enqueue either lands in `pending` here or sees
+                # the latch), then fail everything still in flight
+                with self._pending_lock:
+                    self._dead = True
+                    pending, self._pending = self._pending, []
+                err = self._death_error()
+                for fut in pending:
+                    fut._resolve(error=err)
+                return
+            with self._pending_lock:
+                fut = self._pending.pop(0)
+            try:
+                value = pickle.loads(_unpack(payload))
+            except Exception as exc:  # noqa: BLE001 - the caller must hear
+                # a reply that does not unpickle here (e.g. an exception
+                # type whose __init__ pickle cannot call) still resolves
+                # its future, or the caller would wait forever
+                fut._resolve(error=RuntimeError(
+                    f"the worker's {'result' if status == 'ok' else 'error'}"
+                    f" could not be unpickled: {type(exc).__name__}: {exc}"))
+                continue
+            if status == "ok":
+                fut._resolve(value=value)
+            else:
+                fut._resolve(error=value)
+
+    def _submit(self, name: str, args: Tuple,
+                kwargs: Dict) -> ProcessFuture:
+        if self._killed:
+            raise RuntimeError("Actor was killed")
+        args = tuple(_resolve_arg(a) for a in args)
+        kwargs = {k: _resolve_arg(v) for k, v in kwargs.items()}
+        return self._enqueue(
+            ("call", name, _pack(pickle.dumps((args, kwargs)))))
+
+    def __getattr__(self, name: str) -> ProcessActorMethod:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return ProcessActorMethod(self, name)
+
+    def _kill(self) -> None:
+        self._killed = True
+        with self._pending_lock:
+            busy = bool(self._pending) or self._dead
+        if not busy:
+            # idle actor: ask it to exit cleanly and give it a moment
+            try:
+                with self._send_lock:
+                    self._conn.send(("exit",))
+            except (BrokenPipeError, OSError):
+                pass
+            self._proc.join(timeout=5)
+        # a busy actor serves messages FIFO, so an "exit" would queue
+        # behind the in-flight call, which may be wedged in a collective:
+        # terminate it instead
+        if self._proc.is_alive():
+            self._proc.terminate()
+            self._proc.join(timeout=5)
+        if self._proc.is_alive():  # SIGTERM ignored/blocked: escalate
+            self._proc.kill()
+            self._proc.join(timeout=5)
+        try:
+            self._conn.close()
+        except OSError:
+            pass
+
+
+class ProcessRemoteClass:
+    def __init__(self, cls: type, backend: "ProcessRay"):
+        self._cls = cls
+        self._backend = backend
+        self._options: Dict[str, Any] = {}
+
+    def options(self, **options: Any) -> "ProcessRemoteClass":
+        out = ProcessRemoteClass(self._cls, self._backend)
+        out._options = options
+        return out
+
+    def remote(self, *args: Any, **kwargs: Any) -> ProcessActorHandle:
+        # the one honored option (Ray ignores unknown ones, so do we):
+        # construct_timeout, the seconds the spawned process may take to
+        # build the actor
+        handle = ProcessActorHandle(
+            self._cls, args, kwargs, dict(self._backend.worker_env),
+            construct_timeout=self._options.get("construct_timeout", 60.0),
+            num_threads=self._backend.num_threads)
+        self._backend.created_actors.append(handle)
+        return handle
+
+
+class ProcessRay:
+    """Ray-compatible module whose actors are spawned OS processes on
+    this host. ``assigns_gpus`` is False: the launcher hands each worker
+    one card of the host's visible set, where Ray would assign one."""
+
+    ObjectRef = ProcessObjectRef
+    assigns_gpus = False
+
+    def __init__(self, worker_env: Optional[Dict[str, str]] = None,
+                 num_threads: Optional[int] = None):
+        self._initialized = False
+        self.worker_env = dict(worker_env or {})
+        self.num_threads = num_threads
+        self.created_actors: List[ProcessActorHandle] = []
+        self.killed_actors: List[ProcessActorHandle] = []
+
+    # -- lifecycle ----------------------------------------------------- #
+    def init(self, *args: Any, **kwargs: Any) -> None:
+        self._initialized = True
+
+    def is_initialized(self) -> bool:
+        return self._initialized
+
+    def shutdown(self) -> None:
+        for actor in self.created_actors:
+            if not actor._killed:
+                actor._kill()
+        self._initialized = False
+
+    # -- object store -------------------------------------------------- #
+    def put(self, obj: Any) -> ProcessObjectRef:
+        """A snapshot of ``obj`` as it is now (a pickle round trip, as
+        Ray's object store takes one): the caller may change ``obj``
+        right after, as ``run_function_on_workers`` puts the trainer's
+        launcher back."""
+        return ProcessObjectRef(pickle.loads(pickle.dumps(obj)))
+
+    def get(self, refs: Any, timeout: Optional[float] = None) -> Any:
+        if isinstance(refs, list):
+            # ray.get's timeout is one overall deadline, not per ref
+            deadline = None if timeout is None \
+                else time.monotonic() + timeout
+            out = []
+            for r in refs:
+                if isinstance(r, ProcessFuture):
+                    remaining = None if deadline is None \
+                        else max(0.0, deadline - time.monotonic())
+                    out.append(r.result(remaining))
+                else:
+                    out.append(_resolve_arg(r))
+            return out
+        if isinstance(refs, ProcessFuture):
+            return refs.result(timeout)
+        return _resolve_arg(refs)
+
+    def wait(self, refs: List[Any], num_returns: int = 1,
+             timeout: Optional[float] = None
+             ) -> Tuple[List[Any], List[Any]]:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            ready = [r for r in refs
+                     if not isinstance(r, ProcessFuture) or r.done()]
+            if len(ready) >= num_returns or (
+                    deadline is not None
+                    and time.monotonic() >= deadline):
+                not_ready = [r for r in refs if r not in ready]
+                return ready, not_ready
+            time.sleep(0.005)  # tl-lint: allow-sleep — ray.wait poll quantum (wall-clock by contract)
+
+    # -- actors -------------------------------------------------------- #
+    def remote(self, cls: type) -> ProcessRemoteClass:
+        return ProcessRemoteClass(cls, self)
+
+    def kill(self, actor: ProcessActorHandle,
+             no_restart: bool = False) -> None:
+        actor._kill()
+        self.killed_actors.append(actor)
+
+    def live_actor_count(self) -> int:
+        """Spawned actor processes still alive (the no-leak check)."""
+        return sum(1 for a in self.created_actors if a._proc.is_alive())

@@ -147,6 +147,10 @@ class InjectedFault(RuntimeError):
         self.site = site
         self.tick = tick
 
+    def __reduce__(self):
+        # crosses the worker -> driver pickle boundary intact
+        return (type(self), (self.site, self.tick))
+
 
 @dataclasses.dataclass(frozen=True)
 class FaultSpec:

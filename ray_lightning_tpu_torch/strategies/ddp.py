@@ -1,17 +1,50 @@
 """The data-parallel strategy (counterpart of ``ray_lightning_tpu/strategies/ddp.py``).
 
-``RayStrategy(num_workers=1)`` trains in this process on one device
-(``device=None`` = the card). More workers raise ``NotImplementedError``
-until the data-parallel item lands (``ROADMAP.md`` T6).
+The reference's flagship (``ray_lightning/ray_ddp.py:30-343``): each
+worker process owns one device and its rows of the global batch, and the
+model is wrapped in ``DistributedDataParallel``, whose backward hooks
+average the gradients over ranks (NCCL on the cards, gloo on the CPU).
+The JAX package reaches the same step with a replicated ``dp`` mesh in
+one process. ``RayStrategy(num_workers=1)`` (with ``use_ray`` unset)
+trains in this process with no wrapper.
 """
 from __future__ import annotations
 
+import inspect
+
+import torch
+
+from ray_lightning_tpu_torch.core.train_state import bare_model
 from ray_lightning_tpu_torch.strategies.base import Strategy
 
 
 class RayStrategy(Strategy):
-    """Drop-in data-parallel strategy, one worker in this slice."""
+    """Drop-in data-parallel strategy: ``num_workers`` processes, one
+    device each. Extra keyword arguments (e.g.
+    ``find_unused_parameters``) go to ``DistributedDataParallel``."""
     strategy_name = "ddp_ray"
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        allowed = inspect.signature(
+            torch.nn.parallel.DistributedDataParallel.__init__).parameters
+        bad = sorted(set(self.extra_kwargs) - set(allowed)
+                     - {"self", "module", "device_ids"})
+        if bad:
+            raise TypeError(
+                f"{type(self).__name__} got keyword arguments that "
+                f"DistributedDataParallel does not take: {bad}")
+
+    def wrap_model(self, model: torch.nn.Module) -> torch.nn.Module:
+        if not self.in_world:
+            return model
+        device = self.root_device
+        return torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda"
+            else None, **self.extra_kwargs)
+
+    def unwrap(self, model: torch.nn.Module) -> torch.nn.Module:
+        return bare_model(model)
 
 
 # the name that says what it does

@@ -23,14 +23,23 @@ repeatability, for a launch geometry that fills the card, and for a CUDA
 graph replay equal to the eager call. The trainer on the card:
 checkpoints round-trip in both formats with the optimizer state back on
 the card, nano GPT on the flash kernels resumes bitwise after a kill,
-and the non-finite guard skips a poisoned batch. ``chip_smoke.py``
+and the non-finite guard skips a poisoned batch. One process per card:
+nano GPT fit by a spawned worker in an NCCL group of world size 1 under
+each strategy, its flash kernels on the tensor cores in the worker; more
+card workers than cards refused before any spawn; a worker that sees no
+card raising instead of training on the CPU. ``chip_smoke.py``
 repeats this at the serving and training paths' full shapes.
 """
 import numpy as np
 import pytest
 import torch
 
-from ray_lightning_tpu_torch import GPTModule, RayStrategy, Trainer
+from ray_lightning_tpu_torch import (FSDPStrategy, GPTModule,
+                                     HorovodRayStrategy, RayShardedStrategy,
+                                     RayStrategy, Trainer)
+from ray_lightning_tpu_torch.core import Callback
+from ray_lightning_tpu_torch.launchers import (ExecutorBase, ProcessRay,
+                                               RayLauncher)
 from ray_lightning_tpu_torch.models import paged_attention as pa
 from ray_lightning_tpu_torch.models import quantized_matmul as qmm
 from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
@@ -853,3 +862,116 @@ def test_guarded_step_skips_a_nan_batch_on_the_card(cuda, tmp_path):
     assert all(torch.isfinite(p).all() for p in t.model.parameters())
     steps = {int(s["step"]) for s in t.train_state.optimizer.state.values()}
     assert steps == {t.global_step - 1} and t.global_step == 8
+
+
+# ------------------------------------------------ one process per card
+class _WorkerProbe(Callback):
+    """Per-step losses and the flash kernels' launches per route, counted
+    in the worker that trains (reset at fit start): the launches ride
+    back in ``callback_metrics``, the losses as this callback's state."""
+
+    def __init__(self):
+        self.losses = []
+
+    def on_fit_start(self, trainer, module):
+        cf.reset_kernel_launches()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, idx):
+        self.losses.append(float(outputs["loss"]))
+
+    def on_train_end(self, trainer, module):
+        for name in cf.KERNELS:
+            for route, n in cf.route_launches(name).items():
+                trainer.callback_metrics[f"{name}/{route}"] = n
+        trainer.callback_metrics["device"] = str(trainer.strategy.root_device)
+
+    def state_dict(self):
+        return {"losses": self.losses}
+
+    def load_state_dict(self, state):
+        self.losses = state["losses"]
+
+
+def _nano_bf16():
+    cfg = gpt2_config("nano", attention_impl="flash", vocab_size=256,
+                      max_seq_len=64)
+    return GPTModule(config=cfg, batch_size=4, num_samples=32)
+
+
+@pytest.fixture(scope="module")
+def card_world():
+    """One spawned worker process that owns the card, reused by the
+    tests below (each launch forms a fresh NCCL group of world size 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the card workers need a card: no CUDA device")
+    ray = ProcessRay()
+    ray.init()
+    workers = [ray.remote(ExecutorBase).options(
+        construct_timeout=300).remote()]
+    yield ray, workers
+    ray.shutdown()
+    assert ray.live_actor_count() == 0
+
+
+CARD_STRATEGIES = {"ddp": RayStrategy, "allreduce": HorovodRayStrategy,
+                   "zero": RayShardedStrategy, "fsdp": FSDPStrategy}
+
+
+@pytest.mark.parametrize("name", sorted(CARD_STRATEGIES))
+def test_one_worker_per_card_through_the_process_backend(cuda, card_world,
+                                                         tmp_path, name):
+    """Nano GPT in bf16 on the flash kernels, fit by a spawned worker in
+    an NCCL process group of world size 1 under each strategy: K2-K4 ran
+    on the tensor cores in the worker, n_layers times a step each; the
+    losses equal the in-process fit's bitwise under DDP and the explicit
+    all-reduce (an all-reduce of one rank is a copy), and within 1e-3 of
+    them under ZeRO and FSDP2 (the sharded paths may sum in another
+    order, which can flip a bf16 rounding)."""
+    ray, workers = card_world
+    local_probe = _WorkerProbe()
+    local = _card_fit(tmp_path, _nano_bf16(), max_epochs=1,
+                      limit_val_batches=0, callbacks=[local_probe])
+    probe = _WorkerProbe()
+    strategy = CARD_STRATEGIES[name](num_workers=1)
+    trainer = Trainer(strategy=strategy, max_epochs=1, limit_train_batches=4,
+                      limit_val_batches=0, seed=0, callbacks=[probe])
+    trainer._launcher = RayLauncher(strategy, ray_module=ray,
+                                    workers=workers)
+    trainer.fit(_nano_bf16())
+    m = trainer.callback_metrics
+    n = local.model.cfg.n_layers * 4
+    for kernel in cf.KERNELS:
+        assert (m[f"{kernel}/tc"], m[f"{kernel}/simt"]) == (n, 0), kernel
+    assert m["device"] == "cuda:0" and trainer.global_step == 4
+    if name in ("ddp", "allreduce"):
+        assert probe.losses == local_probe.losses
+        got = trainer.train_state_dict["params"]
+        for key, t in local.model.state_dict().items():
+            assert torch.equal(got[key], t.cpu()), key
+    else:
+        np.testing.assert_allclose(probe.losses, local_probe.losses,
+                                   rtol=1e-3, atol=0)
+
+
+def test_more_card_workers_than_cards_raise_before_any_spawn(cuda):
+    import multiprocessing
+    before = len(multiprocessing.active_children())
+    strategy = RayStrategy(num_workers=torch.cuda.device_count() + 1)
+    with pytest.raises(ValueError, match="visible GPU"):
+        Trainer(strategy=strategy, max_steps=1).fit(_nano_bf16())
+    assert len(multiprocessing.active_children()) == before
+
+
+def test_a_worker_without_a_card_raises(cuda):
+    """A worker started with CUDA_VISIBLE_DEVICES empty sees no card: it
+    raises, and the driver re-raises, rather than training on the CPU."""
+    ray = ProcessRay(worker_env={"CUDA_VISIBLE_DEVICES": ""})
+    strategy = RayStrategy(num_workers=1)
+    trainer = Trainer(strategy=strategy, max_steps=1)
+    trainer._launcher = RayLauncher(strategy, ray_module=ray)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+            trainer.fit(_nano_bf16())
+    finally:
+        ray.shutdown()
+    assert ray.live_actor_count() == 0

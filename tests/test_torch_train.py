@@ -327,14 +327,8 @@ def test_trainer_and_strategy_default_to_the_card():
 UNPORTED = {
     "telemetry": lambda: Trainer(strategy=RayStrategy(device="cpu"),
                                  telemetry=object()),
-    "num_workers": lambda: RayStrategy(num_workers=2, device="cpu"),
-    "use_ray": lambda: RayStrategy(use_ray=True, device="cpu"),
     "gang": lambda: RayStrategy(gang=object(), device="cpu"),
     "standby": lambda: RayStrategy(standby=object(), device="cpu"),
-    "resources_per_worker": lambda: RayStrategy(
-        resources_per_worker={"CPU": 2}, device="cpu"),
-    "ddp_kwargs": lambda: RayStrategy(find_unused_parameters=True,
-                                      device="cpu"),
     "dropout": lambda: gpt2_config("nano", dropout=0.1),
     "remat": lambda: gpt2_config("nano", remat=True),
     "ring": lambda: gpt2_config("nano", attention_impl="ring"),
