@@ -127,7 +127,42 @@ D. Data parallelism, one process per device: T2's module and optimizer
    device memory, ``opt_state_bytes``, the spawn and launch-to-first-hook
    seconds, and the bytes and seconds of rank 0's ``state_stream``
    return. First, ``RayStrategy(num_workers=2)`` must raise ``ValueError``
-   before anything is spawned.
+   before anything is spawned. Then the memory presets on the same
+   worker, 6 steps each: ``adamw_bf16m`` and ``adafactor`` under
+   ``RayShardedStrategy`` (ZeRO by the JAX package's split of the
+   optimizer state) and ``FSDPStrategy``: their losses equal phase O's
+   one-process losses for the preset bitwise under ZeRO (at world size 1
+   every param is one rank's whole shard), within ``D_LOSS_RTOL`` under
+   FSDP2 (whether bitwise is printed), ``opt_state_bytes`` equal to phase
+   O's, K2-K4 on ``tc`` in the worker; peak memory printed. No step ms
+   from these 3-step medians is a finding (their spread is +-25 ms).
+U. A Ray Tune trial on the card, with a fake Tune installed in this
+   process (the driver) only: T2's module launched as phase D launches
+   its fits, under ``RayStrategy`` with
+   ``TuneReportCheckpointCallback(metrics={"loss": "val_loss"},
+   on="validation_end")`` over two epochs of U_STEPS steps and one
+   validation batch each, after a one-batch sanity check, and a
+   ``TuneReportCallback`` of ``train_loss`` at each epoch's end. Exactly
+   two validation reports (none from the sanity check), each equal
+   bitwise to the worker's ``val_loss`` at that hook, and two
+   ``train_loss`` reports equal to the worker's; two checkpoint files in the
+   trial's directory, each 1.49 GB +- 1%; K2-K4 on ``tc`` for every
+   step. ``resume_ckpt_path`` of the last -> ``fit(ckpt_path=)`` for a
+   third epoch equals an uninterrupted three-epoch fit bitwise in params
+   and losses. A second trial under ``FSDPStrategy`` with ``adafactor``
+   reports through Ray 2.x's API (one report carrying its checkpoint);
+   its last checkpoint, found by ``resume_ckpt_path()``, loads into a
+   one-process trainer with the same params bitwise. Printed per
+   checkpoint: bytes, serialize seconds in the worker, put to the end of
+   the driver's drain, the driver's write; per report: hook to delivery.
+C. The command line on the card, flags only: ``python -m
+   ray_lightning_tpu_torch.cli --model-class
+   ray_lightning_tpu_torch.models.GPTModule fit --strategy ddp_sharded
+   --strategy.num_workers 1 --model.size small --model.optimizer
+   adafactor ...`` (vocab 50257, 1024 tokens, batch 8, 3 steps, one
+   validation batch) in a subprocess: its printed ``callback_metrics``
+   (``train_loss``, the mean of its steps' losses, and ``val_loss``)
+   equal the same fit built by hand in this process, bitwise.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K5 has two entries, each with
    Q2's int8 launches on its routes: ``quantized_matmul`` holds one
@@ -136,6 +171,7 @@ D. Data parallelism, one process per device: T2's module and optimizer
    (the tensor-core kernel), bf16 x, int8 codes: times and bound are
    their sums, the error the largest of them.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1366,7 +1402,7 @@ def phase_o_optimizers(card):
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
             step_ms_median=1e3 * float(np.median(
                 np.diff(ends)[WARMUP_STEPS - 1:])),
-            first_loss=first, last5_mean_loss=last5)
+            first_loss=first, last5_mean_loss=last5, losses=losses)
         if name == "adamw":
             res["predict"] = predict_check(trainer, module)
         del trainer, module
@@ -1464,23 +1500,59 @@ class WorkerProbe(Callback):
         self.losses, self.ends = state["losses"], state["ends"]
 
 
-def t2_module():
+def t2_module(optimizer: str = "adamw"):
     """T2's module itself: a worker unpickles it by import path (the
     subclasses ``train_module`` defines inside a function do not
     pickle)."""
     from ray_lightning_tpu_torch import GPTModule
     from ray_lightning_tpu_torch.models import gpt2_config
     return GPTModule(config=gpt2_config("small", attention_impl="flash"),
-                     batch_size=8, seq_len=1024)
+                     batch_size=8, seq_len=1024, optimizer=optimizer)
 
 
-def phase_d_data_parallel(card, t2):
-    """Data parallelism through spawned workers on the card."""
+def spawn_card_worker():
+    """One spawned worker process that owns the card, for phases D and U
+    (``RayLauncher(workers=)``): (``ProcessRay``, workers, spawn s)."""
+    from ray_lightning_tpu_torch.launchers import ExecutorBase, ProcessRay
+    ray = ProcessRay()
+    ray.init()
+    t0 = time.perf_counter()
+    workers = [ray.remote(ExecutorBase).options(
+        construct_timeout=300).remote()]
+    return ray, workers, time.perf_counter() - t0
+
+
+def worker_fit(ray, workers, strategy, module, callbacks, ckpt_path=None,
+               **kw):
+    """``module`` fit by the card worker: (trainer, fit seconds)."""
+    from ray_lightning_tpu_torch import Trainer
+    from ray_lightning_tpu_torch.launchers import RayLauncher
+    release()
+    trainer = Trainer(strategy=strategy, **{
+        **dict(max_epochs=1, limit_train_batches=D_STEPS,
+               limit_val_batches=0, seed=0), **kw}, callbacks=callbacks)
+    trainer._launcher = RayLauncher(strategy, ray_module=ray,
+                                    workers=workers)
+    t0 = time.perf_counter()
+    trainer.fit(module, ckpt_path=ckpt_path)
+    return trainer, time.perf_counter() - t0
+
+
+def worker_launches(m, expect: dict, what: str) -> dict:
+    """The flash kernels' launches the worker counted, each all on
+    ``tc`` and as many as ``expect`` says."""
+    launches = {k: {r: int(m[f"launches/{k}/{r}"]) for r in ("simt", "tc")}
+                for k in expect}
+    check(launches == {k: {"simt": 0, "tc": v} for k, v in expect.items()},
+          f"{what}: worker launches {launches}, want {expect} all on tc")
+    return launches
+
+
+def phase_d_data_parallel(card, t2, o, ray, workers, spawn_s):
+    """Data parallelism through the spawned card worker."""
     from ray_lightning_tpu_torch import (FSDPStrategy, HorovodRayStrategy,
                                          RayShardedStrategy, RayStrategy,
                                          Trainer)
-    from ray_lightning_tpu_torch.launchers import (ExecutorBase, ProcessRay,
-                                                   RayLauncher)
     release()
     before = len(multiprocessing.active_children())
     try:
@@ -1492,72 +1564,370 @@ def phase_d_data_parallel(card, t2):
         refusal = str(exc)
     check(len(multiprocessing.active_children()) == before,
           "D: the refused launch spawned a process")
-    want = t2["losses"][:D_STEPS]
     n = 12
     expect = {"flash_fwd": n * D_STEPS, "flash_bwd_dkv": n * D_STEPS,
               "flash_bwd_dq": n * D_STEPS}
-    ray = ProcessRay()
-    ray.init()
-    res = {"card": card, "refused_two_workers": refusal, "fits": {}}
-    try:
-        t0 = time.perf_counter()
-        workers = [ray.remote(ExecutorBase).options(
-            construct_timeout=300).remote()]
-        res["spawn_s"] = time.perf_counter() - t0
-        for name, cls in (("ddp", RayStrategy),
-                          ("allreduce", HorovodRayStrategy),
-                          ("zero", RayShardedStrategy),
-                          ("fsdp2", FSDPStrategy)):
-            release()
-            probe = WorkerProbe(time.time())
-            strategy = cls(num_workers=1)
-            trainer = Trainer(strategy=strategy, max_epochs=1,
-                              limit_train_batches=D_STEPS,
-                              limit_val_batches=0, seed=0,
-                              callbacks=[probe])
-            trainer._launcher = RayLauncher(strategy, ray_module=ray,
-                                            workers=workers)
-            t0 = time.perf_counter()
-            trainer.fit(t2_module())
-            fit_s = time.perf_counter() - t0
-            m = trainer.callback_metrics
-            launches = {k: {r: int(m[f"launches/{k}/{r}"])
-                            for r in ("simt", "tc")} for k in expect}
-            check(launches == {k: {"simt": 0, "tc": v}
-                               for k, v in expect.items()},
-                  f"D {name}: worker launches {launches}, want {expect} "
-                  "all on tc")
-            got = probe.losses
-            check(len(got) == D_STEPS and all(np.isfinite(got)),
-                  f"D {name}: losses {got}")
-            bitwise = got == want
-            diff = max(abs(a - b) for a, b in zip(got, want))
-            if name in ("ddp", "allreduce"):
-                check(bitwise, f"D {name}: losses {got} != T2's {want}")
-            else:
-                check(all(abs(a - b) <= D_LOSS_RTOL * abs(b)
-                          for a, b in zip(got, want)),
-                      f"D {name}: losses {got} vs T2's {want} past "
-                      f"{D_LOSS_RTOL} relative")
-            check(trainer.global_step == D_STEPS and
-                  trainer.train_state_dict is not None,
-                  f"D {name}: global_step {trainer.global_step}")
-            steps = np.diff(probe.ends)[WARMUP_STEPS - 1:]
-            res["fits"][name] = dict(
-                losses=got, bitwise_vs_t2=bitwise, max_loss_diff=diff,
-                step_ms_median=1e3 * float(np.median(steps)),
-                t2_step_ms_median=t2["step_ms_median"],
-                peak_memory_gib=m["peak_memory_gib"],
-                opt_state_bytes=int(m["opt_state_bytes"]),
-                launch_to_fit_start_s=m["launch_to_fit_start_s"],
-                fit_s=fit_s, worker_device=m["device"],
-                state_stream=trainer.state_stream_stats, launches=launches)
-            print(f"phaseD {name}", json.dumps(res["fits"][name]), flush=True)
-            del trainer
-    finally:
-        ray.shutdown()
-    check(ray.live_actor_count() == 0, "D: a worker outlived the phase")
+    res = {"card": card, "refused_two_workers": refusal, "fits": {},
+           "spawn_s": spawn_s}
+    fits = [(name, cls, "adamw") for name, cls in (
+        ("ddp", RayStrategy), ("allreduce", HorovodRayStrategy),
+        ("zero", RayShardedStrategy), ("fsdp2", FSDPStrategy))]
+    fits += [(name, cls, preset) for name, cls in (
+        ("zero", RayShardedStrategy), ("fsdp2", FSDPStrategy))
+        for preset in ("adamw_bf16m", "adafactor")]
+    for name, cls, preset in fits:
+        key = name if preset == "adamw" else f"{name}/{preset}"
+        probe = WorkerProbe(time.time())
+        trainer, fit_s = worker_fit(ray, workers, cls(num_workers=1),
+                                    t2_module(preset), [probe])
+        m = trainer.callback_metrics
+        launches = worker_launches(m, expect, f"D {key}")
+        got = probe.losses
+        # AdamW against T2's losses; a preset against phase O's
+        want = (t2["losses"] if preset == "adamw"
+                else o["presets"][preset]["losses"])[:D_STEPS]
+        check(len(got) == D_STEPS and all(np.isfinite(got)),
+              f"D {key}: losses {got}")
+        bitwise = got == want
+        diff = max(abs(a - b) for a, b in zip(got, want))
+        if name in ("ddp", "allreduce") or (name == "zero"
+                                            and preset != "adamw"):
+            check(bitwise, f"D {key}: losses {got} != {want}")
+        else:
+            check(all(abs(a - b) <= D_LOSS_RTOL * abs(b)
+                      for a, b in zip(got, want)),
+                  f"D {key}: losses {got} vs {want} past {D_LOSS_RTOL} "
+                  "relative")
+        opt_bytes = int(m["opt_state_bytes"])
+        if preset != "adamw":
+            check(opt_bytes == o["presets"][preset]["opt_state_bytes"],
+                  f"D {key}: opt_state_bytes {opt_bytes} != phase O's "
+                  f"{o['presets'][preset]['opt_state_bytes']}")
+        check(trainer.global_step == D_STEPS and
+              trainer.train_state_dict is not None,
+              f"D {key}: global_step {trainer.global_step}")
+        steps = np.diff(probe.ends)[WARMUP_STEPS - 1:]
+        res["fits"][key] = dict(
+            optimizer=preset, losses=got, bitwise_vs_one_process=bitwise,
+            max_loss_diff=diff,
+            step_ms_median=1e3 * float(np.median(steps)),
+            t2_step_ms_median=t2["step_ms_median"],
+            peak_memory_gib=m["peak_memory_gib"], opt_state_bytes=opt_bytes,
+            launch_to_fit_start_s=m["launch_to_fit_start_s"],
+            fit_s=fit_s, worker_device=m["device"],
+            state_stream=trainer.state_stream_stats, launches=launches)
+        print(f"phaseD {key}", json.dumps(res["fits"][key]), flush=True)
+        del trainer
     print("phaseD data parallel", json.dumps(res), flush=True)
+    return res
+
+
+# -------------------------------------------------------------- phase U
+U_STEPS = 2                      # steps an epoch; one validation batch
+CKPT_BYTES = 1_493_454_109       # GPT-2-small's AdamW stream (run AN)
+
+
+class FakeTune:
+    """Ray Tune 1.x as a trial's process sees it: ``report(**metrics)``
+    and ``checkpoint_dir(step)`` under the trial's directory. Installed
+    in this process (the driver) only; the worker has no Tune."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.reports, self.dirs = [], []
+
+    def is_session_enabled(self):
+        return True
+
+    def report(self, **metrics):
+        self.reports.append(dict(metrics))
+
+    @contextlib.contextmanager
+    def checkpoint_dir(self, step):
+        d = os.path.join(self.root, f"checkpoint_{step:06d}")
+        os.makedirs(d, exist_ok=True)
+        self.dirs.append(d)
+        yield d
+
+
+class FakeCheckpoint2:
+    """Ray 2.x's ``Checkpoint``: the trial's directory copied under
+    ``root``, where the fake keeps it (the callback's temporary one goes
+    after the report)."""
+    root = ""
+    kept = 0
+
+    def __init__(self, path: str):
+        self.path = path
+
+    @classmethod
+    def from_directory(cls, path: str):
+        keep = os.path.join(cls.root, f"checkpoint_{cls.kept:06d}")
+        shutil.copytree(path, keep)
+        cls.kept += 1
+        return cls(keep)
+
+    def to_directory(self):
+        return self.path
+
+
+class FakeTune2:
+    """Ray Tune 2.x: ``report(metrics, checkpoint=)``, ``get_context``,
+    ``get_checkpoint``."""
+    Checkpoint = FakeCheckpoint2
+
+    def __init__(self):
+        self.reports = []
+
+    def report(self, metrics, checkpoint=None):
+        self.reports.append((dict(metrics), checkpoint))
+
+    def get_context(self):
+        return self
+
+    def get_trial_id(self):
+        return "trial_0002"
+
+    def get_checkpoint(self):
+        done = [c for _m, c in self.reports if c is not None]
+        return done[-1] if done else None
+
+
+class TrialProbe(WorkerProbe):
+    """WorkerProbe, and each validation's ``val_loss`` and step as the
+    worker saw them at ``on_validation_end`` (sanity checks counted
+    apart)."""
+
+    def __init__(self, launched_at: float):
+        super().__init__(launched_at)
+        self.vals, self.sanity, self.train_losses = [], 0, []
+
+    def on_validation_end(self, trainer, module):
+        if trainer.sanity_checking:
+            self.sanity += 1
+        else:
+            self.vals.append((trainer.global_step,
+                              float(trainer.callback_metrics["val_loss"])))
+
+    def on_train_epoch_end(self, trainer, module):
+        self.train_losses.append(
+            float(trainer.callback_metrics["train_loss"]))
+
+    def state_dict(self):
+        return {**super().state_dict(), "vals": self.vals,
+                "sanity": self.sanity, "train_losses": self.train_losses}
+
+    def load_state_dict(self, state):
+        super().load_state_dict(state)
+        self.vals, self.sanity = state["vals"], state["sanity"]
+        self.train_losses = state["train_losses"]
+
+
+def deliveries(tune_mod) -> dict:
+    """The driver's record of what it delivered to Tune, as seconds."""
+    out = {"checkpoints": [], "report_items": []}
+    for d in tune_mod.DELIVERIES:
+        if d["kind"] == "checkpoint":
+            out["checkpoints"].append(dict(
+                global_step=d["global_step"], bytes=d["bytes"],
+                serialize_s=d["serialize_s"],
+                put_to_drained_s=d["delivered_at"] - d["put_at"],
+                driver_write_s=d["write_s"],
+                hook_to_delivered_s=d["delivered_at"] - d["hooked_at"]))
+        else:
+            out["report_items"].append(dict(
+                global_step=d["global_step"],
+                hook_to_delivered_s=d["delivered_at"] - d["hooked_at"]))
+    return out
+
+
+def phase_u_tune(card, ray, workers, spawn_s):
+    """A Tune trial on the card, reporting through the session queue."""
+    import tempfile
+    import ray_lightning_tpu_torch.tune as tm
+    from ray_lightning_tpu_torch import (FSDPStrategy, RayStrategy,
+                                         Trainer)
+    n = 12
+    steps = 2 * U_STEPS
+    expect = {"flash_fwd": n * (steps + 2 + 1),   # + validation, sanity
+              "flash_bwd_dkv": n * steps, "flash_bwd_dq": n * steps}
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune-")
+    res = {"card": card, "spawn_s": spawn_s}
+    trial = dict(max_epochs=2, limit_train_batches=U_STEPS,
+                 limit_val_batches=1, num_sanity_val_steps=1)
+    saved = tm.tune
+    try:
+        # trial 1: Ray 1.x's API, DDP, AdamW
+        fake = FakeTune(os.path.join(root, "trial1"))
+        tm.tune = fake
+        tm.DELIVERIES.clear()
+        probe = TrialProbe(time.time())
+        cb = tm.TuneReportCheckpointCallback(metrics={"loss": "val_loss"},
+                                             on="validation_end")
+        # and a report alone at each epoch's end: its hook-to-delivery
+        # time without a checkpoint beside it
+        cb_train = tm.TuneReportCallback(metrics=["train_loss"],
+                                         on="train_epoch_end")
+        trainer, fit_s = worker_fit(ray, workers, RayStrategy(num_workers=1),
+                                    t2_module(), [probe, cb, cb_train],
+                                    default_root_dir=root, **trial)
+        launches = worker_launches(trainer.callback_metrics, expect, "U")
+        reports = [r["loss"] for r in fake.reports if "loss" in r]
+        check(probe.sanity == 1 and len(probe.vals) == 2,
+              f"U: sanity checks {probe.sanity}, validations {probe.vals}")
+        check(reports == [v for _s, v in probe.vals],
+              f"U: reports {reports} != the worker's val_loss "
+              f"{probe.vals}")
+        train_reports = [r["train_loss"] for r in fake.reports
+                         if "train_loss" in r]
+        check(train_reports == probe.train_losses,
+              f"U: train_loss reports {train_reports} != the worker's "
+              f"{probe.train_losses}")
+        files = [os.path.join(d, "checkpoint") for d in fake.dirs]
+        sizes = [os.path.getsize(f) for f in files]
+        check(len(files) == 2 and all(
+            abs(b - CKPT_BYTES) <= 0.01 * CKPT_BYTES for b in sizes),
+            f"U: checkpoint files {files} of {sizes} bytes")
+        record = deliveries(tm)
+        check([c["global_step"] for c in record["checkpoints"]] == [
+            U_STEPS, 2 * U_STEPS] and [r["global_step"] for r in record[
+                "report_items"]] == [U_STEPS, 2 * U_STEPS],
+            f"U: deliveries {record}")
+        res["trial1"] = dict(
+            reported_loss=reports, worker_val_loss=probe.vals,
+            reported_train_loss=train_reports,
+            checkpoint_bytes=sizes, fit_s=fit_s,
+            launch_to_fit_start_s=trainer.callback_metrics[
+                "launch_to_fit_start_s"], launches=launches, **record)
+        print("phaseU trial 1", json.dumps(res["trial1"]), flush=True)
+        del trainer
+
+        # resume from the last trial checkpoint vs three epochs whole
+        path = tm.resume_ckpt_path(fake.dirs[-1])
+        check(path == files[-1], f"U: resume_ckpt_path {path}")
+        tm.tune = None      # no Tune session: no queue for these two
+        probe_r = TrialProbe(time.time())
+        resumed, resumed_s = worker_fit(
+            ray, workers, RayStrategy(num_workers=1), t2_module(),
+            [probe_r], ckpt_path=path, **{**trial, "max_epochs": 3})
+        probe_w = TrialProbe(time.time())
+        # the resumed probe starts from the checkpoint's copy of its
+        # state, so it holds all three epochs' losses
+        whole, whole_s = worker_fit(
+            ray, workers, RayStrategy(num_workers=1), t2_module(),
+            [probe_w], **{**trial, "max_epochs": 3})
+        check(probe_r.losses == probe_w.losses and len(probe_w.losses) == 3
+              * U_STEPS, f"U: resumed losses {probe_r.losses} != "
+              f"{probe_w.losses}")
+        diff = bitwise_diff(resumed.train_state_dict["params"],
+                            whole.train_state_dict["params"], "params")
+        check(not diff, f"U: resumed params differ from the whole fit's "
+              f"at {diff[:5]}")
+        res["resume"] = dict(path=path, losses=probe_w.losses,
+                             bitwise=True, resumed_fit_s=resumed_s,
+                             whole_fit_s=whole_s)
+        print("phaseU resume", json.dumps(res["resume"]), flush=True)
+        del resumed, whole
+
+        # trial 2: Ray 2.x's API, FSDP2, adafactor
+        fake2 = FakeTune2()
+        FakeCheckpoint2.root = os.path.join(root, "trial2-kept")
+        tm.tune = fake2
+        tm.DELIVERIES.clear()
+        probe2 = TrialProbe(time.time())
+        cb2 = tm.TuneReportCheckpointCallback(metrics={"loss": "val_loss"},
+                                              on="validation_end")
+        trainer2, fit2_s = worker_fit(
+            ray, workers, FSDPStrategy(num_workers=1),
+            t2_module("adafactor"), [probe2, cb2],
+            default_root_dir=os.path.join(root, "trial2"), **trial)
+        launches2 = worker_launches(trainer2.callback_metrics, expect,
+                                    "U trial 2")
+        check(len(fake2.reports) == 2 and all(
+            c is not None for _m, c in fake2.reports)
+            and [m["loss"] for m, _c in fake2.reports] == [
+                v for _s, v in probe2.vals],
+            f"U trial 2: reports {fake2.reports} vs {probe2.vals}")
+        path2 = tm.resume_ckpt_path()
+        check(path2 is not None, "U trial 2: no checkpoint to resume")
+        record2 = deliveries(tm)
+        del trainer2
+        tm.tune = None
+        release()
+        one = Trainer(strategy=RayStrategy(num_workers=1), seed=0,
+                      limit_val_batches=0, **{
+                          k: v for k, v in trial.items()
+                          if k not in ("limit_val_batches",
+                                       "num_sanity_val_steps")})
+        one.fit(t2_module("adafactor"), ckpt_path=path2)
+        with open(path2, "rb") as f:
+            ckpt = torch.load(f, map_location="cpu", weights_only=True)
+        diff = bitwise_diff({k: v.detach().cpu() for k, v in
+                             one.model.state_dict().items()},
+                            ckpt["state"]["params"], "params")
+        check(not diff and one.global_step == 2 * U_STEPS,
+              f"U trial 2: the one-process load differs at {diff[:5]}")
+        res["trial2"] = dict(
+            reported=[m for m, _c in fake2.reports],
+            worker_val_loss=probe2.vals, checkpoint=path2,
+            checkpoint_bytes=os.path.getsize(path2), fit_s=fit2_s,
+            launches=launches2, loads_in_one_process=True, **record2)
+        print("phaseU trial 2", json.dumps(res["trial2"]), flush=True)
+        del one, ckpt
+    finally:
+        tm.tune = saved
+        shutil.rmtree(root, ignore_errors=True)
+        release()
+    print("phaseU tune", json.dumps(res), flush=True)
+    return res
+
+
+# -------------------------------------------------------------- phase C
+C_STEPS = 3
+C_ARGS = ["fit", "--strategy", "ddp_sharded", "--strategy.num_workers", "1",
+          "--model.size", "small", "--model.optimizer", "adafactor",
+          "--model.vocab_size", "50257", "--model.seq_len", "1024",
+          "--model.batch_size", "8", "--trainer.max_epochs", "1",
+          "--trainer.limit_train_batches", str(C_STEPS),
+          "--trainer.limit_val_batches", "1", "--trainer.seed", "0"]
+
+
+def phase_c_cli(card):
+    """``python -m ray_lightning_tpu_torch.cli`` on the card against the
+    same fit built by hand."""
+    import tempfile
+    from ray_lightning_tpu_torch import GPTModule, RayShardedStrategy, Trainer
+    release()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli-")
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "ray_lightning_tpu_torch.cli",
+             "--model-class", "ray_lightning_tpu_torch.models.GPTModule",
+             *C_ARGS, "--trainer.default_root_dir", root],
+            capture_output=True, text=True, env=env, cwd=here, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(out.returncode == 0,
+              f"C: the CLI exited {out.returncode}: {out.stderr[-3000:]}")
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        trainer = Trainer(strategy=RayShardedStrategy(num_workers=1),
+                          max_epochs=1, limit_train_batches=C_STEPS,
+                          limit_val_batches=1, seed=0,
+                          default_root_dir=root)
+        trainer.fit(GPTModule(size="small", optimizer="adafactor",
+                              vocab_size=50257, seq_len=1024, batch_size=8))
+        want = dict(trainer.callback_metrics)
+        check(got == want, f"C: the CLI's metrics {got} != the fit built "
+              f"by hand {want}")
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        release()
+    res = dict(card=card, args=C_ARGS, metrics=got, bitwise=True,
+               cli_s=cli_s)
+    print("phaseC cli", json.dumps(res), flush=True)
     return res
 
 
@@ -1624,8 +1994,16 @@ def main() -> int:
     trained = phase_t2_training(card, fpath)
     phase_t3_train_kernel_vs_plain()
     phase_r_resume(card)
-    phase_o_optimizers(card)
-    phase_d_data_parallel(card, trained)
+    presets = phase_o_optimizers(card)
+    release()
+    ray, workers, spawn_s = spawn_card_worker()
+    try:
+        phase_d_data_parallel(card, trained, presets, ray, workers, spawn_s)
+        phase_u_tune(card, ray, workers, spawn_s)
+    finally:
+        ray.shutdown()
+    check(ray.live_actor_count() == 0, "D/U: a worker outlived the phases")
+    phase_c_cli(card)
 
     # the main paths' own calls: bf16 q and pages, T=1 (serving); bf16,
     # B=8, T=S=1024, causal (training)

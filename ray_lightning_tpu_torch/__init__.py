@@ -19,7 +19,13 @@ device: ``RayStrategy``, ``HorovodRayStrategy``, ``RayShardedStrategy``
 and ``FSDPStrategy`` with ``num_workers > 1``, each worker a spawned
 process (``launchers/process_backend.py``, or a Ray actor when a Ray
 runtime is attached) in a ``torch.distributed`` process group -- NCCL
-between cards, gloo between CPU workers. Still raising
+between cards, gloo between CPU workers. Slice 9 finishes it: Ray Tune
+reporting (``tune.py``: ``TuneReportCallback``,
+``TuneReportCheckpointCallback``, ``get_tune_resources``) through a
+session queue that crosses to the worker processes, the command line
+(``cli.py``: ``TpuLightningCLI``, ``python -m
+ray_lightning_tpu_torch.cli``), ZeRO by the JAX package's split of the
+optimizer state, and the memory presets under ZeRO and FSDP2. Still raising
 ``NotImplementedError``, each naming its ``ROADMAP.md`` item:
 ``telemetry=``, ``gang=`` and ``standby=`` (S6/T7), dropout and remat
 (T3).

@@ -25,8 +25,11 @@ memory profile:
 Both hand-written optimizers keep optax's state tree -- its counts as
 int32 scalars, Adafactor's one-element placeholders included -- so
 :func:`opt_state_bytes` equals ``ray_lightning_tpu.core.optim
-.opt_state_bytes`` for them. ``torch.optim.AdamW`` keeps a step count per
-tensor where optax keeps one.
+.opt_state_bytes`` for them on a tree of the same shapes (the port's
+fused qkv weight is not: ``ROADMAP.md`` C). ``torch.optim.AdamW`` keeps a
+step count per tensor where optax keeps one. On params sharded over
+ranks (DTensors: FSDP2's, or ZeRO's shards of the full params) both
+update this rank's local part; see :class:`Adafactor` for its means.
 
 :func:`clip_by_global_norm_` is optax's ``clip_by_global_norm``: keep the
 gradients when their global norm is below ``max_norm``, else scale them
@@ -194,18 +197,19 @@ class AdamW(_OptaxLike):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad
+                g = local_tensor(p.grad)
                 st = self.state[p]
                 if not st:
                     st["mu"] = torch.zeros_like(p, dtype=mdtype)
                     st["nu"] = torch.zeros_like(p)
-                mu = g * (1 - b1) + (st["mu"] * b1_m).to(g.dtype)
-                nu = g * g * (1 - b2) + st["nu"] * b2
+                mu = g * (1 - b1) + (local_tensor(st["mu"]) * b1_m).to(
+                    g.dtype)
+                nu = g * g * (1 - b2) + local_tensor(st["nu"]) * b2
                 u = (mu / bc1) / ((nu / bc2).sqrt() + group["eps"])
-                u = u + p * group["weight_decay"]
-                p.add_(u * -group["lr"])
-                st["mu"] = mu.to(mdtype)
-                st["nu"] = nu
+                u = u + local_tensor(p) * group["weight_decay"]
+                local_tensor(p).add_(u * -group["lr"])
+                _put(st, "mu", mu.to(mdtype))
+                _put(st, "nu", nu)
         return loss
 
 
@@ -227,7 +231,18 @@ class Adafactor(_OptaxLike):
     weight_decay_rate=...)``, one update at a time in optax's order:
     factored (or full) RMS scaling with decay ``1 - n**-0.8``, clipping
     by block RMS, times ``lr``, momentum in ``momentum_dtype`` without
-    debiasing, plus ``weight_decay_rate·p``, negated, added to ``p``."""
+    debiasing, plus ``weight_decay_rate·p``, negated, added to ``p``.
+
+    On a param sharded over ranks (a DTensor: FSDP2's, or ZeRO's shard
+    of a full param) each rank updates its own part. Which dimensions
+    are factored is decided on the full shape. The three means that
+    span a sharded dimension -- the second moment's row or column mean,
+    the row normalisation, and the update's RMS for the clipping -- sum
+    the local parts over the group and divide by the full extent; the
+    others stay local. A factored moment that lost the sharded dimension
+    is whole on every rank after its mean; it is stored split by the JAX
+    package's rule (:func:`~ray_lightning_tpu_torch.strategies.sharding
+    .shard_dim`) and gathered again for the update."""
 
     _LOW_PRECISION = ("ema",)
     _COUNTS = ("count", "ema_count")   # scale_by_factored_rms's, ema's
@@ -244,20 +259,42 @@ class Adafactor(_OptaxLike):
             clipping_threshold=clipping_threshold, eps=eps,
             min_dim_size_to_factor=min_dim_size_to_factor))
 
-    def _init(self, p, group) -> Dict[str, torch.Tensor]:
-        dims = _factored_dims(tuple(p.shape), group["factored"],
+    @staticmethod
+    def _dims(p, group):
+        return _factored_dims(tuple(p.shape), group["factored"],
                               group["min_dim_size_to_factor"])
+
+    def _init(self, p, group) -> Dict[str, torch.Tensor]:
+        dims = self._dims(p, group)
         one = torch.zeros(1, dtype=p.dtype, device=p.device)
         st = {"v_row": one, "v_col": one.clone(), "v": one.clone()}
         if dims is None:
             st["v"] = torch.zeros_like(p)
         else:
             d1, d0 = dims
-            shape = list(p.shape)
-            st["v_row"] = p.new_zeros(shape[:d0] + shape[d0 + 1:])
-            st["v_col"] = p.new_zeros(shape[:d1] + shape[d1 + 1:])
+            split = _split_of(p)
+            st["v_row"] = _zero_moment(p, split, d0)
+            st["v_col"] = _zero_moment(p, split, d1)
         st["ema"] = torch.zeros_like(p, dtype=self._state_dtype(group))
         return st
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        """As :class:`_OptaxLike`'s; the factored moments of a sharded
+        param, which a checkpoint holds whole, keep this rank's part."""
+        super().load_state_dict(state_dict)
+        from ray_lightning_tpu_torch.strategies.sharding import (is_dtensor,
+                                                                 shard_like)
+        for group in self.param_groups:
+            for p in group["params"]:
+                st, split, dims = self.state.get(p), _split_of(p), \
+                    self._dims(p, group)
+                if not st or split is None or dims is None:
+                    continue
+                d1, d0 = dims
+                for key, reduced in (("v_row", d0), ("v_col", d1)):
+                    like = _zero_moment(p, split, reduced)
+                    if is_dtensor(like) and not is_dtensor(st[key]):
+                        st[key] = shard_like(st[key], like)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -271,52 +308,173 @@ class Adafactor(_OptaxLike):
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g = p.grad
+                g = local_tensor(p.grad)
                 st = self.state[p]
                 if not st:
                     st.update(self._init(p, group))
-                dims = _factored_dims(tuple(p.shape), group["factored"],
-                                      group["min_dim_size_to_factor"])
+                split = _split_of(p)
+                cut = None if split is None else split.dim
+                dims = self._dims(p, group)
                 g2 = g * g + group["eps"]
                 if dims is not None:
                     d1, d0 = dims
-                    v_row = (st["v_row"] * decay
-                             + g2.mean(dim=d0) * (1 - decay))
-                    v_col = (st["v_col"] * decay
-                             + g2.mean(dim=d1) * (1 - decay))
+                    v_row = _moment(st, "v_row",
+                                    _mean(g2, d0, cut, split, p.shape[d0]),
+                                    p, split, d0, decay)
+                    v_col = _moment(st, "v_col",
+                                    _mean(g2, d1, cut, split, p.shape[d1]),
+                                    p, split, d1, decay)
                     r1 = d1 - 1 if d1 > d0 else d1
-                    row = (v_row / v_row.mean(dim=r1, keepdim=True)) \
-                        .pow(-0.5)
+                    # v_row is this rank's slice along d1 only when the
+                    # param is split along d1
+                    row_cut = r1 if cut == d1 else None
+                    row = (v_row / _mean(v_row, r1, row_cut, split,
+                                         p.shape[d1], keepdim=True)
+                           ).pow(-0.5)
                     u = (g * row.unsqueeze(d0)) * v_col.pow(-0.5) \
                         .unsqueeze(d1)
-                    st["v_row"], st["v_col"] = v_row, v_col
                 else:
-                    v = st["v"] * decay + g2 * (1 - decay)
+                    v = local_tensor(st["v"]) * decay + g2 * (1 - decay)
                     u = g * v.pow(-0.5)
-                    st["v"] = v
-                rms = u.square().mean().sqrt()
+                    _put(st, "v", v)
+                if split is None:
+                    rms = u.square().mean().sqrt()
+                else:
+                    total = u.square().sum()
+                    split.all_reduce(total)
+                    rms = (total / p.numel()).sqrt()
                 u = u / torch.clamp(rms / group["clipping_threshold"],
                                     min=1.0)
                 u = u * group["lr"]
-                ema = u * (1 - b1) + (st["ema"] * b1_m).to(u.dtype)
-                st["ema"] = ema.to(mdtype)
+                ema = u * (1 - b1) + (local_tensor(st["ema"]) * b1_m).to(
+                    u.dtype)
+                _put(st, "ema", ema.to(mdtype))
                 u = ema
                 if group["weight_decay_rate"] is not None:
-                    u = u + p * group["weight_decay_rate"]
-                p.add_(u * -1)
+                    u = u + local_tensor(p) * group["weight_decay_rate"]
+                local_tensor(p).add_(u * -1)
         return loss
+
+
+# ----------------------------------------------------------------------
+# the presets on a shard: a param that is a DTensor sharded over ranks
+# ----------------------------------------------------------------------
+class _Split:
+    """Where a sharded param's local tensor sits in the full one: split
+    along ``dim`` over the ``world`` ranks of ``mesh`` (``torch.chunk``'s
+    split: even under ZeRO, possibly uneven under FSDP2)."""
+
+    def __init__(self, p):
+        (placement,) = p.placements
+        self.mesh = p.device_mesh
+        self.world = self.mesh.size()
+        self.rank = self.mesh.get_local_rank()
+        self.dim = placement.dim
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=self.mesh.get_group())
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's equal part ``t`` joined along ``dim``, in rank
+        order."""
+        import torch.distributed as dist
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t, group=self.mesh.get_group())
+        return torch.cat(parts, dim=dim)
+
+
+def _split_of(p) -> Optional[_Split]:
+    """The split of a param sharded over more than one rank; None for a
+    whole (plain, replicated, or one-rank) param."""
+    if not isinstance(p, _dtensor_type()) or p.device_mesh.size() == 1:
+        return None
+    (placement,) = p.placements
+    return _Split(p) if placement.is_shard() else None
+
+
+def _put(st: Dict[str, Any], key: str, value: torch.Tensor) -> None:
+    """Store a state tensor: into a DTensor's local part, in place, or
+    as the new value."""
+    if isinstance(st[key], _dtensor_type()):
+        st[key].to_local().copy_(value)
+    else:
+        st[key] = value
+
+
+def _mean(x: torch.Tensor, dim: int, cut: Optional[int],
+          split: Optional[_Split], extent: int,
+          keepdim: bool = False) -> torch.Tensor:
+    """The full tensor's mean over ``dim``, of which ``x`` is this
+    rank's part split along ``cut``: a local mean unless ``dim`` is
+    ``cut``, then the local sums added over the group and divided by the
+    full extent ``extent``."""
+    if cut is None or dim != cut:
+        return x.mean(dim=dim, keepdim=keepdim)
+    total = split.all_reduce(x.sum(dim=dim, keepdim=keepdim))
+    return total / extent
+
+
+def _moment_layout(p, split: Optional[_Split], reduced: int):
+    """How the factored moment that averages ``p`` over ``reduced`` is
+    kept: ``None`` whole (an unsplit param); ``("slice", q)`` this
+    rank's slice along its dimension ``q``, as the param is split (the
+    mean was local); ``("rule", k)`` whole after its mean, stored split
+    along ``k`` by the JAX rule (``k`` None: whole)."""
+    if split is None:
+        return None
+    if reduced == split.dim:
+        from ray_lightning_tpu_torch.strategies.sharding import shard_dim
+        shape = tuple(p.shape)
+        return ("rule", shard_dim(shape[:reduced] + shape[reduced + 1:],
+                                  split.world))
+    return ("slice", split.dim - (split.dim > reduced))
+
+
+def _zero_moment(p, split: Optional[_Split], reduced: int):
+    """A zero factored moment of ``p`` over ``reduced``, laid out by
+    :func:`_moment_layout` (a DTensor where it is split)."""
+    shape = list(p.shape)
+    full = shape[:reduced] + shape[reduced + 1:]
+    local_p = local_tensor(p)
+    layout = _moment_layout(p, split, reduced)
+    if layout is None or layout[1] is None:
+        return local_p.new_zeros(full)
+    kind, k = layout
+    local = list(full)
+    local[k] = (full[k] // split.world if kind == "rule"
+                else local_p.shape[split.dim])
+    from torch.distributed.tensor import DTensor, Shard
+    return DTensor.from_local(
+        local_p.new_zeros(local), split.mesh, [Shard(k)], run_check=False,
+        shape=torch.Size(full),
+        stride=torch.empty(full, device="meta").stride())
+
+
+def _moment(st, key: str, mean: torch.Tensor, p, split: Optional[_Split],
+            reduced: int, decay: float) -> torch.Tensor:
+    """``decay·old + (1 - decay)·mean`` for a factored moment, stored in
+    its layout; returns it as the update uses it (whole, or this rank's
+    slice where the mean was local)."""
+    layout = _moment_layout(p, split, reduced)
+    if layout is None or layout[0] == "slice" or layout[1] is None:
+        new = local_tensor(st[key]) * decay + mean * (1 - decay)
+        _put(st, key, new)
+        return new
+    k = layout[1]
+    n = mean.shape[k] // split.world
+    part = (local_tensor(st[key]) * decay
+            + mean.narrow(k, split.rank * n, n) * (1 - decay))
+    _put(st, key, part)
+    return split.all_gather(part, k)
 
 
 def opt_state_bytes(optimizer: torch.optim.Optimizer) -> int:
     """Total bytes of the optimizer state this process holds (the memory
     claims' measure, as the JAX package's ``opt_state_bytes``): under
-    ZeRO its local optimizer's, under FSDP each tensor's local shard."""
-    try:
-        from torch.distributed.optim import ZeroRedundancyOptimizer
-    except ImportError:  # a torch built without distributed support
-        ZeroRedundancyOptimizer = ()
-    if isinstance(optimizer, ZeroRedundancyOptimizer):
-        optimizer = optimizer.optim
+    ZeRO and FSDP each tensor's local part."""
     total = 0
     for value in optimizer.state.values():
         for t in (value.values() if isinstance(value, dict) else [value]):

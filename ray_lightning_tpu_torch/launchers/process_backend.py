@@ -18,20 +18,29 @@ when no Ray runtime is attached::
     launcher = RayLauncher(strategy, ray_module=ray_mod)
 
 Each worker applies its environment (``CUDA_VISIBLE_DEVICES`` among it)
-and torch's thread count before anything touches a device. A pickled
-call or result above ``INLINE_BYTES`` (rank 0's final train state, 1.49
-GB for GPT-2-small with AdamW) travels through a temporary file instead
-of the pipe: ``multiprocessing`` reads a pipe message 64 KiB at a time,
-and on an H100 host a 1.49 GB result had not arrived after minutes
-(``PERF.md`` §6). The JAX
+and torch's thread count before anything touches a device. A call or
+result whose pickle is above ``INLINE_BYTES`` (rank 0's final train
+state, 1.49 GB for GPT-2-small with AdamW) is pickled straight into a
+temporary file whose name goes down the pipe instead: ``multiprocessing``
+reads a pipe message 64 KiB at a time, and on an H100 host a 1.49 GB
+result had not arrived after minutes (``PERF.md`` §6).
+
+:meth:`ProcessRay.make_queue` is the session queue a Tune trial's
+launch hands its workers (``ray.util.queue.Queue``'s part the launcher
+uses): a ``multiprocessing`` manager's queue that pickles by reference,
+so a worker reused across launches gets each launch's queue as a task
+argument. Its items cross as calls do, a large one (a trial checkpoint)
+through a temporary file, never through the manager process. The JAX
 module's orphan guard belongs to the serving fleet (``ROADMAP.md`` S8)
 and is not copied: a worker exits when its pipe to the driver closes.
 """
 from __future__ import annotations
 
+import io
 import multiprocessing as mp
 import os
 import pickle
+import queue as _queue
 import tempfile
 import threading
 import time
@@ -42,37 +51,69 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 INLINE_BYTES = 64 << 20
 
 
-def _pack(payload: bytes) -> Union[bytes, Tuple[str, str, int]]:
-    """A pickled payload as it goes down the pipe: itself, or, above
-    :data:`INLINE_BYTES`, the name of a temporary file holding it (in
-    ``TMPDIR``; :func:`_unpack` reads and removes it)."""
-    if len(payload) <= INLINE_BYTES:
-        return payload
-    fd, path = tempfile.mkstemp(prefix="processray-")
-    with os.fdopen(fd, "wb") as f:
-        f.write(payload)
-    return ("file", path, len(payload))
+class _Spill:
+    """A binary sink for ``pickle.dump``: memory up to
+    :data:`INLINE_BYTES`, then a temporary file (in ``TMPDIR``) that
+    takes what was written and everything after. The pickler writes a
+    large bytes object through directly, so it is never copied."""
+
+    def __init__(self):
+        self._mem: Optional[io.BytesIO] = io.BytesIO()
+        self._file = None
+        self._path = ""
+        self._size = 0
+
+    def write(self, data) -> int:
+        n = memoryview(data).nbytes
+        if self._file is None and self._size + n > INLINE_BYTES:
+            fd, self._path = tempfile.mkstemp(prefix="processray-")
+            self._file = os.fdopen(fd, "wb")
+            self._file.write(self._mem.getbuffer())
+            self._mem = None
+        (self._mem if self._file is None else self._file).write(data)
+        self._size += n
+        return n
+
+    def packed(self) -> Union[bytes, Tuple[str, str, int]]:
+        if self._file is None:
+            return self._mem.getvalue()
+        self._file.close()
+        return ("file", self._path, self._size)
 
 
-def _unpack(packed) -> Union[bytes, bytearray]:
-    """Inverse of :func:`_pack`: the file is read into one buffer made
-    up front, then removed."""
-    if isinstance(packed, (bytes, bytearray)):
-        return packed
-    _kind, path, size = packed
-    buf = bytearray(size)
-    view = memoryview(buf)
+def _dump(obj: Any) -> Union[bytes, Tuple[str, str, int]]:
+    """``obj`` pickled as it goes down the pipe or into a queue: the
+    pickle's bytes, or, above :data:`INLINE_BYTES`, the name of the
+    temporary file it was pickled into (:func:`_load` reads and removes
+    it)."""
+    sink = _Spill()
     try:
-        with open(path, "rb", buffering=0) as f:
-            got = 0
-            while got < size:
-                n = f.readinto(view[got:])
-                if not n:
-                    raise EOFError(f"{path} ends at {got} of {size} bytes")
-                got += n
+        pickle.dump(obj, sink, protocol=pickle.HIGHEST_PROTOCOL)
+    except BaseException:
+        _discard(sink.packed())
+        raise
+    return sink.packed()
+
+
+def _load(packed) -> Any:
+    """Inverse of :func:`_dump`; a file is removed once read."""
+    if isinstance(packed, (bytes, bytearray)):
+        return pickle.loads(packed)
+    _kind, path, _size = packed
+    try:
+        with open(path, "rb") as f:
+            return pickle.load(f)
     finally:
         os.remove(path)
-    return buf
+
+
+def _discard(packed) -> None:
+    """Drop a payload no one will load (its file removed)."""
+    if not isinstance(packed, (bytes, bytearray)):
+        try:
+            os.remove(packed[1])
+        except FileNotFoundError:
+            pass
 
 
 def _worker_main(conn, env: Dict[str, str],
@@ -102,14 +143,14 @@ def _worker_main(conn, env: Dict[str, str],
                 return
         try:
             if kind == "construct":
-                cls, args, kwargs = pickle.loads(_unpack(msg[1]))
+                cls, args, kwargs = _load(msg[1])
                 actor = cls(*args, **kwargs)
                 conn.send(("ok", pickle.dumps(None)))
             elif kind == "call":
                 name = msg[1]
-                args, kwargs = pickle.loads(_unpack(msg[2]))
+                args, kwargs = _load(msg[2])
                 result = getattr(actor, name)(*args, **kwargs)
-                conn.send(("ok", _pack(pickle.dumps(result))))
+                conn.send(("ok", _dump(result)))
             else:
                 conn.send(("err", pickle.dumps(
                     RuntimeError(f"unknown message kind {kind!r}"))))
@@ -204,7 +245,7 @@ class ProcessActorHandle:
         self._reader.start()
         # construction is itself a pipelined call
         fut = self._enqueue(
-            ("construct", _pack(pickle.dumps((cls, args, kwargs)))))
+            ("construct", _dump((cls, args, kwargs))))
         fut.result(timeout=construct_timeout)
 
     def _enqueue(self, message: Tuple) -> ProcessFuture:
@@ -256,7 +297,7 @@ class ProcessActorHandle:
             with self._pending_lock:
                 fut = self._pending.pop(0)
             try:
-                value = pickle.loads(_unpack(payload))
+                value = _load(payload)
             except Exception as exc:  # noqa: BLE001 - the caller must hear
                 # a reply that does not unpickle here (e.g. an exception
                 # type whose __init__ pickle cannot call) still resolves
@@ -277,7 +318,7 @@ class ProcessActorHandle:
         args = tuple(_resolve_arg(a) for a in args)
         kwargs = {k: _resolve_arg(v) for k, v in kwargs.items()}
         return self._enqueue(
-            ("call", name, _pack(pickle.dumps((args, kwargs)))))
+            ("call", name, _dump((args, kwargs))))
 
     def __getattr__(self, name: str) -> ProcessActorMethod:
         if name.startswith("_"):
@@ -334,6 +375,41 @@ class ProcessRemoteClass:
         return handle
 
 
+class _ManagerQueue:
+    """A cross-process queue with the part of ``ray.util.queue.Queue``'s
+    surface the launcher and the session use (``put``, ``get``,
+    ``empty``, ``shutdown``). It pickles by reference, as a Ray queue's
+    actor handle does: only the manager's proxy crosses, and every
+    unpickled copy puts into the one queue the manager holds. An item is
+    pickled by the process that puts it (:func:`_dump`): a large one
+    crosses as the name of a temporary file, and the getter loads it."""
+
+    def __init__(self, proxy: Any):
+        self._q = proxy
+
+    def __reduce__(self):
+        return (_ManagerQueue, (self._q,))
+
+    def put(self, item: Any) -> None:
+        self._q.put(_dump(item))
+
+    def get(self, block: bool = True, timeout: Optional[float] = None):
+        return _load(self._q.get(block, timeout))
+
+    def empty(self) -> bool:
+        return self._q.empty()
+
+    def shutdown(self) -> None:
+        """Drop what no one drained (a failed launch's), removing the
+        temporary files of large items."""
+        while True:
+            try:
+                packed = self._q.get_nowait()
+            except _queue.Empty:
+                return
+            _discard(packed)
+
+
 class ProcessRay:
     """Ray-compatible module whose actors are spawned OS processes on
     this host. ``assigns_gpus`` is False: the launcher hands each worker
@@ -349,6 +425,7 @@ class ProcessRay:
         self.num_threads = num_threads
         self.created_actors: List[ProcessActorHandle] = []
         self.killed_actors: List[ProcessActorHandle] = []
+        self._manager = None
 
     # -- lifecycle ----------------------------------------------------- #
     def init(self, *args: Any, **kwargs: Any) -> None:
@@ -361,6 +438,9 @@ class ProcessRay:
         for actor in self.created_actors:
             if not actor._killed:
                 actor._kill()
+        if self._manager is not None:
+            self._manager.shutdown()
+            self._manager = None
         self._initialized = False
 
     # -- object store -------------------------------------------------- #
@@ -415,3 +495,12 @@ class ProcessRay:
     def live_actor_count(self) -> int:
         """Spawned actor processes still alive (the no-leak check)."""
         return sum(1 for a in self.created_actors if a._proc.is_alive())
+
+    # -- the session queue --------------------------------------------- #
+    def make_queue(self) -> _ManagerQueue:
+        """A new queue the driver drains and the workers put into; the
+        manager process that holds the queues starts with the first and
+        stops at :meth:`shutdown`."""
+        if self._manager is None:
+            self._manager = mp.get_context("spawn").Manager()
+        return _ManagerQueue(self._manager.Queue())

@@ -21,13 +21,17 @@ chip of a host from one process:
   it (``ray.get_gpu_ids()``); the subprocess backend (``ProcessRay``),
   which assigns none, hands out the host's visible cards in rank order;
 - the global -> (local, node) rank map from the workers' node addresses
-  (:meth:`RayLauncher.get_local_ranks`).
+  (:meth:`RayLauncher.get_local_ranks`);
+- inside a Ray Tune trial, one session queue per launch
+  (:meth:`RayLauncher.setup_workers`): each worker's session puts into
+  it, the driver runs what arrives while it waits on the workers
+  (``util.process_results``), and the queue is shut down at teardown.
 
 The JAX launcher's TPU rule -- one actor per host, enforced unless
 ``allow_colocated_workers`` -- does not apply: a card has one owner
 either way, and ``allow_colocated_workers`` has no effect here. Gang
 supervision (``gang=``), warm standbys (``standby=``) and the in-memory
-checkpoint tier are ``ROADMAP.md`` S6/T7 (item 8) and raise.
+checkpoint tier are ``ROADMAP.md`` S6/T7 (item 7) and raise.
 
 Ray is optional: the launcher takes any ray-compatible module, which is
 also the test seam (``testing/fake_ray.py``, ``process_backend.py``).
@@ -49,7 +53,7 @@ from ray_lightning_tpu_torch.util import process_results
 MASTER_ADDR_ENV = "MASTER_ADDR"
 MASTER_PORT_ENV = "MASTER_PORT"
 WORLD_SIZE_ENV = "WORLD_SIZE"
-_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 8"
+_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 7"
 
 
 def _import_ray():
@@ -143,6 +147,7 @@ class RayLauncher:
         self._master_addr: Optional[str] = None
         self._master_port: Optional[int] = None
         self._device_indices: List[Optional[int]] = []
+        self.queue: Any = None
 
     # ------------------------------------------------------------------ #
     # driver side: the launch pipeline
@@ -194,6 +199,23 @@ class RayLauncher:
         if strategy.use_gpu:
             self._device_indices = self._share_cuda_visible_devices(
                 local_ranks)
+        self.queue = self._make_queue() if self._in_tune_session() \
+            else None
+
+    @staticmethod
+    def _in_tune_session() -> bool:
+        from ray_lightning_tpu_torch.tune import is_session_enabled
+        return is_session_enabled()
+
+    def _make_queue(self):
+        """This launch's session queue, from the injected module: the
+        backend's own (``ProcessRay``'s manager queue, the fakes'), or a
+        Ray queue actor under Ray."""
+        make_queue = getattr(self._ray, "make_queue", None)
+        if make_queue is not None:
+            return make_queue()
+        from ray.util.queue import Queue
+        return Queue(actor_options={"num_cpus": 0})
 
     def _create_worker(self, rank: int):
         """One actor per rank, asking Ray for one card when the workers
@@ -326,19 +348,20 @@ class RayLauncher:
             w.execute.remote(self._wrapping_function, rank, global_to_local,
                              self._device_indices[rank], trainer_ref,
                              function.__name__, args, kwargs, coordinator,
-                             num_workers, fault_plan)
+                             num_workers, fault_plan, self.queue)
             for rank, w in enumerate(self._workers)
         ]
-        return process_results(futures, self._ray)[0]
+        return process_results(futures, self._ray, queue=self.queue)[0]
 
     @staticmethod
     def _wrapping_function(global_rank: int, global_to_local,
                            device_index: Optional[int], trainer_ref,
                            fn_name: str, args, kwargs, coordinator: str,
-                           num_processes: int,
-                           fault_plan=None) -> Optional[WorkerOutput]:
+                           num_processes: int, fault_plan=None,
+                           queue=None) -> Optional[WorkerOutput]:
         """The worker's entry (the reference's ``ray_launcher.py:253-311``):
-        the trainer, ranks and session; the process group
+        the trainer, ranks and session (with this launch's queue, if
+        any); the process group
         (``Strategy.worker_setup``, which also finds this worker's card);
         the stage; then the group destroyed and the trainer freed. Only
         rank 0 returns its output."""
@@ -358,7 +381,7 @@ class RayLauncher:
         strategy.set_global_to_local(global_to_local)
         strategy.set_device_index(device_index)
         _session.shutdown_session()
-        _session.init_session(rank=global_rank)
+        _session.init_session(rank=global_rank, queue=queue)
         try:
             strategy.worker_setup(process_idx=global_rank,
                                   num_processes=num_processes,
@@ -382,21 +405,25 @@ class RayLauncher:
 
     def teardown_workers(self) -> None:
         """Kill the workers this launcher made (the reference's
-        ``ray_launcher.py:117-129``). External workers are released,
-        unless the launch failed: then they are killed and forgotten, so
-        the next launch spawns a fresh world."""
+        ``ray_launcher.py:117-129``) and shut the session queue down.
+        External workers are released, unless the launch failed: then
+        they are killed and forgotten, so the next launch spawns a fresh
+        world."""
         if self._external_workers is None or self._failed:
             for worker in self._workers:
                 self._ray.kill(worker, no_restart=True)
             self._external_workers = None
         self._workers = []
+        if self.queue is not None:
+            self.queue.shutdown()
+            self.queue = None
 
 
 class _WorkerSideQueueShim:
     """The worker's stand-in for the launcher: the fit loop calls
-    ``launcher.drain_queue()`` between batches, and a worker has no
-    driver-side callables to run (the session queue comes with
-    ``tune.py``, ``ROADMAP.md`` A1)."""
+    ``launcher.drain_queue()`` between batches, and on a worker there is
+    nothing to run -- the session queue belongs to the driver, which
+    drains it while it waits on the workers."""
 
     def drain_queue(self) -> None:
         return None

@@ -1,5 +1,5 @@
 """Per-worker session: the worker<->driver side-channel (copied from
-``ray_lightning_tpu/session.py``).
+``ray_lightning_tpu/session.py``, plus :func:`queue_enabled`).
 
 A per-worker global singleton holding ``(rank, queue)``. Worker code
 (e.g. report callbacks) pushes ``(rank, item)`` tuples; the launcher
@@ -56,6 +56,12 @@ def get_session() -> TpuLightningSession:
 def shutdown_session() -> None:
     global _session
     _session = None
+
+
+def queue_enabled() -> bool:
+    """True when this worker's session has a queue to the driver (a Tune
+    trial's launch made one)."""
+    return _session is not None and _session._queue is not None
 
 
 def get_actor_rank() -> int:

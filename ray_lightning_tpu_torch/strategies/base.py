@@ -38,7 +38,7 @@ say how gradients are averaged and state is held: :meth:`wrap_model`,
 :meth:`make_optimizer`, :meth:`sync_gradients`, :meth:`state_dict` and
 :meth:`load_state_dict`. Gang supervision (``gang=``) and warm
 standbys (``standby=``) raise ``NotImplementedError`` (``ROADMAP.md``
-S6/T7, item 8).
+S6/T7, item 7).
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.launchers.local import LocalLauncher
 from ray_lightning_tpu_torch.reliability.guard import tree_all_finite
 
-_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 8"
+_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 7"
 # how long a rank waits in the rendezvous and in a collective for its
 # peers before it raises instead of hanging
 PROCESS_GROUP_TIMEOUT_S = 300
@@ -68,6 +68,41 @@ def _shape(x) -> tuple:
     """A batch leaf's shape (a tensor's, an array's, () for a scalar)."""
     shape = getattr(x, "shape", None)
     return tuple(np.shape(x) if shape is None else shape)
+
+
+def worker_resources(num_cpus_per_worker: int, use_gpu: bool,
+                     use_tpu: Optional[bool],
+                     resources_per_worker: Optional[Dict], device
+                     ) -> Tuple[Any, bool, Dict, Optional[torch.device]]:
+    """A worker's resources as the arguments ask for them: ``(CPUs, a
+    card or not, other Ray resources, the device spec)``.
+    ``resources_per_worker`` entries override the dedicated arguments
+    (the reference's ``ray_ddp.py:85-112``): ``CPU`` beats
+    ``num_cpus_per_worker``, ``GPU`` (which must be 1) beats
+    ``use_gpu``. ``device=None`` means a card; ``use_tpu=True``, a TPU
+    entry, a GPU count other than 1, or a card asked for beside a CPU
+    ``device`` raise ``ValueError``."""
+    if use_tpu:
+        raise ValueError(
+            "use_tpu=True: the port trains on NVIDIA GPUs (one per "
+            "worker, device=None) or on the CPU (device='cpu'); it "
+            "has no TPU")
+    resources = dict(resources_per_worker or {})
+    if resources.pop("TPU", None):
+        raise ValueError("resources_per_worker={'TPU': ...}: the port "
+                         "has no TPU; use {'GPU': 1}")
+    num_cpus = resources.pop("CPU", num_cpus_per_worker)
+    gpus = resources.pop("GPU", None)
+    if gpus is not None and gpus != 1:
+        raise ValueError(
+            f"resources_per_worker={{'GPU': {gpus}}}: each worker owns "
+            "exactly one card (one process per device)")
+    spec = None if device is None else torch.device(device)
+    if (use_gpu or gpus) and spec is not None and spec.type != "cuda":
+        raise ValueError(
+            f"use_gpu / resources_per_worker={{'GPU': 1}} ask for card "
+            f"workers, but device={device!r}")
+    return num_cpus, spec is None or spec.type == "cuda", resources, spec
 
 
 class Strategy:
@@ -88,10 +123,10 @@ class Strategy:
                  device=None,
                  **kwargs: Any):
         """``resources_per_worker`` entries override the dedicated
-        arguments as in the reference (``ray_ddp.py:85-112``): ``CPU``
-        beats ``num_cpus_per_worker`` (also each worker's torch thread
-        count under the subprocess backend), ``GPU`` (which must be 1)
-        beats ``use_gpu``; the other entries are extra Ray resources.
+        arguments (:func:`worker_resources`): ``CPU`` beats
+        ``num_cpus_per_worker`` (also each worker's torch thread count
+        under the subprocess backend), ``GPU`` (which must be 1) beats
+        ``use_gpu``; the other entries are extra Ray resources.
         ``allow_colocated_workers`` is accepted and has no effect: a card
         has one owner however workers share nodes. See the module
         docstring for ``device``."""
@@ -100,33 +135,14 @@ class Strategy:
                 raise NotImplementedError(
                     f"{type(self).__name__}({name}=...) is not ported yet "
                     f"({_RELIABILITY_ITEM})")
-        if use_tpu:
-            raise ValueError(
-                "use_tpu=True: the port trains on NVIDIA GPUs (one per "
-                "worker, device=None) or on the CPU (device='cpu'); it "
-                "has no TPU")
-        resources = dict(resources_per_worker or {})
-        if resources.pop("TPU", None):
-            raise ValueError("resources_per_worker={'TPU': ...}: the port "
-                             "has no TPU; use {'GPU': 1}")
         self.num_workers = int(num_workers)
         if self.num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
-        self.num_cpus_per_worker = resources.pop("CPU", num_cpus_per_worker)
-        gpus = resources.pop("GPU", None)
-        if gpus is not None and gpus != 1:
-            raise ValueError(
-                f"resources_per_worker={{'GPU': {gpus}}}: each worker owns "
-                "exactly one card (one process per device)")
-        spec = None if device is None else torch.device(device)
-        if (use_gpu or gpus) and spec is not None and spec.type != "cuda":
-            raise ValueError(
-                f"use_gpu / resources_per_worker={{'GPU': 1}} ask for card "
-                f"workers, but device={device!r}")
-        self._device_spec = spec
-        self.use_gpu = spec is None or spec.type == "cuda"
+        (self.num_cpus_per_worker, self.use_gpu,
+         self.additional_resources_per_worker, self._device_spec) = \
+            worker_resources(num_cpus_per_worker, use_gpu, use_tpu,
+                             resources_per_worker, device)
         self.num_gpus_per_worker = 1 if self.use_gpu else 0
-        self.additional_resources_per_worker = resources
         self.worker_runtime_env = dict(worker_runtime_env or {})
         self.init_hook = init_hook
         self.use_ray = use_ray

@@ -16,14 +16,18 @@ flavors:
 
 ``put`` (and, in the threaded fake, task arguments) round-trip through
 pickle, so anything unpicklable fails in the tests where it would fail
-on a cluster. Both stand in for Ray, which assigns each actor its card
+on a cluster. :class:`FakeQueueHandle` pickles *by reference* the way
+a ``ray.util.queue.Queue`` actor handle does (``FakeRay.make_queue``:
+the session queue of a Tune trial's launch). Both stand in for Ray, which assigns each actor its card
 (``assigns_gpus``). :class:`RecordingExecutor` records env writes per
 actor instead of touching ``os.environ``; subclass it and override
 ``node_ip()`` / ``gpu_ids()`` to simulate placement.
 """
 from __future__ import annotations
 
+import itertools
 import pickle
+import queue as _queue
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -119,6 +123,40 @@ class FakeRemoteClass:
         return handle
 
 
+class FakeQueueHandle:
+    """A queue that pickles *by reference* (like a Ray queue's actor
+    handle): every unpickled copy in this process puts into the same
+    in-process queue."""
+
+    _registry: Dict[int, _queue.Queue] = {}
+    _ids = itertools.count()
+
+    def __init__(self, _id: Optional[int] = None):
+        if _id is None:
+            _id = next(FakeQueueHandle._ids)
+            FakeQueueHandle._registry[_id] = _queue.Queue()
+        self._id = _id
+
+    def __reduce__(self):
+        return (FakeQueueHandle, (self._id,))
+
+    @property
+    def _q(self) -> _queue.Queue:
+        return FakeQueueHandle._registry[self._id]
+
+    def put(self, item: Any) -> None:
+        self._q.put(item)
+
+    def get(self, block: bool = True, timeout: Optional[float] = None) -> Any:
+        return self._q.get(block=block, timeout=timeout)
+
+    def empty(self) -> bool:
+        return self._q.empty()
+
+    def shutdown(self) -> None:
+        FakeQueueHandle._registry.pop(self._id, None)
+
+
 class FakeRay:
     """Drop-in module-like object for ``RayLauncher(ray_module=...)``."""
 
@@ -175,6 +213,10 @@ class FakeRay:
         actor._killed = True
         actor._shutdown_pool()
         self.killed_actors.append(actor)
+
+    # -- the session queue --------------------------------------------- #
+    def make_queue(self) -> FakeQueueHandle:
+        return FakeQueueHandle()
 
 
 class ThreadedFakeRay(FakeRay):

@@ -12,7 +12,8 @@ Python values, never code.
 
 Also the ``Unavailable`` sentinel for optional dependencies, the metric
 conversions for the worker -> driver boundary, and
-:func:`process_results`, the driver's wait on the workers' futures.
+:func:`process_results`, the driver's wait on the workers' futures,
+which runs what they put into the session queue.
 """
 from __future__ import annotations
 
@@ -87,18 +88,34 @@ def numpy_metrics_to_device(metrics: Dict[str, Any]) -> Dict[str, Any]:
     return dict(metrics)
 
 
-def process_results(futures: List[Any], ray_module: Any) -> List[Any]:
+def process_results(futures: List[Any], ray_module: Any,
+                    queue: Optional[Any] = None) -> List[Any]:
     """Wait on the workers' futures through ``ray_module``'s ``wait``
     and return their results in order (the reference's
-    ``util.py:57-70``). A worker that fails raises here at once: its
-    peers may be blocked in a collective with it and would never finish.
-    The reference's other duty, running callables that workers queue for
-    the driver (Ray Tune's reports), comes with ``tune.py``
-    (``ROADMAP.md`` A1)."""
+    ``util.py:57-70``), running in this process what the workers put
+    into the session ``queue`` between waits and once more after every
+    future resolved, so an item put at a fit's end is not lost. A worker
+    that fails raises here at once: its peers may be blocked in a
+    collective with it and would never finish. An item that raises
+    fails the wait with its error."""
     unfinished = list(futures)
     while unfinished:
+        _drain_queue(queue)
         ready, unfinished = ray_module.wait(unfinished,
                                             timeout=POLL_INTERVAL_S)
         for ref in ready:
             ray_module.get(ref)
+    _drain_queue(queue)
     return ray_module.get(futures)
+
+
+def _drain_queue(queue: Optional[Any]) -> None:
+    """Run every callable waiting in the session queue, in order (the
+    reference's ``_handle_queue``, ``util.py:49-54``): items are
+    ``(rank, item)``; anything but a callable is ignored."""
+    if queue is None:
+        return
+    while not queue.empty():
+        _rank, item = queue.get()
+        if callable(item):
+            item()

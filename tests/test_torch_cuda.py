@@ -27,8 +27,12 @@ and the non-finite guard skips a poisoned batch. One process per card:
 nano GPT fit by a spawned worker in an NCCL group of world size 1 under
 each strategy, its flash kernels on the tensor cores in the worker; more
 card workers than cards refused before any spawn; a worker that sees no
-card raising instead of training on the CPU. ``chip_smoke.py``
-repeats this at the serving and training paths' full shapes.
+card raising instead of training on the CPU; ZeRO at world size 1 bitwise
+the one-process fit under AdamW and both memory presets, adafactor under
+FSDP2; and a checkpoint-sized stream (1.49 GB, GPT-2-small's) put by a
+card worker into the session queue and read back on the driver.
+``chip_smoke.py`` repeats this at the serving and training paths' full
+shapes.
 """
 import numpy as np
 import pytest
@@ -892,10 +896,11 @@ class _WorkerProbe(Callback):
         self.losses = state["losses"]
 
 
-def _nano_bf16():
+def _nano_bf16(optimizer="adamw"):
     cfg = gpt2_config("nano", attention_impl="flash", vocab_size=256,
                       max_seq_len=64)
-    return GPTModule(config=cfg, batch_size=4, num_samples=32)
+    return GPTModule(config=cfg, batch_size=4, num_samples=32,
+                     optimizer=optimizer)
 
 
 @pytest.fixture(scope="module")
@@ -975,3 +980,98 @@ def test_a_worker_without_a_card_raises(cuda):
     finally:
         ray.shutdown()
     assert ray.live_actor_count() == 0
+
+
+def _worker_fit(card_world, cls, module):
+    """``module`` fit by the card worker under ``cls(num_workers=1)``:
+    (trainer, the worker's per-step losses)."""
+    ray, workers = card_world
+    probe = _WorkerProbe()
+    strategy = cls(num_workers=1)
+    trainer = Trainer(strategy=strategy, max_epochs=1, limit_train_batches=4,
+                      limit_val_batches=0, seed=0, callbacks=[probe])
+    trainer._launcher = RayLauncher(strategy, ray_module=ray,
+                                    workers=workers)
+    trainer.fit(module)
+    m = trainer.callback_metrics
+    n = module.cfg.n_layers * 4
+    for kernel in cf.KERNELS:
+        assert (m[f"{kernel}/tc"], m[f"{kernel}/simt"]) == (n, 0), kernel
+    return trainer, probe.losses
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adamw_bf16m", "adafactor"])
+def test_zero_at_world_size_one_is_bitwise_the_one_process_fit(
+        cuda, card_world, tmp_path, optimizer):
+    """ZeRO by the JAX package's split, in an NCCL group of world size 1:
+    every param is one rank's whole shard, so the losses and the final
+    params equal the in-process fit's bitwise."""
+    local_probe = _WorkerProbe()
+    local = _card_fit(tmp_path, _nano_bf16(optimizer), max_epochs=1,
+                      limit_val_batches=0, callbacks=[local_probe])
+    trainer, losses = _worker_fit(card_world, RayShardedStrategy,
+                                  _nano_bf16(optimizer))
+    assert losses == local_probe.losses
+    got = trainer.train_state_dict["params"]
+    for key, t in local.model.state_dict().items():
+        assert torch.equal(got[key], t.cpu()), key
+
+
+def test_adafactor_under_fsdp2_on_the_card(cuda, card_world, tmp_path):
+    """The adafactor preset on FSDP2's DTensor params in an NCCL group of
+    world size 1: losses within 1e-3 of the in-process fit (FSDP2's
+    gathered paths may sum in another order, which can flip a bf16
+    rounding), a state that gathers into the one-process layout."""
+    local_probe = _WorkerProbe()
+    local = _card_fit(tmp_path, _nano_bf16("adafactor"), max_epochs=1,
+                      limit_val_batches=0, callbacks=[local_probe])
+    trainer, losses = _worker_fit(card_world, FSDPStrategy,
+                                  _nano_bf16("adafactor"))
+    np.testing.assert_allclose(losses, local_probe.losses, rtol=1e-3, atol=0)
+    want = local.train_state.optimizer.state_dict()["state"]
+    got = trainer.train_state_dict["opt_state"]["state"]
+    assert got.keys() == want.keys()
+    for i, st in want.items():
+        if isinstance(st, dict):
+            for k, t in st.items():
+                assert got[i][k].shape == t.shape, (i, k)
+                assert got[i][k].dtype == t.dtype, (i, k)
+
+
+# GPT-2-small's stream checkpoint with AdamW is 1,493,454,109 bytes
+STREAM_INTS = 373_300_000
+
+
+def _put_card_stream(queue, n):
+    """In a card worker: an int32 state of ``n`` elements made on the
+    card, serialized as a trial checkpoint is, and put into ``queue``;
+    returns the stream's bytes."""
+    from ray_lightning_tpu_torch.util import to_state_stream
+    state = {"a": torch.arange(n, dtype=torch.int32, device="cuda")}
+    stream = to_state_stream(state)
+    queue.put((0, stream))
+    return len(stream)
+
+
+def test_a_checkpoint_sized_stream_crosses_the_session_queue(cuda,
+                                                             card_world):
+    """1.49 GB put by a card worker into ``ProcessRay``'s queue reaches
+    the driver whole (through a temporary file, removed once read)."""
+    import os
+    import tempfile
+
+    from ray_lightning_tpu_torch.util import load_state_stream
+    ray, workers = card_world
+    q = ray.make_queue()
+    try:
+        size = ray.get(workers[0].execute.remote(_put_card_stream, q,
+                                                 STREAM_INTS))
+        rank, stream = q.get(timeout=600)
+        assert rank == 0 and len(stream) == size > 1.49e9
+        a = load_state_stream(stream, map_location="cpu")["a"]
+        del stream
+        assert torch.equal(a, torch.arange(STREAM_INTS, dtype=torch.int32))
+    finally:
+        q.shutdown()
+    assert not [f for f in os.listdir(tempfile.gettempdir())
+                if f.startswith("processray-")]

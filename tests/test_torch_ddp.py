@@ -266,8 +266,9 @@ def test_sharded_strategies_hold_a_share_of_the_optimizer_state(world,
     mine = two.callback_metrics["opt_state_bytes"]
     world_bytes = two.callback_metrics["opt_state_bytes_world"]
     assert 0 < mine < full
-    # ZeRO keeps whole tensors (torch.optim.AdamW's step counts
-    # included); FSDP splits every tensor but the step counts
+    # ZeRO splits every tensor along its largest dimension that the
+    # world size divides (the JAX package's rule), FSDP along dimension
+    # 0; under both, every rank holds torch.optim.AdamW's step counts
     assert abs(world_bytes - full) <= 4 * 1024
 
 

@@ -38,7 +38,7 @@ import torch
 
 from ray_lightning_tpu_torch import (BoringModel, FSDPStrategy,
                                      HorovodRayStrategy, RayShardedStrategy,
-                                     RayStrategy, Trainer, make_optimizer)
+                                     RayStrategy, Trainer)
 from ray_lightning_tpu_torch import util
 from ray_lightning_tpu_torch.accelerators import (ACCELERATOR_REGISTRY,
                                                   DelayedCUDAAccelerator,
@@ -432,16 +432,6 @@ def test_shard_batch_takes_this_ranks_rows():
         s.shard_batch((np.zeros((3, 2)),))
     with pytest.raises(ValueError, match="disagree"):
         s.shard_batch((np.zeros((4, 2)), np.zeros(2)))
-
-
-@pytest.mark.parametrize("preset", ["adamw_bf16m", "adafactor"])
-@pytest.mark.parametrize("cls", [RayShardedStrategy, FSDPStrategy])
-def test_sharded_strategies_refuse_the_hand_written_presets(cls, preset):
-    s = cls(num_workers=2, device="cpu")
-    s._in_world = True
-    model = torch.nn.Linear(4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        s.make_optimizer(make_optimizer(preset), model)
 
 
 # ------------------------------------------------ two spawned workers

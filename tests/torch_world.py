@@ -135,17 +135,67 @@ class SaveAt(Callback):
 
 
 class OptStateBytes(Callback):
-    """Each rank's ``opt_state_bytes`` and the world's sum, into
+    """Each rank's ``opt_state_bytes``, rank by rank
+    (``opt_state_bytes_rank<r>``), and the world's sum, into
     ``callback_metrics`` (rank 0's reach the driver)."""
 
     def on_train_end(self, trainer, module):
         from ray_lightning_tpu_torch.core.optim import opt_state_bytes
         mine = opt_state_bytes(trainer.train_state.optimizer)
-        t = torch.tensor([float(mine)])
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        t = torch.zeros(world, dtype=torch.float64)
+        t[trainer.global_rank] = float(mine)
         if dist.is_initialized():
             dist.all_reduce(t)
-        trainer.callback_metrics["opt_state_bytes"] = float(mine)
-        trainer.callback_metrics["opt_state_bytes_world"] = float(t)
+        m = trainer.callback_metrics
+        m["opt_state_bytes"] = float(mine)
+        m["opt_state_bytes_world"] = float(t.sum())
+        for r in range(world):
+            m[f"opt_state_bytes_rank{r}"] = float(t[r])
+
+
+class RankProbe(Callback):
+    """Puts this rank and whether this process has a Ray Tune of its own
+    into ``callback_metrics`` at the end of every train epoch (list it
+    before a Tune callback, which then reports them)."""
+
+    def on_train_epoch_end(self, trainer, module):
+        import ray_lightning_tpu_torch.tune as tune_mod
+        trainer.callback_metrics["rank"] = float(trainer.global_rank)
+        trainer.callback_metrics["worker_has_tune"] = float(
+            tune_mod.tune is not None)
+
+    on_train_end = on_train_epoch_end
+
+
+def jax_tune_found_here() -> bool:
+    """Whether the JAX package's ``tune`` module finds a Tune in the
+    process that runs this (it imports jax: only the Tune test's
+    probe of the reference calls it)."""
+    import ray_lightning_tpu.tune as jax_tune
+    return jax_tune.tune is not None
+
+
+RECEIVED = []
+
+
+def receive(rank, i):
+    """A queued item's work in the driver: record ``(rank, i)``."""
+    RECEIVED.append((rank, i))
+
+
+def put_many(queue, rank, n):
+    """Put ``n`` items that record ``(rank, i)`` where they run."""
+    import functools
+    for i in range(n):
+        queue.put((rank, functools.partial(receive, rank, i)))
+    return n
+
+
+def put_into(queue, item):
+    """``queue.put((0, item))`` in whichever process runs it."""
+    queue.put((0, item))
+    return True
 
 
 class World:
@@ -158,12 +208,36 @@ class World:
         self.ray.init()
         self.workers = []
 
-    def launcher(self, strategy):
+    def _live_workers(self):
         if not self.workers or any(w._killed for w in self.workers):
             self.workers = [self.ray.remote(ExecutorBase).remote()
                             for _ in range(2)]
+        return self.workers
+
+    def launcher(self, strategy):
         return RayLauncher(strategy, ray_module=self.ray,
-                           workers=self.workers)
+                           workers=self._live_workers())
+
+    def collective(self, fn, *args):
+        """``fn(rank, world_size, init_method, *args)`` on both workers
+        at once (``fn`` forms its own gloo group at ``init_method``);
+        rank 0's result. A failure kills the pair; a rendezvous port
+        taken in between (as in :meth:`run`) is retried once."""
+        from ray_lightning_tpu_torch.launchers.utils import find_free_port
+        from ray_lightning_tpu_torch.util import process_results
+        for attempt in range(2):
+            workers = self._live_workers()
+            port = self.ray.get(workers[0].execute.remote(find_free_port))
+            futures = [w.execute.remote(fn, r, len(workers),
+                                        f"tcp://127.0.0.1:{port}", *args)
+                       for r, w in enumerate(workers)]
+            try:
+                return process_results(futures, self.ray)[0]
+            except Exception as exc:
+                for w in workers:
+                    self.ray.kill(w)
+                if attempt or "EADDRINUSE" not in str(exc):
+                    raise
 
     def run(self, trainer, stage, *args, **kwargs):
         """``trainer.<stage>(*args, **kwargs)`` on this world's workers.
@@ -181,6 +255,66 @@ class World:
             except Exception as exc:
                 if attempt or "EADDRINUSE" not in str(exc):
                     raise
+
+
+# f32 momentum: the shard-aware means are what is held, not the bf16
+# momentum's rounding (which can flip when an f32 sum changes order)
+ADAFACTOR = dict(lr=1e-2, weight_decay_rate=1e-3,
+                 momentum_dtype=torch.float32)
+
+
+def adafactor_case(shape, steps, seed=0):
+    """A param and ``steps`` gradients of ``shape``, from numpy."""
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal(shape).astype(np.float32)
+    grads = [rng.standard_normal(shape).astype(np.float32) * (0.1 + i)
+             for i in range(steps)]
+    return p, grads
+
+
+def adafactor_on_shards(rank, world_size, init_method, cases, steps):
+    """Adafactor steps on DTensor params, each sharded along its given
+    dimension by ``torch.chunk``'s split (uneven where the world size
+    does not divide it), in a gloo group of its own: rank 0 returns the
+    full params and the full optimizer state, and every rank its local
+    ``(v_row, v_col)`` shapes."""
+    import datetime
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+
+    from ray_lightning_tpu_torch.core.optim import Adafactor
+    from ray_lightning_tpu_torch.strategies.sharding import full_state
+    dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cpu", (world_size,))
+
+        def shard(full, dim):
+            local = torch.chunk(full, world_size, dim=dim)[rank]
+            return DTensor.from_local(local.contiguous(), mesh, [Shard(dim)],
+                                      run_check=False, shape=full.shape,
+                                      stride=full.stride())
+
+        data = [adafactor_case(shape, steps, seed=i)
+                for i, (shape, _dim) in enumerate(cases)]
+        params = [torch.nn.Parameter(shard(torch.from_numpy(p), dim))
+                  for (p, _g), (_s, dim) in zip(data, cases)]
+        opt = Adafactor(params, **ADAFACTOR)
+        for step in range(steps):
+            for p, (_p, grads), (_s, dim) in zip(params, data, cases):
+                p.grad = shard(torch.from_numpy(grads[step]), dim)
+            opt.step()
+        state = full_state(opt.state_dict())
+        full = [p.full_tensor().detach() for p in params]
+        locals_ = [tuple(tuple(opt.state[p][k].to_local().shape)
+                         if hasattr(opt.state[p][k], "to_local")
+                         else tuple(opt.state[p][k].shape)
+                         for k in ("v_row", "v_col")) for p in params]
+        return {"params": full, "state": state, "local_moments": locals_}
+    finally:
+        dist.destroy_process_group()
 
 
 def host(tree):

@@ -1,6 +1,7 @@
 """Data parallelism across the cards of one host: the port's four strategies against one card.
 
     python3 tools/profile_torch_dp.py [--workers 4] [--steps 8] [--batch-per-worker 8]
+                                      [--optimizers adamw,adamw_bf16m,adafactor]
     python3 tools/profile_torch_dp.py --device cpu --size nano --workers 4
 
 Trains ``chip_smoke.py`` phase T2's module (GPT-2-``--size`` on the
@@ -14,8 +15,9 @@ validation) for ``--steps`` steps:
 3. under ``RayStrategy``, ``HorovodRayStrategy``, ``RayShardedStrategy``
    and ``FSDPStrategy`` with ``num_workers=--workers``: one spawned
    process per device (``ProcessRay``; NCCL between cards, gloo with
-   ``--device cpu``), the same global batch, one world reused by the
-   four fits.
+   ``--device cpu``), the same global batch, one world reused by every
+   fit. Each further preset of ``--optimizers`` (``adamw_bf16m``,
+   ``adafactor``) runs (1) and (2) and the ZeRO and FSDP2 fits again.
 
 Prints one JSON line per fit and a summary: per-step losses and their
 largest relative difference from (2), the median step ms of the steps
@@ -87,22 +89,23 @@ class StepProbe(Callback):
         self.ends, self.losses = state["ends"], state["losses"]
 
 
-def module(size: str, batch: int) -> GPTModule:
+def module(size: str, batch: int, optimizer: str = "adamw") -> GPTModule:
     seq = 1024 if size == "small" else 64
     cfg = gpt2_config(size, attention_impl="flash", max_seq_len=seq,
                       **({} if size == "small" else {"vocab_size": 256}))
     return GPTModule(config=cfg, batch_size=batch, seq_len=seq,
-                     num_samples=max(256, batch * 16))
+                     num_samples=max(256, batch * 16), optimizer=optimizer)
 
 
-def fit(strategy, size, batch, steps, launcher=None) -> dict:
+def fit(strategy, size, batch, steps, launcher=None,
+        optimizer: str = "adamw") -> dict:
     probe = StepProbe()
     trainer = Trainer(strategy=strategy, max_epochs=1,
                       limit_train_batches=steps, limit_val_batches=0,
                       seed=0, callbacks=[probe])
     if launcher is not None:
         trainer._launcher = launcher
-    mod = module(size, batch)
+    mod = module(size, batch, optimizer)
     t0 = time.perf_counter()
     trainer.fit(mod)
     step_s = float(np.median(np.diff(probe.ends)[WARMUP - 1:]))
@@ -141,6 +144,9 @@ def main() -> int:
                     help="'cpu' for CPU workers (gloo); default: one card "
                          "per worker")
     ap.add_argument("--strategies", default=",".join(STRATEGIES))
+    ap.add_argument("--optimizers", default="adamw",
+                    help="presets; those past adamw run under zero and "
+                         "fsdp2 only")
     args = ap.parse_args()
     if args.device is None and not torch.cuda.is_available():
         print("profile_torch_dp: no CUDA device (pass --device cpu to "
@@ -154,12 +160,19 @@ def main() -> int:
     print(card, flush=True)
     res = {"card": card, "workers": n, "steps": args.steps,
            "batch_per_worker": b, "size": args.size, "fits": {}}
-    one = fit(RayStrategy(device=args.device), args.size, b, args.steps)
-    res["fits"]["one_device_batch_per_worker"] = one
-    print("one device, batch", b, json.dumps(one), flush=True)
-    ref = fit(RayStrategy(device=args.device), args.size, n * b, args.steps)
-    res["fits"]["one_device_global_batch"] = ref
-    print("one device, batch", n * b, json.dumps(ref), flush=True)
+    optimizers = args.optimizers.split(",")
+    one, ref = {}, {}
+    for opt in optimizers:
+        tag = "" if opt == "adamw" else f"/{opt}"
+        one[opt] = fit(RayStrategy(device=args.device), args.size, b,
+                       args.steps, optimizer=opt)
+        res["fits"][f"one_device_batch_per_worker{tag}"] = one[opt]
+        print("one device, batch", b, opt, json.dumps(one[opt]), flush=True)
+        ref[opt] = fit(RayStrategy(device=args.device), args.size, n * b,
+                       args.steps, optimizer=opt)
+        res["fits"][f"one_device_global_batch{tag}"] = ref[opt]
+        print("one device, batch", n * b, opt, json.dumps(ref[opt]),
+              flush=True)
     ray = ProcessRay(num_threads=1 if args.device == "cpu" else None)
     ray.init()
     try:
@@ -168,21 +181,27 @@ def main() -> int:
             construct_timeout=300).remote() for _ in range(n)]
         res["spawn_s"] = time.perf_counter() - t0
         for name in args.strategies.split(","):
-            strategy = STRATEGIES[name](num_workers=n, device=args.device)
-            out = fit(strategy, args.size, n * b, args.steps,
-                      RayLauncher(strategy, ray_module=ray, workers=workers))
-            out["max_rel_loss_diff"] = max(
-                abs(a - r) / abs(r) for a, r in zip(out["losses"],
-                                                    ref["losses"]))
-            out["scaling_efficiency"] = out["tokens_per_s"] / (
-                n * one["tokens_per_s"])
-            res["fits"][name] = out
-            print(name, json.dumps(out), flush=True)
-            if not (np.all(np.isfinite(out["losses"]))
-                    and out["max_rel_loss_diff"] <= 1e-2):
-                print(f"profile_torch_dp: {name} losses {out['losses']} "
-                      f"vs {ref['losses']}", file=sys.stderr)
-                return 1
+            for opt in optimizers:
+                if opt != "adamw" and name not in ("zero", "fsdp2"):
+                    continue
+                key = name if opt == "adamw" else f"{name}/{opt}"
+                strategy = STRATEGIES[name](num_workers=n,
+                                            device=args.device)
+                out = fit(strategy, args.size, n * b, args.steps,
+                          RayLauncher(strategy, ray_module=ray,
+                                      workers=workers), optimizer=opt)
+                out["max_rel_loss_diff"] = max(
+                    abs(a - r) / abs(r) for a, r in zip(out["losses"],
+                                                        ref[opt]["losses"]))
+                out["scaling_efficiency"] = out["tokens_per_s"] / (
+                    n * one[opt]["tokens_per_s"])
+                res["fits"][key] = out
+                print(key, json.dumps(out), flush=True)
+                if not (np.all(np.isfinite(out["losses"]))
+                        and out["max_rel_loss_diff"] <= 1e-2):
+                    print(f"profile_torch_dp: {key} losses {out['losses']} "
+                          f"vs {ref[opt]['losses']}", file=sys.stderr)
+                    return 1
     finally:
         ray.shutdown()
     print(json.dumps(res), flush=True)
