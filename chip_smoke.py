@@ -48,7 +48,8 @@ Q1. The fused dequant-matmul kernel (K5) against its plain PyTorch
    projections (qkv 768 -> 3x12x64, out 768 -> 768, up 768 -> 3072, down
    3072 -> 768, and the tied head 768 -> 50257, transposed) at M=8 (a
    decode step) and M=1024 (a prefill dispatch), int8 and int4 codes
-   (group 64), bf16 and f32 x, plus a ragged M=7; bounds f32 1e-5 and
+   (group 64), bf16 and f32 x, plus a ragged M=7 and, for bf16 x, M=128
+   (a chunk dispatch of phase L); bounds f32 1e-5 and
    bf16 2**-7 of max(1, max|ref|); a second call of each case must give
    the same bits, and each M=8 case prints its GEMV's launch geometry
    (grid, cluster size that splits K, columns a block, bytes per code
@@ -56,10 +57,11 @@ Q1. The fused dequant-matmul kernel (K5) against its plain PyTorch
    time, its bound and what bounds it, the plain version's time and the
    time of ``torch.matmul`` by the weight already dequantized to x's dtype
    (cuBLAS, no dequant in the timed call). M=8 runs the decode GEMVs,
-   M=1024 and M=7 the tensor-core kernel (bf16) or the tiled one (f32).
-   Then one row each for bf16 x with int8 and int4 codes: a prefill
-   forward's 49 calls at M=1024 (n_layers x qkv, out, up, down, and the
-   head), times, cuBLAS times and bounds summed.
+   M=1024, M=128 and M=7 the tensor-core kernel (bf16) or the tiled one
+   (f32). Then two rows each for bf16 x with int8 and int4 codes: a
+   forward's 49 calls (n_layers x qkv, out, up, down, and the head) at
+   M=1024 (a prefill) and at M=128 (a chunk), times, cuBLAS times and
+   bounds summed.
 Q2. Quantized serving: phase 2's trace served by ``ServeClient(...,
    page_native=True, attention_kernel="cuda", matmul_kernel="cuda")``
    with ``weight_dtype="int8"`` and again with ``"int4"``. Every request
@@ -71,6 +73,33 @@ Q2. Quantized serving: phase 2's trace served by ``ServeClient(...,
 Q3. As phase 3, in f32 with int8 weights: kernel path (K1 and K5) against
    plain path, the first decode step's logits to 1e-3, then the share of
    greedy tokens the two agree on (information only).
+L. Long prompts and shared prefixes: GPT-2-small (phase 2's weights)
+   served by ``ServeClient(..., page_size=16, num_pages=512,
+   num_slots=8, prefill_len=128, prefill_chunk=128, prefix_cache=True,
+   page_native=True, attention_kernel="cuda")`` over a trace of 12
+   requests from the same generator: 8 share a 512-token system prompt
+   (each with a suffix of its own, 32..256 tokens), 2 have 896-token
+   prompts, 2 short ones (16..64); budgets 32..64; 4 arrive while others
+   decode; 2 sample. Three runs: bf16 KV, int8 KV, and int8 weights
+   (``matmul_kernel="cuda"``). Every request finishes with its budget;
+   every prompt goes through chunks (no batched prefill); K2 launches
+   n_layers times per chunk dispatch, all on ``tc``; K1 n_layers per
+   decode step; with int8 weights K5 4 x n_layers + 1 times per chunk on
+   ``tc`` and per decode step on the GEMVs, none on ``tiled_f32``; the
+   pages each request adopts equal the count worked out from the order
+   of admissions and the first shared prompt's publish (32 for a shared
+   request admitted after it, else 0); no two chunk dispatches back to
+   back while a row decodes. Printed per run: TTFT (submit to the end of
+   the final chunk; median, max) of the long and the shared requests,
+   ms per chunk dispatch (host; synchronized), the decode stall (gaps
+   between decode dispatches while a prompt streams; p50, max), decode
+   tokens/s, prefix hit rate and pages saved. In f32, the logits after
+   the final chunk of a publishing, a long and an adopting prompt: kernel
+   path against plain path and against an unchunked prefill, each to
+   1e-3; the greedy share over the trace for information. K2 alone at
+   the chunk's shape (B=1, T=128, bf16, q a fused-qkv view, end-aligned)
+   for S = 128, 512 and 1024 keys, held by ``cf.flash_out_bound``: its
+   time, bound, plain version's time and the fastest SDPA forward's.
 T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
    max_epochs=1, limit_train_batches=20, limit_val_batches=2,
    seed=0).fit(GPTModule(config=gpt2_config("small",
@@ -104,7 +133,8 @@ O. The optimizer presets, predict and the guard on the card, at T2's
    shapes: 10 steps each with ``adamw``, ``adamw_bf16m`` and
    ``adafactor`` -- every loss finite, the last 5 steps' mean below the
    first, K2-K4 on the tensor cores -- with each preset's
-   ``opt_state_bytes``, peak device memory and median step ms;
+   ``opt_state_bytes`` (adafactor's must be the JAX preset's,
+   ``ADAFACTOR_STATE_BYTES``), peak device memory and median step ms;
    ``Trainer.predict`` over 2 validation batches, its logits equal to the
    ``model.eval()`` forward bitwise, K2 launched n_layers times a batch;
    ``nonfinite_action="skip_batch"`` over 6 batches of a loss-weighted
@@ -164,12 +194,17 @@ C. The command line on the card, flags only: ``python -m
    (``train_loss``, the mean of its steps' losses, and ``val_loss``)
    equal the same fit built by hand in this process, bitwise.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
-   line ``{"ok": true, "device": {...}}``. K5 has two entries, each with
-   Q2's int8 launches on its routes: ``quantized_matmul`` holds one
-   decode step's 49 calls at M=8 (the GEMVs) and
-   ``quantized_matmul_prefill`` one prefill forward's 49 calls at M=1024
-   (the tensor-core kernel), bf16 x, int8 codes: times and bound are
-   their sums, the error the largest of them.
+   line ``{"ok": true, "device": {...}}``. K1's launches are phase 2's
+   and phase L's bf16 runs'. K2 has two entries: ``flash_fwd`` at the
+   training shape with T2's launches, ``flash_fwd_chunk`` at the chunk's
+   shape (S=1024) with phase L's bf16 launches. K5 has three entries,
+   each one forward's 49 calls, bf16 x, int8 codes (times and bound
+   their sums, the error the largest of them): ``quantized_matmul`` at
+   M=8 (a decode step, the GEMVs; Q2's and phase L's int8 launches on
+   those routes), ``quantized_matmul_prefill`` at M=1024 (a prefill, the
+   tensor-core kernel; Q2's ``tc`` launches) and
+   ``quantized_matmul_chunk`` at M=128 (a chunk dispatch, the
+   tensor-core kernel; phase L's ``tc`` launches).
 """
 import contextlib
 import dataclasses
@@ -643,7 +678,10 @@ def phase_q1_matmul_vs_plain(flush):
             for dtype in (torch.bfloat16, torch.float32):
                 wd = qt.dequantize().to(dtype)
                 w2d = wd.reshape(N, K).T if transpose else wd.reshape(K, N)
-                for M in (8, 1024, 7):
+                # decode, prefill, ragged; bf16 x also a chunk's M
+                Ms = (8, 1024, 7) + ((L_CHUNK,) if dtype == torch.bfloat16
+                                     else ())
+                for M in Ms:
                     x = torch.randn(M, K, generator=gen,
                                     device=DEVICE).to(dtype)
                     out = qmm.quantized_matmul(x, qt, transpose)
@@ -683,8 +721,9 @@ def phase_q1_matmul_vs_plain(flush):
                 del wd, w2d
         del w
     for weight_dtype in ("int8", "int4"):
-        fwd = forward_sum(rows, weight_dtype, 1024)
-        print("phaseQ1 prefill forward", json.dumps(fwd), flush=True)
+        for what, M in (("prefill", 1024), ("chunk", L_CHUNK)):
+            fwd = forward_sum(rows, weight_dtype, M)
+            print(f"phaseQ1 {what} forward", json.dumps(fwd), flush=True)
     return rows
 
 
@@ -749,6 +788,330 @@ def phase_q2_quantized_serving(cfg, sd, trace, card):
         print("phaseQ2", json.dumps(res), flush=True)
         results[weight_dtype] = res
     return results
+
+
+# -------------------------------------------------------------- phase L
+L_SYS, L_LONG = 512, 896        # the shared system prompt; a long prompt
+L_CHUNK, L_PAGE = 128, 16
+L_SERVE = dict(num_slots=8, prefill_len=128, page_size=L_PAGE,
+               num_pages=512, prefill_chunk=L_CHUNK, prefix_cache=True,
+               page_native=True)
+L_KINDS = ("shared",) * 4 + ("long", "long", "short", "short")
+# the shared-prefix requests that arrive while others decode, and when
+L_LATE = (40, 60, 80, 100)
+L_CHUNK_SHAPES = (128, 512, 1024)    # S of K2's timed B=1, T=128 calls
+
+
+def make_long_trace(rng, vocab):
+    """12 requests from ``rng``: 8 share a 512-token system prompt, each
+    followed by a suffix of its own of 32..256 tokens; 2 have prompts of
+    896 tokens of their own; 2 have short prompts of 16..64 tokens.
+    Budgets 32..64. 8 arrive at tick 0 (a shared one first), the other 4
+    (shared) while others decode; requests 5 and 9 sample (temperature
+    0.8, top_k 40). Returns ``(trace, kinds)``."""
+    sys_prompt = rng.integers(0, vocab, L_SYS).tolist()
+    order = ["shared", "long", "short", "shared", "long", "short",
+             "shared", "shared", "shared", "shared", "shared", "shared"]
+    trace = []
+    for i, kind in enumerate(order):
+        if kind == "shared":
+            prompt = sys_prompt + rng.integers(
+                0, vocab, int(rng.integers(32, 257))).tolist()
+        elif kind == "long":
+            prompt = rng.integers(0, vocab, L_LONG).tolist()
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(16, 65))
+                                  ).tolist()
+        kw = dict(prompt=prompt, max_new_tokens=int(rng.integers(32, 65)))
+        if i in (5, 9):
+            kw.update(temperature=0.8, top_k=40)
+        trace.append((0 if i < 8 else L_LATE[i - 8], kw))
+    return trace, order
+
+
+def serve_chunked(model, sd, trace, **kw):
+    """Replay ``trace`` through a fresh chunked ``ServeClient`` (tick
+    clock) with wall stamps: each request's submit and first token (the
+    end of its final chunk), each chunk dispatch (host ms until it
+    returned, ms until the card finished it), each decode step, each
+    admission. Returns the completions, the engine and the stamps."""
+    from ray_lightning_tpu_torch.serve import ServeClient
+    client = ServeClient(model, sd, device=DEVICE, **L_SERVE, **kw)
+    eng = client.engine
+    st = {"submit": {}, "first": {}, "admitted": {}, "chunk_host_s": [],
+          "chunk_s": [], "steps": [], "sequence": [], "published": {}}
+    submit, prefill = client.submit, eng.prefill
+    chunk, step = eng.prefill_chunk_step, eng.step
+
+    def timed_submit(*a, **k):
+        rid = submit(*a, **k)
+        st["submit"][rid] = time.perf_counter()
+        return rid
+
+    def timed_prefill(reqs):
+        for r in reqs:
+            st["admitted"][r.id] = len(st["sequence"])
+        st["sequence"].append(("prefill", eng.active_count))
+        return prefill(reqs)
+
+    def timed_chunk():
+        head = eng._chunk_queue[0].request.id
+        st["sequence"].append(("chunk", eng.active_count))
+        t0 = time.perf_counter()
+        out = chunk()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        st["chunk_host_s"].append(t1 - t0)
+        st["chunk_s"].append(t2 - t0)
+        if head not in eng.chunk_pending_ids:      # its final chunk
+            st["first"][head] = t2
+            st["published"][head] = len(st["sequence"])
+        return out
+
+    def timed_step():
+        st["sequence"].append(("step", eng.chunk_pending))
+        t0 = time.perf_counter()
+        out = step()                 # ends in a host copy: synchronized
+        st["steps"].append((t0, time.perf_counter(), eng.chunk_pending))
+        return out
+
+    client.submit, eng.prefill = timed_submit, timed_prefill
+    eng.prefill_chunk_step, eng.step = timed_chunk, timed_step
+    done = client.serve_trace(list(trace))
+    return done, client, st
+
+
+def expected_adoption(kinds, st):
+    """Pages each request adopts, worked out from the order of events: a
+    shared-prefix request admitted after the first shared request's
+    final chunk (its publish) adopts the system prompt's 32 pages (whole
+    chunks, one token short of its prompt); every other request none."""
+    first = min(r for r, k in enumerate(kinds) if k == "shared")
+    out = {}
+    for rid, kind in enumerate(kinds):
+        late = st["admitted"][rid] >= st["published"][first]
+        out[rid] = L_SYS // L_PAGE if kind == "shared" and late else 0
+    return out
+
+
+def long_prompt_times(done, st, kinds):
+    """TTFT (submit to the end of the final chunk; median, max) of the
+    long and of the shared-prefix requests, ms per chunk dispatch (host
+    until it returned; synchronized), the decode stall (gaps between
+    consecutive decode dispatches while a prompt streams: p50, max),
+    decode tokens/s."""
+    def ttft(kind):
+        t = [1e3 * (st["first"][r] - st["submit"][r])
+             for r in done if kinds[r] == kind]
+        return dict(median=statistics.median(t), max=max(t))
+    steps = st["steps"]
+    gaps = [1e3 * (b[0] - a[1]) for a, b in zip(steps, steps[1:])
+            if a[2] or b[2]]
+    decode_tokens = sum(len(c.tokens) - 1 for c in done.values())
+    return dict(
+        ttft_ms_long=ttft("long"), ttft_ms_shared=ttft("shared"),
+        chunk_host_ms_median=1e3 * statistics.median(st["chunk_host_s"]),
+        chunk_ms_median=1e3 * statistics.median(st["chunk_s"]),
+        chunk_ms_max=1e3 * max(st["chunk_s"]),
+        decode_stall_ms_p50=statistics.median(gaps) if gaps else None,
+        decode_stall_ms_max=max(gaps) if gaps else None,
+        decode_stall_gaps=len(gaps),
+        decode_tokens_per_s=decode_tokens / sum(b - a for a, b, _ in steps))
+
+
+def phase_l_long_prompts(cfg, sd, rng, card):
+    """Long prompts and shared prefixes through chunked prefill and the
+    prefix cache (see the module docstring)."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    trace, kinds = make_long_trace(rng, cfg.vocab_size)
+    proto = TransformerLM(cfg, device="meta")
+    per_forward = 4 * cfg.n_layers + 1
+    warm = [(0, dict(prompt=list(range(200)), max_new_tokens=4)),
+            (0, dict(prompt=[4, 5], max_new_tokens=4, temperature=0.8,
+                     top_k=40))]
+    runs = {"bf16": dict(attention_kernel="cuda"),
+            "int8-kv": dict(attention_kernel="cuda", kv_dtype="int8"),
+            "int8-weights": dict(attention_kernel="cuda",
+                                 weight_dtype="int8", matmul_kernel="cuda")}
+    res = {"card": card, "runs": {}}
+    for label, kw in runs.items():
+        serve_chunked(proto, sd, warm, **kw)[1].shutdown()
+        pa.reset_kernel_launches()
+        cf.reset_kernel_launches()
+        qmm.reset_kernel_launches()
+        done, client, st = serve_chunked(proto, sd, trace, **kw)
+        eng = client.engine
+        k1, k2 = pa.kernel_launches(), cf.route_launches("flash_fwd")
+        k5 = qmm.route_launches()
+        what = f"L {label}"
+        check_completions(done, trace, cfg.vocab_size, what)
+        n = eng.chunk_dispatches
+        check(eng.prefills == 0 and n > 0,
+              f"{what}: {eng.prefills} batched prefills, {n} chunks")
+        check(k2 == {"simt": 0, "tc": cfg.n_layers * n},
+              f"{what}: K2 routes {k2}, expected {cfg.n_layers} x {n} on tc")
+        check(k1 == cfg.n_layers * eng.decode_substeps,
+              f"{what}: K1 {k1} launches for {eng.decode_substeps} steps")
+        want5 = {"gemv_dense": 0, "gemv_attend": 0, "tc": 0, "tiled_f32": 0}
+        if "weight_dtype" in kw:
+            want5 = {"gemv_dense": 4 * cfg.n_layers * eng.decode_substeps,
+                     "gemv_attend": eng.decode_substeps,
+                     "tc": per_forward * n, "tiled_f32": 0}
+        check(k5 == want5, f"{what}: K5 routes {k5}, expected {want5}")
+        adopted = {r: done[r].prefix_hit_tokens // L_PAGE for r in done}
+        want = expected_adoption(kinds, st)
+        check(adopted == want, f"{what}: pages adopted {adopted}, counted "
+              f"from the trace {want}")
+        check(any(want.values()) and eng.prefix.hits == sum(want.values()),
+              f"{what}: prefix hits {eng.prefix.hits}")
+        seq = st["sequence"]
+        back = [i for i in range(1, len(seq))
+                if seq[i][0] == seq[i - 1][0] == "chunk" and seq[i][1] > 0]
+        check(not back, f"{what}: chunk dispatches back to back while rows "
+              f"decode at {back}")
+        row = dict(requests=len(done), chunk_dispatches=n,
+                   decode_steps=eng.decode_substeps, k1_launches=k1,
+                   k2_routes=k2, k5_routes=k5, pages_adopted=adopted,
+                   prefix_hit_rate=eng.prefix.hit_rate,
+                   pages_saved=eng.prefix.hits,
+                   **long_prompt_times(done, st, kinds), card=card)
+        print(f"phaseL {label}", json.dumps(row), flush=True)
+        res["runs"][label] = row
+        client.shutdown()
+    res["f32"] = phase_l_f32(cfg, sd, trace, kinds)
+    return res
+
+
+def phase_l_f32(cfg, sd, trace, kinds):
+    """In f32: the logits after each final chunk of three prompts -- the
+    first shared one (publishing), a long one, a shared one adopting the
+    system prompt's pages -- through the kernel path against the plain
+    path (``attention_kernel`` "cuda" / "torch"), and against an
+    unchunked prefill of the same prompt, each to 1e-3; then the share of
+    greedy tokens the two paths agree on over the trace (information
+    only)."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models.generate import _prefill_impl
+    from ray_lightning_tpu_torch.serve import ServeEngine
+    from ray_lightning_tpu_torch.serve.request import Request
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    proto = TransformerLM(cfg32, device="meta")
+    picks = [kinds.index("shared"), kinds.index("long"),
+             len(kinds) - 1]                      # the last: adopts
+    reqs = [Request(id=i, prompt=trace[i][1]["prompt"],
+                    max_new_tokens=trace[i][1]["max_new_tokens"])
+            for i in picks]
+    logits, hits = {}, {}
+    for kernel in ("cuda", "torch"):
+        eng = ServeEngine(proto, sd, device=DEVICE,
+                          attention_kernel=kernel, **L_SERVE)
+        for r in reqs:
+            eng.prefill([Request(**vars(r))])
+            while eng.chunk_pending:
+                eng.prefill_chunk_step()
+            logits[kernel, r.id] = eng.chunk_logits.clone()
+        hits[kernel] = eng.prefix.hits
+        if kernel == "cuda":
+            model = eng.model
+        else:
+            eng.shutdown()
+    check(hits["cuda"] == hits["torch"] == L_SYS // L_PAGE,
+          f"L f32: pages adopted {hits}")
+    out = {}
+    for r in reqs:
+        a, b = logits["cuda", r.id], logits["torch", r.id]
+        check(a.shape == (1, cfg.vocab_size)
+              and bool(torch.isfinite(a).all()), "L f32 logits not finite")
+        with torch.inference_mode():
+            tokens = torch.tensor([r.prompt], device=DEVICE)
+            _, whole = _prefill_impl(model, tokens, None)
+        kv = (a - b).abs().max().item()
+        vs_whole = (a - whole).abs().max().item()
+        out[r.id] = dict(prompt_len=r.prompt_len, kernel_vs_plain=kv,
+                         chunked_vs_unchunked=vs_whole)
+        print(f"phaseL f32 request {r.id} ({r.prompt_len} tokens) final "
+              f"chunk logits: kernel vs plain {kv:.3e}, chunked vs "
+              f"unchunked {vs_whole:.3e} (bound {E2E_LOGITS_TOL})",
+              flush=True)
+        check(kv <= E2E_LOGITS_TOL and vs_whole <= E2E_LOGITS_TOL,
+              f"L f32 request {r.id}: {out[r.id]}")
+    greedy = [(t, dict(kw, temperature=0.0, top_k=None)) for t, kw in trace]
+    runs = {}
+    for kernel in ("cuda", "torch"):
+        done, client, _ = serve_chunked(proto, sd, greedy,
+                                        attention_kernel=kernel)
+        client.shutdown()
+        runs[kernel] = done
+    same = total = 0
+    for rid in runs["cuda"]:
+        x, y = runs["cuda"][rid].tokens, runs["torch"][rid].tokens
+        total += len(x)
+        same += sum(int(i == j) for i, j in zip(x, y))
+    out["greedy_share"] = same / total
+    print(f"phaseL greedy tokens equal on the kernel and plain paths (f32, "
+          f"information only): {same}/{total} = {same / total:.4f}",
+          flush=True)
+    return out
+
+
+def phase_l_k2_chunk_shapes(flush):
+    """K2 as a chunk dispatch calls it (B=1, T=128, H=12, D=64, bf16, q a
+    fused-qkv view, causal, end-aligned) at S = 128, 512 and 1024 keys:
+    error against the plain version by ``cf.flash_out_bound``, the
+    route, cold-L2 time beside its bound, the plain version's and the
+    fastest SDPA forward's."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    rows = []
+    for S in L_CHUNK_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(S)
+        qkv = torch.randn(1, L_CHUNK, 3, 12, 64, generator=g,
+                          device=DEVICE).to(torch.bfloat16)
+        k, v = (torch.randn(1, S, 12, 64, generator=g, device=DEVICE)
+                .to(torch.bfloat16) for _ in range(2))
+        q = qkv[:, :, 0]
+        cf.reset_kernel_launches()
+        out, _ = cf.flash_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        check(cf.route_launches() == {"simt": 0, "tc": 1},
+              f"L K2 S={S}: routes {cf.route_launches()}")
+        ref, _ = cf.flash_fwd_reference(q, k, v, True)
+        used = bound_used(out, ref, cf.flash_out_bound(q, k, v, True, ref))
+        check(used <= 1.0, f"L K2 S={S}: {used} of the bound")
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        # end-aligned causal: query i admits keys <= i + S - T
+        mask = torch.ones(L_CHUNK, S, dtype=torch.bool,
+                          device=DEVICE).tril(S - L_CHUNK)
+
+        def fn():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask)
+        lib = {}
+        for name in SDPA_BACKENDS:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                try:
+                    fn()
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    continue
+                lib[name] = time_ms(fn, flush)
+        bound_ms, bound_by = flash_bound("fwd", q, k, True)
+        row = dict(B=1, T=L_CHUNK, S=S, route="tc",
+                   max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                   bound_used=used,
+                   ms=time_ms(lambda: cf.flash_fwd(q, k, v, True), flush),
+                   plain_ms=time_ms(lambda: cf.flash_fwd_reference(
+                       q, k, v, True), flush),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=min(lib.values()) if lib else None,
+                   library_ms_by_backend=lib)
+        print("phaseL flash_fwd chunk shape", json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 # -------------------------------------------------------------- phase T1
@@ -1360,6 +1723,9 @@ def phase_r_resume(card):
 # -------------------------------------------------------------- phase O
 O_STEPS, O_GUARD_STEPS, O_POISON = 10, 6, 2
 O_PREDICT = 2
+# the JAX preset's adafactor state for GPT-2-small (optax on the scanned
+# leaves: the fused qkv weight's second moment kept whole)
+ADAFACTOR_STATE_BYTES = 334_953_400
 
 
 def release() -> None:
@@ -1397,8 +1763,13 @@ def phase_o_optimizers(card):
               f"O {name} losses {losses}")
         check(last5 < first, f"O {name}: loss did not fall: first {first}, "
               f"last-5 mean {last5}")
+        state_bytes = opt_state_bytes(trainer.train_state.optimizer)
+        if name == "adafactor":
+            check(state_bytes == ADAFACTOR_STATE_BYTES,
+                  f"O adafactor: opt_state_bytes {state_bytes}, the JAX "
+                  f"preset's {ADAFACTOR_STATE_BYTES}")
         res["presets"][name] = dict(
-            opt_state_bytes=opt_state_bytes(trainer.train_state.optimizer),
+            opt_state_bytes=state_bytes,
             peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
             step_ms_median=1e3 * float(np.median(
                 np.diff(ends)[WARMUP_STEPS - 1:])),
@@ -1968,6 +2339,7 @@ def main() -> int:
     rows = phase1_kernel_vs_plain(flush)
     flash = phase_t1_flash_vs_plain(flush)
     qrows = phase_q1_matmul_vs_plain(flush)
+    chunk_k2 = phase_l_k2_chunk_shapes(flush)
     del flush
 
     cfg = gpt2_config("small")
@@ -1988,6 +2360,7 @@ def main() -> int:
     quantized = phase_q2_quantized_serving(cfg, sd, trace, card)
     phase3_kernel_vs_plain_path(cfg, sd, trace, tag="phaseQ3",
                                 paths=PATHS_QUANTIZED, weight_dtype="int8")
+    long_prompts = phase_l_long_prompts(cfg, sd, rng, card)
     del sd
 
     fpath = flash[("path", "bfloat16")]
@@ -2014,7 +2387,8 @@ def main() -> int:
         name=pa.KERNEL, route="cuda",
         source="ray_lightning_tpu_torch/csrc/paged_attention.cu",
         replaces="ray_lightning_tpu/models/pallas_attention.py:83",
-        launches=launches, max_abs_err=path["max_abs_err"], ms=path["ms"],
+        launches=launches + long_prompts["runs"]["bf16"]["k1_launches"],
+        max_abs_err=path["max_abs_err"], ms=path["ms"],
         plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
         bound_by=path["bound_by"], library_ms=path["library_ms"])]
     flash_source = "ray_lightning_tpu_torch/csrc/flash_attention.cu"
@@ -2034,21 +2408,37 @@ def main() -> int:
             ms=fpath[f"{kind}_ms"], plain_ms=fpath[f"{kind}_plain_ms"],
             bound_ms=fpath[f"{kind}_bound_ms"],
             bound_by=fpath[f"{kind}_bound_by"], library_ms=lib))
+    # K2 as phase L's chunk dispatches call it: B=1, T=128, S=1024 keys
+    # (the longest row), launches from phase L's bf16 run
+    chunk = next(r for r in chunk_k2 if r["S"] == 1024)
+    kernels.append(dict(
+        name="flash_fwd_chunk", route="cuda", source=flash_source,
+        replaces="ray_lightning_tpu/ops/pallas_flash.py:41",
+        launches=long_prompts["runs"]["bf16"]["k2_routes"]["tc"],
+        **{k: chunk[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}))
     # K5: one forward's calls -- n_layers x (qkv, out, up, down) and the
-    # head -- at M=8 (a decode step, the GEMVs) and M=1024 (a prefill, the
-    # tensor cores), bf16 x, int8 codes; launches from Q2's int8 run
+    # head -- bf16 x, int8 codes: at M=8 (a decode step, the GEMVs;
+    # launches from Q2's int8 run and phase L's int8-weights run), at
+    # M=1024 (a prefill, the tensor cores; Q2's) and at M=128 (a chunk,
+    # the tensor cores; phase L's)
     q2 = quantized["int8"]["route_launches"]
-    for name, M, routes in (
-            (qmm.KERNEL, 8, ("gemv_dense", "gemv_attend")),
-            (qmm.KERNEL + "_prefill", 1024, ("tc",))):
+    ql = long_prompts["runs"]["int8-weights"]["k5_routes"]
+    decode = ("gemv_dense", "gemv_attend")
+    for name, M, launches5 in (
+            (qmm.KERNEL, 8, sum(q2[r] + ql[r] for r in decode)),
+            (qmm.KERNEL + "_prefill", 1024, q2["tc"]),
+            (qmm.KERNEL + "_chunk", L_CHUNK, ql["tc"])):
         fwd = forward_sum(qrows, "int8", M, cfg.n_layers)
         kernels.append(dict(
             name=name, route="cuda",
             source="ray_lightning_tpu_torch/csrc/quantized_matmul.cu",
             replaces="ray_lightning_tpu/models/pallas_matmul.py:123",
-            launches=sum(q2[r] for r in routes),
+            launches=launches5,
             **{k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}))
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    check(not idle, f"kernels no main path launched: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

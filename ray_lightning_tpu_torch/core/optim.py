@@ -22,14 +22,28 @@ memory profile:
   rate, no parameter-scale multiply, and the ``1 - step**-0.8`` decay.
   ``torch.optim.Adafactor`` is a different algorithm and is not used.
 
+**The JAX model's leaves.** optax updates the leaves of the JAX param
+tree, and the JAX LM stacks each block parameter of every layer into
+one leaf (``nn.scan``); its fused qkv kernel is ``(L, d, 3, H, D)``
+where the port holds twelve ``(3HD, d)`` weights. For Adafactor that
+matters twice: whether a second moment is factored is decided on the
+leaf's shape, and the update is clipped by the leaf's block RMS.
+``make_optimizer(..., leaves=)`` takes the leaves over the params the
+factory receives (:func:`~ray_lightning_tpu_torch.models.transformer
+.jax_leaves`, which ``GPTModule`` passes) and makes one parameter group
+per leaf, holding its shape (``"leaf_shape"``): the group's tensors are
+factored as the leaf is and clipped by their joint RMS. Without
+``leaves`` every tensor is a leaf of its own.
+
 Both hand-written optimizers keep optax's state tree -- its counts as
-int32 scalars, Adafactor's one-element placeholders included -- so
+int32 scalars, Adafactor's one-element placeholders (one set for each
+leaf, on its first tensor; the others hold empty ones) included -- so
 :func:`opt_state_bytes` equals ``ray_lightning_tpu.core.optim
-.opt_state_bytes`` for them on a tree of the same shapes (the port's
-fused qkv weight is not: ``ROADMAP.md`` C). ``torch.optim.AdamW`` keeps a
-step count per tensor where optax keeps one. On params sharded over
-ranks (DTensors: FSDP2's, or ZeRO's shards of the full params) both
-update this rank's local part; see :class:`Adafactor` for its means.
+.opt_state_bytes`` for them on the same leaves.
+``torch.optim.AdamW`` keeps a step count per tensor where optax keeps
+one. On params sharded over ranks (DTensors: FSDP2's, or ZeRO's shards
+of the full params) both update this rank's local part; see
+:class:`Adafactor` for its means.
 
 :func:`clip_by_global_norm_` is optax's ``clip_by_global_norm``: keep the
 gradients when their global norm is below ``max_norm``, else scale them
@@ -39,7 +53,8 @@ always scales, by ``max_norm / (norm + 1e-6)`` clamped at 1.)
 from __future__ import annotations
 
 import warnings
-from typing import Any, Callable, Dict, Iterable, List, Optional, Union
+from typing import (Any, Callable, Dict, Iterable, List, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -65,7 +80,9 @@ def make_optimizer(name: str = "adamw",
                    b1: float = 0.9,
                    b2: Optional[float] = None,
                    moment_dtype=None,
-                   factored: Optional[bool] = None
+                   factored: Optional[bool] = None,
+                   leaves: Optional[Sequence[Tuple[Sequence[int],
+                                                   Sequence[int]]]] = None
                    ) -> Callable[[Iterable[torch.nn.Parameter]],
                                  torch.optim.Optimizer]:
     """An optimizer factory by name (see the module docstring).
@@ -77,7 +94,12 @@ def make_optimizer(name: str = "adamw",
     momentum's (adafactor branch, default bf16). A callable
     ``learning_rate`` raises ``NotImplementedError``: return ``(factory,
     schedule)`` from ``configure_optimizers`` instead, and the trainer
-    sets each update's learning rate from the schedule."""
+    sets each update's learning rate from the schedule.
+
+    ``leaves``: ``(leaf shape, positions)`` pairs, the JAX model's param
+    leaves over the params the factory will receive (see the module
+    docstring). The factored branch makes a parameter group of each; the
+    adam branch, whose update is element by element, keeps one group."""
     if name not in OPTIMIZER_NAMES:
         raise ValueError(
             f"unknown optimizer {name!r}; expected one of "
@@ -96,7 +118,7 @@ def make_optimizer(name: str = "adamw",
                 "1 - step**-0.8, not an adam beta",
                 stacklevel=2)
         return lambda params: Adafactor(
-            params, lr=learning_rate, momentum=b1,
+            leaf_groups(params, leaves), lr=learning_rate, momentum=b1,
             momentum_dtype=moment_dtype or torch.bfloat16,
             factored=True if factored is None else factored,
             # optax.adafactor applies weight_decay_rate after the lr
@@ -114,6 +136,25 @@ def make_optimizer(name: str = "adamw",
     return lambda params: AdamW(params, lr=learning_rate, betas=betas,
                                 weight_decay=weight_decay,
                                 moment_dtype=moment_dtype)
+
+
+def leaf_groups(params: Iterable[torch.nn.Parameter],
+                leaves: Optional[Sequence[Tuple[Sequence[int],
+                                                Sequence[int]]]]):
+    """``params`` as one parameter group per leaf of ``leaves``
+    (``{"params": [...], "leaf_shape": shape}``); ``params`` themselves
+    when ``leaves`` is None. Every param must be in exactly one leaf."""
+    params = list(params)
+    if leaves is None:
+        return params
+    positions = sorted(i for _shape, idx in leaves for i in idx)
+    if positions != list(range(len(params))):
+        raise ValueError(
+            f"leaves must cover each of the {len(params)} params exactly "
+            f"once, got positions {positions}")
+    return [{"params": [params[i] for i in idx],
+             "leaf_shape": tuple(int(n) for n in shape)}
+            for shape, idx in leaves]
 
 
 def _dtype_name(d) -> str:
@@ -233,6 +274,17 @@ class Adafactor(_OptaxLike):
     by block RMS, times ``lr``, momentum in ``momentum_dtype`` without
     debiasing, plus ``weight_decay_rate·p``, negated, added to ``p``.
 
+    A parameter group with a ``"leaf_shape"`` holds the tensors of one
+    leaf of the JAX param tree (:func:`leaf_groups`): whether their
+    second moments are factored is optax's decision on that shape, and
+    their update is clipped by its RMS over all of them. Where the leaf
+    is factored each tensor is factored over its own two dimensions (a
+    layer of a stacked matrix; the leaf must factor over the layer's
+    dimensions, not the stacking one). A group without one makes each
+    of its tensors a leaf of its own shape: the layout of
+    ``Adafactor(params)`` and of ``make_optimizer`` without ``leaves``,
+    kept as one group so that those callers' saved states still load.
+
     On a param sharded over ranks (a DTensor: FSDP2's, or ZeRO's shard
     of a full param) each rank updates its own part. Which dimensions
     are factored is decided on the full shape. The three means that
@@ -257,16 +309,40 @@ class Adafactor(_OptaxLike):
             moment_dtype=_dtype_name(momentum_dtype),
             weight_decay_rate=weight_decay_rate,
             clipping_threshold=clipping_threshold, eps=eps,
-            min_dim_size_to_factor=min_dim_size_to_factor))
+            min_dim_size_to_factor=min_dim_size_to_factor,
+            leaf_shape=None))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self._dims(p, group)   # a leaf the port cannot factor raises
 
     @staticmethod
     def _dims(p, group):
-        return _factored_dims(tuple(p.shape), group["factored"],
+        """The two dimensions of ``p`` its second moment is factored
+        over (optax's ``(d1, d0)``), or None: optax's decision on the
+        leaf's shape, ``p``'s own where the group names none."""
+        shape = tuple(p.shape)
+        leaf = group["leaf_shape"]
+        leaf = shape if leaf is None else tuple(leaf)
+        dims = _factored_dims(leaf, group["factored"],
                               group["min_dim_size_to_factor"])
+        if dims is None or leaf == shape:
+            return dims
+        layers = int(np.prod(leaf)) // (leaf[dims[0]] * leaf[dims[1]])
+        if p.dim() != 2 or sorted(shape) != sorted(
+                (leaf[dims[0]], leaf[dims[1]])) \
+                or layers != len(group["params"]):
+            raise ValueError(
+                f"a tensor of shape {shape} in a leaf of shape "
+                f"{leaf} factored over its dimensions {dims}: the port "
+                "factors a leaf's tensors as 2-D matrices, one a layer")
+        return _factored_dims(shape, True, 0)
 
-    def _init(self, p, group) -> Dict[str, torch.Tensor]:
+    def _init(self, p, group, first: bool) -> Dict[str, torch.Tensor]:
+        """A tensor's zero state; the one-element placeholders of the
+        unused moments sit on a leaf's ``first`` tensor (empty on the
+        others), as optax keeps one per leaf."""
         dims = self._dims(p, group)
-        one = torch.zeros(1, dtype=p.dtype, device=p.device)
+        one = torch.zeros(int(first), dtype=p.dtype, device=p.device)
         st = {"v_row": one, "v_col": one.clone(), "v": one.clone()}
         if dims is None:
             st["v"] = torch.zeros_like(p)
@@ -278,9 +354,32 @@ class Adafactor(_OptaxLike):
         st["ema"] = torch.zeros_like(p, dtype=self._state_dtype(group))
         return st
 
+    @staticmethod
+    def _layout(groups) -> List[Tuple[int, Optional[Tuple[int, ...]]]]:
+        return [(len(g["params"]), None if g.get("leaf_shape") is None
+                 else tuple(int(n) for n in g["leaf_shape"]))
+                for g in groups]
+
     def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
-        """As :class:`_OptaxLike`'s; the factored moments of a sharded
-        param, which a checkpoint holds whole, keep this rank's part."""
+        """As :class:`_OptaxLike`'s, for a state saved on the same
+        leaves (else ``ValueError``: a state laid out per tensor does not
+        load into a leaf-grouped optimizer, nor the other way); the
+        factored moments of a sharded param, which a checkpoint holds
+        whole, keep this rank's part."""
+        saved = self._layout(state_dict["param_groups"])
+        if saved != self._layout(self.param_groups):
+            raise ValueError(
+                "this adafactor state was saved on other parameter leaves "
+                f"({len(saved)} groups: {saved[:3]}...) than this "
+                f"optimizer's ({len(self.param_groups)} groups): an "
+                "adafactor state saved before the port's adafactor "
+                "followed the JAX model's leaves (it factored the fused "
+                "qkv weight and clipped each layer alone) does not load "
+                "into it; resume from a checkpoint of this layout or "
+                "start the optimizer afresh")
+        state_dict = {**state_dict, "param_groups": [
+            {**g, "leaf_shape": g.get("leaf_shape")}
+            for g in state_dict["param_groups"]]}
         super().load_state_dict(state_dict)
         from ray_lightning_tpu_torch.strategies.sharding import (is_dtensor,
                                                                  shard_like)
@@ -302,58 +401,75 @@ class Adafactor(_OptaxLike):
         n = self._counts()
         decay = _f32(np.float32(1) - np.float32(n) ** np.float32(-0.8))
         for group in self.param_groups:
-            mdtype = self._state_dtype(group)
-            b1 = group["momentum"]
-            b1_m = torch.tensor(b1, dtype=mdtype)
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = local_tensor(p.grad)
-                st = self.state[p]
-                if not st:
-                    st.update(self._init(p, group))
-                split = _split_of(p)
-                cut = None if split is None else split.dim
-                dims = self._dims(p, group)
-                g2 = g * g + group["eps"]
-                if dims is not None:
-                    d1, d0 = dims
-                    v_row = _moment(st, "v_row",
-                                    _mean(g2, d0, cut, split, p.shape[d0]),
-                                    p, split, d0, decay)
-                    v_col = _moment(st, "v_col",
-                                    _mean(g2, d1, cut, split, p.shape[d1]),
-                                    p, split, d1, decay)
-                    r1 = d1 - 1 if d1 > d0 else d1
-                    # v_row is this rank's slice along d1 only when the
-                    # param is split along d1
-                    row_cut = r1 if cut == d1 else None
-                    row = (v_row / _mean(v_row, r1, row_cut, split,
-                                         p.shape[d1], keepdim=True)
-                           ).pow(-0.5)
-                    u = (g * row.unsqueeze(d0)) * v_col.pow(-0.5) \
-                        .unsqueeze(d1)
-                else:
-                    v = local_tensor(st["v"]) * decay + g2 * (1 - decay)
-                    u = g * v.pow(-0.5)
-                    _put(st, "v", v)
-                if split is None:
-                    rms = u.square().mean().sqrt()
-                else:
-                    total = u.square().sum()
-                    split.all_reduce(total)
-                    rms = (total / p.numel()).sqrt()
-                u = u / torch.clamp(rms / group["clipping_threshold"],
-                                    min=1.0)
-                u = u * group["lr"]
-                ema = u * (1 - b1) + (local_tensor(st["ema"]) * b1_m).to(
-                    u.dtype)
-                _put(st, "ema", ema.to(mdtype))
-                u = ema
-                if group["weight_decay_rate"] is not None:
-                    u = u + local_tensor(p) * group["weight_decay_rate"]
-                local_tensor(p).add_(u * -1)
+            params = group["params"]
+            leaves = ([params] if group["leaf_shape"] is not None
+                      else [[p] for p in params])
+            for leaf in leaves:
+                scaled = []
+                for i, p in enumerate(leaf):
+                    if p.grad is None:
+                        continue
+                    st = self.state[p]
+                    if not st:
+                        st.update(self._init(p, group, i == 0))
+                    scaled.append((p, st, self._scaled(p, st, group, decay)))
+                if scaled:
+                    rms = _block_rms([(p, u) for p, _st, u in scaled])
+                    for p, st, u in scaled:
+                        self._apply(p, st, u, rms, group)
         return loss
+
+    def _scaled(self, p, st, group, decay: float) -> torch.Tensor:
+        """The gradient scaled by the (factored) second moment, which is
+        updated in ``st``: optax's ``scale_by_factored_rms``."""
+        g = local_tensor(p.grad)
+        split = _split_of(p)
+        cut = None if split is None else split.dim
+        dims = self._dims(p, group)
+        g2 = g * g + group["eps"]
+        if dims is None:
+            v = local_tensor(st["v"]) * decay + g2 * (1 - decay)
+            _put(st, "v", v)
+            return g * v.pow(-0.5)
+        d1, d0 = dims
+        v_row = _moment(st, "v_row", _mean(g2, d0, cut, split, p.shape[d0]),
+                        p, split, d0, decay)
+        v_col = _moment(st, "v_col", _mean(g2, d1, cut, split, p.shape[d1]),
+                        p, split, d1, decay)
+        r1 = d1 - 1 if d1 > d0 else d1
+        # v_row is this rank's slice along d1 only when the param is split
+        # along d1
+        row_cut = r1 if cut == d1 else None
+        row = (v_row / _mean(v_row, r1, row_cut, split, p.shape[d1],
+                             keepdim=True)).pow(-0.5)
+        return (g * row.unsqueeze(d0)) * v_col.pow(-0.5).unsqueeze(d1)
+
+    def _apply(self, p, st, u, rms, group) -> None:
+        """Clip ``u`` by the block RMS ``rms``, scale by the learning
+        rate, fold into the momentum, decay and step ``p``."""
+        u = u / torch.clamp(rms / group["clipping_threshold"], min=1.0)
+        u = u * group["lr"]
+        mdtype = self._state_dtype(group)
+        b1 = group["momentum"]
+        b1_m = torch.tensor(b1, dtype=mdtype)
+        ema = u * (1 - b1) + (local_tensor(st["ema"]) * b1_m).to(u.dtype)
+        _put(st, "ema", ema.to(mdtype))
+        u = ema
+        if group["weight_decay_rate"] is not None:
+            u = u + local_tensor(p) * group["weight_decay_rate"]
+        local_tensor(p).add_(u * -1)
+
+
+def _block_rms(items) -> torch.Tensor:
+    """The RMS of the updates ``u`` of ``(param, u)`` pairs that form one
+    leaf, over the full tensors: the local squares summed, added over
+    the group where the params are split (one collective), divided by
+    the full element count."""
+    total = sum(u.square().sum() for _p, u in items)
+    split = _split_of(items[0][0])
+    if split is not None:
+        split.all_reduce(total)
+    return (total / sum(p.numel() for p, _u in items)).sqrt()
 
 
 # ----------------------------------------------------------------------

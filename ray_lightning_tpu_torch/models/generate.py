@@ -2,8 +2,10 @@
 
 The prefill/decode split the engine runs: :func:`_prefill_impl` fills a
 batch of ragged, left-aligned prompts in one forward;
-:func:`decode_step_paged` runs one cached step through the page arena;
-:func:`sample_logits_rows` samples each row with its own parameters.
+:func:`_chunk_prefill_impl` runs one chunk of one long prompt through
+its pages; :func:`decode_step_paged` runs one cached step through the
+page arena; :func:`sample_logits_rows` samples each row with its own
+parameters.
 
 **Sampling keys.** The JAX engine draws row ``r``'s noise from the
 threefry key ``fold_in(fold_in(base, seed), step)``, which torch cannot
@@ -20,7 +22,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from ray_lightning_tpu_torch.models.transformer import new_cache
+from ray_lightning_tpu_torch.models.transformer import ChunkKV, new_cache
 
 _MASK64 = (1 << 64) - 1
 
@@ -110,3 +112,20 @@ def _prefill_impl(model, prompt_tokens: torch.Tensor,
         idx = (prompt_lengths.long() - 1)[:, None, None]
         last = logits.gather(1, idx.expand(B, 1, logits.shape[-1]))[:, 0]
     return cache, last
+
+
+def _chunk_prefill_impl(model, arena, row_pages: torch.Tensor,
+                        tokens: torch.Tensor, offset: int, valid_len: int):
+    """One ``(1, C)`` chunk of one prompt at absolute ``offset`` (the
+    counterpart of the JAX engine's ``_chunk_prefill_impl``): its K/V go
+    into the pages it covers (``row_pages`` (pages_per_slot,) is the
+    row's page-table entries on the arena's device), its queries attend
+    everything the row holds up to themselves, and the logits at
+    ``valid_len - 1`` (1, V) come back. Tokens past ``valid_len`` are
+    padding: their K/V land in the row's later pages (or the sink),
+    where causality keeps every real query from them."""
+    C = tokens.shape[1]
+    positions = offset + torch.arange(C, device=tokens.device)[None]
+    cache = [ChunkKV(kv, row_pages, offset) for kv in arena]
+    logits = model(tokens, positions=positions, cache=cache)
+    return logits[:, valid_len - 1]

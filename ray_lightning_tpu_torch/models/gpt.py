@@ -15,7 +15,8 @@ from ray_lightning_tpu_torch.core.optim import make_optimizer
 from ray_lightning_tpu_torch.data.loader import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.data.synthetic import synthetic_tokens
 from ray_lightning_tpu_torch.models.transformer import (TransformerConfig,
-                                                        TransformerLM)
+                                                        TransformerLM,
+                                                        jax_leaves)
 
 GPT2_SIZES = {
     # name: (n_layers, d_model, n_heads)
@@ -83,8 +84,10 @@ class GPTModule(TpuModule):
     def configure_optimizers(self):
         # b2=0.95 applies to the adam presets only
         kwargs = {} if self.optimizer == "adafactor" else {"b2": 0.95}
+        # the JAX model's leaves: adafactor factors and clips by them
         return make_optimizer(self.optimizer, self.lr,
-                              weight_decay=self.weight_decay, **kwargs)
+                              weight_decay=self.weight_decay,
+                              leaves=jax_leaves(self.cfg), **kwargs)
 
     def _loader(self, seed: int, shuffle: bool = False):
         toks = synthetic_tokens(self.num_samples, self.seq_len + 1,

@@ -16,7 +16,12 @@ of :meth:`TransformerLM.forward`:
   ``attention_kernel="cuda"`` (the hand-written kernel,
   :func:`~ray_lightning_tpu_torch.models.paged_attention.paged_attention`)
   or ``"torch"`` (its plain version; the counterpart of the JAX
-  package's ``"xla"``).
+  package's ``"xla"``);
+- **chunk** (``cache`` = a list of :class:`ChunkKV`): one chunk of one
+  prompt at a page-aligned offset writes its pages and attends the
+  row's earlier pages plus itself, causal and end-aligned -- the serving
+  engine's chunked prefill, through the flash forward under
+  ``attention_kernel="cuda"``.
 
 **Quantized weights** (the JAX package's ``QuantDense``/``QuantEmbed``):
 :meth:`TransformerLM.quantize_weights` (or
@@ -46,7 +51,8 @@ dropout, the ring/ulysses attention impls; nor is LoRA.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence, Union
+import functools
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -61,6 +67,7 @@ from ray_lightning_tpu_torch.models.quant import (QTensor, kv_dequantize,
 from ray_lightning_tpu_torch.models.quantized_matmul import (
     quantized_matmul, quantized_matmul_reference)
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
+from ray_lightning_tpu_torch.ops.cuda_flash import flash_fwd_reference
 from ray_lightning_tpu_torch.ops.flash_attention import flash_attention
 
 ATTENTION_KERNELS = ("torch", "cuda")
@@ -167,6 +174,17 @@ class PagedKV:
         if not self.quantized:
             return self.k[:P], self.v[:P], None, None
         return self.k[:P], self.v[:P], self.k_scale[:P], self.v_scale[:P]
+
+
+@dataclasses.dataclass
+class ChunkKV:
+    """One layer's view for a chunk of one prompt: the arena, the row's
+    page-table entries ``row_pages`` (pages_per_slot,) on the arena's
+    device (−1 = unmapped), and the chunk's absolute ``offset``, a
+    multiple of the page size."""
+    arena: PagedKV
+    row_pages: torch.Tensor
+    offset: int
 
 
 def new_cache(cfg: TransformerConfig, batch: int,
@@ -302,7 +320,9 @@ class MultiHeadAttention(nn.Module):
         B, T, _ = x.shape
         qkv = self.qkv(x).view(B, T, 3, cfg.n_heads, cfg.head_dim)
         q, k, v = qkv.unbind(dim=2)
-        if page_table is not None:
+        if isinstance(kv, ChunkKV):
+            out = self._chunk_attention(q, k, v, kv)
+        elif page_table is not None:
             out = self._page_native_attention(q, k, v, kv_positions,
                                               page_table, kv)
         elif kv is not None:
@@ -335,6 +355,49 @@ class MultiHeadAttention(nn.Module):
         q_pos = idx + torch.arange(T, device=k.device)
         mask = torch.where(key_pos[None, :] <= q_pos[:, None], 0.0, _BIG_NEG)
         return cache.key, cache.value, mask[None, None]
+
+    def _chunk_attention(self, q, k, v, chunk: ChunkKV):
+        """A chunk of one prompt (batch 1, C tokens at ``chunk.offset``)
+        through the row's pages.
+
+        Write: the chunk covers C / page_size whole pages, each written
+        once from the chunk's K/V (int8 arenas quantize each page once,
+        with its own per-head scales); an unmapped column goes to the
+        sink. Read: the row's earlier pages, gathered (and dequantized),
+        then the chunk's own K/V as computed, so query ``i`` attends
+        keys ``<= offset + i``: causal attention over a suffix,
+        end-aligned -- the flash forward (K2) under
+        ``attention_kernel="cuda"``, its plain version under
+        ``"torch"``."""
+        kv = chunk.arena
+        B, C = k.shape[:2]
+        P, ps = kv.num_pages, kv.k.shape[1]
+        off = chunk.offset
+        if B != 1 or off % ps or C % ps:
+            raise ValueError(
+                f"a chunk is one row of whole pages at a page-aligned "
+                f"offset: got batch {B}, {C} tokens at offset {off}, "
+                f"page_size {ps}")
+        cols = chunk.row_pages[off // ps:(off + C) // ps].long()
+        widx = torch.where(cols >= 0, cols, P)          # −1 -> sink page
+        prev = chunk.row_pages[:off // ps].long().clamp(0, P - 1)
+        keys = []
+        for store, scales, new in ((kv.k, kv.k_scale, k),
+                                   (kv.v, kv.v_scale, v)):
+            pages = new[0].reshape(C // ps, ps, *new.shape[2:])
+            if scales is None:
+                store[widx] = pages.to(store.dtype)
+                old = store[prev]
+            else:
+                ns = kv_scales(pages, (1, 3))
+                store[widx] = kv_quantize(pages, ns)
+                scales[widx] = ns
+                old = kv_dequantize(store[prev], scales[prev], new.dtype)
+            keys.append(torch.cat([old.reshape(1, off, *new.shape[2:]),
+                                   new], dim=1))
+        if self.cfg.attention_kernel == "cuda":
+            return flash_attention(q, keys[0], keys[1], causal=True)
+        return flash_fwd_reference(q, keys[0], keys[1], True)[0]
 
     def _page_native_attention(self, q, k, v, kv_positions, page_table,
                                kv: PagedKV):
@@ -424,6 +487,32 @@ class TransformerStack(nn.Module):
             x = block(x, kv_positions=kv_positions, page_table=page_table,
                       kv=None if cache is None else cache[i])
         return x
+
+
+@functools.lru_cache(maxsize=16)
+def jax_leaves(cfg: TransformerConfig
+               ) -> Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...]:
+    """The JAX LM's parameter leaves over the port's parameters:
+    ``(leaf shape, positions in TransformerLM.parameters())`` pairs, for
+    :func:`~ray_lightning_tpu_torch.core.optim.make_optimizer`'s
+    ``leaves=``. The JAX LM trains with its layers scanned
+    (``scan_layers=True``), so every block parameter is one layer of a
+    leaf stacked over ``n_layers``, in the flax layout (the qkv kernel
+    ``(L, d, 3, H, D)``, its bias ``(L, 3, H, D)``); the embeddings and
+    the final LayerNorm are leaves of their own."""
+    from ray_lightning_tpu_torch.interop import flax_layout
+    leaves: Dict[str, Tuple[Tuple[int, ...], List[int]]] = {}
+    for i, (name, p) in enumerate(
+            TransformerLM(cfg, device="meta").named_parameters()):
+        shape = tuple(flax_layout(name, p, cfg.n_heads).shape)
+        if name.endswith("attn.qkv.bias"):
+            shape = (3, cfg.n_heads, cfg.head_dim)
+        parts = name.split(".")
+        if parts[:2] == ["stack", "blocks"]:
+            name = ".".join(parts[3:])
+            shape = (cfg.n_layers,) + shape
+        leaves.setdefault(name, (shape, []))[1].append(i)
+    return tuple((shape, tuple(idx)) for shape, idx in leaves.values())
 
 
 def latch_eos(next_tokens: torch.Tensor, done: torch.Tensor,

@@ -13,8 +13,12 @@ Two clock modes:
 - **wall clock** (``clock=time.perf_counter`` or any callable): real
   latencies; arrival times are seconds from the first clock read.
 
-Not yet ported: async dispatch, crash supervision (``retry_policy``),
-telemetry, the request journal, tenancy and fleets (:data:`UNPORTED`).
+``prefill_chunk=`` and ``prefix_cache=`` are the engine's: long prompts
+stream in chunk dispatches the scheduler alternates with decode, and a
+chunked request's first token (its TTFT stamp) comes with its final
+chunk. Not yet ported: async dispatch, crash supervision
+(``retry_policy``), telemetry, the request journal, tenancy and fleets
+(:data:`UNPORTED`).
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from ray_lightning_tpu_torch.serve.engine import (UNPORTED as _ENGINE_UNPORTED,
 from ray_lightning_tpu_torch.serve.request import (Completion,
                                                    FINISH_REJECTED,
                                                    FINISH_TIMEOUT, Request)
-from ray_lightning_tpu_torch.serve.scheduler import (ACTION_PREFILL,
+from ray_lightning_tpu_torch.serve.scheduler import (ACTION_CHUNK,
+                                                     ACTION_PREFILL,
                                                      ACTION_STEP,
                                                      FifoScheduler,
                                                      QueueFull,
@@ -69,6 +74,8 @@ class ServeClient:
                  weight_dtype: Optional[str] = None,
                  weight_group_size: Optional[int] = None,
                  matmul_kernel: Optional[str] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = False,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
         self.engine = ServeEngine(
@@ -78,7 +85,8 @@ class ServeClient:
             kv_dtype=kv_dtype, page_native=page_native,
             attention_kernel=attention_kernel, weight_dtype=weight_dtype,
             weight_group_size=weight_group_size,
-            matmul_kernel=matmul_kernel, device=device)
+            matmul_kernel=matmul_kernel, prefill_chunk=prefill_chunk,
+            prefix_cache=prefix_cache, device=device)
         self.scheduler = FifoScheduler(scheduler_config)
         self._clock = clock
         self._t0: Optional[float] = None
@@ -154,17 +162,36 @@ class ServeClient:
                 done.extend(self.engine.prefill(admit))
                 self._ops += 1  # count the dispatch before stamping TTFT
                 t_first = self.now()
+                chunking = self.engine.chunk_pending_ids
                 for req in admit:
-                    req.first_token_time = t_first
+                    # a chunk-routed request has no first token yet: its
+                    # final chunk stamps it (_dispatch_chunk)
+                    if req.id not in chunking:
+                        req.first_token_time = t_first
             else:
+                # every popped request was seed-deferred: advance the
+                # engine anyway (the conflicting request may be chunking
+                # with nothing decoding), under the same chunk/decode
+                # alternation as any other dispatch
                 action = self.scheduler.drain_action(self.engine)
-        if action == ACTION_STEP:
+        if action == ACTION_CHUNK:
+            self._dispatch_chunk(done)
+        elif action == ACTION_STEP:
             done.extend(self.engine.step())
             self._ops += 1
         elif action != ACTION_PREFILL:
             self._ops += 1  # idle: advance the tick clock
         self._finalize(done)
         return done
+
+    def _dispatch_chunk(self, done: List[Completion]) -> None:
+        """One chunk dispatch, and the TTFT stamp of the request (if any)
+        whose final chunk just activated its decode row."""
+        done.extend(self.engine.prefill_chunk_step())
+        self._ops += 1
+        req = self.engine.chunk_activated
+        if req is not None and req.first_token_time is None:
+            req.first_token_time = self.now()
 
     def _finalize(self, done: List[Completion]) -> None:
         """Stamp finish times and record completions."""
@@ -178,9 +205,10 @@ class ServeClient:
 
     @property
     def busy(self) -> bool:
-        """True while a tick would do real work: requests queued or rows
-        decoding."""
-        return bool(len(self.scheduler) or self.engine.active_count)
+        """True while a tick would do real work: requests queued, rows
+        decoding, or prompts streaming chunks."""
+        return bool(len(self.scheduler) or self.engine.active_count
+                    or self.engine.chunk_pending)
 
     def run_until_idle(self, max_ticks: int = 100_000) \
             -> Dict[int, Completion]:

@@ -7,7 +7,19 @@ Iteration-level scheduling over a fixed batch of **KV slots**:
    (:func:`~ray_lightning_tpu_torch.models.generate._prefill_impl`);
    each row samples its first token with its own parameters, and its
    KV row is scattered into the pages it was given.
-2. **step** (``(num_slots, 1)``): ``steps_per_dispatch`` cached decode
+2. **chunk prefill** (``(1, prefill_chunk)``, engines with
+   ``prefill_chunk=``): ONE chunk of one prompt at its current offset
+   (:func:`~ray_lightning_tpu_torch.models.generate._chunk_prefill_impl`),
+   written into its pages and attending everything the row already
+   holds -- the flash forward (K2) under ``attention_kernel="cuda"``.
+   Long prompts (up to ``max_seq_len - max_new_tokens``) stream in
+   chunk dispatches the scheduler interleaves with decode, so an
+   in-flight decode stalls for one chunk, not one prompt.
+   ``prefix_cache=True`` routes every prompt through chunks and lets a
+   request adopt the pages of a cached prompt prefix
+   (:class:`~ray_lightning_tpu_torch.serve.pages.PrefixCache`),
+   starting at its first un-cached offset.
+3. **step** (``(num_slots, 1)``): ``steps_per_dispatch`` cached decode
    steps for every slot at its own position. K/V are written and read
    straight through the page table inside the model's attention
    (:func:`~ray_lightning_tpu_torch.models.generate.decode_step_paged`)
@@ -31,21 +43,25 @@ budget, step number) lives on the host between dispatches -- the
 synced frontier -- and crosses to the device as one packed array each
 way per dispatch.
 
-This slice ports the page-native paged engine only. Every constructor
-argument of an unported feature raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item (:data:`UNPORTED`).
+This port covers the page-native paged engine with chunked prefill and
+the prefix cache; a crashed request's replay (``replay_tokens``) is not
+ported, so a chunk feeds the prompt alone. Every constructor argument of
+an unported feature raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item (:data:`UNPORTED`).
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, List, NamedTuple, Optional
+from collections import deque
+from typing import Deque, Dict, FrozenSet, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.device import resolve_device
-from ray_lightning_tpu_torch.models.generate import (_prefill_impl,
+from ray_lightning_tpu_torch.models.generate import (_chunk_prefill_impl,
+                                                    _prefill_impl,
                                                     decode_step_paged,
                                                     row_seed,
                                                     sample_logits_rows)
@@ -55,7 +71,8 @@ from ray_lightning_tpu_torch.models.transformer import (ATTENTION_KERNELS,
                                                         MATMUL_KERNELS,
                                                         TransformerLM,
                                                         latch_eos)
-from ray_lightning_tpu_torch.serve.pages import (PagePool, SlotPoolFull,
+from ray_lightning_tpu_torch.serve.pages import (PagePool, PrefixCache,
+                                                 SlotPoolFull,
                                                  check_kv_dtype,
                                                  scatter_pages)
 from ray_lightning_tpu_torch.serve.request import (Completion, FINISH_EOS,
@@ -67,8 +84,6 @@ __all__ = ["ServeEngine", "SlotPoolFull", "UNPORTED", "refuse_unported"]
 #: constructor arguments of features this slice does not port yet ->
 #: the ROADMAP.md queue-A item that ports them
 UNPORTED = {
-    "prefill_chunk": "S2 (chunked prefill, prefix cache)",
-    "prefix_cache": "S2 (chunked prefill, prefix cache)",
     "draft_model": "S3 (speculative decoding)",
     "draft_params": "S3 (speculative decoding)",
     "spec_k": "S3 (speculative decoding)",
@@ -118,6 +133,18 @@ def _advance_rows(max_seq_len: int, last, cur, pos, active, remaining,
     return cur, pos, active, remaining, stepno, emitted, finished
 
 
+@dataclasses.dataclass
+class _ChunkState:
+    """One prompt mid-chunking: its slot is held, its pages allocated,
+    and ``fed[next_off:]`` still has to stream through chunk
+    dispatches."""
+    request: Request
+    slot: int
+    fed: List[int]       # the prompt
+    next_off: int        # first position not yet written (admission
+    #                      sets it past any adopted prefix pages)
+
+
 class PendingDispatch(NamedTuple):
     """One launched step dispatch: ``packed`` is the device array
     :meth:`ServeEngine.step_sync` copies to the host -- rows
@@ -148,6 +175,12 @@ class ServeEngine:
     matmuls through the fused kernel, ``"torch"`` (the default) through
     the plain version; ``None`` keeps the model config's choice.
 
+    ``prefill_chunk=C`` (a multiple of ``page_size`` dividing
+    ``max_seq_len``) streams prompts longer than ``C`` or than
+    ``prefill_len`` in chunk dispatches (:meth:`prefill_chunk_step`);
+    ``prefix_cache=True`` (needs ``prefill_chunk``) routes every prompt
+    through them and reuses the pages of cached prompt prefixes.
+
     Drive it with :class:`~ray_lightning_tpu_torch.serve.client.ServeClient`
     or directly: ``prefill([reqs])`` starts requests, ``step()`` advances
     every in-flight one; each returns newly finished
@@ -165,8 +198,15 @@ class ServeEngine:
                  weight_dtype: Optional[str] = None,
                  weight_group_size: Optional[int] = None,
                  matmul_kernel: Optional[str] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = False,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
+        if page_size is None and (prefill_chunk is not None
+                                  or prefix_cache):
+            raise ValueError(
+                "prefill_chunk / prefix_cache are paged-KV features: pass "
+                "page_size= to enable the page arena")
         if page_size is None:
             raise NotImplementedError(
                 "the dense KV slot pool (page_size=None) is not ported to "
@@ -213,6 +253,24 @@ class ServeEngine:
         if steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1, got {prefill_chunk}")
+            if prefill_chunk % page_size != 0:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) must be a multiple "
+                    f"of page_size ({page_size})")
+            if cfg.max_seq_len % prefill_chunk != 0:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) must divide "
+                    f"max_seq_len ({cfg.max_seq_len}) so chunk offsets "
+                    "can never overflow the sequence axis")
+        if prefix_cache and prefill_chunk is None:
+            raise ValueError(
+                "prefix_cache=True needs prefill_chunk= too: an adopted "
+                "prefix resumes prefill at its first un-cached offset, "
+                "which is a chunk dispatch")
         if prefill_batch is not None and prefill_batch < 1:
             raise ValueError(
                 f"prefill_batch must be >= 1, got {prefill_batch}")
@@ -239,6 +297,16 @@ class ServeEngine:
         self.kv_dtype = kv_dtype
         self.pool = PagePool(cfg, num_slots, page_size, num_pages=num_pages,
                              kv_dtype=kv_dtype, device=self.device)
+        self.prefill_chunk = prefill_chunk
+        self.prefix = PrefixCache(self.pool) if prefix_cache else None
+        self._chunk_queue: Deque[_ChunkState] = deque()
+        # the request whose FINAL chunk the last prefill_chunk_step
+        # activated into decode (None otherwise): the client stamps its
+        # TTFT
+        self.chunk_activated: Optional[Request] = None
+        # the logits at valid_len - 1 of the last chunk dispatch, (1,
+        # vocab): a final chunk's first token is sampled from them
+        self.chunk_logits: Optional[torch.Tensor] = None
 
         B = num_slots
         self._cur = np.zeros((B, 1), np.int32)
@@ -257,6 +325,7 @@ class ServeEngine:
         self.steps = 0
         self.decode_substeps = 0
         self.prefills = 0
+        self.chunk_dispatches = 0
         self.tokens_generated = 0
 
     # ------------------------------------------------------------- state
@@ -281,10 +350,20 @@ class ServeEngine:
     def active_requests(self) -> Dict[int, Request]:
         return self.pool.active
 
+    @property
+    def chunk_pending(self) -> int:
+        """Prompts admitted but still streaming through chunk prefill."""
+        return len(self._chunk_queue)
+
+    @property
+    def chunk_pending_ids(self) -> FrozenSet[int]:
+        return frozenset(st.request.id for st in self._chunk_queue)
+
     def validate(self, request: Request) -> None:
         """Admission check: the request must fit the engine's shapes."""
         cfg = self.model.cfg
-        if request.prompt_len > self.prefill_len:
+        if self.prefill_chunk is None \
+                and request.prompt_len > self.prefill_len:
             raise ValueError(
                 f"prompt length {request.prompt_len} exceeds the engine's "
                 f"prefill_len ({self.prefill_len})")
@@ -302,34 +381,87 @@ class ServeEngine:
                 f"{self.pool.page_size}) but the arena only has "
                 f"{self.pool.num_pages} -- it can never be admitted")
 
+    # ------------------------------------------------------- admission
+    def _routes_chunked(self, request: Request) -> bool:
+        """Chunk routing: every prompt when the prefix cache is on (the
+        pages it publishes must all come from chunk dispatches), else
+        prompts longer than a chunk (a bounded decode stall) or than the
+        batched prefill takes at all."""
+        if self.prefill_chunk is None:
+            return False
+        if self.prefix is not None:
+            return True
+        fed = request.prompt_len
+        return fed > self.prefill_chunk or fed > self.prefill_len
+
+    def _chunk_floor(self, pages: int) -> int:
+        """A page count rounded down to whole chunks: the one place the
+        chunk-alignment cap lives, shared by adoption and the hit-rate
+        denominator."""
+        per_chunk = self.prefill_chunk // self.pool.page_size
+        return (pages // per_chunk) * per_chunk
+
+    def _adoptable_prefix(self, fed: List[int]) -> List[int]:
+        """Cached pages this admission may adopt: the matched chain
+        capped to whole chunks, so the resumed prefill starts on a chunk
+        boundary and no chunk writes into a shared page."""
+        if self.prefix is None:
+            return []
+        matched = self.prefix.match(fed)
+        return matched[:self._chunk_floor(len(matched))]
+
     def admissible_prefix(self, requests: List[Request]) -> int:
         """How many of the queue-head ``requests`` one prefill call can
         admit (FIFO -- a prefix, never a skip-ahead): free slots, the
-        prefill batch, and cumulative page demand against free pages."""
-        limit = min(len(requests), self.free_slots, self.prefill_batch)
-        budget = self.pool.free_pages
-        n = 0
+        batched prefill's width (chunk-routed requests take none of it),
+        and cumulative page demand against free plus cache-evictable
+        pages. Prefix hits count as consuming their pages (adoption pins
+        them), never as a discount."""
+        limit = min(len(requests), self.free_slots)
+        budget = self.pool.free_pages + (self.prefix.evictable()
+                                         if self.prefix is not None else 0)
+        n = batched = 0
         for req in requests[:limit]:
+            chunked = self._routes_chunked(req)
+            if not chunked and batched == self.prefill_batch:
+                break
             need = self.pool.pages_needed(req)
             if need > budget:
                 break
             budget -= need
+            batched += not chunked
             n += 1
         return n
+
+    def _admit_paged(self, request: Request, adopt: List[int]) -> int:
+        """Acquire a slot and pages for one admission, evicting
+        cache-only pages (never the chain being adopted) when the free
+        list runs short."""
+        fresh_need = self.pool.pages_needed(request) - len(adopt)
+        short = fresh_need - self.pool.free_pages
+        if short > 0 and self.prefix is not None:
+            self.prefix.evict(short, protect=adopt)
+        return self.pool.acquire(request, adopt)
 
     # ---------------------------------------------------------- programs
     def prefill(self, requests: List[Request]) -> List[Completion]:
         """Start ``requests``: slots and pages are acquired atomically for
-        the whole batch, then one prefill pass samples every first token
-        and scatters every KV row into its pages. Returns completions of
-        requests that finish on their first token (eos or a budget of
-        one)."""
+        the whole batch. Prompts the batched prefill takes run one pass
+        that samples every first token and scatters every KV row into its
+        pages; chunk-routed prompts (longer than ``prefill_chunk``, or
+        any prompt under a prefix cache) are queued for
+        :meth:`prefill_chunk_step` instead, past any prefix pages they
+        adopt. Returns completions of requests that finish on their
+        first token (eos or a budget of one)."""
         if not requests:
             return []
-        if len(requests) > min(self.prefill_batch, self.free_slots):
+        n_batched = sum(not self._routes_chunked(r) for r in requests)
+        if n_batched > self.prefill_batch \
+                or len(requests) > self.free_slots:
             raise SlotPoolFull(
-                f"{len(requests)} requests > min(free_slots="
-                f"{self.free_slots}, prefill_batch={self.prefill_batch})",
+                f"{len(requests)} requests ({n_batched} batched) > "
+                f"min(free_slots={self.free_slots}, prefill_batch="
+                f"{self.prefill_batch})",
                 slots_free=self.free_slots, pages_free=self.free_pages,
                 active=len(self.pool.active))
         B_pf, P = self.prefill_batch, self.prefill_len
@@ -339,13 +471,37 @@ class ServeEngine:
         seeds = [0] * B_pf
         temp = np.zeros((B_pf,), np.float32)
         top_k = np.zeros((B_pf,), np.int32)
+        acquired: List[int] = []
+        batched: List[Request] = []
         slots: List[int] = []
+        adoptions = []
+        n_chunked = 0
         try:
-            for r, req in enumerate(requests):
+            for req in requests:
                 self.validate(req)
-                slot = self.pool.acquire(req)
+                fed = list(req.prompt)
+                if self._routes_chunked(req):
+                    adopt = self._adoptable_prefix(fed)
+                    slot = self._admit_paged(req, adopt)
+                    acquired.append(slot)
+                    hit = len(adopt) * self.pool.page_size
+                    req.prefix_hit_tokens = hit
+                    self._chunk_queue.append(_ChunkState(
+                        request=req, slot=slot, fed=fed, next_off=hit))
+                    n_chunked += 1
+                    if self.prefix is not None:
+                        # eligible: what a fully warm cache could have
+                        # served under the same chunk-alignment cap
+                        eligible = self._chunk_floor(
+                            (len(fed) - 1) // self.pool.page_size)
+                        adoptions.append((eligible, len(adopt)))
+                    continue
+                slot = self._admit_paged(req, [])
+                acquired.append(slot)
+                r = len(batched)
+                batched.append(req)
                 slots.append(slot)
-                prompts[r, :req.prompt_len] = req.prompt
+                prompts[r, :req.prompt_len] = fed
                 lengths[r] = req.prompt_len
                 inject_pt[r] = self.pool.page_table[slot]
                 seeds[r] = row_seed(self.seed, req.seed, 0)
@@ -353,10 +509,20 @@ class ServeEngine:
                 top_k[r] = req.top_k or 0
         except Exception:
             # atomic admission: a mid-batch reject (seed collision, bad
-            # shape, page shortage) must not leak the slots already taken
-            for slot in slots:
+            # shape, page shortage) must not leak the slots, pages or
+            # chunk seats already taken. Prefix entries evicted to seat
+            # earlier members stay evicted: a retry loses some cache
+            # warmth, never tokens
+            for slot in acquired:
                 self.pool.release(slot)
+            for _ in range(n_chunked):
+                self._chunk_queue.pop()
             raise
+        # statistics only once the whole batch's admission held
+        for eligible, adopted in adoptions:
+            self.prefix.record_admission(eligible, adopted)
+        if not batched:
+            return []
         dev = self.device
         with torch.inference_mode():
             cache, last = _prefill_impl(
@@ -368,12 +534,59 @@ class ServeEngine:
                           torch.from_numpy(inject_pt).to(dev))
             first = first.cpu().numpy()
         done: List[Completion] = []
-        for r, req in enumerate(requests):
+        for r, req in enumerate(batched):
             comp = self._activate(req, slots[r], int(first[r]))
             if comp is not None:
                 done.append(comp)
         self.prefills += 1
         return done
+
+    def prefill_chunk_step(self) -> List[Completion]:
+        """One chunk dispatch for the head of the chunk queue: the next
+        ``prefill_chunk`` tokens at the request's offset. On the final
+        chunk the sampled first token (the same ``row_seed(engine seed,
+        request seed, 0)`` draw as the batched prefill's) activates the
+        decode row, or retires the request (eos or a budget of one);
+        with a prefix cache the prompt's full pages are published
+        first."""
+        self.chunk_activated = None
+        if not self._chunk_queue:
+            return []
+        st = self._chunk_queue[0]
+        req = st.request
+        C = self.prefill_chunk
+        L = len(st.fed)
+        off = st.next_off
+        valid = min(C, L - off)
+        final = off + valid >= L
+        tokens = np.zeros((1, C), np.int64)
+        tokens[0, :valid] = st.fed[off:off + valid]
+        dev = self.device
+        with torch.inference_mode():
+            last = _chunk_prefill_impl(
+                self.model, self.pool.arena,
+                torch.from_numpy(self.pool.page_table[st.slot]).to(dev),
+                torch.from_numpy(tokens).to(dev), off, valid)
+            self.chunk_logits = last
+            first = None
+            if final:
+                first = int(sample_logits_rows(
+                    last, [row_seed(self.seed, req.seed, 0)],
+                    [req.temperature], [req.top_k or 0])[0])
+        st.next_off = off + valid
+        self.chunk_dispatches += 1
+        if not final:
+            return []
+        self._chunk_queue.popleft()
+        if self.prefix is not None:
+            # publish before activation: eos-on-first retires the slot,
+            # but the cache's own references keep the prefix pages warm
+            self.prefix.publish(list(req.prompt), st.slot)
+        comp = self._activate(req, st.slot, first)
+        if comp is None:
+            self.chunk_activated = req
+            return []
+        return [comp]
 
     def _activate(self, req: Request, slot: int,
                   tok: int) -> Optional[Completion]:
@@ -488,16 +701,27 @@ class ServeEngine:
         return self._retire(slot, reason)
 
     def shutdown(self) -> None:
-        """Release the KV arena; the engine is unusable afterwards."""
+        """Drop the prefix cache's page references and release the KV
+        arena; the engine is unusable afterwards."""
+        if self.prefix is not None:
+            self.prefix.drop()
+        self.prefix = None
         self.pool = None
+        self._chunk_queue.clear()
         self._tokens.clear()
         self._active[:] = False
 
     def _retire(self, slot: int, reason: str) -> Completion:
+        # only cancel() retires a slot still chunking: don't rebuild the
+        # queue on every retirement
+        if any(st.slot == slot for st in self._chunk_queue):
+            self._chunk_queue = deque(
+                st for st in self._chunk_queue if st.slot != slot)
         req = self.pool.release(slot)
         self._active[slot] = False
         tokens = self._tokens.pop(slot, [])
         return Completion(
             request_id=req.id, prompt=list(req.prompt), tokens=tokens,
             finish_reason=reason, arrival_time=req.arrival_time,
-            first_token_time=req.first_token_time)
+            first_token_time=req.first_token_time,
+            prefix_hit_tokens=req.prefix_hit_tokens)

@@ -11,14 +11,25 @@ holds ``ceil((prompt + budget) / page_size)`` pages from admission to
 retirement, so an admitted request can never run the arena dry.
 
 All allocation decisions are host-side, exact and deterministic:
-lowest-index-first for both slots and pages. Not yet ported: the
-shared-prefix ``PrefixCache`` (and with it page refcounts) and the
-dense-view ``gather_pages``.
+lowest-index-first for both slots and pages (fresh pages come off the
+front of the free list, freed ones return by ``insort``), so identical
+op sequences give the JAX package's page tables entry for entry.
+
+:class:`PrefixCache` (a copy of the JAX package's) adds shared-prefix
+reuse: prompt prefixes are content-keyed at page granularity (chain
+links ``(parent_entry_id, page_tokens)``), and a request whose prompt
+extends a cached chain adopts those pages **read-only** (refcounted)
+instead of prefilling them again. The cache holds its own reference on
+every published page, so a retired publisher keeps its prefix warm;
+eviction under pressure drops least-recently-matched entries whose page
+only the cache still holds. Not yet ported: the dense-view
+``gather_pages``.
 """
 from __future__ import annotations
 
 from bisect import insort
-from typing import Dict, List, Optional, Sequence
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,6 +136,7 @@ class PagePool:
                                               page_size, quantized, device)
         self._free_pages: List[int] = list(range(self.num_pages))
         self._free_slots: List[int] = list(range(num_slots))
+        self._ref = np.zeros((self.num_pages,), np.int64)
         self._requests: Dict[int, Request] = {}   # slot -> request
         self._span: Dict[int, int] = {}           # slot -> mapped pages
 
@@ -146,14 +158,26 @@ class PagePool:
                 return slot
         return None
 
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
+
+    def refcounts(self, pages: np.ndarray) -> np.ndarray:
+        """Refcounts of ``pages`` in one vectorized read (the prefix
+        cache's evictable-count probe runs on every scheduling tick)."""
+        return self._ref[pages]
+
     def pages_needed(self, request: Request) -> int:
         """Pages for one request: its prompt plus its whole token budget,
         allocated up front at admission."""
         total = request.prompt_len + request.max_new_tokens
         return -(-total // self.page_size)
 
-    def acquire(self, request: Request) -> int:
-        """Assign the lowest free slot and the lowest free pages."""
+    def acquire(self, request: Request,
+                prefix_pages: Sequence[int] = ()) -> int:
+        """Assign the lowest free slot and allocate its pages.
+        ``prefix_pages`` are already-filled pages adopted read-only from
+        a :class:`PrefixCache` chain (refcount bumped here); the rest
+        come fresh from the free list, lowest index first."""
         if not self._free_slots:
             raise SlotPoolFull(
                 f"all {self.num_slots} KV slots in use",
@@ -161,27 +185,184 @@ class PagePool:
                 active=len(self._requests))
         check_seed_free(self._requests, request)
         need = self.pages_needed(request)
-        if need > len(self._free_pages):
+        fresh_need = need - len(prefix_pages)
+        # adoption is capped below the full prompt (the engine always
+        # recomputes at least the final prompt token into a private page)
+        if fresh_need < 1:
+            raise ValueError(
+                f"request {request.id} adopts {len(prefix_pages)} prefix "
+                f"pages of its {need}: at least one page must be its own")
+        if fresh_need > len(self._free_pages):
             raise SlotPoolFull(
-                f"request {request.id} needs {need} free KV pages but "
-                f"only {len(self._free_pages)} are free",
+                f"request {request.id} needs {fresh_need} free KV "
+                f"pages ({need} total, {len(prefix_pages)} from prefix "
+                f"cache) but only {len(self._free_pages)} are free",
                 slots_free=self.free_slots, pages_free=self.free_pages,
-                pages_needed=need, active=len(self._requests))
+                pages_needed=fresh_need, active=len(self._requests))
         slot = self._free_slots.pop(0)
-        pages = self._free_pages[:need]
-        del self._free_pages[:need]
+        fresh = self._free_pages[:fresh_need]
+        del self._free_pages[:fresh_need]
+        row = list(prefix_pages) + fresh
         self.page_table[slot, :] = -1
-        self.page_table[slot, :need] = pages
+        self.page_table[slot, :len(row)] = row
+        for p in prefix_pages:
+            self._ref[p] += 1
+        for p in fresh:
+            self._ref[p] = 1
         self._requests[slot] = request
-        self._span[slot] = need
+        self._span[slot] = len(row)
         return slot
 
     def release(self, slot: int) -> Request:
-        """Retire a slot: free its pages, clear its page-table row,
-        return the request."""
+        """Retire a slot: decref its pages (shared prefix pages survive
+        while the cache or another adopter still holds them), clear its
+        page-table row, return the request."""
         req = self._requests.pop(slot)
         for j in range(self._span.pop(slot)):
-            insort(self._free_pages, int(self.page_table[slot, j]))
+            self.decref(int(self.page_table[slot, j]))
         self.page_table[slot, :] = -1
         insort(self._free_slots, slot)
         return req
+
+    def incref(self, page: int) -> None:
+        self._ref[page] += 1
+
+    def decref(self, page: int) -> None:
+        if self._ref[page] < 1:
+            raise RuntimeError(f"page {page} released more often than held")
+        self._ref[page] -= 1
+        if self._ref[page] == 0:
+            insort(self._free_pages, page)
+
+
+class PrefixCache:
+    """Content-keyed reuse of prompt-prefix KV pages (a copy of the JAX
+    package's).
+
+    Entries are keyed by **chain links**: page ``j``'s key is
+    ``(parent_entry_id, tokens of page j)``, where the parent is page
+    ``j-1``'s entry (id 0 = the empty root), so a key is O(page_size)
+    and still names the whole preceding prefix. Ids are assigned in
+    publish order and never reused (an evicted middle entry orphans its
+    children, which age out through the same LRU eviction).
+
+    The cache holds one page refcount per entry. ``match`` walks the
+    longest cached chain for a new prompt (LRU-touching each hit),
+    ``publish`` caches a finished prefill's full-prompt pages, and
+    ``evict`` frees least-recently-matched entries whose page nobody
+    else holds. The engine records hit statistics at admission
+    (``record_admission``), after slot and page acquisition succeed, so
+    ``hits`` counts pages actually adopted.
+
+    Adoption is capped one token short of the whole prompt: the final
+    prompt token must be recomputed (its logits seed the first sample)
+    into a private page.
+    """
+
+    def __init__(self, pool: PagePool):
+        self.pool = pool
+        # (parent_id, page_tokens) -> (entry_id, arena page)
+        self._entries: "OrderedDict[Tuple[int, Tuple[int, ...]], " \
+            "Tuple[int, int]]" = OrderedDict()
+        self._next_id = 1    # 0 is the empty-prefix root
+        self._pages_arr = np.empty((0,), np.int64)  # cached entry pages
+        self._pages_dirty = False
+        self.hits = 0        # pages adopted by admissions
+        self.lookups = 0     # pages that were eligible for adoption
+        self.publishes = 0   # pages added to the cache
+        self.evictions = 0   # pages dropped under pressure
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def match(self, tokens: Sequence[int]) -> List[int]:
+        """Longest chain of cached pages covering a strict prefix of
+        ``tokens``; every hit page is LRU-touched."""
+        ps = self.pool.page_size
+        usable = max(0, (len(tokens) - 1) // ps)
+        pages: List[int] = []
+        parent = 0
+        for j in range(usable):
+            key = (parent, tuple(tokens[j * ps:(j + 1) * ps]))
+            entry = self._entries.get(key)
+            if entry is None:
+                break
+            parent, page = entry
+            pages.append(page)
+            self._entries.move_to_end(key)
+        return pages
+
+    def record_admission(self, eligible: int, adopted: int) -> None:
+        """Count one admission's prefix reuse: ``eligible`` pages could
+        have come from cache, ``adopted`` actually did."""
+        self.lookups += eligible
+        self.hits += adopted
+
+    def publish(self, prompt: Sequence[int], slot: int) -> int:
+        """Cache every page of ``slot`` wholly covered by ``prompt``
+        (their KV is fully written once its prefill completed). Returns
+        the number of newly cached pages."""
+        pool = self.pool
+        ps = pool.page_size
+        added = 0
+        parent = 0
+        for j in range(len(prompt) // ps):
+            key = (parent, tuple(prompt[j * ps:(j + 1) * ps]))
+            entry = self._entries.get(key)
+            if entry is not None:
+                parent = entry[0]
+                continue
+            page = int(pool.page_table[slot, j])
+            entry_id = self._next_id
+            self._next_id += 1
+            self._entries[key] = (entry_id, page)
+            pool.incref(page)
+            parent = entry_id
+            added += 1
+        if added:
+            self._pages_dirty = True
+        self.publishes += added
+        return added
+
+    def evictable(self) -> int:
+        """Pages the cache could free right now (refcount 1: only the
+        cache still holds them), by one vectorized refcount read over
+        the cached entry->page array."""
+        if self._pages_dirty:
+            self._pages_arr = np.fromiter(
+                (p for _eid, p in self._entries.values()), np.int64,
+                count=len(self._entries))
+            self._pages_dirty = False
+        if not len(self._pages_arr):
+            return 0
+        return int(np.count_nonzero(
+            self.pool.refcounts(self._pages_arr) == 1))
+
+    def evict(self, n: int, protect: Sequence[int] = ()) -> int:
+        """Free up to ``n`` pages, least-recently-matched first, skipping
+        entries still adopted by a live slot and ``protect``\\ ed pages
+        (a chain the current admission is about to adopt)."""
+        guard = set(protect)
+        freed = 0
+        for key, (_eid, page) in list(self._entries.items()):
+            if freed >= n:
+                break
+            if page in guard or self.pool.refcount(page) != 1:
+                continue
+            del self._entries[key]
+            self._pages_dirty = True
+            self.pool.decref(page)
+            freed += 1
+            self.evictions += 1
+        return freed
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.lookups if self.lookups else 0.0
+
+    def drop(self) -> None:
+        """Release every cache-held page reference (engine shutdown)."""
+        for _eid, page in self._entries.values():
+            self.pool.decref(page)
+        self._entries.clear()
+        self._pages_dirty = True

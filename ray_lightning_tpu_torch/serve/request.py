@@ -9,9 +9,9 @@ exhausts its budget, and its KV slot is handed to the next queued
 request mid-flight.
 
 A :class:`Completion` is the retired request: the generated tokens (eos
-included when sampled), why it stopped, and its latency stamps.
-The fields of later slices (tenants, LoRA adapters, crash replay, prefix
-reuse) are not carried yet.
+included when sampled), why it stopped, its latency stamps, and how many
+prompt tokens it took from the prefix cache. The fields of later slices
+(tenants, LoRA adapters, crash replay) are not carried yet.
 """
 from __future__ import annotations
 
@@ -63,6 +63,8 @@ class Request:
     # timing bookkeeping, stamped by the driving client (clock units)
     arrival_time: Optional[float] = None
     first_token_time: Optional[float] = None
+    # prompt tokens whose KV came from the prefix cache at admission
+    prefix_hit_tokens: int = 0
 
     def __post_init__(self):
         self.prompt = [int(t) for t in self.prompt]
@@ -94,6 +96,7 @@ class Completion:
     arrival_time: Optional[float] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+    prefix_hit_tokens: int = 0
 
     @property
     def latency(self) -> Optional[float]:

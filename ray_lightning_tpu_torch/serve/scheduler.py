@@ -2,9 +2,9 @@
 
 The port's own copy of ``ray_lightning_tpu/serve/scheduler.py`` (the
 port imports nothing of the JAX package), unchanged but for this
-paragraph and the import below. The chunk half of the policy is inert
-until chunked prefill is ported: an engine without ``chunk_pending``
-reads as having no chunks.
+paragraph and the import below. The chunk half of the policy drives
+the engine's chunked prefill (``prefill_chunk=``): with rows decoding,
+chunk and decode dispatches alternate strictly.
 
 The scheduler owns the *waiting* side of the engine: a bounded FIFO queue
 (admission control — a full queue rejects at submit time, it never grows

@@ -82,12 +82,14 @@ def load_sharded_state(state, sd: Dict[str, Any]) -> Dict[str, Any]:
     param it belongs to keeps this rank's part (a DTensor where the live
     one is); the rest pass through (an optimizer lays out its own other
     state, e.g. adafactor's factored moments, in its ``load_state_dict``).
-    ``state.optimizer.shard_params``, where it exists, names the tensors
-    the optimizer updates (ZeRO's shards of the full params)."""
+    ``state.optimizer.optim``, where it exists, is the optimizer that
+    updates other tensors (ZeRO's inner one, on shards of the full
+    params); the state's indices follow its parameter groups."""
     sd = full_state(sd)
     live = state.model.state_dict()
     params = [p for g in state.optimizer.param_groups for p in g["params"]]
-    opt_params = list(getattr(state.optimizer, "shard_params", params))
+    inner = getattr(state.optimizer, "optim", state.optimizer)
+    opt_params = [p for g in inner.param_groups for p in g["params"]]
 
     def like(t, p):
         return shard_like(t, p) if is_dtensor(p) else t

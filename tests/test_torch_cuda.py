@@ -1075,3 +1075,92 @@ def test_a_checkpoint_sized_stream_crosses_the_session_queue(cuda,
         q.shutdown()
     assert not [f for f in os.listdir(tempfile.gettempdir())
                 if f.startswith("processray-")]
+
+
+# ------------------------------------- chunked prefill: K2 on serving
+# the chunk path's K2 calls: one row (B = 1), a chunk of T queries at the
+# end of the S keys its row holds (S = offset + T), GPT-2-small's heads
+CHUNK_SHAPES = [(T, S) for T in (128, 256) for S in range(T, 1025, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T,S", CHUNK_SHAPES,
+                         ids=[f"t{T}-s{S}" for T, S in CHUNK_SHAPES])
+def test_flash_fwd_at_the_chunk_shapes(cuda, dtype, T, S):
+    """K2 as chunked prefill calls it: q a view of the fused qkv
+    projection, k and v the gathered pages plus the chunk's own, made
+    contiguous; causal, end-aligned. bf16 on ``tc`` held element by
+    element by ``cf.flash_out_bound``, f32 on ``simt`` to 1e-5."""
+    g = torch.Generator().manual_seed(T * 7 + S)
+    qkv = torch.randn(1, T, 3, 12, 64, generator=g).to(dtype).to(cuda)
+    k = torch.randn(1, S, 12, 64, generator=g).to(dtype).to(cuda)
+    v = torch.randn(1, S, 12, 64, generator=g).to(dtype).to(cuda)
+    q = qkv[:, :, 0]
+    cf.reset_kernel_launches()
+    out, lse = cf.flash_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    route = "tc" if dtype == torch.bfloat16 else "simt"
+    assert cf.route_launches() == {"simt": 0, "tc": 0, route: 1}
+    ref, ref_lse = cf.flash_fwd_reference(q, k, v, True)
+    tol = (cf.flash_out_bound(q, k, v, True, ref)
+           if dtype == torch.bfloat16 else 1e-5)
+    _assert_within(out, ref, tol, f"chunk out T={T} S={S}")
+    _assert_within(lse, ref_lse, 1e-5, f"chunk lse T={T} S={S}")
+
+
+@pytest.mark.parametrize("weight_dtype", [None, "int8"])
+def test_chunked_serving_runs_through_k2_and_k5(cuda, weight_dtype):
+    """A bf16 nano engine with ``prefill_chunk`` and ``prefix_cache``
+    (every prompt through chunks) on the card: K2 launches n_layers times
+    per chunk dispatch, all on ``tc``; with int8 weights K5 launches 4 x
+    n_layers + 1 times per chunk dispatch on ``tc`` and per decode step
+    on the GEMVs, none on ``tiled_f32``. Every request runs its budget;
+    the shared system prompt's pages are adopted."""
+    cfg = gpt2_config("nano", vocab_size=128, max_seq_len=64)
+    torch.manual_seed(0)
+    sd = TransformerLM(cfg, device="cpu").state_dict()
+    sysp = list(range(3, 35))                      # one chunk of 32
+    trace = [(0, dict(prompt=sysp + [5, 9], max_new_tokens=6)),
+             (0, dict(prompt=[9, 2, 44], max_new_tokens=6)),
+             (6, dict(prompt=sysp + [42, 7, 3], max_new_tokens=6)),
+             (7, dict(prompt=list(range(40, 80)), max_new_tokens=6,
+                      temperature=0.8, top_k=20))]
+    kw = {} if weight_dtype is None else dict(weight_dtype=weight_dtype,
+                                              matmul_kernel="cuda")
+    cf.reset_kernel_launches()
+    qmm.reset_kernel_launches()
+    # chunks of 32 rows: K5's tensor-core route (the GEMVs take M <= 16)
+    client = ServeClient(TransformerLM(cfg, device="meta"), sd, num_slots=3,
+                         prefill_len=16, page_size=8, page_native=True,
+                         prefill_chunk=32, prefix_cache=True,
+                         attention_kernel="cuda", device=cuda, **kw)
+    out = client.serve_trace(list(trace))
+    eng = client.engine
+    assert [len(out[r].tokens) for r in range(4)] == [6] * 4
+    assert out[2].prefix_hit_tokens == 32 and eng.prefills == 0
+    n = eng.chunk_dispatches
+    assert cf.route_launches() == {"simt": 0, "tc": cfg.n_layers * n}
+    per_forward = 4 * cfg.n_layers + 1
+    want = {"gemv_dense": 0, "gemv_attend": 0, "tc": 0, "tiled_f32": 0}
+    if weight_dtype is not None:
+        want = {"gemv_dense": 4 * cfg.n_layers * eng.decode_substeps,
+                "gemv_attend": eng.decode_substeps, "tc": per_forward * n,
+                "tiled_f32": 0}
+    assert qmm.route_launches() == want
+    client.shutdown()
+
+
+def test_adafactor_state_bytes_of_the_training_path(cuda):
+    """``GPTModule``'s adafactor on GPT-2-small on the card (the module
+    of ``chip_smoke.py``'s phases O and D) holds the JAX preset's
+    optimizer state: 334,953,400 bytes."""
+    from ray_lightning_tpu_torch.core import opt_state_bytes
+    module = GPTModule(config=gpt2_config("small", attention_impl="flash"),
+                       batch_size=8, seq_len=1024, optimizer="adafactor")
+    model = TransformerLM(module.cfg, device=cuda)
+    opt = module.configure_optimizers()(model.parameters())
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    opt.step()
+    assert opt_state_bytes(opt) == 334_953_400

@@ -303,3 +303,126 @@ def test_memory_efficient_presets_learn_gpt(name, tmp_path):
     trainer.fit(module)
     ppl = float(trainer.callback_metrics["val_ppl"])
     assert ppl < 40, f"{name}: val perplexity did not drop (ppl={ppl})"
+
+
+def _scanned_nano_gpt():
+    """The JAX nano GPT as it trains (layers scanned: one leaf of each
+    block parameter over both layers), f32, and the port's GPTModule
+    config of the same sizes."""
+    import jax
+    from ray_lightning_tpu.models.gpt import GPTModule as JaxGPTModule
+    from ray_lightning_tpu.models.gpt import gpt2_config as jax_gpt2_config
+    from ray_lightning_tpu_torch.models import gpt2_config
+    sizes = dict(vocab_size=256, max_seq_len=32)
+    jcfg = jax_gpt2_config("nano", dtype=jnp.float32, **sizes)
+    assert jcfg.scan_layers
+    params = JaxGPTModule(config=jcfg).configure_model().init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"]
+    return params, gpt2_config("nano", dtype=torch.float32, **sizes)
+
+
+# per step: the scale of layer 0's gradients, of layer 1's, and of the
+# unstacked leaves'. Layer 0's grow and layer 1's shrink, so their
+# update RMS differ, and the clip of a stacked leaf binds on their joint
+# RMS, which clipping each layer alone would not give
+GPT_SCALES = [(0.1, 1.0, 0.5), (1.0, 0.3, 2.0), (3.0, 0.2, 0.1),
+              (0.5, 1.0, 1.0), (4.0, 0.1, 3.0)]
+
+
+def _gpt_grads(params, seed=1):
+    import jax
+    rng = np.random.default_rng(seed)
+    paths = jax.tree_util.tree_flatten_with_path(params)[0]
+    out = []
+    for s0, s1, s_flat in GPT_SCALES:
+        leaves = []
+        for path, x in paths:
+            g = rng.standard_normal(x.shape).astype(np.float32)
+            if "layers" in jax.tree_util.keystr(path):
+                g[0] *= s0
+                g[1] *= s1
+            else:
+                g *= s_flat
+            leaves.append(g)
+        out.append(jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(params), leaves))
+    return out
+
+
+def test_adafactor_matches_optax_step_for_step_on_the_scanned_gpt():
+    """``GPTModule``'s adafactor, on the leaves of the JAX model
+    (``transformer.jax_leaves``), against optax on the scanned nano GPT
+    tree: the same gradients (each leaf's numpy array, in the port's
+    layout by ``interop.flax_state_dict``), 5 steps, params after every
+    step at atol 1e-6. The fused qkv weight keeps its second moment
+    whole and each stacked leaf is clipped by its joint RMS, which
+    binds (checked on optax's own scaled updates). Momentum in f32: a
+    bf16 one may round the other way (``test_presets_match_optax_free_running``).
+    With each tensor a leaf of its own (``leaves=None``) the port
+    departs from optax here: the leaves decide the update."""
+    import jax
+    from ray_lightning_tpu_torch.interop import (flax_state_dict,
+                                                 load_flax_params)
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models.transformer import jax_leaves
+    params, cfg = _scanned_nano_gpt()
+    grads = _gpt_grads(params)
+    kw = dict(weight_decay=0.1, moment_dtype="float32")
+    tx = jax_make_optimizer("adafactor", LR, **_jax_kwargs(kw))
+    jp, state = params, tx.init(params)
+    want = []
+    for g in grads:
+        updates, state = tx.update(g, state, jp)
+        jp = optax.apply_updates(jp, updates)
+        want.append(flax_state_dict(jax.tree_util.tree_map(np.asarray, jp)))
+    # the clip binds: optax's scaled update has a block RMS above 1
+    srms = optax.scale_by_factored_rms()
+    sst = srms.init(params)
+    rms = []
+    for g in grads:
+        u, sst = srms.update(g, sst, params)
+        rms += [float(jnp.sqrt(jnp.mean(jnp.square(x))))
+                for x in jax.tree_util.tree_leaves(u)]
+    assert max(rms) > 1.5
+
+    def run(leaves):
+        model = load_flax_params(TransformerLM(cfg, device="cpu"), params)
+        opt = make_optimizer("adafactor", LR, leaves=leaves, **kw)(
+            model.parameters())
+        errs = []
+        for g, w in zip(grads, want):
+            gsd = flax_state_dict(g)
+            for n, p in model.named_parameters():
+                p.grad = torch.from_numpy(np.array(gsd[n]))
+            opt.step()
+            errs.append(max(float(np.abs(p.detach().numpy() - w[n]).max())
+                            for n, p in model.named_parameters()))
+        return opt, errs
+
+    opt, errs = run(jax_leaves(cfg))
+    assert max(errs) < 1e-6, errs
+    assert opt_state_bytes(opt) == jax_state_bytes(state)
+    _, errs = run(None)
+    assert max(errs) > 1e-4, errs
+
+
+def test_adafactor_state_of_other_leaves_does_not_load():
+    """A state saved with each tensor a leaf of its own (the port's
+    adafactor before it followed the JAX leaves) does not load into
+    ``GPTModule``'s optimizer, nor the other way: a ``ValueError`` that
+    says so, before any tensor is touched."""
+    from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
+    from ray_lightning_tpu_torch.models.transformer import jax_leaves
+    cfg = gpt2_config("nano", vocab_size=64, max_seq_len=16)
+    model = TransformerLM(cfg, device="cpu")
+    old = make_optimizer("adafactor", LR)(model.parameters())
+    new = make_optimizer("adafactor", LR, leaves=jax_leaves(cfg))(
+        model.parameters())
+    for opt in (old, new):
+        for p in model.parameters():
+            p.grad = torch.ones_like(p)
+        opt.step()
+    for src, dst in ((old, new), (new, old)):
+        with pytest.raises(ValueError, match="other parameter leaves"):
+            dst.load_state_dict(src.state_dict())
+    new.load_state_dict(new.state_dict())

@@ -57,8 +57,7 @@ FIT = dict(max_epochs=1, limit_train_batches=4, limit_val_batches=1, seed=0)
 TOL = 1e-4          # tests/test_torch_ddp.py's AdamW tolerance
 # against the JAX trainer: adafactor at the bf16-state presets' 1e-3 of
 # tests/test_torch_train.py: its bf16 momentum can round the other way
-# than optax's, and it factors the fused qkv weight's second moment,
-# which the JAX preset keeps whole (ROADMAP.md C)
+# than optax's (its f32 means sum in another order)
 JAX_TOL = {"adamw_bf16m": TOL, "adafactor": 1e-3}
 PRESETS = ("adamw_bf16m", "adafactor")
 STRATEGIES = {"zero": (RayShardedStrategy, JaxRayShardedStrategy),
@@ -186,9 +185,8 @@ def test_zero_holds_the_jax_rules_bytes_on_each_rank(world, preset):
     trees have the JAX package's shapes, that is the JAX fit's optimizer
     state on the same device. ``torch.optim.AdamW`` keeps an f32 step
     count a tensor where optax keeps one int32 count; every rank holds
-    them whole, and they are counted out. ``adafactor`` keeps a factored
-    second moment for the fused qkv weight, which the JAX preset keeps
-    whole (its kernel is (d, 3, H, D); ``ROADMAP.md`` C)."""
+    them whole, and they are counted out. ``adafactor`` decides its
+    factoring on the JAX leaves, as the JAX preset does."""
     ref = jax_fit("zero", preset)
     trainer, _ = fit2(world, RayShardedStrategy, tw.Nano(optimizer=preset),
                       callbacks=[tw.OptStateBytes()])
@@ -200,12 +198,11 @@ def test_zero_holds_the_jax_rules_bytes_on_each_rank(world, preset):
     m = trainer.callback_metrics
     for rank in range(2):
         assert m[f"opt_state_bytes_rank{rank}"] == by_rule, rank
-    if preset != "adafactor":
-        extra = 0
-        if preset == "adamw":
-            extra = sum(st["step"].numel() * st["step"].element_size()
-                        for st in state.values()) - 4
-        assert [by_rule - extra] * 2 == ref["device_bytes"]
+    extra = 0
+    if preset == "adamw":
+        extra = sum(st["step"].numel() * st["step"].element_size()
+                    for st in state.values()) - 4
+    assert [by_rule - extra] * 2 == ref["device_bytes"]
     assert m["opt_state_bytes_rank0"] < m["opt_state_bytes_world"] / 1.5
 
 
@@ -321,21 +318,21 @@ def test_adafactor_on_uneven_shards_equals_the_whole_tensors(world):
     assert got["local_moments"][2] == ((80,), (128,))
 
 
-# ------------------------------- a difference from the JAX preset (C)
+# ------------------------------------------ the JAX preset's leaves
 @pytest.mark.parametrize("size", ["nano", "small"])
-def test_adafactor_state_differs_from_the_jax_preset_on_the_fused_qkv(
-        size):
-    """The JAX package's qkv kernel is ``(d, 3, H, D)``: optax factors a
-    second moment over its two largest dimensions only when the smaller
-    of them is at least 128, so the JAX preset keeps that weight's
-    second moment whole (D = 64). The port's qkv weight is ``(3HD, d)``,
-    which the port's adafactor factors. All but 1 kB of the difference
-    in optimizer-state bytes is those weights' second moments
-    (``ROADMAP.md`` C). Both sides from shapes alone (``eval_shape``;
-    the port's state made on the meta device)."""
+def test_adafactor_state_equals_the_jax_preset(size):
+    """The JAX package's qkv kernel is ``(d, 3, H, D)``, stacked over the
+    layers: optax factors a second moment over its two largest
+    dimensions only when the smaller of them is at least 128, so the JAX
+    preset keeps that weight's second moment whole (D = 64), and it
+    keeps one placeholder per stacked leaf. ``GPTModule``'s adafactor
+    decides on the JAX leaves (``transformer.jax_leaves``), so the
+    port's optimizer-state bytes equal the JAX preset's. Both sides from
+    shapes alone (``eval_shape``; the port's state made on the meta
+    device)."""
     from ray_lightning_tpu.core.optim import make_optimizer as jax_make
-    from ray_lightning_tpu_torch.core.optim import (make_optimizer,
-                                                    opt_state_bytes)
+    from ray_lightning_tpu_torch import GPTModule
+    from ray_lightning_tpu_torch.core.optim import opt_state_bytes
     from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
     kw = tw.NANO if size == "nano" else {}
     jmod = JaxGPTModule(config=jax_gpt2_config(size, **kw))
@@ -347,16 +344,16 @@ def test_adafactor_state_differs_from_the_jax_preset_on_the_fused_qkv(
                     for x in jax.tree_util.tree_leaves(state))
     cfg = gpt2_config(size, **kw)
     port = TransformerLM(cfg, device="meta")
-    opt = make_optimizer("adafactor", 3e-4)(port.parameters())
+    opt = GPTModule(config=cfg, optimizer="adafactor").configure_optimizers()(
+        port.parameters())
     for p in port.parameters():
         p.grad = torch.empty_like(p)
     opt.step()
-    port_bytes = opt_state_bytes(opt)
-    qkv = 3 * cfg.d_model                   # 3·H·D rows of d columns
-    qkv_moments = cfg.n_layers * 4 * (qkv * cfg.d_model - qkv - cfg.d_model)
-    assert _factored_dims((cfg.d_model, 3, cfg.n_heads,
+    assert _factored_dims((cfg.n_layers, cfg.d_model, 3, cfg.n_heads,
                            cfg.d_model // cfg.n_heads), True) is None
-    assert _factored_dims((qkv, cfg.d_model), True) is not None
-    assert abs(jax_bytes - port_bytes - qkv_moments) < 1024
-    if size == "small":     # phase O's adafactor bytes (PERF.md, PR 7)
-        assert port_bytes == 250_167_076
+    qkv = port.stack.blocks[0].attn.qkv.weight
+    assert opt.state[qkv]["v"].shape == qkv.shape       # kept whole
+    assert len(opt.param_groups) == len(jax.tree_util.tree_leaves(params))
+    assert opt_state_bytes(opt) == jax_bytes
+    if size == "small":     # phase O's adafactor bytes
+        assert jax_bytes == 334_953_400

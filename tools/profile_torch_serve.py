@@ -1,8 +1,8 @@
-"""Where a decode or prefill dispatch of the PyTorch/CUDA port's serving path spends its time.
+"""Where a decode, prefill or chunk dispatch of the PyTorch/CUDA port's serving path spends its time.
 
     python3 tools/profile_torch_serve.py [--kv-dtype int8] [--steps 20]
         [--weight-dtype int8|int4] [--matmul-kernel cuda|torch]
-        [--phase decode|prefill]
+        [--phase decode|prefill|chunk]
 
 Needs one NVIDIA GPU. Builds the serving path of ``chip_smoke.py`` phase 2
 (GPT-2-small at full width, random weights from
@@ -16,7 +16,13 @@ activity). ``--phase prefill`` times prefill dispatches instead: the
 trace's first 8 prompts admitted together (one dispatch of 8 x 128
 tokens, ending in the first tokens' host copy), then cancelled -- 3
 times to warm up, then ``--steps`` times in each window, the cancels
-outside the host timing. Prints one JSON line with the card, the host
+outside the host timing. ``--phase chunk`` times chunk dispatches of
+``chip_smoke.py`` phase L's engine (``prefill_chunk=128``, the prefix
+cache off so nothing is adopted): the chunks of the phase's first
+896-token prompt in turn (keys 128 to 896), each followed by a
+synchronize inside the timing (a chunk that is not the last ends in no
+host copy); the request is cancelled after its last chunk and admitted
+again, outside the timing. Prints one JSON line with the card, the host
 ms per dispatch, the device's busy ms per dispatch (sum of kernel times
 in the profile),
 the device's idle share (1 - busy / host ms of the unprofiled window),
@@ -54,7 +60,7 @@ def main() -> int:
     ap.add_argument("--matmul-kernel", default=None,
                     choices=[None, "cuda", "torch"])
     ap.add_argument("--phase", default="decode",
-                    choices=["decode", "prefill"])
+                    choices=["decode", "prefill", "chunk"])
     args = ap.parse_args()
     matmul_kernel = args.matmul_kernel
     if args.weight_dtype is not None and matmul_kernel is None:
@@ -69,10 +75,12 @@ def main() -> int:
                           chip_smoke.random_flax_params(cfg, rng)
                           ).state_dict()
     trace = chip_smoke.make_trace(rng, cfg.vocab_size)
+    serve = (dict(chip_smoke.L_SERVE, prefix_cache=False)
+             if args.phase == "chunk" else chip_smoke.SERVE)
     eng = ServeEngine(TransformerLM(cfg, device="meta"), sd,
                       device="cuda", attention_kernel="cuda",
                       kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
-                      matmul_kernel=matmul_kernel, **chip_smoke.SERVE)
+                      matmul_kernel=matmul_kernel, **serve)
     rounds = iter(range(1 << 30))
 
     def admit():
@@ -94,6 +102,23 @@ def main() -> int:
             eng.step()                  # ends in a host copy
             return time.perf_counter() - t
         warmup = 5
+    elif args.phase == "chunk":
+        long_trace, kinds = chip_smoke.make_long_trace(rng, cfg.vocab_size)
+        prompt = long_trace[kinds.index("long")][1]["prompt"]
+        held = []
+
+        def dispatch() -> float:
+            if not eng.chunk_pending:   # admit the prompt again, untimed
+                for r in held:
+                    eng.cancel(r.id)
+                held[:] = [Request(id=next(rounds), prompt=prompt,
+                                   max_new_tokens=64)]
+                eng.prefill(held)
+            t = time.perf_counter()
+            eng.prefill_chunk_step()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+        warmup = 7
     else:
         def dispatch() -> float:
             t = time.perf_counter()
