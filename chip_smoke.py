@@ -57,11 +57,11 @@ Q1. The fused dequant-matmul kernel (K5) against its plain PyTorch
    time, its bound and what bounds it, the plain version's time and the
    time of ``torch.matmul`` by the weight already dequantized to x's dtype
    (cuBLAS, no dequant in the timed call). M=8 runs the decode GEMVs,
-   M=1024, M=128 and M=7 the tensor-core kernel (bf16) or the tiled one
-   (f32). Then two rows each for bf16 x with int8 and int4 codes: a
+   M=1024, M=128, M=40 and M=7 the tensor-core kernel (bf16) or the tiled
+   one (f32). Then three rows each for bf16 x with int8 and int4 codes: a
    forward's 49 calls (n_layers x qkv, out, up, down, and the head) at
-   M=1024 (a prefill) and at M=128 (a chunk), times, cuBLAS times and
-   bounds summed.
+   M=1024 (a prefill), at M=128 (a chunk) and at M=40 (a verify), times,
+   cuBLAS times and bounds summed.
 Q2. Quantized serving: phase 2's trace served by ``ServeClient(...,
    page_native=True, attention_kernel="cuda", matmul_kernel="cuda")``
    with ``weight_dtype="int8"`` and again with ``"int4"``. Every request
@@ -100,6 +100,26 @@ L. Long prompts and shared prefixes: GPT-2-small (phase 2's weights)
    the chunk's shape (B=1, T=128, bf16, q a fused-qkv view, end-aligned)
    for S = 128, 512 and 1024 keys, held by ``cf.flash_out_bound``: its
    time, bound, plain version's time and the fastest SDPA forward's.
+S. Speculative decoding: phase 2's weights and trace through
+   ``ServeClient(..., page_size=16, num_slots=8, page_native=True,
+   attention_kernel="cuda", draft_model=..., draft_params=..., spec_k=4)``.
+   (a) The draft is a 2-layer sibling cut from the target (its
+   embeddings, final LayerNorm and first two blocks, by name); bf16 KV,
+   then int8 KV. Every request finishes with its budget; K1 launches
+   n_layers times per verify round, every launch at T = 5. Printed: the
+   accept rate (accepted over judged drafts), committed tokens per
+   dispatch, ms per spec dispatch (draft refills included), decode
+   tokens/s, the refills and their ms, beside phase 2's non-spec figures,
+   and how many greedy requests equal phase 2's tokens (bf16:
+   information only). (b) f32 with the kernels: the spec engine's greedy
+   tokens equal the non-spec engine's, request by request. (c) The
+   target as its own draft, f32: at least 0.99 of judged drafts
+   accepted, and every round that does not finish a row commits k+1
+   tokens. (d) ``weight_dtype="int8", draft_weight_dtype="int8",
+   matmul_kernel="cuda"`` with (a)'s draft: K5 on ``tc`` for the verify
+   (M = 40), the target's prefills and the draft's refills (M = 1024), on
+   the GEMVs for the draft's feeds (M = 8), never on ``tiled_f32``; the
+   engine's param bytes are Q2's int8 target plus the draft's codes.
 T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
    max_epochs=1, limit_train_batches=20, limit_val_batches=2,
    seed=0).fit(GPTModule(config=gpt2_config("small",
@@ -194,17 +214,21 @@ C. The command line on the card, flags only: ``python -m
    (``train_loss``, the mean of its steps' losses, and ``val_loss``)
    equal the same fit built by hand in this process, bitwise.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
-   line ``{"ok": true, "device": {...}}``. K1's launches are phase 2's
-   and phase L's bf16 runs'. K2 has two entries: ``flash_fwd`` at the
+   line ``{"ok": true, "device": {...}}``. K1 has two entries:
+   ``paged_attention`` at T=1 with phase 2's and phase L's bf16 runs'
+   launches, ``paged_attention_verify`` at T=5 with phase S (a)'s bf16
+   run's. K2 has two entries: ``flash_fwd`` at the
    training shape with T2's launches, ``flash_fwd_chunk`` at the chunk's
-   shape (S=1024) with phase L's bf16 launches. K5 has three entries,
+   shape (S=1024) with phase L's bf16 launches. K5 has four entries,
    each one forward's 49 calls, bf16 x, int8 codes (times and bound
    their sums, the error the largest of them): ``quantized_matmul`` at
-   M=8 (a decode step, the GEMVs; Q2's and phase L's int8 launches on
-   those routes), ``quantized_matmul_prefill`` at M=1024 (a prefill, the
-   tensor-core kernel; Q2's ``tc`` launches) and
+   M=8 (a decode step, the GEMVs; Q2's, phase L's and phase S (d)'s int8
+   launches on those routes), ``quantized_matmul_prefill`` at M=1024 (a
+   prefill, the tensor-core kernel; Q2's ``tc`` launches),
    ``quantized_matmul_chunk`` at M=128 (a chunk dispatch, the
-   tensor-core kernel; phase L's ``tc`` launches).
+   tensor-core kernel; phase L's ``tc`` launches) and
+   ``quantized_matmul_verify`` at M=40 (a spec verify, the tensor-core
+   kernel; phase S (d)'s verify launches).
 """
 import contextlib
 import dataclasses
@@ -390,7 +414,7 @@ def phase1_kernel_vs_plain(flush):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for quantized in (False, True):
-            for T in (1, 4):
+            for T in (1, 4, S_K + 1):
                 args = attention_inputs(dtype, quantized, T, gen)
                 out = pa.paged_attention(*args)
                 again = pa.paged_attention(*args)
@@ -476,13 +500,16 @@ WARM = [(0, dict(prompt=[1, 2, 3], max_new_tokens=4)),
                  top_k=40))]
 
 
-def serve(model, sd, trace, **kw):
+def serve(model, sd, trace, observe=None, **kw):
     """Replay ``trace`` through a fresh ``ServeClient`` (tick clock), with
-    host wall stamps around every engine dispatch. Returns the
-    completions, the engine, and the timings."""
+    host wall stamps around every engine dispatch; ``observe(engine)``
+    runs before the first. Returns the completions, the engine, and the
+    timings."""
     from ray_lightning_tpu_torch.serve import ServeClient
     client = ServeClient(model, sd, device=DEVICE, **SERVE, **kw)
     eng = client.engine
+    if observe is not None:
+        observe(eng)
     stamps = {"submit": {}, "first": {}, "prefill_s": [], "step_s": []}
     submit, prefill, step = client.submit, eng.prefill, eng.step
 
@@ -563,7 +590,8 @@ def phase2_main_path(cfg, sd, trace, card):
                    kernel_launches=launches,
                    **serving_times(done, st), card=card)
         print("phase2", json.dumps(res), flush=True)
-        results[res["kv_dtype"]] = res
+        results[res["kv_dtype"]] = dict(
+            res, tokens={rid: c.tokens for rid, c in done.items()})
     return results
 
 
@@ -678,9 +706,10 @@ def phase_q1_matmul_vs_plain(flush):
             for dtype in (torch.bfloat16, torch.float32):
                 wd = qt.dequantize().to(dtype)
                 w2d = wd.reshape(N, K).T if transpose else wd.reshape(K, N)
-                # decode, prefill, ragged; bf16 x also a chunk's M
-                Ms = (8, 1024, 7) + ((L_CHUNK,) if dtype == torch.bfloat16
-                                     else ())
+                # decode, prefill, ragged; bf16 x also a chunk's M and
+                # a spec verify's
+                Ms = (8, 1024, 7) + ((L_CHUNK, S_VERIFY_M)
+                                     if dtype == torch.bfloat16 else ())
                 for M in Ms:
                     x = torch.randn(M, K, generator=gen,
                                     device=DEVICE).to(dtype)
@@ -721,7 +750,8 @@ def phase_q1_matmul_vs_plain(flush):
                 del wd, w2d
         del w
     for weight_dtype in ("int8", "int4"):
-        for what, M in (("prefill", 1024), ("chunk", L_CHUNK)):
+        for what, M in (("prefill", 1024), ("chunk", L_CHUNK),
+                        ("verify", S_VERIFY_M)):
             fwd = forward_sum(rows, weight_dtype, M)
             print(f"phaseQ1 {what} forward", json.dumps(fwd), flush=True)
     return rows
@@ -1112,6 +1142,223 @@ def phase_l_k2_chunk_shapes(flush):
         print("phaseL flash_fwd chunk shape", json.dumps(row), flush=True)
         rows.append(row)
     return rows
+
+
+# -------------------------------------------------------------- phase S
+S_K = 4                          # draft tokens a round: the verify's T = 5
+S_VERIFY_M = SERVE["num_slots"] * (S_K + 1)   # the verify's K5 rows: 40
+S_DRAFT_LAYERS = 2
+# the identical draft (the target itself, f32): the share of judged
+# drafts it must have accepted
+S_ACCEPT_IDENTICAL = 0.99
+
+
+def draft_state(sd, n_layers):
+    """The draft's state dict cut from the target's: the token and position
+    embeddings, the final LayerNorm and the first ``n_layers`` blocks, by
+    name."""
+    keep = tuple(f"stack.blocks.{i}." for i in range(n_layers))
+    return {k: v for k, v in sd.items()
+            if not k.startswith("stack.blocks.") or k.startswith(keep)}
+
+
+def spec_kw(dcfg, dsd):
+    from ray_lightning_tpu_torch.models import TransformerLM
+    return dict(draft_model=TransformerLM(dcfg, device="meta"),
+                draft_params=dsd, spec_k=S_K)
+
+
+def record_spec(eng, seen):
+    """Wrap a spec engine's draft refills with host timing (synchronized)
+    and keep its draft's param bytes; ``seen`` collects both."""
+    spec = eng.spec
+    seen["draft_param_bytes"] = spec.param_bytes()
+    seen["param_bytes"] = eng.param_bytes()
+    seen["refill_s"] = []
+    refill = spec.refill
+
+    def timed(slot, context):
+        t0 = time.perf_counter()
+        refill(slot, context)
+        torch.cuda.synchronize()
+        seen["refill_s"].append(time.perf_counter() - t0)
+    spec.refill = timed
+
+
+def spec_figures(done, eng, st, seen):
+    """Phase S's end-to-end figures of one run: the accept rate (accepted
+    over judged drafts), committed tokens per spec dispatch, ms per spec
+    dispatch (draft refills included) and decode tokens/s, and the
+    refills' count and ms."""
+    judged = eng.spec_accepted_tokens + eng.spec_rejected_tokens
+    t = serving_times(done, st)
+    refill_s = seen["refill_s"]
+    return dict(
+        spec_dispatches=eng.steps, spec_rounds=eng.spec_rounds,
+        draft_steps=eng.spec_draft_steps,
+        accepted=eng.spec_accepted_tokens,
+        rejected=eng.spec_rejected_tokens,
+        accept_rate=eng.spec_accepted_tokens / judged if judged else None,
+        committed_per_dispatch=t["decode_tokens"] / eng.steps,
+        spec_dispatch_ms_median=t["step_ms_median"],
+        decode_tokens_per_s=t["decode_tokens_per_s"],
+        refills=len(refill_s),
+        refill_ms_median=1e3 * statistics.median(refill_s),
+        refill_ms_total=1e3 * sum(refill_s),
+        ttft_ms_median=t["ttft_ms_median"], decode_tokens=t["decode_tokens"])
+
+
+def greedy_ids(trace):
+    return [rid for rid, (_, kw) in enumerate(trace)
+            if not kw.get("temperature")]
+
+
+def phase_s_speculative(cfg, sd, trace, served, quantized, card):
+    """Speculative decoding at GPT-2-small's width: (a) a 2-layer draft
+    cut from the target, bf16 then int8 KV, K1 at T = k+1 once per layer
+    and round; (b) f32 greedy tokens equal the non-spec engine's; (c) the
+    target as its own draft accepts (almost) everything, every round not
+    a row's last commits k+1; (d) int8 weights for both models through
+    K5, the verify on ``tc``, the draft's feeds on the GEMVs."""
+    import ray_lightning_tpu_torch.serve.engine as engine_mod
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    dcfg = dataclasses.replace(cfg, n_layers=S_DRAFT_LAYERS)
+    dsd = draft_state(sd, S_DRAFT_LAYERS)
+    proto = TransformerLM(cfg, device="meta")
+    greedy = greedy_ids(trace)
+    out = {"runs": {}}
+
+    # (a) the realistic draft, bf16 and int8 KV
+    for kv_dtype in (None, "int8"):
+        label = f"phaseS (a) kv_dtype={kv_dtype}"
+        kw = dict(attention_kernel="cuda", kv_dtype=kv_dtype,
+                  **spec_kw(dcfg, dsd))
+        serve(proto, sd, WARM, **kw)
+        seen = {}
+        pa.reset_kernel_launches()
+        done, eng, st = serve(proto, sd, trace,
+                              observe=lambda e: record_spec(e, seen), **kw)
+        by_t = pa.launches_by_t()
+        check_completions(done, trace, cfg.vocab_size, label)
+        expect = {S_K + 1: cfg.n_layers * eng.spec_rounds}
+        check(eng.spec_rounds > 0 and by_t == expect,
+              f"{label}: K1 launches by T {by_t}, expected n_layers x "
+              f"rounds, all at T = k+1: {expect}")
+        check(eng.decode_substeps == eng.spec_rounds
+              and eng.spec_draft_steps == (S_K + 1) * eng.spec_rounds,
+              f"{label}: counters {eng.decode_substeps} "
+              f"{eng.spec_draft_steps} against {eng.spec_rounds} rounds")
+        key = kv_dtype or "bf16"
+        ref = served[key]
+        same = sum(done[r].tokens == ref["tokens"][r] for r in greedy)
+        res = dict(kv_dtype=key, k=S_K, draft_layers=S_DRAFT_LAYERS,
+                   k1_launches=by_t.get(S_K + 1, 0),
+                   **spec_figures(done, eng, st, seen),
+                   non_spec=dict(
+                       (n, ref[n]) for n in (
+                           "decode_steps", "decode_tokens_per_s",
+                           "step_ms_median", "ttft_ms_median")),
+                   greedy_requests_equal_non_spec=f"{same}/{len(greedy)}",
+                   card=card)
+        print("phaseS", json.dumps(res), flush=True)
+        out["runs"][key] = res
+
+    # (b) f32 greedy identity with the non-spec engine; (c) the target
+    # as its own draft, f32
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    proto32 = TransformerLM(cfg32, device="meta")
+    plain, _, _ = serve(proto32, sd, trace, attention_kernel="cuda")
+    spec32, eng, _ = serve(proto32, sd, trace, attention_kernel="cuda",
+                           **spec_kw(dataclasses.replace(
+                               dcfg, dtype=torch.float32), dsd))
+    check_completions(spec32, trace, cfg.vocab_size, "phaseS (b)")
+    differ = [r for r in greedy if spec32[r].tokens != plain[r].tokens]
+    print("phaseS (b) f32 greedy tokens, spec against non-spec: "
+          f"{len(greedy) - len(differ)}/{len(greedy)} requests equal "
+          f"(accept rate {eng.spec_accepted_tokens}/"
+          f"{eng.spec_accepted_tokens + eng.spec_rejected_tokens})",
+          flush=True)
+    check(not differ, f"phaseS (b): f32 spec tokens differ from non-spec "
+          f"for requests {differ}")
+
+    rounds = []
+    impl = engine_mod._spec_rounds_page_native_impl
+
+    def recorded(*a, **k):
+        res = impl(*a, **k)
+        rounds.append((res[5].cpu(), res[8].cpu()))   # emitted, finished
+        return res
+    engine_mod._spec_rounds_page_native_impl = recorded
+    try:
+        ident, eng, _ = serve(proto32, sd, trace, attention_kernel="cuda",
+                              **spec_kw(cfg32, sd))
+    finally:
+        engine_mod._spec_rounds_page_native_impl = impl
+    check_completions(ident, trace, cfg.vocab_size, "phaseS (c)")
+    judged = eng.spec_accepted_tokens + eng.spec_rejected_tokens
+    rate = eng.spec_accepted_tokens / judged
+    short = 0
+    for emitted, finished in rounds:
+        n = (emitted >= 0).sum(-1)                     # (rounds, B)
+        short += int(((n > 0) & ~finished & (n != S_K + 1)).sum())
+    res = dict(accepted=eng.spec_accepted_tokens,
+               rejected=eng.spec_rejected_tokens, accept_rate=rate,
+               threshold=S_ACCEPT_IDENTICAL, spec_rounds=eng.spec_rounds,
+               non_final_rounds_short_of_k_plus_1=short,
+               greedy_requests_equal_non_spec=sum(
+                   ident[r].tokens == plain[r].tokens for r in greedy),
+               card=card)
+    print("phaseS (c) identical draft", json.dumps(res), flush=True)
+    check(rate >= S_ACCEPT_IDENTICAL,
+          f"phaseS (c): accept rate {rate} < {S_ACCEPT_IDENTICAL}")
+    check(short == 0, f"phaseS (c): {short} non-final rounds committed "
+          "fewer than k+1 tokens")
+    out["identical"] = res
+    del plain, spec32, ident
+
+    # (d) int8 weights for target and draft through K5
+    label = "phaseS (d) int8 weights"
+    kw = dict(attention_kernel="cuda", matmul_kernel="cuda",
+              weight_dtype="int8", draft_weight_dtype="int8",
+              **spec_kw(dcfg, dsd))
+    serve(proto, sd, WARM, **kw)
+    seen = {}
+    qmm.reset_kernel_launches()
+    done, eng, st = serve(proto, sd, trace,
+                          observe=lambda e: record_spec(e, seen), **kw)
+    routes = qmm.route_launches()
+    check_completions(done, trace, cfg.vocab_size, label)
+    per_forward, draft_forward = 4 * cfg.n_layers + 1, 4 * S_DRAFT_LAYERS + 1
+    refills = len(seen["refill_s"])
+    # bf16 compute: the verify (M = 8 x 5 = 40), the target's prefills and
+    # the draft's refills (M = 1024) on the tensor cores; the draft's
+    # feeds (M = 8) on the GEMVs
+    want = {"gemv_dense": 4 * S_DRAFT_LAYERS * eng.spec_draft_steps,
+            "gemv_attend": eng.spec_draft_steps,
+            "tc": per_forward * (eng.spec_rounds + eng.prefills)
+            + draft_forward * refills,
+            "tiled_f32": 0}
+    check(routes == want, f"{label}: K5 routes {routes}, expected {want}")
+    target_bytes = quantized["int8"]["param_bytes"]
+    check(seen["param_bytes"] == target_bytes + seen["draft_param_bytes"]
+          and seen["draft_param_bytes"] > 0,
+          f"{label}: param bytes {seen['param_bytes']} != the target's "
+          f"{target_bytes} + the draft's {seen['draft_param_bytes']}")
+    res = dict(weight_dtype="int8", draft_weight_dtype="int8",
+               route_launches=routes,
+               verify_tc_launches=per_forward * eng.spec_rounds,
+               param_bytes=seen["param_bytes"],
+               draft_param_bytes=seen["draft_param_bytes"],
+               **spec_figures(done, eng, st, seen),
+               non_spec=dict((n, quantized["int8"][n]) for n in (
+                   "decode_steps", "decode_tokens_per_s", "step_ms_median",
+                   "ttft_ms_median")),
+               card=card)
+    print("phaseS", json.dumps(res), flush=True)
+    out["runs"]["int8-weights"] = res
+    return out
 
 
 # -------------------------------------------------------------- phase T1
@@ -2361,6 +2608,7 @@ def main() -> int:
     phase3_kernel_vs_plain_path(cfg, sd, trace, tag="phaseQ3",
                                 paths=PATHS_QUANTIZED, weight_dtype="int8")
     long_prompts = phase_l_long_prompts(cfg, sd, rng, card)
+    speculative = phase_s_speculative(cfg, sd, trace, served, quantized, card)
     del sd
 
     fpath = flash[("path", "bfloat16")]
@@ -2383,14 +2631,23 @@ def main() -> int:
     path = next(r for r in rows
                 if (r["q"], r["pages"], r["T"]) == ("bfloat16", "bfloat16",
                                                     1))
-    kernels = [dict(
-        name=pa.KERNEL, route="cuda",
-        source="ray_lightning_tpu_torch/csrc/paged_attention.cu",
-        replaces="ray_lightning_tpu/models/pallas_attention.py:83",
-        launches=launches + long_prompts["runs"]["bf16"]["k1_launches"],
-        max_abs_err=path["max_abs_err"], ms=path["ms"],
-        plain_ms=path["plain_ms"], bound_ms=path["bound_ms"],
-        bound_by=path["bound_by"], library_ms=path["library_ms"])]
+    # K1 at the spec verify's T = k+1, launches from phase S (a)'s bf16 run
+    verify = next(r for r in rows
+                  if (r["q"], r["pages"], r["T"]) == ("bfloat16", "bfloat16",
+                                                      S_K + 1))
+    kernels = []
+    for name, row, n in (
+            (pa.KERNEL, path,
+             launches + long_prompts["runs"]["bf16"]["k1_launches"]),
+            (pa.KERNEL + "_verify", verify,
+             speculative["runs"]["bf16"]["k1_launches"])):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="ray_lightning_tpu_torch/csrc/paged_attention.cu",
+            replaces="ray_lightning_tpu/models/pallas_attention.py:83",
+            launches=n, max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
     flash_source = "ray_lightning_tpu_torch/csrc/flash_attention.cu"
     for name, kind, line, errs, lib in (
             ("flash_fwd", "fwd", 41, ("out",), fpath["library_fwd_ms"]),
@@ -2419,16 +2676,21 @@ def main() -> int:
                                  "bound_ms", "bound_by", "library_ms")}))
     # K5: one forward's calls -- n_layers x (qkv, out, up, down) and the
     # head -- bf16 x, int8 codes: at M=8 (a decode step, the GEMVs;
-    # launches from Q2's int8 run and phase L's int8-weights run), at
-    # M=1024 (a prefill, the tensor cores; Q2's) and at M=128 (a chunk,
-    # the tensor cores; phase L's)
+    # launches from Q2's int8 run, phase L's int8-weights run and the
+    # draft's feeds in phase S (d)), at M=1024 (a prefill, the tensor
+    # cores; Q2's), at M=128 (a chunk, the tensor cores; phase L's) and
+    # at M=40 (a spec verify, the tensor cores; phase S (d)'s)
     q2 = quantized["int8"]["route_launches"]
     ql = long_prompts["runs"]["int8-weights"]["k5_routes"]
+    qs = speculative["runs"]["int8-weights"]
     decode = ("gemv_dense", "gemv_attend")
     for name, M, launches5 in (
-            (qmm.KERNEL, 8, sum(q2[r] + ql[r] for r in decode)),
+            (qmm.KERNEL, 8, sum(q2[r] + ql[r] + qs["route_launches"][r]
+                                for r in decode)),
             (qmm.KERNEL + "_prefill", 1024, q2["tc"]),
-            (qmm.KERNEL + "_chunk", L_CHUNK, ql["tc"])):
+            (qmm.KERNEL + "_chunk", L_CHUNK, ql["tc"]),
+            (qmm.KERNEL + "_verify", S_VERIFY_M,
+             qs["verify_tc_launches"])):
         fwd = forward_sum(qrows, "int8", M, cfg.n_layers)
         kernels.append(dict(
             name=name, route="cuda",

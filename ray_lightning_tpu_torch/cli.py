@@ -16,7 +16,7 @@ behind ``--config``; nothing else imports it.
 
 ``STRATEGY_REGISTRY`` holds the JAX package's names and aliases for the
 four ported strategies; its multi-axis mesh strategies' names raise
-``NotImplementedError`` (``ROADMAP.md`` A10).
+``NotImplementedError`` (``ROADMAP.md`` A, item 9).
 
     python -m ray_lightning_tpu_torch.cli --model-class \\
         ray_lightning_tpu_torch.models.GPTModule fit --strategy ddp_sharded \\
@@ -45,7 +45,7 @@ STRATEGY_REGISTRY: Dict[str, Type[Strategy]] = {}
 #: the JAX package's names of strategies not ported yet
 UNPORTED_STRATEGIES = ("mesh_tpu", "mesh", "sequence_parallel_tpu", "sp",
                        "sequence_parallel")
-_MESH_ITEM = "ROADMAP.md A10, multi-axis meshes"
+_MESH_ITEM = "ROADMAP.md A, item 9: multi-axis meshes"
 
 
 def register_strategy(cls: Type[Strategy], *aliases: str) -> None:

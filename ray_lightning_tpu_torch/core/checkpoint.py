@@ -420,15 +420,19 @@ def find_resume_candidates(root: str,
     committed candidates beyond the newest ``keep_last_n``."""
     if not os.path.isdir(root):
         return []
-    out = []
+    stamped = []
     for name in sorted(os.listdir(root)):
         if _TMP_MARK in name:
             continue
         path = os.path.join(root, name)
         if os.path.isdir(path) or name.endswith(".ckpt"):
-            out.append(path)
-    out.sort(key=lambda p: (step_of(p), os.path.getmtime(p), p),
-             reverse=True)
+            try:
+                stamped.append((step_of(path), os.path.getmtime(path), path))
+            except FileNotFoundError:
+                # gone since the listing: an async writer moved its
+                # previous copy aside and removed it
+                continue
+    out = [path for *_, path in sorted(stamped, reverse=True)]
     if keep_last_n is not None:
         pruned = set(prune_checkpoints(root, keep_last_n))
         out = [p for p in out if p not in pruned]

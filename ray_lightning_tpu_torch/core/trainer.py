@@ -940,7 +940,7 @@ class Trainer:
             raise ValueError(
                 "async_save requires save_format='orbax' (the stream "
                 "format is one synchronous host write)")
-        ckpt = self.dump_checkpoint(full=save_format != "orbax")
+        ckpt = self.dump_checkpoint(consolidate=save_format != "orbax")
         if save_format == "orbax":
             from ray_lightning_tpu_torch.core.checkpoint import \
                 save_sharded_checkpoint
@@ -971,12 +971,12 @@ class Trainer:
         store is installed in this slice, so nothing is mirrored."""
         del ckpt
 
-    def dump_checkpoint(self, full: bool = True) -> Dict[str, Any]:
+    def dump_checkpoint(self, consolidate: bool = True) -> Dict[str, Any]:
         """The checkpoint dict: progress, loop position, world size, the
         train state, callback states and tensors, and the module's own
         state. Its tensors alias the live ones. A collective under a
-        process group where the state is sharded; ``full=False`` keeps
-        FSDP's shards (the directory format writes them)."""
+        process group where the state is sharded; ``consolidate=False``
+        keeps FSDP's shards (the directory format writes them)."""
         module_state: Dict[str, Any] = {}
         if self._module is not None:
             self._module.on_save_checkpoint(module_state)
@@ -985,7 +985,8 @@ class Trainer:
             "global_step": self.global_step,
             "loop": {"batch_in_epoch": int(self._batch_in_epoch)},
             "world": {"world_size": int(self.strategy.num_workers)},
-            "state": self.strategy.state_dict(self.train_state, full=full),
+            "state": self.strategy.state_dict(self.train_state,
+                                              full=consolidate),
             "callbacks": {type(cb).__name__: cb.state_dict()
                           for cb in self.callbacks},
             "module": module_state,

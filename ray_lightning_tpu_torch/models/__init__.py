@@ -1,7 +1,9 @@
 from ray_lightning_tpu_torch.models.boring import BoringModel
-from ray_lightning_tpu_torch.models.generate import (decode_step_paged,
+from ray_lightning_tpu_torch.models.generate import (decode_step,
+                                                    decode_step_paged,
                                                     row_seed,
-                                                    sample_logits_rows)
+                                                    sample_logits_rows,
+                                                    verify_step_paged)
 from ray_lightning_tpu_torch.models.gpt import (GPT2_SIZES, GPTModule,
                                                gpt2_config)
 from ray_lightning_tpu_torch.models.quant import (QTensor, dequantize_params,
@@ -16,7 +18,8 @@ from ray_lightning_tpu_torch.models.transformer import (DenseKV, PagedKV,
 
 __all__ = [
     "BoringModel",
-    "decode_step_paged", "row_seed", "sample_logits_rows", "GPT2_SIZES",
+    "decode_step", "decode_step_paged", "row_seed", "sample_logits_rows",
+    "verify_step_paged", "GPT2_SIZES",
     "GPTModule", "gpt2_config", "DenseKV", "PagedKV", "TransformerConfig",
     "TransformerLM", "latch_eos", "new_arena", "new_cache", "QTensor",
     "dequantize_params", "is_quantized", "param_bytes", "quantize_params",

@@ -5,7 +5,9 @@ batch of ragged, left-aligned prompts in one forward;
 :func:`_chunk_prefill_impl` runs one chunk of one long prompt through
 its pages; :func:`decode_step_paged` runs one cached step through the
 page arena; :func:`sample_logits_rows` samples each row with its own
-parameters.
+parameters. Speculative decoding adds :func:`decode_step` (a draft's
+step on its dense per-row cache) and :func:`verify_step_paged` (the
+target scoring T tokens a row through the arena).
 
 **Sampling keys.** The JAX engine draws row ``r``'s noise from the
 threefry key ``fold_in(fold_in(base, seed), step)``, which torch cannot
@@ -93,6 +95,26 @@ def decode_step_paged(model, arena, tokens: torch.Tensor,
     the engine's write-masked table (−1 rows write nothing that is read).
     Returns the last logits (B, V)."""
     return _arena_apply(model, arena, tokens, kv_positions, page_table)[:, -1]
+
+
+def verify_step_paged(model, arena, tokens: torch.Tensor,
+                      kv_positions: torch.Tensor, page_table: torch.Tensor):
+    """The speculative verify through the page arena: ``tokens`` (B, T)
+    -- each row's current token and its T-1 draft proposals -- at
+    ``kv_positions`` (B, T), the run ``pos..pos+T-1``. Every token's K/V
+    is written before the read side attends, so offset ``j``'s logits
+    are what T sequential :func:`decode_step_paged` calls give. Returns
+    all of them, (B, T, V)."""
+    return _arena_apply(model, arena, tokens, kv_positions, page_table)
+
+
+def decode_step(model, cache, tokens: torch.Tensor,
+                kv_positions: torch.Tensor):
+    """ONE cached step on dense per-row caches (a list of ``DenseKV``,
+    updated in place): ``tokens`` (B, 1) at ``kv_positions`` (B, 1), each
+    row at its own position. Returns the last logits (B, V)."""
+    return model(tokens, positions=kv_positions, kv_positions=kv_positions,
+                 cache=cache)[:, -1]
 
 
 def _prefill_impl(model, prompt_tokens: torch.Tensor,

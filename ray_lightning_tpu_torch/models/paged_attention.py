@@ -24,15 +24,15 @@ pieces, in the layout and argument order of the JAX ``paged_attention``:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ray_lightning_tpu_torch.models.quant import kv_dequantize
 
 __all__ = ["paged_attention", "paged_attention_reference",
-           "kernel_launches", "reset_kernel_launches", "cluster_size",
-           "smem_bytes", "launch_geometry"]
+           "kernel_launches", "launches_by_t", "reset_kernel_launches",
+           "cluster_size", "smem_bytes", "launch_geometry"]
 
 _BIG_NEG = torch.finfo(torch.float32).min
 KERNEL = "paged_attention"
@@ -46,6 +46,7 @@ _KEYS_PER_BLOCK = 64   # a full row gives each block at least this many keys
 _CHUNK_BYTES = 16384   # most bytes of K (or of V) a block stages at once
 
 _launches = 0
+_launches_by_t: Dict[int, int] = {}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -55,9 +56,16 @@ def kernel_launches() -> int:
     return _launches
 
 
+def launches_by_t() -> Dict[int, int]:
+    """:func:`kernel_launches` split by the query tokens a row T (1 for a
+    decode step, k+1 for a speculative verify)."""
+    return dict(_launches_by_t)
+
+
 def reset_kernel_launches() -> None:
     global _launches
     _launches = 0
+    _launches_by_t.clear()
 
 
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
@@ -259,6 +267,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged_attention kernel launch failed: {msg}")
     global _launches
     _launches += 1
+    _launches_by_t[T] = _launches_by_t.get(T, 0) + 1
     return out
 
 

@@ -9,6 +9,10 @@ of :meth:`TransformerLM.forward`:
   block of T tokens is written at the cache's index and attends the
   whole ``max_seq_len`` cache under an intra-block causal mask -- the
   serving prefill;
+- **per-row cache** (``cache`` = a list of :class:`DenseKV` plus
+  ``kv_positions`` (B, T)): each row block-writes its T tokens at its
+  own positions and query ``q`` of row ``b`` attends keys
+  ``<= kv_positions[b, q]`` -- a speculative draft's decode step;
 - **page-native** (``cache`` = a list of :class:`PagedKV` plus
   ``page_table`` and ``kv_positions``): each row writes its T tokens'
   K/V straight into its arena pages and reads them back through the
@@ -45,8 +49,12 @@ weight layout.
 
 Caches and arenas are updated IN PLACE (JAX returns new ones): a
 serving arena is the one large allocation of the engine and is never
-copied. Not yet ported (they raise ``NotImplementedError``): remat,
-dropout, the ring/ulysses attention impls; nor is LoRA.
+copied. :class:`TransformerConfig` takes every field of the JAX config.
+``scan_layers``, ``scan_unroll`` and ``decode`` have no counterpart and
+change nothing (every module carries its caches). Not yet ported (they
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item): remat and
+``remat_policy``, dropout, the ring/ulysses attention impls, a softmax
+dtype other than f32, untied embeddings, segment embeddings, LoRA.
 """
 from __future__ import annotations
 
@@ -54,6 +62,7 @@ import dataclasses
 import functools
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -73,7 +82,26 @@ from ray_lightning_tpu_torch.ops.flash_attention import flash_attention
 ATTENTION_KERNELS = ("torch", "cuda")
 MATMUL_KERNELS = ("torch", "cuda")
 ATTENTION_IMPLS = ("dot", "flash")
+REMAT_POLICIES = ("dots", "dots_with_no_batch_dims",
+                  "dots_with_no_batch_dims_save_attn",
+                  "dots_with_no_batch_dims_save_attn_mlp")
 _BIG_NEG = torch.finfo(torch.float32).min
+
+
+def _as_torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, a numpy dtype or scalar type, a
+    name (``"float32"``), or anything ``np.dtype`` reads (JAX's
+    ``jnp.float32``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        name = np.dtype(dtype).name
+    except TypeError as exc:
+        raise ValueError(f"not a dtype: {dtype!r}") from exc
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise ValueError(f"no torch dtype for {dtype!r}")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,8 +125,65 @@ class TransformerConfig:
     # matmuls of quantized weights: "torch" = the plain PyTorch version,
     # "cuda" = the fused dequant-matmul kernel (inert on plain weights)
     matmul_kernel: str = "torch"
+    # -- the rest of the JAX config's fields, with its defaults --
+    # layout knobs with no counterpart here: the layers always run in a
+    # Python loop (interop takes either weight layout), and every module
+    # carries its caches whatever ``decode`` says, so a JAX config's
+    # values pass through and change nothing
+    scan_layers: bool = True
+    scan_unroll: int = 1
+    decode: bool = False
+    # refused unless at the default (NotImplementedError naming the item)
+    remat_policy: Optional[str] = None
+    attention_softmax_dtype: object = torch.float32
+    tie_embeddings: bool = True
+    num_segments: int = 0
+    lora: object = None
 
     def __post_init__(self):
+        # the JAX config's own checks first, with its errors
+        if self.scan_unroll < 1:
+            raise ValueError(
+                f"scan_unroll must be >= 1, got {self.scan_unroll}")
+        if self.scan_unroll > 1 and not self.scan_layers:
+            raise ValueError(
+                "scan_unroll is set but scan_layers=False -- the unroll "
+                "factor would be silently ignored; drop it or use "
+                "scan_layers=True")
+        if self.remat_policy is not None:
+            if not self.remat:
+                raise ValueError(
+                    "remat_policy is set but remat=False -- the policy "
+                    "would be silently ignored; pass remat=True (or drop "
+                    "the policy)")
+            if self.remat_policy not in REMAT_POLICIES:
+                raise ValueError(
+                    f"remat_policy must be one of {REMAT_POLICIES} or "
+                    f"None, got {self.remat_policy!r}")
+            raise NotImplementedError(
+                "remat_policy is not ported yet (ROADMAP.md A, item T3)")
+        # dtypes as torch dtypes, from a torch dtype or the numpy/str
+        # spelling a JAX config's jnp.float32 stands for
+        for name in ("dtype", "param_dtype", "attention_softmax_dtype"):
+            object.__setattr__(self, name,
+                               _as_torch_dtype(getattr(self, name)))
+        if self.attention_softmax_dtype != torch.float32:
+            raise NotImplementedError(
+                f"attention_softmax_dtype={self.attention_softmax_dtype} is "
+                "not ported yet (ROADMAP.md A, item 8): the softmax runs "
+                "in float32")
+        if not self.tie_embeddings:
+            raise NotImplementedError(
+                "tie_embeddings=False is not ported yet (ROADMAP.md A, "
+                "item 8): the LM head is the token embedding")
+        if self.num_segments > 0:
+            raise NotImplementedError(
+                "num_segments > 0 (segment embeddings, BERT) is not ported "
+                "yet (ROADMAP.md A, item 8: the zoo)")
+        if self.lora is not None:
+            raise NotImplementedError(
+                "lora= is not ported yet (ROADMAP.md A, item S4: "
+                "multi-LoRA serving)")
         if self.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r} (sequence "
@@ -326,7 +411,7 @@ class MultiHeadAttention(nn.Module):
             out = self._page_native_attention(q, k, v, kv_positions,
                                               page_table, kv)
         elif kv is not None:
-            k, v, mask = self._decode_cache(k, v, kv)
+            k, v, mask = self._decode_cache(k, v, kv, kv_positions)
             out = dot_product_attention(q, k, v, mask=mask)
         elif cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, causal=cfg.causal)
@@ -334,15 +419,37 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention(q, k, v, causal=cfg.causal)
         return self.out(out.reshape(B, T, cfg.n_heads * cfg.head_dim))
 
-    def _decode_cache(self, k, v, cache: DenseKV):
-        """Shared-index block write (the prefill path): the T tokens land
-        at ``cache.index`` and query ``i`` of the block attends every
-        cache position ``<= index + i``."""
+    def _decode_cache(self, k, v, cache: DenseKV, kv_positions=None):
+        """Dense cache write, then the mask over the whole cache.
+
+        Shared index (``kv_positions=None``, the prefill path): the T
+        tokens land at ``cache.index`` and query ``i`` of the block
+        attends every cache position ``<= index + i``.
+
+        Per row (``kv_positions`` (B, T), the contiguous run
+        ``kv_positions[b, 0] + 0..T-1``): row ``b`` writes its T tokens
+        from that start (clamped so the block fits, as
+        ``lax.dynamic_update_slice`` clamps) and its query ``q`` attends
+        keys ``<= kv_positions[b, q]``. ``cache.index`` advances by T as
+        bookkeeping only."""
         if not isinstance(cache, DenseKV):
             raise ValueError(
                 "a cached forward without page_table needs DenseKV caches "
                 "(models.transformer.new_cache)")
-        T = k.shape[1]
+        B, T = k.shape[:2]
+        S = cache.key.shape[1]
+        key_pos = torch.arange(S, device=k.device)
+        if kv_positions is not None:
+            pos = kv_positions.long()
+            start = pos[:, 0].clamp(0, S - T)
+            cols = start[:, None] + torch.arange(T, device=k.device)
+            rows = torch.arange(B, device=k.device)[:, None]
+            cache.key[rows, cols] = k
+            cache.value[rows, cols] = v
+            cache.index += T
+            mask = torch.where(key_pos[None, None, :] <= pos[:, :, None],
+                               0.0, _BIG_NEG)               # (B, T, S)
+            return cache.key, cache.value, mask[:, None]
         idx = cache.index
         if idx + T > cache.key.shape[1]:
             raise ValueError(
@@ -351,7 +458,6 @@ class MultiHeadAttention(nn.Module):
         cache.key[:, idx:idx + T] = k
         cache.value[:, idx:idx + T] = v
         cache.index = idx + T
-        key_pos = torch.arange(cache.key.shape[1], device=k.device)
         q_pos = idx + torch.arange(T, device=k.device)
         mask = torch.where(key_pos[None, :] <= q_pos[:, None], 0.0, _BIG_NEG)
         return cache.key, cache.value, mask[None, None]

@@ -16,9 +16,11 @@ Two clock modes:
 ``prefill_chunk=`` and ``prefix_cache=`` are the engine's: long prompts
 stream in chunk dispatches the scheduler alternates with decode, and a
 chunked request's first token (its TTFT stamp) comes with its final
-chunk. Not yet ported: async dispatch, crash supervision
-(``retry_policy``), telemetry, the request journal, tenancy and fleets
-(:data:`UNPORTED`).
+chunk. ``draft_model=``, ``draft_params=``, ``spec_k=`` and
+``draft_weight_dtype=`` make the engine's steps speculative
+(:mod:`~ray_lightning_tpu_torch.serve.spec`). Not yet ported: async
+dispatch, crash supervision (``retry_policy``), telemetry, the request
+journal, tenancy and fleets (:data:`UNPORTED`).
 """
 from __future__ import annotations
 
@@ -76,6 +78,9 @@ class ServeClient:
                  matmul_kernel: Optional[str] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
+                 draft_model=None, draft_params=None,
+                 spec_k: Optional[int] = None,
+                 draft_weight_dtype: Optional[str] = None,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
         self.engine = ServeEngine(
@@ -86,7 +91,9 @@ class ServeClient:
             attention_kernel=attention_kernel, weight_dtype=weight_dtype,
             weight_group_size=weight_group_size,
             matmul_kernel=matmul_kernel, prefill_chunk=prefill_chunk,
-            prefix_cache=prefix_cache, device=device)
+            prefix_cache=prefix_cache, draft_model=draft_model,
+            draft_params=draft_params, spec_k=spec_k,
+            draft_weight_dtype=draft_weight_dtype, device=device)
         self.scheduler = FifoScheduler(scheduler_config)
         self._clock = clock
         self._t0: Optional[float] = None

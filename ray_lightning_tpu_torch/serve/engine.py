@@ -28,13 +28,22 @@ Iteration-level scheduling over a fixed batch of **KV slots**:
    temperature/top_k/seed, counts down its own budget and latches its
    own eos; finished rows retire mid-flight and their slot and pages go
    to the next queued request.
+4. **spec round** (engines with ``draft_model=``,
+   :mod:`~ray_lightning_tpu_torch.serve.spec`): ``step()`` runs
+   ``steps_per_dispatch`` speculative rounds instead of decode steps --
+   k+1 draft feeds on the draft's dense cache, one ``(num_slots, k+1)``
+   target verify through the page table (K1 at T = k+1), and the accept
+   rule -- committing 1..k+1 tokens a row a round. Greedy tokens are the
+   non-spec engine's by construction. Stale draft rows (every
+   activation) are refilled from the row's whole context first.
 
 ``weight_dtype="int8"|"int4"`` quantizes the engine's own model after it
 loads the weights (every matrix to codes plus scales, the f32 copies
 dropped: :meth:`ServeEngine.param_bytes` is then the codes and scales);
 ``matmul_kernel="cuda"`` runs each projection and the tied LM head
 through the fused dequant-matmul kernel, ``"torch"`` through its plain
-version.
+version. ``draft_weight_dtype=`` quantizes a spec engine's draft the same
+way, with the same group size and matmul kernel.
 
 Inactive slots still run (the batch is fixed): the page table they see
 is write-masked to −1, so their K/V writes land in the arena's sink page
@@ -43,11 +52,12 @@ budget, step number) lives on the host between dispatches -- the
 synced frontier -- and crosses to the device as one packed array each
 way per dispatch.
 
-This port covers the page-native paged engine with chunked prefill and
-the prefix cache; a crashed request's replay (``replay_tokens``) is not
-ported, so a chunk feeds the prompt alone. Every constructor argument of
-an unported feature raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (:data:`UNPORTED`).
+This port covers the page-native paged engine with chunked prefill, the
+prefix cache and speculative decoding; a crashed request's replay
+(``replay_tokens``) is not ported, so a chunk feeds the prompt alone.
+Every constructor argument of an unported feature raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item
+(:data:`UNPORTED`).
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.models import paged_attention as _pa
 from ray_lightning_tpu_torch.models.generate import (_chunk_prefill_impl,
                                                     _prefill_impl,
                                                     decode_step_paged,
@@ -78,16 +89,14 @@ from ray_lightning_tpu_torch.serve.pages import (PagePool, PrefixCache,
 from ray_lightning_tpu_torch.serve.request import (Completion, FINISH_EOS,
                                                    FINISH_LENGTH,
                                                    FINISH_TIMEOUT, Request)
+from ray_lightning_tpu_torch.serve.spec import (SpecDecoder,
+                                                _spec_rounds_page_native_impl)
 
 __all__ = ["ServeEngine", "SlotPoolFull", "UNPORTED", "refuse_unported"]
 
 #: constructor arguments of features this slice does not port yet ->
 #: the ROADMAP.md queue-A item that ports them
 UNPORTED = {
-    "draft_model": "S3 (speculative decoding)",
-    "draft_params": "S3 (speculative decoding)",
-    "spec_k": "S3 (speculative decoding)",
-    "draft_weight_dtype": "S3 (speculative decoding)",
     "adapters": "S4 (multi-LoRA serving, tenancy)",
     "max_resident_adapters": "S4 (multi-LoRA serving, tenancy)",
     "lora_rank": "S4 (multi-LoRA serving, tenancy)",
@@ -149,9 +158,12 @@ class PendingDispatch(NamedTuple):
     """One launched step dispatch: ``packed`` is the device array
     :meth:`ServeEngine.step_sync` copies to the host -- rows
     ``[0, steps)`` emitted tokens (−1 = parked), ``[steps, 2*steps)``
-    finished flags, then cur, pos, active, remaining, stepno."""
+    finished flags, then cur, pos, active, remaining, stepno. A spec
+    dispatch (``spec=True``) packs it flat: emitted (rounds, B, k+1),
+    finished, accepted and rejected (rounds, B), then the row state."""
     rounds: int
     packed: torch.Tensor
+    spec: bool = False
 
 
 class ServeEngine:
@@ -181,6 +193,14 @@ class ServeEngine:
     ``prefix_cache=True`` (needs ``prefill_chunk``) routes every prompt
     through them and reuses the pages of cached prompt prefixes.
 
+    ``draft_model=``/``draft_params=`` (a port ``TransformerLM`` sharing
+    the target's vocab and ``max_seq_len``, and its state dict) make
+    ``step()`` speculative with ``spec_k=`` draft tokens a round
+    (default 4); ``draft_weight_dtype=`` quantizes the draft. Under
+    ``attention_kernel="cuda"`` the verify's k+1 tokens a row must fit
+    the kernel's ``MAX_T``. Unlike the JAX engine, neither model's
+    config needs ``decode=True``.
+
     Drive it with :class:`~ray_lightning_tpu_torch.serve.client.ServeClient`
     or directly: ``prefill([reqs])`` starts requests, ``step()`` advances
     every in-flight one; each returns newly finished
@@ -200,6 +220,9 @@ class ServeEngine:
                  matmul_kernel: Optional[str] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
+                 draft_model=None, draft_params=None,
+                 spec_k: Optional[int] = None,
+                 draft_weight_dtype: Optional[str] = None,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
         if page_size is None and (prefill_chunk is not None
@@ -227,6 +250,7 @@ class ServeEngine:
             cfg = dataclasses.replace(cfg, attention_kernel=attention_kernel)
         self.attention_kernel = cfg.attention_kernel
         check_weight_dtype(weight_dtype)  # unknown dtypes refused here
+        check_weight_dtype(draft_weight_dtype)
         if matmul_kernel is not None:
             if matmul_kernel not in MATMUL_KERNELS:
                 raise ValueError(
@@ -234,16 +258,18 @@ class ServeEngine:
                     f"{MATMUL_KERNELS}, got {matmul_kernel!r}")
             cfg = dataclasses.replace(cfg, matmul_kernel=matmul_kernel)
         self.matmul_kernel = cfg.matmul_kernel
-        if self.matmul_kernel == "cuda" and weight_dtype is None:
+        if self.matmul_kernel == "cuda" and weight_dtype is None \
+                and draft_weight_dtype is None:
             raise ValueError(
                 "matmul_kernel='cuda' is the fused dequant-matmul kernel for "
-                "QUANTIZED weights: pass weight_dtype='int8'|'int4' too, or "
-                "drop the kernel")
-        if weight_group_size is not None and weight_dtype != "int4":
+                "QUANTIZED weights: pass weight_dtype='int8'|'int4' (or "
+                "draft_weight_dtype=) too, or drop the kernel")
+        if weight_group_size is not None \
+                and "int4" not in (weight_dtype, draft_weight_dtype):
             raise ValueError(
                 "weight_group_size is an int4 grouping option: pass "
-                "weight_dtype='int4' to enable it -- int8 scales are "
-                "per-output-channel")
+                "weight_dtype='int4' (or draft_weight_dtype='int4') to "
+                "enable it -- int8 scales are per-output-channel")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if prefill_len > cfg.max_seq_len:
@@ -271,6 +297,25 @@ class ServeEngine:
                 "prefix_cache=True needs prefill_chunk= too: an adopted "
                 "prefix resumes prefill at its first un-cached offset, "
                 "which is a chunk dispatch")
+        if (spec_k is not None or draft_params is not None) \
+                and draft_model is None:
+            raise ValueError(
+                "spec_k / draft_params are speculative-decoding options: "
+                "pass draft_model= (a small LM sharing the target's vocab "
+                "and max_seq_len) to enable them")
+        if draft_model is not None and draft_params is None:
+            raise ValueError("draft_model needs draft_params too")
+        if draft_weight_dtype is not None and draft_model is None:
+            raise ValueError(
+                "draft_weight_dtype is a speculative-decoding option: "
+                "pass draft_model=/draft_params= to enable it")
+        if draft_model is not None and self.attention_kernel == "cuda" \
+                and spec_k is not None and spec_k + 1 > _pa.MAX_T:
+            raise ValueError(
+                f"spec_k={spec_k} verifies {spec_k + 1} tokens a row, but "
+                f"the paged-attention kernel (attention_kernel='cuda') "
+                f"takes at most T = {_pa.MAX_T}: pass spec_k <= "
+                f"{_pa.MAX_T - 1}")
         if prefill_batch is not None and prefill_batch < 1:
             raise ValueError(
                 f"prefill_batch must be >= 1, got {prefill_batch}")
@@ -289,7 +334,24 @@ class ServeEngine:
         self.model.requires_grad_(False).eval()
         self.weight_dtype = weight_dtype
         if weight_dtype is not None:
-            self.model.quantize_weights(weight_dtype, weight_group_size)
+            self.model.quantize_weights(
+                weight_dtype,
+                weight_group_size if weight_dtype == "int4" else None)
+        # speculative decoding: the draft runs the target's matmul kernel
+        self.spec_k: Optional[int] = None
+        self.spec: Optional[SpecDecoder] = None
+        if draft_model is not None:
+            self.spec_k = 4 if spec_k is None else spec_k
+            self.spec = SpecDecoder(
+                TransformerLM(dataclasses.replace(
+                    draft_model.cfg, matmul_kernel=cfg.matmul_kernel),
+                    device="meta"),
+                draft_params, num_slots=num_slots, k=self.spec_k,
+                target_cfg=cfg, device=self.device,
+                weight_dtype=draft_weight_dtype,
+                weight_group_size=(weight_group_size
+                                   if draft_weight_dtype == "int4"
+                                   else None))
         self.num_slots = num_slots
         self.prefill_len = prefill_len
         self.steps_per_dispatch = steps_per_dispatch
@@ -327,12 +389,20 @@ class ServeEngine:
         self.prefills = 0
         self.chunk_dispatches = 0
         self.tokens_generated = 0
+        # speculative decoding (all zero without a draft): decode_substeps
+        # then counts rounds -- one verify is one target pass however
+        # many tokens it commits
+        self.spec_rounds = 0
+        self.spec_accepted_tokens = 0
+        self.spec_rejected_tokens = 0
+        self.spec_draft_steps = 0
 
     # ------------------------------------------------------------- state
     def param_bytes(self) -> int:
-        """At-rest bytes of the engine's model: f32 parameters, or codes
-        plus scales for quantized matrices."""
-        return param_bytes(self.model.named_weights())
+        """At-rest bytes of the engine's models (target and draft): f32
+        parameters, or codes plus scales for quantized matrices."""
+        draft = self.spec.param_bytes() if self.spec is not None else 0
+        return param_bytes(self.model.named_weights()) + draft
 
     @property
     def free_slots(self) -> int:
@@ -372,6 +442,16 @@ class ServeEngine:
                 f"prompt ({request.prompt_len}) + max_new_tokens "
                 f"({request.max_new_tokens}) exceeds max_seq_len "
                 f"({cfg.max_seq_len})")
+        if self.spec is not None and (request.prompt_len
+                                      + request.max_new_tokens
+                                      + self.spec_k - 1) > cfg.max_seq_len:
+            raise ValueError(
+                f"prompt ({request.prompt_len}) + max_new_tokens "
+                f"({request.max_new_tokens}) needs spec_k-1 = "
+                f"{self.spec_k - 1} positions of verify headroom beyond "
+                f"it (the verify writes k draft positions past the last "
+                f"budgeted token) -- max_seq_len ({cfg.max_seq_len}) is "
+                "too small")
         need = self.pool.pages_needed(request)
         if need > self.pool.num_pages:
             raise ValueError(
@@ -607,6 +687,10 @@ class ServeEngine:
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         self._seeds[slot] = req.seed
         self._stepno[slot] = 1
+        if self.spec is not None:
+            # whatever armed the row (a prefill, a final chunk), the draft
+            # rebuilds its KV from the whole context before the next round
+            self.spec.mark_stale(slot)
         return None
 
     def step(self) -> List[Completion]:
@@ -625,17 +709,23 @@ class ServeEngine:
         return np.where(self._active[:, None], self.pool.page_table,
                         -1).astype(np.int32)
 
+    def _row_state(self):
+        """The host row state on the device, in one copy: cur and pos
+        (B, 1), active, remaining, stepno, eos (B,)."""
+        state = torch.from_numpy(np.stack([
+            self._cur[:, 0], self._pos[:, 0], self._active.astype(np.int32),
+            self._remaining, self._stepno, self._eos])).to(self.device)
+        return (state[0][:, None], state[1][:, None], state[2].bool(),
+                state[3], state[4], state[5])
+
     def _enqueue(self) -> Optional[PendingDispatch]:
         if not self._active.any():
             return None
+        if self.spec is not None:
+            return self._spec_enqueue()
         dev = self.device
         steps = self.steps_per_dispatch
-        state = torch.from_numpy(np.stack([
-            self._cur[:, 0], self._pos[:, 0], self._active.astype(np.int32),
-            self._remaining, self._stepno, self._eos])).to(dev)
-        cur, pos = state[0][:, None], state[1][:, None]
-        active, remaining, stepno, eos = (state[2].bool(), state[3],
-                                          state[4], state[5])
+        cur, pos, active, remaining, stepno, eos = self._row_state()
         page_table = torch.from_numpy(self._write_masked_table()).to(dev)
         # only rows in flight at entry sample; a row that finishes inside
         # the dispatch keeps sampling into its masked-out emissions
@@ -664,13 +754,61 @@ class ServeEngine:
         self.decode_substeps += steps
         return PendingDispatch(rounds=steps, packed=packed)
 
+    def _spec_enqueue(self) -> PendingDispatch:
+        """One speculative dispatch: refill stale draft rows from the
+        host-side token streams, then ``steps_per_dispatch`` rounds (k+1
+        draft feeds, one ``(B, k+1)`` verify, the accept rule each) on
+        the write-masked table."""
+        spec = self.spec
+        for slot in spec.stale:
+            req = self.pool.active.get(slot)
+            if req is None or not self._active[slot]:
+                spec.discard(slot)
+                continue
+            # the draft KV covers 0..pos-1: the whole context but the
+            # current token, which the round's first feed supplies
+            spec.refill(slot, list(req.prompt) + self._tokens[slot][:-1])
+        k, rounds = spec.k, self.steps_per_dispatch
+        cur, pos, active, remaining, stepno, eos = self._row_state()
+        page_table = torch.from_numpy(self._write_masked_table()).to(
+            self.device)
+        temp = np.where(self._active, self._temp, 0.0)
+        with torch.inference_mode():
+            (cur, pos, active, remaining, stepno, emitted, accepted,
+             rejected, finished) = _spec_rounds_page_native_impl(
+                self.model, spec.model, self.pool.arena, page_table,
+                spec.cache, cur, pos, active, remaining, temp, self._top_k,
+                eos, stepno, self.seed, self._seeds, k=k, rounds=rounds)
+            packed = torch.cat([
+                x.to(torch.int32).reshape(-1)
+                for x in (emitted, finished, accepted, rejected, cur, pos,
+                          active, remaining, stepno)])
+        self.steps += 1
+        self.decode_substeps += rounds
+        self.spec_rounds += rounds
+        self.spec_draft_steps += (k + 1) * rounds
+        return PendingDispatch(rounds=rounds, packed=packed, spec=True)
+
     def step_sync(self, pending: PendingDispatch) -> List[Completion]:
         """Copy one dispatch's outputs to the host (the blocking point),
         catch the host row state up, and retire finished rows."""
         data = pending.packed.cpu().numpy()
-        n = pending.rounds
-        emitted, finished = data[:n], data[n:2 * n].astype(bool)
-        cur, pos, active, remaining, stepno = data[2 * n:]
+        n, B = pending.rounds, self.num_slots
+        if pending.spec:
+            # (rounds, B, k+1) emissions; accepted/rejected drafts
+            w = n * B * (self.spec_k + 1)
+            emitted = data[:w].reshape(n, B, -1).transpose(0, 2, 1)
+            emitted = emitted.reshape(-1, B)      # (rounds * (k+1), B)
+            finished, accepted, rejected = data[w:w + 3 * n * B].reshape(
+                3, n, B)
+            finished = finished.astype(bool)
+            self.spec_accepted_tokens += int(accepted.sum())
+            self.spec_rejected_tokens += int(rejected.sum())
+            cur, pos, active, remaining, stepno = data[w + 3 * n * B:
+                                                       ].reshape(5, B)
+        else:
+            emitted, finished = data[:n], data[n:2 * n].astype(bool)
+            cur, pos, active, remaining, stepno = data[2 * n:]
         self._cur = cur[:, None].astype(np.int32)
         self._pos = pos[:, None].astype(np.int32)
         self._active = active.astype(bool)
@@ -702,11 +840,14 @@ class ServeEngine:
 
     def shutdown(self) -> None:
         """Drop the prefix cache's page references and release the KV
-        arena; the engine is unusable afterwards."""
+        arena and the draft's cache; the engine is unusable afterwards."""
         if self.prefix is not None:
             self.prefix.drop()
         self.prefix = None
         self.pool = None
+        if self.spec is not None:
+            self.spec.shutdown()
+        self.spec = None
         self._chunk_queue.clear()
         self._tokens.clear()
         self._active[:] = False
@@ -719,6 +860,10 @@ class ServeEngine:
                 st for st in self._chunk_queue if st.slot != slot)
         req = self.pool.release(slot)
         self._active[slot] = False
+        if self.spec is not None:
+            # a cancel between activation and the next spec dispatch must
+            # not refill a slot that no longer holds the request
+            self.spec.discard(slot)
         tokens = self._tokens.pop(slot, [])
         return Completion(
             request_id=req.id, prompt=list(req.prompt), tokens=tokens,

@@ -3,7 +3,7 @@
 The counterparts of ``tests/test_cli.py``: the strategy registry (the
 JAX package's names and aliases for the four ported strategies, its
 multi-axis mesh strategies' names raising ``NotImplementedError``
-naming ``ROADMAP.md`` A10), a strategy built from flags with passthrough
+naming ``ROADMAP.md`` A, item 9), a strategy built from flags with passthrough
 keyword arguments (the reference's ``tests/test_lightning_cli.py:11-27``),
 ``=`` syntax, YAML config and flags over it, an unknown strategy,
 ``_parse_value``'s coercions (held against the JAX function), and the
@@ -61,7 +61,7 @@ def test_strategy_registry_matches_the_jax_package():
 
 @pytest.mark.parametrize("name", UNPORTED_STRATEGIES)
 def test_mesh_strategies_raise_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A, item 9"):
         TpuLightningCLI(BoringModel, run=False, args=["--strategy", name])
 
 

@@ -31,9 +31,16 @@ card raising instead of training on the CPU; ZeRO at world size 1 bitwise
 the one-process fit under AdamW and both memory presets, adafactor under
 FSDP2; and a checkpoint-sized stream (1.49 GB, GPT-2-small's) put by a
 card worker into the session queue and read back on the driver.
+Speculative decoding: the paged-attention kernel at a verify's T = 5, and
+a nano spec engine whose greedy tokens equal the non-spec engine's in
+f32, whose verify launches the kernel once per layer and round at T =
+k+1, whose identical draft is always accepted, and whose quantized verify
+runs K5 on the tensor cores and its draft's feeds on the GEMVs.
 ``chip_smoke.py`` repeats this at the serving and training paths' full
 shapes.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1164,3 +1171,108 @@ def test_adafactor_state_bytes_of_the_training_path(cuda):
         p.grad = torch.zeros_like(p)
     opt.step()
     assert opt_state_bytes(opt) == 334_953_400
+
+
+# ------------------------------------------------- speculative decoding
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["same", "int8"])
+def test_kernel_at_the_verify_width(cuda, dtype, quantized):
+    """T = 5 (a spec verify at k = 4) at phase S's geometry (D = 64, 16-token
+    pages, 64 pages a slot): within the tolerance, bitwise on a second
+    call."""
+    args = [None if a is None else a.to(cuda)
+            for a in _cluster_inputs(dtype, quantized, 5, 64, 16, 64)]
+    pa.reset_kernel_launches()
+    out = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.launches_by_t() == {5: 2}
+    assert torch.equal(out, again)
+    ref = pa.paged_attention_reference(*args)
+    assert torch.count_nonzero(out[-1]) == 0
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+SPEC_TRACE = [(0, dict(prompt=[5, 17, 3, 9], max_new_tokens=10)),
+              (0, dict(prompt=[9, 2, 44], max_new_tokens=10)),
+              (3, dict(prompt=[42, 7], max_new_tokens=10)),
+              (5, dict(prompt=[1], max_new_tokens=3))]
+
+
+def _spec_models(dtype):
+    """A nano target (vocab 128, max_seq_len 64) and a 1-layer draft cut
+    from it (its embeddings, final norm and first block)."""
+    cfg = gpt2_config("nano", vocab_size=128, max_seq_len=64, dtype=dtype)
+    torch.manual_seed(0)
+    sd = TransformerLM(cfg, device="cpu").state_dict()
+    dsd = {k: v for k, v in sd.items()
+           if not k.startswith("stack.blocks.1.")}
+    return cfg, sd, dataclasses.replace(cfg, n_layers=1), dsd
+
+
+def _spec_serve(cuda, cfg, sd, dcfg=None, dsd=None, k=4, **kw):
+    """Serve SPEC_TRACE on the card (4 slots, so the verify's M is 20):
+    completions, the engine, and its draft refills."""
+    if dcfg is not None:
+        kw.update(draft_model=TransformerLM(dcfg, device="meta"),
+                  draft_params=dsd, spec_k=k)
+    client = ServeClient(TransformerLM(cfg, device="meta"), sd, num_slots=4,
+                         prefill_len=8, page_size=4, page_native=True,
+                         attention_kernel="cuda", device=cuda, **kw)
+    out = client.serve_trace(list(SPEC_TRACE))
+    eng = client.engine
+    refills = eng.spec.refills if eng.spec is not None else 0
+    client.shutdown()
+    assert [len(out[r].tokens) for r in range(4)] == [10, 10, 10, 3]
+    return out, eng, refills
+
+
+def _tokens(out):
+    return {r: c.tokens for r, c in out.items()}
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_spec_serving_on_the_card_equals_non_spec_in_f32(cuda, k):
+    """f32: the spec engine's greedy tokens equal the non-spec engine's;
+    the verify launches the paged-attention kernel n_layers times a
+    round, every launch at T = k+1."""
+    cfg, sd, dcfg, dsd = _spec_models(torch.float32)
+    plain, _, _ = _spec_serve(cuda, cfg, sd)
+    pa.reset_kernel_launches()
+    out, eng, _ = _spec_serve(cuda, cfg, sd, dcfg, dsd, k=k)
+    assert eng.spec_rounds > 0
+    assert pa.launches_by_t() == {k + 1: cfg.n_layers * eng.spec_rounds}
+    assert _tokens(out) == _tokens(plain)
+
+
+def test_spec_identical_draft_is_always_accepted_on_the_card(cuda):
+    """The target as its own draft (f32): every judged draft accepted,
+    the same tokens as the non-spec engine."""
+    cfg, sd, _, _ = _spec_models(torch.float32)
+    plain, _, _ = _spec_serve(cuda, cfg, sd)
+    out, eng, _ = _spec_serve(cuda, cfg, sd, cfg, sd)
+    assert eng.spec_rejected_tokens == 0 and eng.spec_accepted_tokens > 0
+    assert _tokens(out) == _tokens(plain)
+
+
+def test_spec_quantized_verify_on_tc_and_draft_on_the_gemvs(cuda):
+    """bf16 with int8 target and draft weights through K5: the verify
+    (M = 4 x 5 = 20), the prefills (M = 32) and the draft's refills (M =
+    64) on the tensor cores, the draft's feeds (M = 4) on the GEMVs, none
+    on ``tiled_f32``."""
+    cfg, sd, dcfg, dsd = _spec_models(torch.bfloat16)
+    qmm.reset_kernel_launches()
+    _, eng, refills = _spec_serve(cuda, cfg, sd, dcfg, dsd,
+                                  weight_dtype="int8",
+                                  draft_weight_dtype="int8",
+                                  matmul_kernel="cuda")
+    per_forward, draft_forward = 4 * cfg.n_layers + 1, 4 * dcfg.n_layers + 1
+    assert refills == len(SPEC_TRACE)
+    assert qmm.route_launches() == {
+        "gemv_dense": 4 * dcfg.n_layers * eng.spec_draft_steps,
+        "gemv_attend": eng.spec_draft_steps,
+        "tc": per_forward * (eng.spec_rounds + eng.prefills)
+        + draft_forward * refills,
+        "tiled_f32": 0}

@@ -272,6 +272,19 @@ def test_sharded_strategies_hold_a_share_of_the_optimizer_state(world,
     assert abs(world_bytes - full) <= 4 * 1024
 
 
+def test_dump_checkpoint_consolidate_false_keeps_fsdp_shards(world):
+    """``dump_checkpoint(consolidate=False)`` -- the JAX trainer's
+    keyword -- keeps FSDP's shards (what the directory format writes):
+    DTensors holding this rank's part, where ``consolidate=True`` gives
+    whole tensors. The old ``full=`` keyword raises ``TypeError``."""
+    two, _ = fit2(world, FSDPStrategy, tw.Nano(),
+                  callbacks=[tw.DumpProbe()])
+    m = two.callback_metrics
+    assert m["dtensors_kept"] > 0 and m["dtensors_whole"] == 0
+    assert m["numel_kept"] < m["numel_whole"]
+    assert m["full_keyword_refused"] == 1.0
+
+
 def test_guard_skips_on_every_rank_together(world):
     """A NaN loss on rank 1 alone: the verdict is reduced over ranks, so
     rank 0 skips the update too, and the params equal a one-process fit

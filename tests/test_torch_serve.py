@@ -245,8 +245,7 @@ def test_engine_defaults_to_the_card(port):
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_arguments_raise(port, name):
-    value = 4 if name in ("spec_k", "lora_rank", "max_resident_adapters",
-                          "prefill_chunk") else "x"
+    value = 4 if name in ("lora_rank", "max_resident_adapters") else "x"
     with pytest.raises(NotImplementedError, match=f"{name}=.*ROADMAP"):
         ServeClient(port, port.state_dict(), num_slots=2, prefill_len=8,
                     device="cpu", **PAGED, **{name: value})
@@ -268,7 +267,7 @@ def test_unported_layouts_and_unknown_arguments(port):
         ServeClient(port, sd, device="cpu", bogus=1, **PAGED)
     # the defaults of unported arguments are accepted (None / False)
     ServeClient(port, sd, num_slots=2, prefill_len=8, device="cpu",
-                prefix_cache=False, async_dispatch=False, draft_model=None,
+                prefix_cache=False, async_dispatch=False, adapters=None,
                 **PAGED).shutdown()
 
 

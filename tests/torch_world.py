@@ -154,6 +154,43 @@ class OptStateBytes(Callback):
             m[f"opt_state_bytes_rank{r}"] = float(t[r])
 
 
+class DumpProbe(Callback):
+    """``Trainer.dump_checkpoint`` under each value of ``consolidate`` at
+    the end of a fit (a collective: every rank calls it), into
+    ``callback_metrics``: the DTensor shards each dump's ``state`` keeps
+    and their local element counts, and whether the old ``full=``
+    keyword is refused with ``TypeError``."""
+
+    def on_train_end(self, trainer, module):
+        from torch.distributed.tensor import DTensor
+
+        def leaves(tree):
+            if isinstance(tree, dict):
+                for v in tree.values():
+                    yield from leaves(v)
+            elif isinstance(tree, (list, tuple)):
+                for v in tree:
+                    yield from leaves(v)
+            elif isinstance(tree, torch.Tensor):
+                yield tree
+
+        m = trainer.callback_metrics
+        for key, consolidate in (("kept", False), ("whole", True)):
+            state = trainer.dump_checkpoint(consolidate=consolidate)["state"]
+            ts = list(leaves(state))
+            m[f"dtensors_{key}"] = float(sum(isinstance(t, DTensor)
+                                             for t in ts))
+            m[f"numel_{key}"] = float(sum(
+                (t.to_local() if isinstance(t, DTensor) else t).numel()
+                for t in ts))
+        try:
+            trainer.dump_checkpoint(full=False)
+        except TypeError:
+            m["full_keyword_refused"] = 1.0
+        else:
+            m["full_keyword_refused"] = 0.0
+
+
 class RankProbe(Callback):
     """Puts this rank and whether this process has a Ray Tune of its own
     into ``callback_metrics`` at the end of every train epoch (list it

@@ -1,8 +1,8 @@
-"""Where a decode, prefill or chunk dispatch of the PyTorch/CUDA port's serving path spends its time.
+"""Where a decode, prefill, chunk or spec dispatch of the PyTorch/CUDA port's serving path spends its time.
 
     python3 tools/profile_torch_serve.py [--kv-dtype int8] [--steps 20]
         [--weight-dtype int8|int4] [--matmul-kernel cuda|torch]
-        [--phase decode|prefill|chunk]
+        [--phase decode|prefill|chunk|spec]
 
 Needs one NVIDIA GPU. Builds the serving path of ``chip_smoke.py`` phase 2
 (GPT-2-small at full width, random weights from
@@ -22,12 +22,15 @@ cache off so nothing is adopted): the chunks of the phase's first
 896-token prompt in turn (keys 128 to 896), each followed by a
 synchronize inside the timing (a chunk that is not the last ends in no
 host copy); the request is cancelled after its last chunk and admitted
-again, outside the timing. Prints one JSON line with the card, the host
-ms per dispatch, the device's busy ms per dispatch (sum of kernel times
-in the profile),
-the device's idle share (1 - busy / host ms of the unprofiled window),
-kernel launches per dispatch and the kernels that take the most device
-time.
+again, outside the timing. ``--phase spec`` times speculative dispatches
+of ``chip_smoke.py`` phase S's engine (its 2-layer draft cut from the
+target, ``spec_k=4``, one round a dispatch; ``--weight-dtype`` quantizes
+the draft too) over the same 8 admitted requests, as decode does (the
+first dispatch's draft refills fall in the warm-up). Prints one JSON
+line with the card, the host ms per dispatch, the device's busy ms per
+dispatch (sum of kernel times in the profile), the device's idle share
+(1 - busy / host ms of the unprofiled window), kernel launches per
+dispatch and the kernels that take the most device time.
 """
 import argparse
 import json
@@ -60,7 +63,7 @@ def main() -> int:
     ap.add_argument("--matmul-kernel", default=None,
                     choices=[None, "cuda", "torch"])
     ap.add_argument("--phase", default="decode",
-                    choices=["decode", "prefill", "chunk"])
+                    choices=["decode", "prefill", "chunk", "spec"])
     args = ap.parse_args()
     matmul_kernel = args.matmul_kernel
     if args.weight_dtype is not None and matmul_kernel is None:
@@ -77,10 +80,16 @@ def main() -> int:
     trace = chip_smoke.make_trace(rng, cfg.vocab_size)
     serve = (dict(chip_smoke.L_SERVE, prefix_cache=False)
              if args.phase == "chunk" else chip_smoke.SERVE)
+    spec = {}
+    if args.phase == "spec":
+        spec = dict(chip_smoke.spec_kw(
+            gpt2_config("small", n_layers=chip_smoke.S_DRAFT_LAYERS),
+            chip_smoke.draft_state(sd, chip_smoke.S_DRAFT_LAYERS)),
+            draft_weight_dtype=args.weight_dtype)
     eng = ServeEngine(TransformerLM(cfg, device="meta"), sd,
                       device="cuda", attention_kernel="cuda",
                       kv_dtype=args.kv_dtype, weight_dtype=args.weight_dtype,
-                      matmul_kernel=matmul_kernel, **serve)
+                      matmul_kernel=matmul_kernel, **serve, **spec)
     rounds = iter(range(1 << 30))
 
     def admit():
@@ -94,7 +103,7 @@ def main() -> int:
         eng.prefill(reqs)
         return reqs
 
-    if args.phase == "decode":
+    if args.phase in ("decode", "spec"):
         admit()
 
         def dispatch() -> float:
