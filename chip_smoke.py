@@ -137,6 +137,33 @@ T3. Training, kernel path against plain path end to end, in f32: one
    plain PyTorch attention differentiated by autograd
    (``attention_impl="dot"``); loss to 1e-5 relative, every gradient to
    its stated bound.
+M. The model core's training options at GPT-2-small width (bf16 compute
+   over f32 weights, batch 8 x 1024, ``Trainer(strategy=RayStrategy(
+   num_workers=1), seed=0)``). (a) ``dropout=0.1`` on the flash config,
+   T2's steps and validation batches: no training step launches K2-K4
+   (the reference routes dropout to the dense attention), validation
+   launches K2 n_layers times a batch; the loss falls; step ms, tokens/s
+   and peak memory beside T2's. (b) ``remat=True`` under each of the five
+   policies and the same fit without remat, a few steps each: K2 twice a
+   layer a step (forward and replay), K3 and K4 once, all on ``tc``; the
+   bytes autograd keeps in the first step (``models/remat.py:
+   count_saved``) rise ``None`` < ``dots_with_no_batch_dims`` <
+   ``..._save_attn`` < ``..._save_attn_mlp`` <= no remat; step ms and
+   peak memory. (c) One f32 step with dropout 0.1 (B=2), remat against
+   no remat on the same seed: loss and gradients within
+   ``M_REPLAY_*_RTOL`` (the masks replay). (d) ``lm_head_xent`` and
+   ``chunked_lm_head_xent`` on the model's hidden states and tied table
+   against the materialized f32 loss: loss and both gradients within
+   ``M_XENT_*_RTOL``, each path's ms and the peak memory of its forward
+   and backward. (e) ``tie_embeddings=False``: a few training steps;
+   K5 at the untied head (int8, N = 50257) against its plain version at
+   M = 8, 128 and 1024, all on ``tc``, timed beside its bound and cuBLAS
+   (int4 cannot group this head and is refused); phase 2's trace served
+   by an untied model from phase 2's generator with int8 weights: the
+   head on ``tc`` at every forward, none on ``tiled_f32``; in f32 the
+   kernel path's logits and greedy tokens equal the plain path's. (f)
+   ``attention_impl="dot"`` with ``attention_softmax_dtype`` bf16 beside
+   f32: finite losses, step ms.
 R. Checkpoint and resume on the card, at T2's configuration (12 steps,
    no validation): (a) uninterrupted, saving a stream checkpoint at step
    8; (b) the same run with ``ModelCheckpoint(every_n_train_steps=4,
@@ -219,7 +246,9 @@ C. The command line on the card, flags only: ``python -m
    launches, ``paged_attention_verify`` at T=5 with phase S (a)'s bf16
    run's. K2 has two entries: ``flash_fwd`` at the
    training shape with T2's launches, ``flash_fwd_chunk`` at the chunk's
-   shape (S=1024) with phase L's bf16 launches. K5 has four entries,
+   shape (S=1024) with phase L's bf16 launches. K2-K4's training entries
+   count T2's launches and phase M's (a), (b) and (e) fits'. K5 has five
+   entries,
    each one forward's 49 calls, bf16 x, int8 codes (times and bound
    their sums, the error the largest of them): ``quantized_matmul`` at
    M=8 (a decode step, the GEMVs; Q2's, phase L's and phase S (d)'s int8
@@ -228,7 +257,9 @@ C. The command line on the card, flags only: ``python -m
    ``quantized_matmul_chunk`` at M=128 (a chunk dispatch, the
    tensor-core kernel; phase L's ``tc`` launches) and
    ``quantized_matmul_verify`` at M=40 (a spec verify, the tensor-core
-   kernel; phase S (d)'s verify launches).
+   kernel; phase S (d)'s verify launches), and
+   ``quantized_matmul_untied_head``, one call of the untied head at M=8
+   (phase M (e)'s serving run's head launches, every M).
 """
 import contextlib
 import dataclasses
@@ -1720,6 +1751,435 @@ def phase_t3_train_kernel_vs_plain():
     return rel, worst[0]
 
 
+# -------------------------------------------------------------- phase M
+M_RATE = 0.1                       # dropout of (a) and (c), GPT-2's
+M_POLICIES = (None, "dots", "dots_with_no_batch_dims",
+              "dots_with_no_batch_dims_save_attn",
+              "dots_with_no_batch_dims_save_attn_mlp")
+# the policies whose saved bytes must rise in this order (``dots`` keeps
+# the attention products too, which the flash path does not make)
+M_SAVED_ORDER = (None, "dots_with_no_batch_dims",
+                 "dots_with_no_batch_dims_save_attn",
+                 "dots_with_no_batch_dims_save_attn_mlp")
+M_REMAT_STEPS, M_UNTIED_STEPS, M_SOFTMAX_STEPS = 5, 5, 3
+M_SEED = 1234                      # (c)'s dropout seed
+# (c) one f32 step with dropout, remat (policy None) against no remat:
+# the replay must redraw every mask, or the loss moves by ~1e-3 and the
+# gradients by their own size; these leave room for summation order only
+M_REPLAY_LOSS_RTOL = 1e-6
+M_REPLAY_GRAD_RTOL = 1e-5
+# (d) the LM-head losses against the materialized loss on the same bf16
+# hidden states: the materialized path rounds the logits and their
+# gradient to bf16, the chunked one keeps f32 logits; loss relative,
+# each gradient |diff| against its largest magnitude (4 bf16 ulps)
+M_XENT_LOSS_RTOL = 1e-3
+M_XENT_GRAD_RTOL = 2.0 ** -5
+M_XENT_CHUNK = 2048
+M_HEAD_MS = (8, 128, 1024)    # the untied head's M: decode, chunk, prefill
+
+
+def m_fit(cfg, steps, val_batches=0, warmup=1, count_saved=False):
+    """T2's fit (GPT-2-small, batch 8 x 1024, ``Trainer(strategy=
+    RayStrategy(num_workers=1), seed=0)``) of ``GPTModule(config=cfg)``
+    for ``steps`` steps and ``val_batches`` validation batches. Returns
+    the losses, the median step ms after ``warmup`` steps, tokens/s,
+    peak memory, K2-K4 launches and routes, and (``count_saved``) the
+    bytes autograd kept for backward in the first step."""
+    from ray_lightning_tpu_torch import GPTModule, RayStrategy, Trainer
+    from ray_lightning_tpu_torch.core import LambdaCallback
+    from ray_lightning_tpu_torch.models import remat
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+
+    class Module(GPTModule):
+        saved_bytes = None
+
+        def training_step(self, model, batch, generator):
+            if not count_saved or self.saved_bytes is not None:
+                return super().training_step(model, batch, generator)
+            with remat.count_saved() as counter:
+                loss = super().training_step(model, batch, generator)
+            self.saved_bytes = counter.bytes
+            return loss
+
+    module = Module(config=cfg, batch_size=8, seq_len=1024)
+    ends, losses = [], []
+
+    def on_batch_end(trainer, pl_module, outputs, batch, batch_idx):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        losses.append(float(outputs["loss"]))
+
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=steps,
+                      limit_val_batches=val_batches, seed=0,
+                      callbacks=[LambdaCallback(
+                          on_train_batch_end=on_batch_end)])
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_kernel_launches()
+    trainer.fit(module)
+    check(trainer.global_step == steps and len(losses) == steps
+          and all(np.isfinite(losses)), f"M fit {cfg}: losses {losses}")
+    step_ms = 1e3 * float(np.median(np.diff(ends)[warmup - 1:]))
+    res = dict(losses=losses, step_ms_median=step_ms,
+               tokens_per_s=module.batch_size * module.seq_len
+               / (step_ms / 1e3),
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=cf.kernel_launches(),
+               routes={k: cf.route_launches(k) for k in cf.KERNELS},
+               saved_bytes=module.saved_bytes,
+               val_loss=trainer.callback_metrics.get("val_loss"))
+    del trainer, module
+    release()
+    return res
+
+
+def m_flash_expect(what, res, fwd, bwd):
+    """K2 launched ``fwd`` times, K3 and K4 ``bwd`` times, all on
+    ``tc``."""
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    want = {"flash_fwd": fwd, "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd}
+    check(res["launches"] == want,
+          f"{what}: flash launches {res['launches']} != {want}")
+    routes = {k: {"simt": 0, "tc": want[k]} for k in cf.KERNELS}
+    check(res["routes"] == routes,
+          f"{what}: flash routes {res['routes']} != {routes}")
+
+
+def phase_m_dropout(card, t2):
+    """(a) GPT-2's dropout through ``Trainer.fit`` on the flash config:
+    the reference routes dropout steps to the dense attention, so no
+    training step launches K2-K4; validation is deterministic and
+    launches K2 once a layer a batch."""
+    from ray_lightning_tpu_torch.models import gpt2_config
+    cfg = gpt2_config("small", attention_impl="flash", dropout=M_RATE)
+    res = m_fit(cfg, TRAIN_STEPS, VAL_BATCHES, warmup=WARMUP_STEPS)
+    m_flash_expect("phaseM (a)", res, cfg.n_layers * VAL_BATCHES, 0)
+    losses = res["losses"]
+    last5 = float(np.mean(losses[-5:]))
+    check(last5 < losses[0], f"phaseM (a): loss did not fall: first "
+          f"{losses[0]}, last-5 mean {last5}")
+    row = dict(dropout=M_RATE, train_steps=TRAIN_STEPS,
+               val_batches=VAL_BATCHES, first_loss=losses[0],
+               last5_mean_loss=last5, **{k: res[k] for k in (
+                   "step_ms_median", "tokens_per_s", "peak_memory_gib",
+                   "launches", "val_loss")},
+               t2_step_ms_median=t2["step_ms_median"],
+               t2_tokens_per_s=t2["tokens_per_s"],
+               t2_peak_memory_gib=t2["peak_memory_gib"], card=card)
+    print("phaseM (a) dropout", json.dumps(row), flush=True)
+    return res
+
+
+def phase_m_remat(card):
+    """(b) ``remat=True`` under each policy (flash, dropout 0), and the
+    same fit without remat: K2 twice a layer a step (the forward and its
+    replay: no policy can keep a ``ctypes`` kernel's output), K3 and K4
+    once; the bytes autograd keeps in order."""
+    from ray_lightning_tpu_torch.models import gpt2_config
+    plain_cfg = gpt2_config("small", attention_impl="flash")
+    n, s = plain_cfg.n_layers, M_REMAT_STEPS
+    rows = {"no remat": m_fit(plain_cfg, s, count_saved=True)}
+    m_flash_expect("phaseM (b) no remat", rows["no remat"], n * s, n * s)
+    for policy in M_POLICIES:
+        cfg = gpt2_config("small", attention_impl="flash", remat=True,
+                          remat_policy=policy)
+        res = m_fit(cfg, s, count_saved=True)
+        m_flash_expect(f"phaseM (b) remat_policy={policy}", res,
+                       2 * n * s, n * s)
+        rows[str(policy)] = res
+    plain = rows["no remat"]["losses"]
+    for label, res in rows.items():
+        row = dict(remat_policy=label, steps=s,
+                   saved_bytes_per_step=res["saved_bytes"],
+                   launches_per_step={k: v / s for k, v in
+                                      res["launches"].items()},
+                   losses_equal_no_remat=res["losses"] == plain,
+                   **{k: res[k] for k in ("step_ms_median", "tokens_per_s",
+                                          "peak_memory_gib")}, card=card)
+        print("phaseM (b) remat", json.dumps(row), flush=True)
+    saved = [rows[str(p)]["saved_bytes"] for p in M_SAVED_ORDER]
+    check(all(a < b for a, b in zip(saved, saved[1:]))
+          and saved[-1] <= rows["no remat"]["saved_bytes"],
+          f"phaseM (b): saved bytes {dict(zip(M_SAVED_ORDER, saved))} "
+          f"not in order, no remat {rows['no remat']['saved_bytes']}")
+    return rows
+
+
+def phase_m_replay():
+    """(c) One f32 step of GPT-2-small (B=2, T=1024) with dropout 0.1,
+    rematerialized (policy None) against not, the same weights, batch and
+    seed: the replay redraws the masks."""
+    from ray_lightning_tpu_torch import GPTModule
+    from ray_lightning_tpu_torch.data import synthetic_tokens
+    from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
+    cfg = gpt2_config("small", attention_impl="flash", dtype=torch.float32,
+                      dropout=M_RATE)
+    toks = torch.from_numpy(synthetic_tokens(2, 1025, cfg.vocab_size,
+                                             seed=3)).to(DEVICE)
+    batch = (toks[:, :-1], toks[:, 1:])
+    module = GPTModule(config=cfg)
+    result = {}
+    for remat in (False, True):
+        model = TransformerLM(dataclasses.replace(cfg, remat=remat),
+                              device="meta").to_empty(device=DEVICE)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        loss, _ = module._loss(model, batch, deterministic=False,
+                               dropout_seed=M_SEED)
+        loss.backward()
+        result[remat] = (loss.item(), {
+            n: p.grad for n, p in model.named_parameters()})
+        del model
+    (lr, gr), (lp, gp) = result[True], result[False]
+    check(np.isfinite(lr), f"phaseM (c) loss {lr}")
+    rel = abs(lr - lp) / abs(lp)
+    worst = max(((gr[n] - gp[n]).abs().max().item()
+                 / max(gp[n].abs().max().item(), 1e-30), n) for n in gp)
+    bitwise = lr == lp and all(torch.equal(gr[n], gp[n]) for n in gp)
+    print(f"phaseM (c) f32 step with dropout {M_RATE}, remat vs no remat: "
+          f"loss {lr:.6f} vs {lp:.6f} (rel {rel:.3e}, bound "
+          f"{M_REPLAY_LOSS_RTOL}); worst gradient |diff|/max|grad| "
+          f"{worst[0]:.3e} in {worst[1]} (bound {M_REPLAY_GRAD_RTOL}); "
+          f"bitwise {bitwise}", flush=True)
+    check(rel <= M_REPLAY_LOSS_RTOL, f"phaseM (c): loss differs by {rel}")
+    check(worst[0] <= M_REPLAY_GRAD_RTOL, f"phaseM (c): gradient "
+          f"{worst[1]} differs by {worst[0]} of its largest magnitude")
+    del result
+    release()
+    return rel, worst[0]
+
+
+def phase_m_lm_head_loss(card):
+    """(d) The LM-head losses on T2's model's hidden states (seed 0,
+    batch 8 x 1024, bf16) and its tied table, against the materialized
+    f32 loss ``GPTModule`` computes: loss and both gradients, and each
+    path's time and the peak memory its forward and its backward add."""
+    import torch.nn.functional as F
+    from ray_lightning_tpu_torch.data import synthetic_tokens
+    from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
+    from ray_lightning_tpu_torch.ops.lm_head_loss import (
+        chunked_lm_head_xent, lm_head_xent)
+    cfg = gpt2_config("small")
+    model = TransformerLM(cfg, device="meta").to_empty(device=DEVICE)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(synthetic_tokens(8, 1025, cfg.vocab_size,
+                                             seed=4)).to(DEVICE)
+    labels = toks[:, 1:].long()
+    with torch.no_grad():
+        hidden = model(toks[:, :-1], return_hidden=True)
+    table = model.wte.weight.detach()
+    del model
+    release()
+    V = cfg.vocab_size
+    paths = {
+        "materialized": lambda h, t: F.cross_entropy(
+            F.linear(h, t.to(cfg.dtype)).float().reshape(-1, V),
+            labels.reshape(-1)),
+        "lm_head_xent": lambda h, t: lm_head_xent(h, t, labels),
+        "chunked_lm_head_xent": lambda h, t: chunked_lm_head_xent(
+            h, t, labels, chunk_size=M_XENT_CHUNK),
+    }
+    out = {}
+    for name, fn in paths.items():
+        for _ in range(2):      # the second run is timed
+            h = hidden.detach().requires_grad_()
+            t = table.detach().requires_grad_()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = fn(h, t)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd_peak = torch.cuda.max_memory_allocated() - base
+            held = torch.cuda.memory_allocated() - base
+            mid = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bwd_peak = torch.cuda.max_memory_allocated() - mid
+            row = dict(loss=loss.item(), fwd_ms=1e3 * (t1 - t0),
+                       bwd_ms=1e3 * (t2 - t1),
+                       fwd_peak_gib=fwd_peak / 2**30,
+                       held_for_backward_gib=held / 2**30,
+                       bwd_peak_gib=bwd_peak / 2**30)
+            grads = (h.grad.float(), t.grad)
+            del loss, h, t
+        out[name] = (row, grads)
+        release()
+    ref_row, ref_grads = out["materialized"]
+    rows = {}
+    for name, (row, grads) in out.items():
+        row["loss_rel_diff"] = abs(row["loss"] - ref_row["loss"]) / abs(
+            ref_row["loss"])
+        row["grad_rel_diff"] = [
+            (g - r).abs().max().item() / r.abs().max().item()
+            for g, r in zip(grads, ref_grads)]
+        rows[name] = row
+        print(f"phaseM (d) {name}", json.dumps(dict(
+            row, chunk=M_XENT_CHUNK, tokens=labels.numel(), vocab=V,
+            loss_bound=M_XENT_LOSS_RTOL, grad_bound=M_XENT_GRAD_RTOL,
+            card=card)), flush=True)
+        check(np.isfinite(row["loss"]), f"phaseM (d) {name} loss")
+        check(row["loss_rel_diff"] <= M_XENT_LOSS_RTOL,
+              f"phaseM (d) {name}: loss differs by {row['loss_rel_diff']}")
+        check(max(row["grad_rel_diff"]) <= M_XENT_GRAD_RTOL,
+              f"phaseM (d) {name}: gradients differ by "
+              f"{row['grad_rel_diff']} of their largest magnitude")
+    del out, hidden, table
+    release()
+    return rows
+
+
+def m_head_kernel(flush):
+    """K5 at the untied head (int8, the dense orientation, K = 768, N =
+    50257) against its plain version at M = 8, 128 and 1024 with bf16 x,
+    every call on ``tc``: error, time, bound, plain and cuBLAS (on the
+    dequantized bf16 weight) times. int4 cannot take this head: no even
+    group length divides 50257 (the JAX rule refuses it too)."""
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.models.quant import quantize_params
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    K, N = 768, 50257
+    w = torch.randn((K, N), generator=gen, device=DEVICE) * 0.02
+    try:
+        quantize_params({"w": w}, "int4")
+        check(False, "phaseM (e): int4 took a (768, 50257) leaf")
+    except ValueError as exc:
+        print(f"phaseM (e) K5 int4 at N={N}: refused ({exc})", flush=True)
+    qt = quantize_params({"w": w}, "int8")["w"]
+    wd = qt.dequantize().to(torch.bfloat16).reshape(K, N)
+    rows = {}
+    for M in M_HEAD_MS:
+        x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        qmm.reset_kernel_launches()
+        got = qmm.quantized_matmul(x, qt)
+        again = qmm.quantized_matmul(x, qt)
+        torch.cuda.synchronize()
+        routes = qmm.route_launches(n=N)
+        check(routes == {r: 2 * (r == "tc") for r in qmm.ROUTES},
+              f"phaseM (e) K5 at M={M}, N={N}: routes {routes}")
+        check(torch.equal(got, again), "K5: a second call must give the "
+              "same bits")
+        ref = qmm.quantized_matmul_reference(x, qt)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = QMM_TOL[torch.bfloat16] * max(1.0,
+                                            float(ref.float().abs().max()))
+        bound_ms, bound_by = matmul_bound(x, qt, N)
+        row = dict(proj="untied head", weights="int8", x="bfloat16", M=M,
+                   K=K, N=N, route="tc", max_abs_err=err, tol=tol,
+                   ms=time_ms(lambda: qmm.quantized_matmul(x, qt), flush),
+                   plain_ms=time_ms(
+                       lambda: qmm.quantized_matmul_reference(x, qt), flush),
+                   library_ms=time_ms(lambda: torch.matmul(x, wd), flush),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        print("phaseM (e) K5 untied head", json.dumps(row), flush=True)
+        check(err <= tol, f"phaseM (e) K5 vs plain {err} > {tol}")
+        rows[M] = row
+    del w, wd, qt
+    return rows
+
+
+def untied_state(cfg, rng):
+    """An untied GPT-2-small from phase 2's generator: phase 2's kind of
+    random weights and an N(0, 0.02) ``lm_head/kernel`` (d_model, vocab),
+    as the port's state dict."""
+    from ray_lightning_tpu_torch.interop import load_flax_params
+    from ray_lightning_tpu_torch.models import TransformerLM
+    params = random_flax_params(cfg, rng)
+    params["lm_head"] = {"kernel": rng.standard_normal(
+        (cfg.d_model, cfg.vocab_size), dtype=np.float32) * 0.02}
+    return load_flax_params(TransformerLM(cfg, device="cpu"),
+                            params).state_dict()
+
+
+def phase_m_untied(card, rng, trace):
+    """(e) ``tie_embeddings=False``: a few training steps; phase 2's
+    trace served with int8 weights through K5, the head on ``tc`` at
+    every M; K5 at the head against its plain version; f32 kernel path
+    against plain path (logits, greedy tokens)."""
+    from ray_lightning_tpu_torch.models import TransformerLM, gpt2_config
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    cfg = gpt2_config("small", tie_embeddings=False)
+    n = cfg.n_layers
+    train = m_fit(dataclasses.replace(cfg, attention_impl="flash"),
+                  M_UNTIED_STEPS)
+    m_flash_expect("phaseM (e) training", train, n * M_UNTIED_STEPS,
+                   n * M_UNTIED_STEPS)
+    print("phaseM (e) untied training", json.dumps(dict(
+        steps=M_UNTIED_STEPS, **{k: train[k] for k in (
+            "losses", "step_ms_median", "tokens_per_s", "peak_memory_gib")},
+        card=card)), flush=True)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    head = m_head_kernel(flush)
+    del flush
+    sd = untied_state(cfg, rng)
+    proto = TransformerLM(cfg, device="meta")
+    kw = dict(attention_kernel="cuda", matmul_kernel="cuda",
+              weight_dtype="int8")
+    serve(proto, sd, WARM, **kw)
+    qmm.reset_kernel_launches()
+    done, eng, st = serve(proto, sd, trace, **kw)
+    heads, routes = qmm.route_launches(n=cfg.vocab_size), qmm.route_launches()
+    check_completions(done, trace, cfg.vocab_size, "phaseM (e) untied int8")
+    forwards = eng.decode_substeps + eng.prefills
+    want_head = {r: forwards * (r == "tc") for r in qmm.ROUTES}
+    check(heads == want_head, f"phaseM (e): the head's K5 routes {heads}, "
+          f"expected {want_head}")
+    want = {"gemv_dense": 4 * n * eng.decode_substeps, "gemv_attend": 0,
+            "tc": 4 * n * eng.prefills + forwards, "tiled_f32": 0}
+    check(routes == want, f"phaseM (e): K5 routes {routes}, expected {want}")
+    res = dict(weight_dtype="int8", decode_steps=eng.decode_substeps,
+               prefills=eng.prefills, route_launches=routes,
+               head_route_launches=heads, param_bytes=eng.param_bytes(),
+               **serving_times(done, st), card=card)
+    print("phaseM (e) untied serving", json.dumps(res), flush=True)
+    err, share = phase3_kernel_vs_plain_path(
+        cfg, sd, trace, tag="phaseM (e) untied", paths=PATHS_QUANTIZED,
+        weight_dtype="int8")
+    check(share == 1.0, f"phaseM (e): f32 greedy tokens of the kernel path "
+          f"equal the plain path's on a {share} share only")
+    del sd
+    release()
+    return dict(train=train, head=head, serving=res, f32_logits_err=err)
+
+
+def phase_m_softmax(card):
+    """(f) ``attention_impl="dot"`` with a bf16 softmax beside the f32
+    one: finite losses, step ms and peak memory."""
+    from ray_lightning_tpu_torch.models import gpt2_config
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        res = m_fit(gpt2_config("small", attention_impl="dot",
+                                attention_softmax_dtype=dtype),
+                    M_SOFTMAX_STEPS)
+        rows[str(dtype)] = res
+        print("phaseM (f) dot attention", json.dumps(dict(
+            softmax_dtype=str(dtype), steps=M_SOFTMAX_STEPS,
+            **{k: res[k] for k in ("losses", "step_ms_median",
+                                   "tokens_per_s", "peak_memory_gib")},
+            card=card)), flush=True)
+    return rows
+
+
+def phase_m_model_core(card, t2, rng, trace):
+    """Phase M: the model core's training options at GPT-2-small width."""
+    release()
+    t0 = time.perf_counter()
+    res = dict(dropout=phase_m_dropout(card, t2),
+               remat=phase_m_remat(card), replay=phase_m_replay(),
+               lm_head_loss=phase_m_lm_head_loss(card),
+               untied=phase_m_untied(card, rng, trace),
+               softmax=phase_m_softmax(card))
+    fits = [res["dropout"], *res["remat"].values(), res["untied"]["train"]]
+    res["flash_launches"] = {k: sum(f["launches"][k] for f in fits)
+                             for k in fits[0]["launches"]}
+    print(f"phaseM done in {time.perf_counter() - t0:.1f} s, K2-K4 "
+          f"launches {res['flash_launches']}", flush=True)
+    return res
+
+
 # -------------------------------------------------------------- phase R
 R_STEPS, R_EVERY, R_KILL = 12, 4, 9   # save every 4 steps, die at step 10
 
@@ -2614,6 +3074,7 @@ def main() -> int:
     fpath = flash[("path", "bfloat16")]
     trained = phase_t2_training(card, fpath)
     phase_t3_train_kernel_vs_plain()
+    core = phase_m_model_core(card, trained, rng, trace)
     phase_r_resume(card)
     presets = phase_o_optimizers(card)
     release()
@@ -2660,7 +3121,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=flash_source,
             replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
-            launches=trained["launches"][name],
+            launches=(trained["launches"][name]
+                      + core["flash_launches"][name]),
             max_abs_err=max(fpath[f"{e}_err"] for e in errs),
             ms=fpath[f"{kind}_ms"], plain_ms=fpath[f"{kind}_plain_ms"],
             bound_ms=fpath[f"{kind}_bound_ms"],
@@ -2699,6 +3161,16 @@ def main() -> int:
             launches=launches5,
             **{k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}))
+    # K5 at the untied head (phase M (e)): one call at decode's M = 8,
+    # launches from (e)'s int8 serving run (the head at every M, on tc)
+    head = core["untied"]["head"][8]
+    kernels.append(dict(
+        name=qmm.KERNEL + "_untied_head", route="cuda",
+        source="ray_lightning_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="ray_lightning_tpu/models/pallas_matmul.py:123",
+        launches=core["untied"]["serving"]["head_route_launches"]["tc"],
+        **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}))
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     check(not idle, f"kernels no main path launched: {idle}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,9 @@ module in place. The layouts differ in these places:
   ``out`` is an (H·head_dim, d) kernel;
 - flax ``LayerNorm`` names its weight ``scale`` (and uses epsilon 1e-6
   with f32 statistics -- ``models.transformer.LayerNorm`` matches it);
-- the LM head has no weights of its own: it is tied to
-  ``wte/embedding`` (vocab, d);
+- the LM head is tied to ``wte/embedding`` (vocab, d), or, untied
+  (``tie_embeddings=False``), a bias-free Dense kernel ``lm_head/kernel``
+  (d, vocab), the port's ``lm_head.weight`` transposed;
 - embeddings are ``embedding`` (rows, d), the same layout as torch.
 
 Quantized weights keep the flax layout (``models/quant.py``):
@@ -38,8 +39,13 @@ from ray_lightning_tpu_torch.models.quant import QTensor
 
 #: the port's Dense weights other than qkv: flax kernel = weight.T
 _DENSE_SUFFIXES = (".attn.out.weight", ".mlp.up.weight", ".mlp.down.weight")
+_LM_HEAD = "lm_head.weight"        # the untied head, also weight.T
 _QKV_SUFFIX = ".attn.qkv.weight"
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _is_dense(name: str) -> bool:
+    return name.endswith(_DENSE_SUFFIXES) or name == _LM_HEAD
 
 
 def _is_quantized_leaf(leaf) -> bool:
@@ -96,6 +102,8 @@ def _flax_leaves(params: Mapping[str, Any]) -> Iterator[Tuple[str, Any]]:
     yield "wpe.weight", p["wpe"]["embedding"]
     yield "ln_f.weight", p["ln_f"]["scale"]
     yield "ln_f.bias", p["ln_f"]["bias"]
+    if "lm_head" in p:
+        yield _LM_HEAD, p["lm_head"]["kernel"]
     stack = p["stack"]
     n_layers = sum(1 for k in stack if k.startswith("block_"))
     for i in range(n_layers):
@@ -115,7 +123,7 @@ def _to_port_layout(name: str, leaf: np.ndarray) -> np.ndarray:
         return leaf.reshape(leaf.shape[0], -1).T
     if name.endswith(".attn.qkv.bias"):             # (3, H, hd)
         return leaf.reshape(-1)
-    if name.endswith(_DENSE_SUFFIXES):
+    if _is_dense(name):
         return leaf.T
     return leaf
 
@@ -131,11 +139,12 @@ def flax_layout(name: str, weight: torch.Tensor,
                 n_heads: int) -> torch.Tensor:
     """The flax-layout view of one port matrix (the inverse of the
     transposes above): qkv (3·H·hd, d) -> (d, 3, H, hd); out, up, down
-    (out, in) -> (in, out); embeddings as they are."""
+    and the untied head (out, in) -> (in, out); embeddings as they
+    are."""
     if name.endswith(_QKV_SUFFIX):
         rows, d = weight.shape
         return weight.T.reshape(d, 3, n_heads, rows // (3 * n_heads))
-    if name.endswith(_DENSE_SUFFIXES):
+    if _is_dense(name):
         return weight.T
     return weight
 

@@ -46,6 +46,10 @@ class GPTModule(TpuModule):
     The loss is ``F.cross_entropy`` of the f32 logits against the next
     tokens, the mean over every token -- the counterpart of
     ``optax.softmax_cross_entropy_with_integer_labels(...).mean()``.
+    A training step is deterministic iff ``config.dropout == 0``; with
+    dropout it draws one integer from the step's generator, the seed of
+    its masks (so a resumed run, whose generator state the checkpoint
+    carries, replays them). Validation and predict are deterministic.
     """
 
     def __init__(self,
@@ -102,15 +106,20 @@ class GPTModule(TpuModule):
     def val_dataloader(self):
         return self._loader(1)
 
-    def _loss(self, model, batch):
+    def _loss(self, model, batch, deterministic: bool = True,
+              dropout_seed: Optional[int] = None):
         inputs, targets = batch
-        logits = model(inputs)
+        logits = model(inputs, deterministic=deterministic,
+                       dropout_seed=dropout_seed)
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                targets.reshape(-1).long())
         return loss, logits
 
     def training_step(self, model, batch, generator):
-        loss, _ = self._loss(model, batch)
+        deterministic = self.cfg.dropout == 0.0
+        seed = None if deterministic else int(
+            torch.randint(0, 2**62, (1,), generator=generator))
+        loss, _ = self._loss(model, batch, deterministic, seed)
         self.log("train_ppl", torch.exp(loss.detach()))
         return loss
 

@@ -29,7 +29,7 @@ pieces:
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,6 +46,7 @@ _PARAM_DTYPES = (torch.float32, torch.bfloat16)
 _GEMV_ROWS = 16              # the decode GEMVs take M <= 16
 
 _launches: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+_launches_by_n: Dict[Tuple[str, int], int] = {}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -55,15 +56,20 @@ def kernel_launches() -> int:
     return sum(_launches.values())
 
 
-def route_launches() -> Dict[str, int]:
+def route_launches(n: Optional[int] = None) -> Dict[str, int]:
     """Launches of each route (:data:`ROUTES`) since the last
-    :func:`reset_kernel_launches`; they sum to :func:`kernel_launches`."""
-    return dict(_launches)
+    :func:`reset_kernel_launches`; they sum to :func:`kernel_launches`.
+    ``n``: only the calls whose output has ``n`` columns (the untied
+    head's vocab, say)."""
+    if n is None:
+        return dict(_launches)
+    return {route: _launches_by_n.get((route, n), 0) for route in ROUTES}
 
 
 def reset_kernel_launches() -> None:
     for route in _launches:
         _launches[route] = 0
+    _launches_by_n.clear()
 
 
 def _route(M: int, N: int, K: int, bits: int, transpose: bool,
@@ -173,6 +179,7 @@ def quantized_matmul(x: torch.Tensor, qt: QTensor,
         raise RuntimeError(f"quantized_matmul kernel launch failed ({route}): "
                            f"{msg}")
     _launches[route] += 1
+    _launches_by_n[route, N] = _launches_by_n.get((route, N), 0) + 1
     return out
 
 

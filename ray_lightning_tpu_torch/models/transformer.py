@@ -40,21 +40,30 @@ lookups gather code rows and dequantize only those. A model with no
 quantized weights computes what it always did.
 
 The plain forward is the training path. Its attention is
-``attention_impl="dot"`` (:func:`~ray_lightning_tpu_torch.ops.attention.dot_product_attention`)
+``attention_impl="dot"`` (:func:`~ray_lightning_tpu_torch.ops.attention.dot_product_attention`,
+its softmax in ``attention_softmax_dtype``)
 or ``"flash"`` (:func:`~ray_lightning_tpu_torch.ops.flash_attention.flash_attention`:
 the CUDA flash kernels, forward and backward, on the card; their plain
-versions on the CPU). The layers run in a Python loop: the JAX package's
-``scan_layers`` has no counterpart, and :mod:`..interop` takes either
-weight layout.
+versions on the CPU). ``forward(deterministic=False, dropout_seed=s)``
+with ``dropout > 0`` drops the attention weights and the MLP output, as
+the JAX package does, each site's mask drawn by
+:func:`~ray_lightning_tpu_torch.ops.dropout.dropout_keep` from ``(s,
+layer, site)`` (a flash config then takes the dense attention on that
+step, as JAX's ``flash_attention`` does). ``remat=True`` rematerializes
+each block under ``remat_policy`` (:mod:`.remat`). The LM head is the
+token embedding (``tie_embeddings=True``) or a Dense ``lm_head`` without
+bias; ``return_hidden=True`` returns ``ln_f``'s output instead, for
+:mod:`~ray_lightning_tpu_torch.ops.lm_head_loss`. The layers run in a
+Python loop: the JAX package's ``scan_layers`` has no counterpart, and
+:mod:`..interop` takes either weight layout.
 
 Caches and arenas are updated IN PLACE (JAX returns new ones): a
 serving arena is the one large allocation of the engine and is never
 copied. :class:`TransformerConfig` takes every field of the JAX config.
 ``scan_layers``, ``scan_unroll`` and ``decode`` have no counterpart and
 change nothing (every module carries its caches). Not yet ported (they
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` item): remat and
-``remat_policy``, dropout, the ring/ulysses attention impls, a softmax
-dtype other than f32, untied embeddings, segment embeddings, LoRA.
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item): the
+ring/ulysses attention impls, segment embeddings, LoRA.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.models import remat as _remat
 from ray_lightning_tpu_torch.models.paged_attention import (
     paged_attention, paged_attention_reference)
 from ray_lightning_tpu_torch.models.quant import (QTensor, kv_dequantize,
@@ -75,6 +85,7 @@ from ray_lightning_tpu_torch.models.quant import (QTensor, kv_dequantize,
                                                   quantize_params)
 from ray_lightning_tpu_torch.models.quantized_matmul import (
     quantized_matmul, quantized_matmul_reference)
+from ray_lightning_tpu_torch.ops import dropout as _dropout
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
 from ray_lightning_tpu_torch.ops.cuda_flash import flash_fwd_reference
 from ray_lightning_tpu_torch.ops.flash_attention import flash_attention
@@ -82,9 +93,7 @@ from ray_lightning_tpu_torch.ops.flash_attention import flash_attention
 ATTENTION_KERNELS = ("torch", "cuda")
 MATMUL_KERNELS = ("torch", "cuda")
 ATTENTION_IMPLS = ("dot", "flash")
-REMAT_POLICIES = ("dots", "dots_with_no_batch_dims",
-                  "dots_with_no_batch_dims_save_attn",
-                  "dots_with_no_batch_dims_save_attn_mlp")
+REMAT_POLICIES = tuple(p for p in _remat.POLICIES if p is not None)
 _BIG_NEG = torch.finfo(torch.float32).min
 
 
@@ -133,10 +142,12 @@ class TransformerConfig:
     scan_layers: bool = True
     scan_unroll: int = 1
     decode: bool = False
-    # refused unless at the default (NotImplementedError naming the item)
+    # None = rematerialize everything; the others keep matmul outputs
+    # and named seats (models/remat.py)
     remat_policy: Optional[str] = None
     attention_softmax_dtype: object = torch.float32
     tie_embeddings: bool = True
+    # refused unless at the default (NotImplementedError naming the item)
     num_segments: int = 0
     lora: object = None
 
@@ -160,22 +171,11 @@ class TransformerConfig:
                 raise ValueError(
                     f"remat_policy must be one of {REMAT_POLICIES} or "
                     f"None, got {self.remat_policy!r}")
-            raise NotImplementedError(
-                "remat_policy is not ported yet (ROADMAP.md A, item T3)")
         # dtypes as torch dtypes, from a torch dtype or the numpy/str
         # spelling a JAX config's jnp.float32 stands for
         for name in ("dtype", "param_dtype", "attention_softmax_dtype"):
             object.__setattr__(self, name,
                                _as_torch_dtype(getattr(self, name)))
-        if self.attention_softmax_dtype != torch.float32:
-            raise NotImplementedError(
-                f"attention_softmax_dtype={self.attention_softmax_dtype} is "
-                "not ported yet (ROADMAP.md A, item 8): the softmax runs "
-                "in float32")
-        if not self.tie_embeddings:
-            raise NotImplementedError(
-                "tie_embeddings=False is not ported yet (ROADMAP.md A, "
-                "item 8): the LM head is the token embedding")
         if self.num_segments > 0:
             raise NotImplementedError(
                 "num_segments > 0 (segment embeddings, BERT) is not ported "
@@ -193,12 +193,6 @@ class TransformerConfig:
             raise ValueError(
                 f"attention_impl must be one of {ATTENTION_IMPLS}, got "
                 f"{self.attention_impl!r}")
-        if self.dropout > 0.0:
-            raise NotImplementedError(
-                "dropout > 0 is not ported yet (ROADMAP.md T3)")
-        if self.remat:
-            raise NotImplementedError(
-                "remat=True is not ported yet (ROADMAP.md T3)")
         if self.attention_kernel not in ATTENTION_KERNELS:
             raise ValueError(
                 f"attention_kernel must be one of {ATTENTION_KERNELS}, got "
@@ -315,26 +309,28 @@ class Dense(nn.Module):
     """``nn.Dense``/``nn.DenseGeneral`` of the JAX package: f32 master
     weight (out, in), computed in the compute dtype; or, once quantized,
     ``qweight`` (codes of the flax kernel ``(in, *features)``) and no f32
-    weight (``QuantDense``/``QuantDenseGeneral``)."""
+    weight (``QuantDense``/``QuantDenseGeneral``). ``bias=False`` is
+    ``use_bias=False`` (the untied LM head)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 cfg: TransformerConfig, device):
+                 cfg: TransformerConfig, device, bias: bool = True):
         super().__init__()
         self.dtype = cfg.dtype
         self.matmul_kernel = cfg.matmul_kernel
         self.weight = nn.Parameter(torch.empty(
             out_features, in_features, dtype=cfg.param_dtype, device=device))
         self.bias = nn.Parameter(torch.empty(
-            out_features, dtype=cfg.param_dtype, device=device))
+            out_features, dtype=cfg.param_dtype, device=device)) \
+            if bias else None
         self.qweight: Optional[QTensor] = None
 
     def forward(self, x):
         x = x.to(self.dtype)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
         if self.qweight is None:
-            return F.linear(x, self.weight.to(self.dtype),
-                            self.bias.to(self.dtype))
-        return (_quant_matmul(x, self.qweight, self.matmul_kernel)
-                + self.bias.to(self.dtype))
+            return F.linear(x, self.weight.to(self.dtype), bias)
+        y = _quant_matmul(x, self.qweight, self.matmul_kernel)
+        return y if bias is None else y + bias
 
 
 class Embed(nn.Embedding):
@@ -400,11 +396,18 @@ class MultiHeadAttention(nn.Module):
         self.out = Dense(hd, cfg.d_model, cfg, device)
 
     def forward(self, x, kv_positions=None, page_table=None,
-                kv: Union[DenseKV, PagedKV, None] = None):
+                kv: Union[DenseKV, PagedKV, None] = None,
+                dropout_rng: Optional[int] = None, seats: bool = False):
+        """``dropout_rng``: the integer seed of this layer's attention
+        dropout (None: deterministic); ``seats``: inside a rematerialized
+        block, the output goes through the ``attn_out`` seat."""
         cfg = self.cfg
         B, T, _ = x.shape
         qkv = self.qkv(x).view(B, T, 3, cfg.n_heads, cfg.head_dim)
         q, k, v = qkv.unbind(dim=2)
+        # the softmax dtype reaches the dot impl only (flash keeps f32)
+        softmax_dtype = (cfg.attention_softmax_dtype
+                         if cfg.attention_impl == "dot" else torch.float32)
         if isinstance(kv, ChunkKV):
             out = self._chunk_attention(q, k, v, kv)
         elif page_table is not None:
@@ -412,11 +415,20 @@ class MultiHeadAttention(nn.Module):
                                               page_table, kv)
         elif kv is not None:
             k, v, mask = self._decode_cache(k, v, kv, kv_positions)
-            out = dot_product_attention(q, k, v, mask=mask)
-        elif cfg.attention_impl == "flash":
-            out = flash_attention(q, k, v, causal=cfg.causal)
+            out = dot_product_attention(q, k, v, mask=mask,
+                                        softmax_dtype=softmax_dtype)
         else:
-            out = dot_product_attention(q, k, v, causal=cfg.causal)
+            rate = cfg.dropout if dropout_rng is not None else 0.0
+            if cfg.attention_impl == "flash":
+                out = flash_attention(q, k, v, causal=cfg.causal,
+                                      dropout_rate=rate,
+                                      dropout_rng=dropout_rng)
+            else:
+                out = dot_product_attention(q, k, v, causal=cfg.causal,
+                                            dropout_rate=rate,
+                                            dropout_rng=dropout_rng,
+                                            softmax_dtype=softmax_dtype)
+            out = _remat.checkpoint_name(out, "attn_out", seats)
         return self.out(out.reshape(B, T, cfg.n_heads * cfg.head_dim))
 
     def _decode_cache(self, k, v, cache: DenseKV, kv_positions=None):
@@ -556,26 +568,62 @@ class MultiHeadAttention(nn.Module):
 class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
+        self.rate = cfg.dropout
         self.up = Dense(cfg.d_model, cfg.d_ff, cfg, device)
         self.down = Dense(cfg.d_ff, cfg.d_model, cfg, device)
 
-    def forward(self, x):
+    def forward(self, x, dropout_rng: Optional[int] = None,
+                seats: bool = False):
         # flax nn.gelu is the tanh approximation
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        h = F.gelu(self.up(x), approximate="tanh")
+        h = self.down(_remat.checkpoint_name(h, "mlp_act", seats))
+        if dropout_rng is not None:
+            h = _dropout.apply_dropout(h, self.rate, dropout_rng)
+        return h
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    """One pre-LN block, layer ``layer`` of the stack (its dropout sites'
+    seeds are drawn from it)."""
+
+    def __init__(self, cfg: TransformerConfig, device, layer: int = 0):
         super().__init__()
+        self.cfg = cfg
+        self.layer = layer
         self.ln1 = LayerNorm(cfg.d_model, cfg, device)
         self.attn = MultiHeadAttention(cfg, device)
         self.ln2 = LayerNorm(cfg.d_model, cfg, device)
         self.mlp = MlpBlock(cfg, device)
 
-    def forward(self, x, kv_positions=None, page_table=None, kv=None):
+    def forward(self, x, kv_positions=None, page_table=None, kv=None,
+                deterministic: bool = True,
+                dropout_seed: Optional[int] = None):
+        if (self.cfg.remat and kv is None and page_table is None
+                and torch.is_grad_enabled()):
+            return _remat.checkpoint_block(
+                self._remat_forward, x, deterministic, dropout_seed,
+                policy=self.cfg.remat_policy)
+        return self._forward(x, kv_positions, page_table, kv, deterministic,
+                             dropout_seed)
+
+    def _remat_forward(self, x, deterministic, dropout_seed):
+        return self._forward(x, None, None, None, deterministic,
+                             dropout_seed, seats=True)
+
+    def _forward(self, x, kv_positions, page_table, kv, deterministic,
+                 dropout_seed, seats: bool = False):
+        attn_rng = mlp_rng = None
+        if self.cfg.dropout > 0.0 and not deterministic:
+            # derived here, inside a rematerialized region: the replay
+            # redraws the same masks from the same integers
+            attn_rng = _dropout.site_seed(dropout_seed, self.layer,
+                                          _dropout.ATTENTION)
+            mlp_rng = _dropout.site_seed(dropout_seed, self.layer,
+                                         _dropout.MLP)
         x = x + self.attn(self.ln1(x), kv_positions=kv_positions,
-                          page_table=page_table, kv=kv)
-        return x + self.mlp(self.ln2(x))
+                          page_table=page_table, kv=kv, dropout_rng=attn_rng,
+                          seats=seats)
+        return x + self.mlp(self.ln2(x), dropout_rng=mlp_rng, seats=seats)
 
 
 class TransformerStack(nn.Module):
@@ -585,13 +633,17 @@ class TransformerStack(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
         self.blocks = nn.ModuleList(
-            TransformerBlock(cfg, device) for _ in range(cfg.n_layers))
+            TransformerBlock(cfg, device, layer=i)
+            for i in range(cfg.n_layers))
 
     def forward(self, x, kv_positions=None, page_table=None,
-                cache: Optional[Sequence] = None):
+                cache: Optional[Sequence] = None,
+                deterministic: bool = True,
+                dropout_seed: Optional[int] = None):
         for i, block in enumerate(self.blocks):
             x = block(x, kv_positions=kv_positions, page_table=page_table,
-                      kv=None if cache is None else cache[i])
+                      kv=None if cache is None else cache[i],
+                      deterministic=deterministic, dropout_seed=dropout_seed)
         return x
 
 
@@ -642,13 +694,18 @@ def check_seq_len(cfg: TransformerConfig, length: int,
 
 class TransformerLM(nn.Module):
     """GPT-style causal LM: token + learned position embeddings, the
-    layer stack, final LayerNorm, LM head tied to the token embedding.
+    layer stack, final LayerNorm, and the LM head: tied to the token
+    embedding, or (``tie_embeddings=False``) a Dense ``lm_head`` without
+    bias, the flax kernel (d_model, vocab).
 
-    ``forward(tokens)`` returns f32 logits (B, T, vocab). ``positions``
-    (B|1, T) overrides the default 0..T-1 position ids (the cached modes
-    pass each token's absolute position); ``cache``, ``kv_positions`` and
-    ``page_table`` select the cached modes of the module docstring.
-    ``device=None`` builds on the card.
+    ``forward(tokens)`` returns f32 logits (B, T, vocab);
+    ``return_hidden=True`` returns ``ln_f``'s output (B, T, d_model) in
+    the compute dtype instead. ``positions`` (B|1, T) overrides the
+    default 0..T-1 position ids (the cached modes pass each token's
+    absolute position); ``cache``, ``kv_positions`` and ``page_table``
+    select the cached modes of the module docstring. ``deterministic=
+    False`` with ``dropout > 0`` needs ``dropout_seed``, an integer the
+    step's masks derive from. ``device=None`` builds on the card.
     """
 
     def __init__(self, cfg: TransformerConfig, device=None):
@@ -659,6 +716,8 @@ class TransformerLM(nn.Module):
         self.wpe = Embed(cfg.max_seq_len, cfg.d_model, cfg, dev)
         self.stack = TransformerStack(cfg, dev)
         self.ln_f = LayerNorm(cfg.d_model, cfg, dev)
+        self.lm_head = None if cfg.tie_embeddings else Dense(
+            cfg.d_model, cfg.vocab_size, cfg, dev, bias=False)
         self.reset_parameters()
 
     @torch.no_grad()
@@ -733,7 +792,9 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, positions=None,
                 kv_positions=None, page_table=None,
-                cache=None) -> torch.Tensor:
+                cache=None, deterministic: bool = True,
+                dropout_seed: Optional[int] = None,
+                return_hidden: bool = False) -> torch.Tensor:
         cfg = self.cfg
         T = tokens.shape[1]
         if positions is None:
@@ -741,10 +802,19 @@ class TransformerLM(nn.Module):
             positions = torch.arange(T, device=tokens.device)[None]
         if page_table is not None and kv_positions is None:
             raise ValueError("page_table needs kv_positions")
+        if cfg.dropout > 0.0 and not deterministic and dropout_seed is None:
+            raise ValueError("deterministic=False with dropout > 0 needs "
+                             "dropout_seed (the integer the masks derive "
+                             "from)")
         x = self.wte(tokens) + self.wpe(positions)
         x = self.stack(x, kv_positions=kv_positions, page_table=page_table,
-                       cache=cache)
+                       cache=cache, deterministic=deterministic,
+                       dropout_seed=dropout_seed)
         x = self.ln_f(x)
-        # the LM head is tied to the token embedding (wte.attend in flax)
-        logits = self.wte.attend(x)
+        if return_hidden:
+            return x
+        # the LM head: tied to the token embedding (wte.attend in flax),
+        # or the untied lm_head
+        logits = (self.wte.attend(x) if self.lm_head is None
+                  else self.lm_head(x))
         return logits.float()

@@ -11,9 +11,11 @@
   package's XLA path (``_block_update``, ``_finalize``, the end-aligned
   ``pos_shift`` and the causal skip of KV blocks above the diagonal).
 
-An additive ``mask`` falls back to :func:`dot_product_attention`, as the
-JAX function does. Attention dropout is not ported (``ROADMAP.md``
-T3).
+An additive ``mask``, or attention dropout (``dropout_rate > 0`` with a
+``dropout_rng`` seed), takes :func:`dot_product_attention`, as the JAX
+function does (``ray_lightning_tpu/ops/flash_attention.py:78-81``): the
+kernels never see dropout, so a training step with dropout on launches
+none of them.
 """
 from __future__ import annotations
 
@@ -90,6 +92,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False,
                     mask: Optional[torch.Tensor] = None,
                     dropout_rate: float = 0.0,
+                    dropout_rng: Optional[int] = None,
                     block_q: int = 512, block_k: int = 1024,
                     use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Blockwise attention on (B, T, H, D) q and (B, S, H, D) k/v;
@@ -99,11 +102,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     versions on CPU tensors; True demands the kernels (CUDA tensors);
     False runs the blockwise PyTorch loop with ``block_q`` x ``block_k``
     blocks (the kernels use their own 64-row tiles)."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (ROADMAP.md T3)")
-    if mask is not None:
-        return dot_product_attention(q, k, v, causal=causal, mask=mask)
+    if mask is not None or (dropout_rate > 0.0 and dropout_rng is not None):
+        return dot_product_attention(q, k, v, causal=causal, mask=mask,
+                                     dropout_rate=dropout_rate,
+                                     dropout_rng=dropout_rng)
     if use_kernel is False:
         return _blockwise(q, k, v, causal, block_q, block_k)
     if use_kernel and q.device.type != "cuda":

@@ -18,7 +18,7 @@ port's ``BoringModel`` started from the JAX run's initial params
   by up to one bf16 ulp of it (``tests/test_torch_optim.py`` holds those
   optimizers to optax step for step at 1e-6); nano GPT on the flash
   path resumes bitwise from a save taken in the middle of a gradient
-  accumulation;
+  accumulation, and with ``dropout=0.1`` replays its masks bitwise;
 - a save killed at ``ckpt.save`` leaves nothing resume picks up, and a
   marker-less directory or a truncated stream file is skipped;
 - the directory writers' round trip and atomicity, periodic saves that
@@ -274,6 +274,43 @@ def test_gpt_resume_inside_an_accumulation_is_bitwise(tmp_path, fmt):
                        resume="auto", **kw)
     resumed.fit(module())
     assert resumed.global_step == ref.global_step == 8
+    _assert_bitwise(resumed.train_state.state_dict(),
+                    ref.train_state.state_dict())
+
+
+@pytest.mark.parametrize("fmt", ["stream", "orbax"])
+def test_gpt_dropout_resume_replays_the_masks_bitwise(tmp_path, fmt):
+    """Nano GPT with ``dropout=0.1``: every step draws its mask seed from
+    the step generator, whose state the checkpoint carries, so a fit
+    killed in its second epoch and resumed from the mid-epoch save at
+    step 4 draws the same masks as the uninterrupted fit: params,
+    optimizer state and losses bit for bit."""
+    cfg = gpt2_config("nano", attention_impl="flash", dtype=torch.float32,
+                      vocab_size=256, max_seq_len=32, dropout=0.1)
+    kw = dict(max_epochs=2, limit_train_batches=3, limit_val_batches=1)
+
+    def module():
+        return GPTModule(config=cfg, batch_size=4, num_samples=32)
+
+    ref_losses, losses = [], []
+    ref = _trainer(str(tmp_path / "ref"), callbacks=[_losses(ref_losses)],
+                   **kw)
+    ref.fit(module())
+    root = str(tmp_path)
+    cb = dict(dirpath=os.path.join(root, "ck"), save_format=fmt,
+              every_n_train_steps=2, save_top_k=-1)
+    killed = _trainer(root, callbacks=[ModelCheckpoint(**cb)], **kw)
+    with pytest.raises(InjectedFault):
+        with FaultPlan.at("train.step", [4]).armed():
+            killed.fit(module())
+    assert "step=4" in find_resume_candidates(cb["dirpath"])[0]
+    resumed = _trainer(root, callbacks=[ModelCheckpoint(**cb),
+                                        _losses(losses)],
+                       resume="auto", **kw)
+    resumed.fit(module())
+    assert resumed.global_step == ref.global_step == 6
+    assert [s for s, _ in losses] == [5, 6]
+    assert losses == ref_losses[-2:]
     _assert_bitwise(resumed.train_state.state_dict(),
                     ref.train_state.state_dict())
 

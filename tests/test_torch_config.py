@@ -3,13 +3,15 @@
 A JAX config's fields pass through by name: the layout knobs with no
 counterpart (``scan_layers``, ``scan_unroll``, ``decode``) change
 nothing, dtypes arrive as JAX spells them (``jnp.float32``), the JAX
-``__post_init__`` checks raise its ``ValueError``s, and a value the port
-cannot honour raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item. Kernel names are the one translation: the JAX package's ``"xla"``
+``__post_init__`` checks raise its ``ValueError``s, a value the port
+cannot honour yet raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item, and the values ported since (remat policies, the untied head, a
+bf16 softmax) run the model as JAX does. Kernel names are the one translation: the JAX package's ``"xla"``
 and ``"pallas"`` are the port's ``"torch"`` and ``"cuda"``.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,18 +73,54 @@ def test_softmax_dtype_spellings(spelling):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(remat=True, remat_policy="dots"), "item T3"),
-    (dict(tie_embeddings=False), "item 8"),
-    (dict(attention_softmax_dtype=jnp.bfloat16), "item 8"),
-    (dict(attention_softmax_dtype=torch.bfloat16), "item 8"),
     (dict(num_segments=2), "item 8: the zoo"),
     (dict(lora=LoraConfig(rank=4, num_adapters=2)), "item S4"),
-], ids=["remat_policy", "untied", "softmax-bf16-jnp", "softmax-bf16-torch",
-        "segments", "lora"])
+], ids=["segments", "lora"])
 def test_values_the_port_cannot_honour_name_their_item(kw, item):
     JaxTransformerConfig(**kw)      # the reference takes them
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md A, {item}"):
         TransformerConfig(**kw)
+
+
+NANO = dict(vocab_size=128, max_seq_len=32, d_model=128, n_heads=4,
+            n_layers=2, d_ff=512, dtype=jnp.float32, scan_layers=False)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(remat=True, remat_policy="dots"),
+    dict(tie_embeddings=False),
+    dict(attention_softmax_dtype=jnp.bfloat16),
+    dict(attention_softmax_dtype=torch.bfloat16),
+], ids=["remat_policy", "untied", "softmax-bf16-jnp", "softmax-bf16-torch"])
+def test_values_earlier_slices_refused_now_build_and_run_as_jax(kw):
+    """The values the port refused before T3 and item 8 build, and the
+    model's forward equals JAX's: to 1e-5, or with a bf16 softmax no
+    farther from JAX's than JAX's bf16-softmax logits are from its
+    f32-softmax ones."""
+    from ray_lightning_tpu.models.transformer import \
+        TransformerLM as JaxTransformerLM
+    from ray_lightning_tpu_torch.interop import load_flax_params
+    jkw = {k: (jnp.bfloat16 if v is torch.bfloat16 else v)
+           for k, v in kw.items()}
+    jcfg = JaxTransformerConfig(**NANO, **jkw)
+    cfg = _from_jax(jcfg)
+    assert all(getattr(cfg, k) == getattr(TransformerConfig(**NANO, **kw), k)
+               for k in kw)
+    tokens = np.random.default_rng(0).integers(0, 128, (2, 16)).astype(
+        np.int32)
+    params = JaxTransformerLM(jcfg).init(jax.random.PRNGKey(0),
+                                         tokens)["params"]
+    want = np.asarray(JaxTransformerLM(jcfg).apply({"params": params},
+                                                   tokens))
+    model = load_flax_params(TransformerLM(cfg, device="cpu"), params)
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens)).numpy()
+    bound = 1e-5
+    if cfg.attention_softmax_dtype != torch.float32:
+        f32 = dataclasses.replace(jcfg, attention_softmax_dtype=jnp.float32)
+        bound = np.abs(want - np.asarray(JaxTransformerLM(f32).apply(
+            {"params": params}, tokens))).max()
+    assert np.abs(got - want).max() <= bound
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -1276,3 +1276,142 @@ def test_spec_quantized_verify_on_tc_and_draft_on_the_gemvs(cuda):
         "tc": per_forward * (eng.spec_rounds + eng.prefills)
         + draft_forward * refills,
         "tiled_f32": 0}
+
+
+# ------------------------------- T3 and the rest of the model core (item 8)
+REMAT_POLICIES = [None, "dots", "dots_with_no_batch_dims",
+                  "dots_with_no_batch_dims_save_attn",
+                  "dots_with_no_batch_dims_save_attn_mlp"]
+
+
+def _core_model(cuda, **kw):
+    """A bf16 nano GPT on the flash kernels, its weights from seed 0."""
+    cfg = gpt2_config("nano", attention_impl="flash", vocab_size=256,
+                      max_seq_len=64, **kw)
+    model = TransformerLM(cfg, device=cuda)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model
+
+
+def _core_step(model, cuda, **kw):
+    toks = torch.randint(0, 256, (4, 65),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    logits = model(toks[:, :-1], **kw)
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), toks[:, 1:].reshape(-1))
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def test_dropout_steps_take_the_dense_path_on_the_card(cuda):
+    """With dropout on, a step launches none of K2-K4 (the reference's
+    dense route); a deterministic forward launches K2 once a layer; the
+    same seed gives the same step bitwise."""
+    model = _core_model(cuda, dropout=0.1)
+    cf.reset_kernel_launches()
+    a = _core_step(model, cuda, deterministic=False, dropout_seed=3)
+    assert cf.kernel_launches() == dict.fromkeys(cf.KERNELS, 0)
+    for p in model.parameters():
+        p.grad = None
+    b = _core_step(model, cuda, deterministic=False, dropout_seed=3)
+    assert torch.equal(a[0], b[0]) and torch.isfinite(a[0])
+    with torch.no_grad():
+        model(torch.zeros((2, 64), dtype=torch.long, device=cuda))
+    n = model.cfg.n_layers
+    assert cf.route_launches("flash_fwd") == {"simt": 0, "tc": n}
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES, ids=str)
+def test_remat_replays_k2_on_the_card(cuda, policy):
+    """Under every policy a step launches K2 twice a layer (the forward
+    and its replay in backward) and K3 and K4 once, all on ``tc``; the
+    loss and gradients equal the plain step's bitwise."""
+    plain = _core_step(_core_model(cuda), cuda)
+    model = _core_model(cuda, remat=True, remat_policy=policy)
+    cf.reset_kernel_launches()
+    got = _core_step(model, cuda)
+    n = model.cfg.n_layers
+    assert {k: cf.route_launches(k) for k in cf.KERNELS} == {
+        "flash_fwd": {"simt": 0, "tc": 2 * n},
+        "flash_bwd_dkv": {"simt": 0, "tc": n},
+        "flash_bwd_dq": {"simt": 0, "tc": n}}
+    assert torch.equal(got[0], plain[0])
+    for name, g in plain[1].items():
+        assert torch.equal(got[1][name], g), name
+
+
+@pytest.mark.parametrize("M", [8, 128, 1024])
+def test_k5_at_the_untied_head(cuda, M):
+    """The untied GPT-2 head, the dense orientation at K = 768, N =
+    50257 (not a multiple of 4, so even M = 8 goes to ``tc``): bf16 x on
+    ``tc``, f32 x on ``tiled_f32``, each against the plain version."""
+    w = 0.02 * torch.randn(768, 50257, generator=torch.Generator()
+                           .manual_seed(0))
+    qt = quantize_params({"w": w}, "int8")["w"].to(cuda)
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32,
+                                                 "tiled_f32")):
+        x = torch.randn(M, 768, generator=torch.Generator().manual_seed(M)
+                        ).to(cuda, dtype)
+        qmm.reset_kernel_launches()
+        got = qmm.quantized_matmul(x, qt)
+        assert qmm.route_launches(n=50257) == {
+            r: int(r == route) for r in qmm.ROUTES}
+        ref = qmm.quantized_matmul_reference(x, qt)
+        scale = max(1.0, ref.float().abs().max().item())
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+        assert (got.float() - ref.float()).abs().max().item() <= tol * scale
+
+
+def test_untied_quantized_serving_runs_the_head_on_tc(cuda):
+    """An untied bf16 nano model with int8 weights served through K5: an
+    odd vocab puts the head on ``tc`` at every M (prefill and decode),
+    none of it on ``tiled_f32``."""
+    cfg = gpt2_config("nano", vocab_size=251, max_seq_len=32,
+                      tie_embeddings=False)
+    model = TransformerLM(cfg, device="cpu")
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    client = ServeClient(model, model.state_dict(), num_slots=3,
+                         prefill_len=8, page_size=4, page_native=True,
+                         attention_kernel="cuda", matmul_kernel="cuda",
+                         weight_dtype="int8", device=cuda)
+    qmm.reset_kernel_launches()
+    out = client.serve_trace([(0, dict(prompt=[5, 17, 3], max_new_tokens=6)),
+                              (2, dict(prompt=[9, 2], max_new_tokens=6))])
+    eng = client.engine
+    heads = qmm.route_launches(n=251)
+    client.shutdown()
+    assert all(len(c.tokens) == 6 for c in out.values())
+    assert heads["tc"] > 0 and heads["tc"] == sum(heads.values())
+    assert qmm.route_launches()["tiled_f32"] == 0
+    assert eng.prefills > 0
+
+
+def test_lm_head_losses_on_the_card(cuda):
+    """The direct and chunked LM-head losses on bf16 hidden states
+    against the materialized f32 cross-entropy, value and both
+    gradients within bf16 bounds."""
+    from ray_lightning_tpu_torch.ops.lm_head_loss import (
+        chunked_lm_head_xent, lm_head_xent)
+    g = torch.Generator().manual_seed(0)
+    hidden = torch.randn(4, 300, 64, generator=g).to(cuda, torch.bfloat16)
+    table = (0.2 * torch.randn(1001, 64, generator=g)).to(cuda)
+    labels = torch.randint(0, 1001, (4, 300), generator=g).to(cuda)
+
+    def run(fn):
+        h = hidden.detach().requires_grad_()
+        t = table.detach().requires_grad_()
+        loss = fn(h, t)
+        loss.backward()
+        return loss.item(), h.grad.float(), t.grad
+
+    want = run(lambda h, t: torch.nn.functional.cross_entropy(
+        (h.float() @ t.to(torch.bfloat16).float().T).reshape(-1, 1001),
+        labels.reshape(-1)))
+    for fn in (lambda h, t: lm_head_xent(h, t, labels),
+               lambda h, t: chunked_lm_head_xent(h, t, labels,
+                                                 chunk_size=256)):
+        loss, gh, gt = run(fn)
+        assert abs(loss - want[0]) <= 1e-2
+        for got, ref in ((gh, want[1]), (gt, want[2])):
+            scale = ref.abs().max().item()
+            assert (got - ref).abs().max().item() <= 2 * 2.0 ** -7 * scale

@@ -27,8 +27,11 @@ and fed the same numpy batches:
 - accumulation with clipping, a learning-rate schedule under ZeRO, the
   non-finite guard's one verdict over ranks, each rank's share of
   ZeRO's and FSDP's optimizer state, and ``validate``/``test`` averaged
-  over ranks, each against the one-process fit.
+  over ranks, each against the one-process fit;
+- a DDP fit with ``remat=True`` bitwise the same fit without it, with
+  and without dropout.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -232,6 +235,23 @@ def test_accumulation_and_clipping(world, name):
     for n, w in want.items():
         np.testing.assert_allclose(two.train_state_dict["params"][n],
                                    w, atol=1e-5, rtol=0, err_msg=n)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_remat_fit_equals_the_plain_fit(world, rate):
+    """Two workers under DDP with ``remat=True`` equal the same fit
+    without remat bitwise, with dropout too: each rank's masks come from
+    its own step generator and the replay redraws them."""
+    fits = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(tw.nano_cfg(), dropout=rate, remat=remat)
+        trainer, losses = fit2(world, RayStrategy, tw.Nano(cfg=cfg))
+        fits.append((losses, trainer.train_state_dict["params"]))
+    (losses1, params1), (losses2, params2) = fits
+    assert losses2 == losses1
+    assert params2.keys() == params1.keys()
+    for n, w in params1.items():
+        assert torch.equal(params2[n], w), n
 
 
 def test_zero_schedule_reaches_the_local_optimizer(world):

@@ -307,9 +307,16 @@ def test_mask_falls_back_to_dot_product_attention():
 
 
 def test_unported_and_misplaced_requests_raise():
+    """Attention dropout is ported (T3): with a seed it takes the dense
+    path, as the JAX function does, and without one (JAX: without a key)
+    it drops nothing. A kernel demanded on CPU tensors raises."""
     q, k, v, _ = map(torch.from_numpy, _inputs(8, 8))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        flash_attention(q, k, v, dropout_rate=0.1)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, dropout_rate=0.1, dropout_rng=3),
+        dot_product_attention(q, k, v, dropout_rate=0.1, dropout_rng=3),
+        atol=0, rtol=0)
+    torch.testing.assert_close(flash_attention(q, k, v, dropout_rate=0.1),
+                               flash_attention(q, k, v), atol=0, rtol=0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention(q, k, v, use_kernel=True)
 

@@ -329,12 +329,8 @@ UNPORTED = {
                                  telemetry=object()),
     "gang": lambda: RayStrategy(gang=object(), device="cpu"),
     "standby": lambda: RayStrategy(standby=object(), device="cpu"),
-    "dropout": lambda: gpt2_config("nano", dropout=0.1),
-    "remat": lambda: gpt2_config("nano", remat=True),
     "ring": lambda: gpt2_config("nano", attention_impl="ring"),
     "ulysses": lambda: gpt2_config("nano", attention_impl="ulysses"),
-    "attention_dropout": lambda: flash_attention(
-        *(torch.zeros(1, 4, 2, 32),) * 3, dropout_rate=0.1),
 }
 
 
@@ -356,6 +352,16 @@ def _resumed_step(tmp_path, resume=None):
     trainer = Trainer(strategy=RayStrategy(device="cpu"), max_epochs=1,
                       default_root_dir=str(tmp_path), resume=resume)
     trainer.fit(BoringModel(), ckpt_path=None if resume else best)
+    return trainer.global_step
+
+
+def _gpt_fit(**cfg_kw) -> int:
+    """One training step of the nano GPT with ``cfg_kw``: its global
+    step."""
+    cfg = gpt2_config("nano", dtype=torch.float32, **NANO, **cfg_kw)
+    trainer = Trainer(strategy=RayStrategy(device="cpu"), max_steps=1,
+                      limit_val_batches=0, seed=0)
+    trainer.fit(GPTModule(config=cfg, batch_size=4, num_samples=8))
     return trainer.global_step
 
 
@@ -396,6 +402,12 @@ PORTED = {
         strategy=RayStrategy(device="cpu"), max_steps=1,
         limit_val_batches=0, seed=0).fit(GPTModule(
             config=port_cfg(), optimizer="adafactor")) is None,
+    # T3 (held against JAX by tests/test_torch_remat.py)
+    "dropout": lambda tmp: _gpt_fit(dropout=0.1) == 1,
+    "remat": lambda tmp: _gpt_fit(remat=True) == 1,
+    "attention_dropout": lambda tmp: flash_attention(
+        *(torch.zeros(1, 4, 2, 32),) * 3, dropout_rate=0.1,
+        dropout_rng=0).shape == (1, 4, 2, 32),
 }
 
 

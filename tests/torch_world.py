@@ -29,10 +29,12 @@ class Nano(GPTModule):
     numpy arrays (the JAX trainer's initial params) when one is given,
     trained with SGD (``opt="sgd"``), SGD with momentum (``"momentum"``:
     optimizer state that moves linearly with the gradients) or the
-    module's AdamW; ``schedule`` returns ``(factory, lr schedule)``."""
+    module's AdamW; ``schedule`` returns ``(factory, lr schedule)``;
+    ``cfg`` replaces :func:`nano_cfg`."""
 
-    def __init__(self, init=None, opt="adamw", schedule=False, **kw):
-        super().__init__(config=nano_cfg(), **kw)
+    def __init__(self, init=None, opt="adamw", schedule=False, cfg=None,
+                 **kw):
+        super().__init__(config=cfg or nano_cfg(), **kw)
         self.init = init
         self.opt = opt
         self.schedule = schedule

@@ -1,6 +1,7 @@
 """Where a training step of the PyTorch/CUDA port's training path spends its time.
 
     python3 tools/profile_torch_train.py [--steps 5] [--warmup 3]
+        [--dropout 0.1] [--remat [--remat-policy NAME]] [--untied]
 
 Needs one NVIDIA GPU. Runs the training path of ``chip_smoke.py`` phase
 T2 (GPT-2-small at full width, ``attention_impl="flash"``, batch 8 x 1024
@@ -13,7 +14,10 @@ times in the profile), the device's idle share (1 - busy / host ms of the
 unprofiled window), kernel launches per step, the flash-attention kernels'
 device ms per step (all, the forward's and the backward's) and launches by
 kernel,
-and the kernels that take the most device time.
+and the kernels that take the most device time. ``--dropout``,
+``--remat``, ``--remat-policy`` and ``--untied`` set the config's
+``dropout``, ``remat``, ``remat_policy`` and ``tie_embeddings=False``;
+the line then also gives the peak device memory.
 """
 import argparse
 import json
@@ -39,6 +43,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--dropout", type=float, default=0.0)
+    ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--remat-policy", default=None)
+    ap.add_argument("--untied", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -63,7 +71,10 @@ def main() -> int:
         if idx + 1 == profiled[1]:
             prof.stop()
 
-    cfg = gpt2_config("small", attention_impl="flash")
+    cfg = gpt2_config("small", attention_impl="flash", dropout=args.dropout,
+                      remat=args.remat, remat_policy=args.remat_policy,
+                      tie_embeddings=not args.untied)
+    torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
                       limit_train_batches=profiled[1], limit_val_batches=0,
                       seed=0, callbacks=[LambdaCallback(
@@ -94,6 +105,9 @@ def main() -> int:
     measured = bool(kernels)
     out = dict(
         card=chip_smoke.card_line(), batch=8, seq_len=1024, steps=n,
+        dropout=args.dropout, remat=args.remat,
+        remat_policy=args.remat_policy, untied=args.untied,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         host_ms_per_step=host_ms,
         profiled_host_ms_per_step=1e3 * (marks[profiled[1]]
                                          - marks[profiled[0]]) / n,
