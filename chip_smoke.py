@@ -120,6 +120,33 @@ S. Speculative decoding: phase 2's weights and trace through
    (M = 40), the target's prefills and the draft's refills (M = 1024), on
    the GEMVs for the draft's feeds (M = 8), never on ``tiled_f32``; the
    engine's param bytes are Q2's int8 target plus the draft's codes.
+G. The dense KV layouts and decode outside the engine, phase 2's weights,
+   trace and 8 slots: (a) the default layout, ``ServeClient(...,
+   num_slots=8, prefill_len=128)`` (the dense slot pool), and (b) the
+   dense-view paged path (``page_size=16, num_pages=512,
+   page_native=False``), each with bf16 and int8 KV: every request runs
+   its budget, no launch of K1 or K2 (the reference's dense layouts
+   never reach them); printed per run: decode tokens/s, ms per decode
+   dispatch, TTFT (median, max) beside phase 2's, and from one profiled
+   decode dispatch of the trace's first 8 prompts (phase 2's page-native
+   layout too): kernel launches (held to ``G_DECODE_LAUNCHES`` within
+   ``G_LAUNCH_SPREAD``, the profiler's spread between calls), the host's
+   launch calls, device busy ms and idle share, the top kernels, and the
+   KV storage's bytes.
+   (c) ``weight_dtype="int8", matmul_kernel="cuda"``
+   on the dense pool: K5 on the GEMVs 49 times a decode step, on ``tc``
+   49 times a prefill, never on ``tiled_f32``; in f32 the first decode
+   step's logits of the kernel path against the plain path within
+   ``E2E_LOGITS_TOL`` and every request's greedy tokens equal. (d)
+   ``generate()`` on the trace's first 8 greedy prompts (ragged, padded
+   to 128) for 64 tokens: in f32 its tokens equal ``generate_full_scan``'s
+   and those of the dense, the dense-view and the page-native engines;
+   tokens/s in bf16,
+   and with int8 weights, K5 on the GEMVs 49 times a step and on ``tc``
+   49 times for the prefill. (e) phase S's draft (``spec_k=4``) on both
+   dense layouts: f32 greedy tokens equal the non-spec engine's of the
+   layout; with int8 weights for both models, K5's verify (M = 40) and
+   prefills on ``tc``, the draft's feeds on the GEMVs.
 T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
    max_epochs=1, limit_train_batches=20, limit_val_batches=2,
    seed=0).fit(GPTModule(config=gpt2_config("small",
@@ -251,13 +278,14 @@ C. The command line on the card, flags only: ``python -m
    entries,
    each one forward's 49 calls, bf16 x, int8 codes (times and bound
    their sums, the error the largest of them): ``quantized_matmul`` at
-   M=8 (a decode step, the GEMVs; Q2's, phase L's and phase S (d)'s int8
-   launches on those routes), ``quantized_matmul_prefill`` at M=1024 (a
-   prefill, the tensor-core kernel; Q2's ``tc`` launches),
+   M=8 (a decode step, the GEMVs; Q2's, phase L's, phase S (d)'s and
+   phase G (c), (d) and (e)'s int8 launches on those routes),
+   ``quantized_matmul_prefill`` at M=1024 (a prefill, the tensor-core
+   kernel; Q2's and phase G (c) and (d)'s ``tc`` launches),
    ``quantized_matmul_chunk`` at M=128 (a chunk dispatch, the
    tensor-core kernel; phase L's ``tc`` launches) and
    ``quantized_matmul_verify`` at M=40 (a spec verify, the tensor-core
-   kernel; phase S (d)'s verify launches), and
+   kernel; phase S (d)'s and phase G (e)'s verify launches), and
    ``quantized_matmul_untied_head``, one call of the untied head at M=8
    (phase M (e)'s serving run's head launches, every M).
 """
@@ -531,13 +559,13 @@ WARM = [(0, dict(prompt=[1, 2, 3], max_new_tokens=4)),
                  top_k=40))]
 
 
-def serve(model, sd, trace, observe=None, **kw):
-    """Replay ``trace`` through a fresh ``ServeClient`` (tick clock), with
-    host wall stamps around every engine dispatch; ``observe(engine)``
-    runs before the first. Returns the completions, the engine, and the
-    timings."""
+def serve(model, sd, trace, observe=None, layout=SERVE, **kw):
+    """Replay ``trace`` through a fresh ``ServeClient`` (tick clock) of
+    the KV ``layout`` (phase 2's by default), with host wall stamps around
+    every engine dispatch; ``observe(engine)`` runs before the first.
+    Returns the completions, the engine, and the timings."""
     from ray_lightning_tpu_torch.serve import ServeClient
-    client = ServeClient(model, sd, device=DEVICE, **SERVE, **kw)
+    client = ServeClient(model, sd, device=DEVICE, **layout, **kw)
     eng = client.engine
     if observe is not None:
         observe(eng)
@@ -1389,6 +1417,356 @@ def phase_s_speculative(cfg, sd, trace, served, quantized, card):
                card=card)
     print("phaseS", json.dumps(res), flush=True)
     out["runs"]["int8-weights"] = res
+    return out
+
+
+# -------------------------------------------------------------- phase G
+# the JAX engine's two other KV layouts at phase 2's slots and prefill
+G_LAYOUTS = {"dense": dict(num_slots=8, prefill_len=128),
+             "view": dict(num_slots=8, prefill_len=128, page_size=16,
+                          num_pages=512, page_native=False)}
+G_NEW_TOKENS = 64                # generate()'s and the profiles' budget
+G_PROFILE_WARM, G_PROFILE_HOST = 3, 5
+# device kernel launches of one profiled decode dispatch (profile_decode),
+# as phase G first counted them on the H100 (torch 2.11.0+cu128), held
+# to within G_LAUNCH_SPREAD of these, here and by the card test
+# test_dense_decode_dispatch_launches_match_phase_g: the profiler's
+# count of the same code moved by up to 2 between calls (dense int8 1299
+# and 1300, view bf16 991 and 993, view int8 1400 and 1401)
+G_DECODE_LAUNCHES = {"dense bf16": 892, "dense int8": 1300,
+                     "view bf16": 993, "view int8": 1401}
+G_LAUNCH_SPREAD = 0.005
+# the host's launch and copy calls, beside the device's kernel records
+G_HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx",
+                       "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def launches_close(measured: int, key: str) -> bool:
+    """``measured`` within G_LAUNCH_SPREAD of G_DECODE_LAUNCHES[key]."""
+    want = G_DECODE_LAUNCHES[key]
+    return abs(measured - want) <= G_LAUNCH_SPREAD * want
+
+
+def storage_bytes(eng) -> int:
+    """Bytes of an engine's KV storage: the slot pool's tensors (codes
+    and scales for int8), or the arena's (its sink page included)."""
+    if eng.paged:
+        tensors = [t for kv in eng.pool.arena
+                   for t in (kv.k, kv.v, kv.k_scale, kv.v_scale)
+                   if t is not None]
+    else:
+        tensors = [t for kv in eng.pool.cache for t in vars(kv).values()
+                   if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def profile_decode(proto, sd, trace, layout, **kw):
+    """One decode dispatch of an engine of ``layout`` with the trace's
+    first 8 prompts admitted (greedy, G_NEW_TOKENS each, so every row
+    stays in flight): the median host ms of G_PROFILE_HOST dispatches
+    after G_PROFILE_WARM, then one dispatch under ``torch.profiler``:
+    its kernel launches (the device's kernel and copy records) and the
+    host's launch and copy calls, device busy ms, the idle share against
+    the host median, the six kernels that take the most device time (name,
+    ms, launches), and the engine's KV storage bytes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ray_lightning_tpu_torch.serve import ServeEngine
+    from ray_lightning_tpu_torch.serve.request import Request
+    eng = ServeEngine(proto, sd, device=DEVICE, **layout, **kw)
+    eng.prefill([Request(id=i, prompt=r["prompt"],
+                         max_new_tokens=G_NEW_TOKENS)
+                 for i, (_, r) in enumerate(trace[:8])])
+    for _ in range(G_PROFILE_WARM):
+        eng.step()
+    host = []
+    for _ in range(G_PROFILE_HOST):
+        t0 = time.perf_counter()
+        eng.step()                   # ends in a host copy: synchronized
+        host.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [a for a in events if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    host_ms = 1e3 * statistics.median(host)
+    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:6]
+    out = dict(launches=sum(a.count for a in kernels),
+               host_launch_calls=sum(a.count for a in events
+                                     if a.key in G_HOST_LAUNCH_CALLS),
+               device_busy_ms=busy_ms if kernels else "not measured",
+               host_ms_median=host_ms,
+               idle_share=1 - busy_ms / host_ms if kernels
+               else "not measured",
+               storage_bytes=storage_bytes(eng),
+               top_kernels=[(a.key[:60], a.self_device_time_total / 1e3,
+                             a.count) for a in top])
+    eng.shutdown()
+    return out
+
+
+def g_engine_tokens(proto, sd, prompts, layout, **kw):
+    """Greedy tokens of an engine of ``layout`` serving ``prompts``
+    together, G_NEW_TOKENS each."""
+    done, _, _ = serve(proto, sd, [(0, dict(prompt=p,
+                                            max_new_tokens=G_NEW_TOKENS))
+                                   for p in prompts], layout=layout, **kw)
+    return [done[i].tokens for i in range(len(prompts))]
+
+
+def g_model(cfg, sd, weight_dtype=None, **kw):
+    from ray_lightning_tpu_torch.models import TransformerLM
+    m = TransformerLM(dataclasses.replace(cfg, **kw),
+                      device="meta").to_empty(device=DEVICE)
+    m.load_state_dict(sd)
+    if weight_dtype is not None:
+        m.quantize_weights(weight_dtype)
+    return m.requires_grad_(False).eval()
+
+
+def g_quantized_f32(cfg, sd, trace):
+    """(c) in f32 with int8 weights on the dense pool: the first decode
+    step's logits of the kernel path (K5) against the plain path from
+    the same prefilled pool, then both paths' greedy tokens over the
+    trace, request by request."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models.generate import (_prefill_impl,
+                                                        decode_step)
+    from ray_lightning_tpu_torch.models.transformer import DenseKV
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    models = {k: g_model(cfg32, sd, "int8", matmul_kernel=k)
+              for k in ("cuda", "torch")}
+    prompts = [kw["prompt"] for _, kw in trace[:8]]
+    tokens = torch.zeros((8, 128), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    lengths = torch.tensor([len(p) for p in prompts], device=DEVICE)
+    logits = {}
+    with torch.inference_mode():
+        cache, last = _prefill_impl(models["cuda"], tokens.to(DEVICE),
+                                    lengths)
+        cur = last.argmax(-1)[:, None]
+        for kernel, m in models.items():
+            pool = [DenseKV(kv.key.clone(), kv.value.clone()) for kv in cache]
+            logits[kernel] = decode_step(m, pool, cur, lengths[:, None])
+    a, b = logits["cuda"], logits["torch"]
+    check(a.shape == (8, cfg.vocab_size) and bool(torch.isfinite(a).all()),
+          f"phaseG (c) decode logits {tuple(a.shape)} not finite")
+    err = (a - b).abs().max().item()
+    check(err <= E2E_LOGITS_TOL, f"phaseG (c) f32 logits kernel vs plain "
+          f"differ by {err}")
+    del models, cache
+    greedy = [(t, dict(kw, temperature=0.0, top_k=None)) for t, kw in trace]
+    proto32 = TransformerLM(cfg32, device="meta")
+    runs = {k: serve(proto32, sd, greedy, layout=G_LAYOUTS["dense"],
+                     weight_dtype="int8", matmul_kernel=k)[0]
+            for k in ("cuda", "torch")}
+    differ = [r for r in runs["cuda"]
+              if runs["cuda"][r].tokens != runs["torch"][r].tokens]
+    check(not differ, f"phaseG (c) f32 greedy tokens of the kernel and "
+          f"plain paths differ for requests {differ}")
+    return dict(first_step_logits_max_abs=err, bound=E2E_LOGITS_TOL,
+                greedy_requests_equal=f"{len(greedy) - len(differ)}/"
+                f"{len(greedy)}")
+
+
+def g_generate(cfg, sd, trace, card):
+    """(d) ``generate()`` on the 8 first greedy prompts of the trace
+    (ragged, padded to 128), G_NEW_TOKENS each: in f32 equal to
+    ``generate_full_scan`` and to the dense, dense-view and page-native
+    engines' tokens; in bf16 timed, then with int8 weights through K5."""
+    from ray_lightning_tpu_torch.models import (TransformerLM, generate,
+                                                generate_full_scan)
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    greedy = [kw for _, kw in trace if not kw.get("temperature")][:8]
+    prompts = [kw["prompt"] for kw in greedy]
+    batch = np.zeros((8, 128), np.int64)
+    for i, p in enumerate(prompts):
+        batch[i, :len(p)] = p
+    lengths = np.array([len(p) for p in prompts])
+    n = G_NEW_TOKENS
+
+    def windows(out):
+        out = out.cpu().numpy()
+        return [out[i, L:L + n].tolist() for i, L in enumerate(lengths)]
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    m32 = g_model(cfg32, sd)
+    kw = dict(temperature=0.0, prompt_lengths=lengths)
+    split = windows(generate(m32, None, batch, n, 0, **kw))
+    full = windows(generate_full_scan(m32, None, batch, n, 0, **kw))
+    del m32
+    proto32 = TransformerLM(cfg32, device="meta")
+    engines = {f"the {name} engine": g_engine_tokens(proto32, sd, prompts,
+                                                    layout)
+               for name, layout in G_LAYOUTS.items()}
+    engines["the page-native engine"] = g_engine_tokens(
+        proto32, sd, prompts, SERVE, attention_kernel="cuda")
+    for what, other in [("generate_full_scan", full)] + list(
+            engines.items()):
+        differ = [i for i in range(8) if split[i] != other[i]]
+        check(not differ, f"phaseG (d) f32 generate() tokens differ from "
+              f"{what}'s for prompts {differ}")
+    res = dict(prompts=8, prompt_lengths=lengths.tolist(), new_tokens=n,
+               f32_equal="generate == generate_full_scan == the dense, "
+               "dense-view and page-native engines, 8/8 prompts")
+    for label, weight_dtype in (("bf16", None), ("int8-weights", "int8")):
+        m = g_model(cfg, sd, weight_dtype, matmul_kernel="cuda"
+                    if weight_dtype else cfg.matmul_kernel)
+        generate(m, None, batch, 4, 0, **kw)          # warm
+        torch.cuda.synchronize()
+        qmm.reset_kernel_launches()
+        t0 = time.perf_counter()
+        out = generate(m, None, batch, n, 0, **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        toks = windows(out)
+        check(all(0 <= t < cfg.vocab_size for w in toks for t in w),
+              f"phaseG (d) {label}: a token outside the vocab")
+        res[label] = dict(seconds=s, tokens_per_s=8 * n / s,
+                          ms_per_token_step=1e3 * s / n)
+        if weight_dtype is not None:
+            routes = qmm.route_launches()
+            want = {"gemv_dense": 4 * cfg.n_layers * (n - 1),
+                    "gemv_attend": n - 1, "tc": 4 * cfg.n_layers + 1,
+                    "tiled_f32": 0}
+            check(routes == want, f"phaseG (d) int8 generate(): K5 routes "
+                  f"{routes}, expected {want}")
+            res[label]["route_launches"] = routes
+        del m
+    res["card"] = card
+    print("phaseG (d) generate()", json.dumps(res), flush=True)
+    return res
+
+
+def g_spec(cfg, sd, trace, card):
+    """(e) phase S's draft on dense target storage, both layouts: f32
+    greedy tokens equal the non-spec engine's of the same layout; bf16
+    with int8 weights for both models, K5's routes (the verify at M =
+    40 on ``tc``)."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    dcfg = dataclasses.replace(cfg, n_layers=S_DRAFT_LAYERS)
+    dsd = draft_state(sd, S_DRAFT_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dcfg32 = dataclasses.replace(dcfg, dtype=torch.float32)
+    proto, proto32 = (TransformerLM(c, device="meta") for c in (cfg, cfg32))
+    greedy = greedy_ids(trace)
+    per_forward, draft_forward = 4 * cfg.n_layers + 1, 4 * S_DRAFT_LAYERS + 1
+    out = {}
+    for name, layout in G_LAYOUTS.items():
+        plain, _, _ = serve(proto32, sd, trace, layout=layout)
+        spec, eng, _ = serve(proto32, sd, trace, layout=layout,
+                             **spec_kw(dcfg32, dsd))
+        check_completions(spec, trace, cfg.vocab_size, f"phaseG (e) {name}")
+        differ = [r for r in greedy if spec[r].tokens != plain[r].tokens]
+        check(not differ, f"phaseG (e) {name}: f32 spec tokens differ from "
+              f"non-spec for requests {differ}")
+        res = dict(layout=name, f32_greedy_requests_equal_non_spec=(
+            f"{len(greedy)}/{len(greedy)}"),
+            f32_accepted=eng.spec_accepted_tokens,
+            f32_rejected=eng.spec_rejected_tokens)
+        kw = dict(matmul_kernel="cuda", weight_dtype="int8",
+                  draft_weight_dtype="int8", **spec_kw(dcfg, dsd))
+        seen = {}
+        qmm.reset_kernel_launches()
+        done, eng, st = serve(proto, sd, trace, layout=layout,
+                              observe=lambda e: record_spec(e, seen), **kw)
+        routes = qmm.route_launches()
+        check_completions(done, trace, cfg.vocab_size,
+                          f"phaseG (e) {name} int8 weights")
+        refills = len(seen["refill_s"])
+        want = {"gemv_dense": 4 * S_DRAFT_LAYERS * eng.spec_draft_steps,
+                "gemv_attend": eng.spec_draft_steps,
+                "tc": per_forward * (eng.spec_rounds + eng.prefills)
+                + draft_forward * refills, "tiled_f32": 0}
+        check(routes == want, f"phaseG (e) {name} int8 weights: K5 routes "
+              f"{routes}, expected {want}")
+        res.update(int8_weights=dict(
+            route_launches=routes,
+            verify_tc_launches=per_forward * eng.spec_rounds,
+            **spec_figures(done, eng, st, seen)), card=card)
+        print("phaseG (e) spec", json.dumps(res), flush=True)
+        out[name] = res
+    return out
+
+
+def phase_g_dense(cfg, sd, trace, served, card):
+    """The dense KV layouts and decode outside the engine at GPT-2-small
+    width: (a) the dense slot pool (the default layout) and (b) the
+    dense-view paged path, bf16 and int8 KV; (c) int8 weights through K5
+    on the dense pool; (d) ``generate()``; (e) spec on both layouts. No
+    dense layout launches K1 or K2 (the reference's rules)."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    proto = TransformerLM(cfg, device="meta")
+    out = {"runs": {}, "profiles": {}}
+    pa.reset_kernel_launches()
+    cf.reset_kernel_launches()
+    out["profiles"]["page-native bf16"] = profile_decode(
+        proto, sd, trace, SERVE, attention_kernel="cuda")
+    p1_launches = pa.kernel_launches()
+    pa.reset_kernel_launches()
+    # (a) and (b)
+    for name, layout in G_LAYOUTS.items():
+        for kv_dtype in (None, "int8"):
+            key = f"{name} {kv_dtype or 'bf16'}"
+            serve(proto, sd, WARM, layout=layout, kv_dtype=kv_dtype)
+            done, eng, st = serve(proto, sd, trace, layout=layout,
+                                  kv_dtype=kv_dtype)
+            check_completions(done, trace, cfg.vocab_size, f"phaseG {key}")
+            prof = profile_decode(proto, sd, trace, layout,
+                                  kv_dtype=kv_dtype)
+            check(launches_close(prof["launches"], key),
+                  f"phaseG {key}: {prof['launches']} launches a decode "
+                  f"dispatch, recorded {G_DECODE_LAUNCHES[key]} "
+                  f"(+-{G_LAUNCH_SPREAD:.1%})")
+            ref = served[kv_dtype or "bf16"]
+            res = dict(layout=name, kv_dtype=kv_dtype or "bf16",
+                       requests=len(done), decode_steps=eng.decode_substeps,
+                       prefills=eng.prefills, **serving_times(done, st),
+                       profile=prof,
+                       phase2_page_native=dict(
+                           (n, ref[n]) for n in ("decode_steps",
+                                                 "decode_tokens_per_s",
+                                                 "step_ms_median",
+                                                 "ttft_ms_median")),
+                       card=card)
+            print("phaseG", key, json.dumps(res), flush=True)
+            out["runs"][key] = res
+            out["profiles"][key] = prof
+    check(pa.kernel_launches() == 0 and not any(
+        cf.kernel_launches().values()),
+        f"phaseG: a dense layout launched K1 {pa.kernel_launches()} or K2-K4 "
+        f"{cf.kernel_launches()}")
+    out["k1_launches_page_native_profile"] = p1_launches
+    # (c) int8 weights through K5 on the dense pool, bf16
+    qkw = dict(weight_dtype="int8", matmul_kernel="cuda")
+    serve(proto, sd, WARM, layout=G_LAYOUTS["dense"], **qkw)
+    qmm.reset_kernel_launches()
+    done, eng, st = serve(proto, sd, trace, layout=G_LAYOUTS["dense"], **qkw)
+    routes = qmm.route_launches()
+    check_completions(done, trace, cfg.vocab_size, "phaseG (c)")
+    per_forward = 4 * cfg.n_layers + 1
+    want = {"gemv_dense": 4 * cfg.n_layers * eng.decode_substeps,
+            "gemv_attend": eng.decode_substeps,
+            "tc": per_forward * eng.prefills, "tiled_f32": 0}
+    check(routes == want, f"phaseG (c): K5 routes {routes}, expected {want}")
+    res = dict(weight_dtype="int8", layout="dense", route_launches=routes,
+               decode_steps=eng.decode_substeps, prefills=eng.prefills,
+               **serving_times(done, st),
+               f32=g_quantized_f32(cfg, sd, trace), card=card)
+    print("phaseG (c) int8 weights", json.dumps(res), flush=True)
+    out["quantized"] = res
+    out["generate"] = g_generate(cfg, sd, trace, card)
+    out["spec"] = g_spec(cfg, sd, trace, card)
+    print("phaseG profiles", json.dumps(dict(out["profiles"], card=card)),
+          flush=True)
     return out
 
 
@@ -3069,6 +3447,7 @@ def main() -> int:
                                 paths=PATHS_QUANTIZED, weight_dtype="int8")
     long_prompts = phase_l_long_prompts(cfg, sd, rng, card)
     speculative = phase_s_speculative(cfg, sd, trace, served, quantized, card)
+    dense = phase_g_dense(cfg, sd, trace, served, card)
     del sd
 
     fpath = flash[("path", "bfloat16")]
@@ -3138,21 +3517,30 @@ def main() -> int:
                                  "bound_ms", "bound_by", "library_ms")}))
     # K5: one forward's calls -- n_layers x (qkv, out, up, down) and the
     # head -- bf16 x, int8 codes: at M=8 (a decode step, the GEMVs;
-    # launches from Q2's int8 run, phase L's int8-weights run and the
-    # draft's feeds in phase S (d)), at M=1024 (a prefill, the tensor
-    # cores; Q2's), at M=128 (a chunk, the tensor cores; phase L's) and
-    # at M=40 (a spec verify, the tensor cores; phase S (d)'s)
+    # launches from Q2's int8 run, phase L's int8-weights run, the
+    # draft's feeds in phase S (d), and phase G's dense decode steps (c),
+    # generate()'s steps (d) and the draft's feeds on both dense layouts
+    # (e)), at M=1024 (a prefill, the tensor cores; Q2's, and phase G's
+    # dense prefills (c) and generate()'s (d)), at M=128 (a chunk, the
+    # tensor cores; phase L's) and at M=40 (a spec verify, the tensor
+    # cores; phase S (d)'s and phase G (e)'s on both dense layouts)
     q2 = quantized["int8"]["route_launches"]
     ql = long_prompts["runs"]["int8-weights"]["k5_routes"]
     qs = speculative["runs"]["int8-weights"]
+    qg = dense["quantized"]["route_launches"]
+    qd = dense["generate"]["int8-weights"]["route_launches"]
+    qe = [dense["spec"][n]["int8_weights"] for n in G_LAYOUTS]
     decode = ("gemv_dense", "gemv_attend")
     for name, M, launches5 in (
             (qmm.KERNEL, 8, sum(q2[r] + ql[r] + qs["route_launches"][r]
+                                + qg[r] + qd[r]
+                                + sum(e["route_launches"][r] for e in qe)
                                 for r in decode)),
-            (qmm.KERNEL + "_prefill", 1024, q2["tc"]),
+            (qmm.KERNEL + "_prefill", 1024, q2["tc"] + qg["tc"] + qd["tc"]),
             (qmm.KERNEL + "_chunk", L_CHUNK, ql["tc"]),
             (qmm.KERNEL + "_verify", S_VERIFY_M,
-             qs["verify_tc_launches"])):
+             qs["verify_tc_launches"]
+             + sum(e["verify_tc_launches"] for e in qe))):
         fwd = forward_sum(qrows, "int8", M, cfg.n_layers)
         kernels.append(dict(
             name=name, route="cuda",

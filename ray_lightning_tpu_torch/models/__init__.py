@@ -1,8 +1,12 @@
 from ray_lightning_tpu_torch.models.boring import BoringModel
 from ray_lightning_tpu_torch.models.generate import (decode_step,
                                                     decode_step_paged,
-                                                    row_seed,
+                                                    generate,
+                                                    generate_full_scan,
+                                                    prefill, row_seed,
+                                                    sample_logits,
                                                     sample_logits_rows,
+                                                    verify_step,
                                                     verify_step_paged)
 from ray_lightning_tpu_torch.models.gpt import (GPT2_SIZES, GPTModule,
                                                gpt2_config)
@@ -18,8 +22,9 @@ from ray_lightning_tpu_torch.models.transformer import (DenseKV, PagedKV,
 
 __all__ = [
     "BoringModel",
-    "decode_step", "decode_step_paged", "row_seed", "sample_logits_rows",
-    "verify_step_paged", "GPT2_SIZES",
+    "decode_step", "decode_step_paged", "generate", "generate_full_scan",
+    "prefill", "row_seed", "sample_logits", "sample_logits_rows",
+    "verify_step", "verify_step_paged", "GPT2_SIZES",
     "GPTModule", "gpt2_config", "DenseKV", "PagedKV", "TransformerConfig",
     "TransformerLM", "latch_eos", "new_arena", "new_cache", "QTensor",
     "dequantize_params", "is_quantized", "param_bytes", "quantize_params",

@@ -53,13 +53,15 @@ UNPORTED = dict(_ENGINE_UNPORTED, **{
 class ServeClient:
     """Synchronous continuous-batching front-end.
 
-    ``ServeClient(model, params, num_slots=8, prefill_len=64,
-    page_size=16, page_native=True)`` builds the engine (on ``device``,
-    ``None`` = the card) and a FIFO scheduler; ``submit()`` returns a
-    request id, ``run_until_idle()`` drives everything to completion,
-    and ``serve_trace([(t, {...}), ...])`` replays a scripted arrival
-    trace (requests join mid-flight whenever ``t`` falls between
-    dispatches).
+    ``ServeClient(model, params, num_slots=8, prefill_len=64)`` builds
+    the engine (on ``device``, ``None`` = the card; the dense slot pool
+    unless ``page_size=`` asks for the page arena) and a FIFO scheduler;
+    ``submit()`` returns a request id, ``run_until_idle()`` drives
+    everything to completion, and ``serve_trace([(t, {...}), ...])``
+    replays a scripted arrival trace (requests join mid-flight whenever
+    ``t`` falls between dispatches). Admission asks the engine
+    (``admissible_prefix``): free slots and the prefill width, and on a
+    paged engine the free pages too.
     """
 
     def __init__(self, model, params, *, num_slots: int = 8,

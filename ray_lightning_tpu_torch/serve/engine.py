@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine, page-native paged KV (counterpart of ``ray_lightning_tpu/serve/engine.py``).
+"""Continuous-batching serving engine on dense or paged KV (counterpart of ``ray_lightning_tpu/serve/engine.py``).
 
 Iteration-level scheduling over a fixed batch of **KV slots**:
 
@@ -6,7 +6,8 @@ Iteration-level scheduling over a fixed batch of **KV slots**:
    waiting prompts, left-aligned, run one forward
    (:func:`~ray_lightning_tpu_torch.models.generate._prefill_impl`);
    each row samples its first token with its own parameters, and its
-   KV row is scattered into the pages it was given.
+   whole KV row is copied into its slot (dense) or scattered into the
+   pages it was given (paged).
 2. **chunk prefill** (``(1, prefill_chunk)``, engines with
    ``prefill_chunk=``): ONE chunk of one prompt at its current offset
    (:func:`~ray_lightning_tpu_torch.models.generate._chunk_prefill_impl`),
@@ -20,11 +21,16 @@ Iteration-level scheduling over a fixed batch of **KV slots**:
    (:class:`~ray_lightning_tpu_torch.serve.pages.PrefixCache`),
    starting at its first un-cached offset.
 3. **step** (``(num_slots, 1)``): ``steps_per_dispatch`` cached decode
-   steps for every slot at its own position. K/V are written and read
-   straight through the page table inside the model's attention
+   steps for every slot at its own position. Page-native engines
+   (``page_native=True``) write and read K/V straight through the page
+   table inside the model's attention
    (:func:`~ray_lightning_tpu_torch.models.generate.decode_step_paged`)
    -- the read side is the CUDA paged-attention kernel under
-   ``attention_kernel="cuda"``. Each row samples with its request's own
+   ``attention_kernel="cuda"``; the others run the per-row dense
+   :func:`~ray_lightning_tpu_torch.models.generate.decode_step` on the
+   slot pool, or on the dense view a paged engine gathers from its
+   arena and scatters back (``page_native=False``). Each row samples
+   with its request's own
    temperature/top_k/seed, counts down its own budget and latches its
    own eos; finished rows retire mid-flight and their slot and pages go
    to the next queued request.
@@ -32,8 +38,9 @@ Iteration-level scheduling over a fixed batch of **KV slots**:
    :mod:`~ray_lightning_tpu_torch.serve.spec`): ``step()`` runs
    ``steps_per_dispatch`` speculative rounds instead of decode steps --
    k+1 draft feeds on the draft's dense cache, one ``(num_slots, k+1)``
-   target verify through the page table (K1 at T = k+1), and the accept
-   rule -- committing 1..k+1 tokens a row a round. Greedy tokens are the
+   target verify (through the page table, K1 at T = k+1, on page-native
+   engines; on the dense pool or view otherwise), and the accept rule --
+   committing 1..k+1 tokens a row a round. Greedy tokens are the
    non-spec engine's by construction. Stale draft rows (every
    activation) are refilled from the row's whole context first.
 
@@ -45,17 +52,30 @@ through the fused dequant-matmul kernel, ``"torch"`` through its plain
 version. ``draft_weight_dtype=`` quantizes a spec engine's draft the same
 way, with the same group size and matmul kernel.
 
-Inactive slots still run (the batch is fixed): the page table they see
-is write-masked to −1, so their K/V writes land in the arena's sink page
-and their tokens are masked out. Row state (current token, position,
-budget, step number) lives on the host between dispatches -- the
-synced frontier -- and crosses to the device as one packed array each
-way per dispatch.
+KV layout (JAX's three): ``page_size=None`` (the default) keeps one
+``(num_slots, max_seq_len, H, D)`` K and V pool per layer
+(:class:`KVSlotPool`); ``page_size=P`` a page arena behind a per-slot
+page table (:class:`~ray_lightning_tpu_torch.serve.pages.PagePool`),
+read and written through the table inside the attention with
+``page_native=True``, or gathered into the dense per-slot view and
+scattered back around each step with ``page_native=False``.
+``kv_dtype="int8"`` stores K/V as absmax int8 codes: per (page, head)
+scales in the arena, per (slot, position, head) in the pool, which every
+dispatch dequantizes whole and re-quantizes whole.
 
-This port covers the page-native paged engine with chunked prefill, the
-prefix cache and speculative decoding; a crashed request's replay
-(``replay_tokens``) is not ported, so a chunk feeds the prompt alone.
-Every constructor argument of an unported feature raises
+Inactive slots still run (the batch is fixed) and their tokens are
+masked out. Their K/V writes land in the arena's sink page (page-native:
+the page table they see is write-masked to −1), in their own pool row
+(dense: the next admission overwrites the whole row), or nowhere (the
+dense view's scatter writes back only the rows active at entry). Row
+state (current token, position, budget, step number) lives on the host
+between dispatches -- the synced frontier -- and crosses to the device
+as one packed array each way per dispatch.
+
+This port covers the three layouts with chunked prefill and the prefix
+cache (paged engines) and speculative decoding; a crashed request's
+replay (``replay_tokens``) is not ported, so a chunk feeds the prompt
+alone. Every constructor argument of an unported feature raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item
 (:data:`UNPORTED`).
 """
@@ -73,6 +93,7 @@ from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models import paged_attention as _pa
 from ray_lightning_tpu_torch.models.generate import (_chunk_prefill_impl,
                                                     _prefill_impl,
+                                                    decode_step,
                                                     decode_step_paged,
                                                     row_seed,
                                                     sample_logits_rows)
@@ -81,18 +102,27 @@ from ray_lightning_tpu_torch.models.quant import (check_weight_dtype,
 from ray_lightning_tpu_torch.models.transformer import (ATTENTION_KERNELS,
                                                         MATMUL_KERNELS,
                                                         TransformerLM,
-                                                        latch_eos)
+                                                        latch_eos,
+                                                        new_cache)
 from ray_lightning_tpu_torch.serve.pages import (PagePool, PrefixCache,
                                                  SlotPoolFull,
                                                  check_kv_dtype,
+                                                 check_seed_free,
+                                                 dense_storage_commit,
+                                                 dense_storage_values,
+                                                 gather_pages,
+                                                 quantize_dense_cache,
                                                  scatter_pages)
 from ray_lightning_tpu_torch.serve.request import (Completion, FINISH_EOS,
                                                    FINISH_LENGTH,
                                                    FINISH_TIMEOUT, Request)
 from ray_lightning_tpu_torch.serve.spec import (SpecDecoder,
-                                                _spec_rounds_page_native_impl)
+                                                _spec_rounds_impl,
+                                                _spec_rounds_page_native_impl,
+                                                _spec_rounds_paged_impl)
 
-__all__ = ["ServeEngine", "SlotPoolFull", "UNPORTED", "refuse_unported"]
+__all__ = ["ServeEngine", "KVSlotPool", "SlotPoolFull", "UNPORTED",
+           "refuse_unported"]
 
 #: constructor arguments of features this slice does not port yet ->
 #: the ROADMAP.md queue-A item that ports them
@@ -142,6 +172,132 @@ def _advance_rows(max_seq_len: int, last, cur, pos, active, remaining,
     return cur, pos, active, remaining, stepno, emitted, finished
 
 
+def _decode_steps(step, max_seq_len: int, row_state, temp, top_k,
+                  seeds_at, *, steps: int) -> torch.Tensor:
+    """``steps`` decode steps: ``step(cur, pos)`` gives one step's last
+    logits (B, V), then the shared :func:`_advance_rows` bookkeeping;
+    ``seeds_at(s)`` gives sub-step ``s``'s row seeds. Returns the
+    :class:`PendingDispatch` packing (emitted and finished per sub-step,
+    then cur, pos, active, remaining, stepno)."""
+    cur, pos, active, remaining, stepno, eos = row_state
+    emitted_all, finished_all = [], []
+    for s in range(steps):
+        (cur, pos, active, remaining, stepno, emitted,
+         finished) = _advance_rows(
+            max_seq_len, step(cur, pos), cur, pos, active, remaining, temp,
+            top_k, eos, seeds_at(s), stepno)
+        emitted_all.append(emitted)
+        finished_all.append(finished.to(torch.int32))
+    return torch.stack(emitted_all + finished_all
+                       + [cur[:, 0], pos[:, 0], active.to(torch.int32),
+                          remaining, stepno])
+
+
+def _engine_step_impl(model, storage, row_state, temp, top_k, seeds_at, *,
+                      steps: int) -> torch.Tensor:
+    """The decode step program on dense storage (the slot pool, or a
+    paged engine's gathered view): ``steps`` per-row
+    :func:`~ray_lightning_tpu_torch.models.generate.decode_step`\\ s on
+    the compute-dtype caches. int8 storage is dequantized whole before
+    them and re-quantized whole after (JAX's ``dense_storage_values`` /
+    ``dense_storage_commit``). An inactive row re-writes its frozen K/V
+    into its own row."""
+    cache = dense_storage_values(storage, model.cfg.dtype)
+    packed = _decode_steps(
+        lambda cur, pos: decode_step(model, cache, cur, pos),
+        model.cfg.max_seq_len, row_state, temp, top_k, seeds_at,
+        steps=steps)
+    dense_storage_commit(storage, cache)
+    return packed
+
+
+def _paged_step_impl(model, arena, page_table, row_state, temp, top_k,
+                     seeds_at, *, steps: int) -> torch.Tensor:
+    """The decode step program on a page arena without page-native
+    attention: gather the dense view through the FULL page table
+    (dequantizing int8 pages), run :func:`_engine_step_impl`'s body on
+    it, and scatter back every mapped page of the rows active at entry
+    (the others' entries masked to −1: a mid-chunking slot's pages never
+    see a parked decode write). int8 pages are re-quantized per (page,
+    head) as they go back."""
+    view = gather_pages(arena, page_table, model.cfg.dtype)
+    active = row_state[2]
+    write_pt = torch.where(active[:, None], page_table, -1)
+    packed = _engine_step_impl(model, view, row_state, temp, top_k,
+                               seeds_at, steps=steps)
+    scatter_pages(arena, view, write_pt)
+    return packed
+
+
+def _prefill_inject_impl(model, storage, prompts, lengths, slots, seeds,
+                         temp, top_k) -> torch.Tensor:
+    """Batched prompt fill on the slot pool: the prefill forward at
+    ``(prefill_batch, prefill_len)``, each row's first token sampled,
+    then each of the ``len(slots)`` valid rows' WHOLE KV row (zeros past
+    the prompt) copied into its slot; padding rows are written nowhere.
+    int8 storage is dequantized whole and re-quantized whole around the
+    copy. Returns the first tokens (B_pf,)."""
+    cache = dense_storage_values(storage, model.cfg.dtype)
+    pf_cache, last = _prefill_impl(model, prompts, lengths)
+    first = sample_logits_rows(last, seeds, temp, top_k)
+    n = len(slots)
+    idx = torch.tensor(slots, dtype=torch.long, device=prompts.device)
+    for pool, pf in zip(cache, pf_cache):
+        pool.key.index_copy_(0, idx, pf.key[:n])
+        pool.value.index_copy_(0, idx, pf.value[:n])
+    dense_storage_commit(storage, cache)
+    return first
+
+
+class KVSlotPool:
+    """Dense storage: the ``(num_slots, max_seq_len)`` K/V pool (one
+    ``DenseKV`` per layer, or int8 codes with per-(slot, position, head)
+    scales, :class:`~ray_lightning_tpu_torch.serve.pages.QuantizedDenseKV`)
+    and the slot -> request map. Slots go lowest index first and the
+    free list is re-sorted on release, so traces are deterministic; two
+    co-resident slots never share a sampling seed."""
+
+    def __init__(self, cfg, num_slots: int, kv_dtype: Optional[str] = None,
+                 device: Optional[torch.device] = None):
+        self.num_slots = num_slots
+        self.kv_dtype = kv_dtype
+        cache = new_cache(cfg, num_slots, device)
+        if check_kv_dtype(kv_dtype):
+            cache = quantize_dense_cache(cache)
+        self.cache = cache
+        self._free: List[int] = list(range(num_slots))
+        self._requests: Dict[int, Request] = {}   # slot -> request
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def active(self) -> Dict[int, Request]:
+        return dict(self._requests)
+
+    def slot_of(self, request_id: int) -> Optional[int]:
+        for slot, req in self._requests.items():
+            if req.id == request_id:
+                return slot
+        return None
+
+    def acquire(self, request: Request) -> int:
+        if not self._free:
+            raise SlotPoolFull(f"all {self.num_slots} KV slots in use",
+                               slots_free=0, active=len(self._requests))
+        check_seed_free(self._requests, request)
+        slot = self._free.pop(0)
+        self._requests[slot] = request
+        return slot
+
+    def release(self, slot: int) -> Request:
+        req = self._requests.pop(slot)
+        self._free.append(slot)
+        self._free.sort()
+        return req
+
+
 @dataclasses.dataclass
 class _ChunkState:
     """One prompt mid-chunking: its slot is held, its pages allocated,
@@ -167,8 +323,7 @@ class PendingDispatch(NamedTuple):
 
 
 class ServeEngine:
-    """In-flight batching over a fixed slot batch with a page-native KV
-    arena.
+    """In-flight batching over a fixed slot batch with dense or paged KV.
 
     ``model`` is a port ``TransformerLM`` (its config is used;
     ``attention_kernel=`` overrides the config's read side) and
@@ -177,9 +332,15 @@ class ServeEngine:
     engine builds its own copy of the model on ``device`` (``None`` =
     the card; no card raises) and never changes the caller's.
 
-    ``page_size=`` and ``page_native=True`` are required: the dense slot
-    pool and the dense-view paged path are not ported. ``kv_dtype="int8"``
-    stores K/V as absmax int8 codes with per-page-per-head scales.
+    ``page_size=None`` (the default) serves from the dense slot pool
+    (:class:`KVSlotPool`); ``page_size=P`` from a page arena
+    (``num_pages=`` pages, default ``num_slots * max_seq_len / P``),
+    through the page table inside the attention with ``page_native=True``
+    or through a gathered dense view with ``page_native=False``.
+    ``attention_kernel="cuda"`` is the paged-attention kernel, the read
+    side of ``page_native=True`` only (the JAX engine's rule for its
+    Pallas kernel): the dense layouts attend through the plain dense
+    attention. ``kv_dtype="int8"`` stores K/V as absmax int8 codes.
 
     ``weight_dtype="int8"|"int4"`` (``weight_group_size=`` sizes the int4
     groups, default 64) quantizes the engine's model;
@@ -225,21 +386,16 @@ class ServeEngine:
                  draft_weight_dtype: Optional[str] = None,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
-        if page_size is None and (prefill_chunk is not None
+        if page_native and page_size is None:
+            raise ValueError(
+                "page_native=True is a paged-KV mode (attention reads K/V "
+                "through the page table): pass page_size= too")
+        if page_size is None and (num_pages is not None
+                                  or prefill_chunk is not None
                                   or prefix_cache):
             raise ValueError(
-                "prefill_chunk / prefix_cache are paged-KV features: pass "
-                "page_size= to enable the page arena")
-        if page_size is None:
-            raise NotImplementedError(
-                "the dense KV slot pool (page_size=None) is not ported to "
-                "ray_lightning_tpu_torch yet (ROADMAP.md queue A, item S1): "
-                "pass page_size= and page_native=True")
-        if not page_native:
-            raise NotImplementedError(
-                "the dense-view paged path (page_native=False) is not "
-                "ported to ray_lightning_tpu_torch yet (ROADMAP.md queue A, "
-                "item S1): pass page_native=True")
+                "num_pages / prefill_chunk / prefix_cache are paged-KV "
+                "features: pass page_size= to enable the page arena")
         self.device = resolve_device(device)
         cfg = model.cfg
         if attention_kernel is not None:
@@ -249,6 +405,11 @@ class ServeEngine:
                     f"{ATTENTION_KERNELS}, got {attention_kernel!r}")
             cfg = dataclasses.replace(cfg, attention_kernel=attention_kernel)
         self.attention_kernel = cfg.attention_kernel
+        if self.attention_kernel == "cuda" and not page_native:
+            raise ValueError(
+                "attention_kernel='cuda' is the page-native paged-attention "
+                "kernel (K/V read through the page table inside one "
+                "launch): pass page_native=True (and page_size=) too")
         check_weight_dtype(weight_dtype)  # unknown dtypes refused here
         check_weight_dtype(draft_weight_dtype)
         if matmul_kernel is not None:
@@ -357,8 +518,15 @@ class ServeEngine:
         self.steps_per_dispatch = steps_per_dispatch
         self.seed = seed
         self.kv_dtype = kv_dtype
-        self.pool = PagePool(cfg, num_slots, page_size, num_pages=num_pages,
-                             kv_dtype=kv_dtype, device=self.device)
+        self.paged = page_size is not None
+        self.page_native = page_native
+        if self.paged:
+            self.pool = PagePool(cfg, num_slots, page_size,
+                                 num_pages=num_pages, kv_dtype=kv_dtype,
+                                 device=self.device)
+        else:
+            self.pool = KVSlotPool(cfg, num_slots, kv_dtype=kv_dtype,
+                                   device=self.device)
         self.prefill_chunk = prefill_chunk
         self.prefix = PrefixCache(self.pool) if prefix_cache else None
         self._chunk_queue: Deque[_ChunkState] = deque()
@@ -409,8 +577,9 @@ class ServeEngine:
         return self.pool.free_slots
 
     @property
-    def free_pages(self) -> int:
-        return self.pool.free_pages
+    def free_pages(self) -> Optional[int]:
+        """Free arena pages; None on a dense engine."""
+        return self.pool.free_pages if self.paged else None
 
     @property
     def active_count(self) -> int:
@@ -452,6 +621,8 @@ class ServeEngine:
                 f"it (the verify writes k draft positions past the last "
                 f"budgeted token) -- max_seq_len ({cfg.max_seq_len}) is "
                 "too small")
+        if not self.paged:
+            return
         need = self.pool.pages_needed(request)
         if need > self.pool.num_pages:
             raise ValueError(
@@ -498,6 +669,8 @@ class ServeEngine:
         pages. Prefix hits count as consuming their pages (adoption pins
         them), never as a discount."""
         limit = min(len(requests), self.free_slots)
+        if not self.paged:
+            return min(limit, self.prefill_batch)
         budget = self.pool.free_pages + (self.prefix.evictable()
                                          if self.prefix is not None else 0)
         n = batched = 0
@@ -525,10 +698,10 @@ class ServeEngine:
 
     # ---------------------------------------------------------- programs
     def prefill(self, requests: List[Request]) -> List[Completion]:
-        """Start ``requests``: slots and pages are acquired atomically for
-        the whole batch. Prompts the batched prefill takes run one pass
-        that samples every first token and scatters every KV row into its
-        pages; chunk-routed prompts (longer than ``prefill_chunk``, or
+        """Start ``requests``: slots (and pages) are acquired atomically
+        for the whole batch. Prompts the batched prefill takes run one
+        pass that samples every first token and copies every KV row into
+        its slot or scatters it into its pages; chunk-routed prompts (longer than ``prefill_chunk``, or
         any prompt under a prefix cache) are queued for
         :meth:`prefill_chunk_step` instead, past any prefix pages they
         adopt. Returns completions of requests that finish on their
@@ -547,7 +720,8 @@ class ServeEngine:
         B_pf, P = self.prefill_batch, self.prefill_len
         prompts = np.zeros((B_pf, P), np.int64)
         lengths = np.ones((B_pf,), np.int64)
-        inject_pt = np.full((B_pf, self.pool.pages_per_slot), -1, np.int32)
+        inject_pt = (np.full((B_pf, self.pool.pages_per_slot), -1, np.int32)
+                     if self.paged else None)
         seeds = [0] * B_pf
         temp = np.zeros((B_pf,), np.float32)
         top_k = np.zeros((B_pf,), np.int32)
@@ -576,14 +750,16 @@ class ServeEngine:
                             (len(fed) - 1) // self.pool.page_size)
                         adoptions.append((eligible, len(adopt)))
                     continue
-                slot = self._admit_paged(req, [])
+                slot = (self._admit_paged(req, []) if self.paged
+                        else self.pool.acquire(req))
                 acquired.append(slot)
                 r = len(batched)
                 batched.append(req)
                 slots.append(slot)
                 prompts[r, :req.prompt_len] = fed
                 lengths[r] = req.prompt_len
-                inject_pt[r] = self.pool.page_table[slot]
+                if self.paged:
+                    inject_pt[r] = self.pool.page_table[slot]
                 seeds[r] = row_seed(self.seed, req.seed, 0)
                 temp[r] = req.temperature
                 top_k[r] = req.top_k or 0
@@ -604,14 +780,19 @@ class ServeEngine:
         if not batched:
             return []
         dev = self.device
+        prompts_t = torch.from_numpy(prompts).to(dev)
+        lengths_t = torch.from_numpy(lengths).to(dev)
         with torch.inference_mode():
-            cache, last = _prefill_impl(
-                self.model, torch.from_numpy(prompts).to(dev),
-                torch.from_numpy(lengths).to(dev))
-            first = sample_logits_rows(last, seeds, temp, top_k)
-            # padding rows' table is all −1: their pages go to the sink
-            scatter_pages(self.pool.arena, cache,
-                          torch.from_numpy(inject_pt).to(dev))
+            if self.paged:
+                cache, last = _prefill_impl(self.model, prompts_t, lengths_t)
+                first = sample_logits_rows(last, seeds, temp, top_k)
+                # padding rows' table is all −1: their pages go to the sink
+                scatter_pages(self.pool.arena, cache,
+                              torch.from_numpy(inject_pt).to(dev))
+            else:
+                first = _prefill_inject_impl(
+                    self.model, self.pool.cache, prompts_t, lengths_t,
+                    slots, seeds, temp, top_k)
             first = first.cpu().numpy()
         done: List[Completion] = []
         for r, req in enumerate(batched):
@@ -725,31 +906,37 @@ class ServeEngine:
             return self._spec_enqueue()
         dev = self.device
         steps = self.steps_per_dispatch
-        cur, pos, active, remaining, stepno, eos = self._row_state()
-        page_table = torch.from_numpy(self._write_masked_table()).to(dev)
+        row_state = self._row_state()
         # only rows in flight at entry sample; a row that finishes inside
         # the dispatch keeps sampling into its masked-out emissions
         temp = np.where(self._active, self._temp, 0.0)
-        emitted_all, finished_all = [], []
+
+        def seeds_at(s):
+            # a row still in flight at sub-step s is at step stepno+s
+            return [row_seed(self.seed, int(self._seeds[r]),
+                             int(self._stepno[r]) + s)
+                    if temp[r] > 0 else 0 for r in range(self.num_slots)]
+
+        model = self.model
         with torch.inference_mode():
-            for s in range(steps):
-                # a row still in flight at sub-step s is at step stepno+s
-                seeds = [row_seed(self.seed, int(self._seeds[r]),
-                                  int(self._stepno[r]) + s)
-                         if temp[r] > 0 else 0
-                         for r in range(self.num_slots)]
-                last = decode_step_paged(self.model, self.pool.arena, cur,
-                                         pos, page_table)
-                (cur, pos, active, remaining, stepno, emitted,
-                 finished) = _advance_rows(
-                    self.model.cfg.max_seq_len, last, cur, pos, active,
-                    remaining, temp, self._top_k, eos, seeds, stepno)
-                emitted_all.append(emitted)
-                finished_all.append(finished.to(torch.int32))
-            packed = torch.stack(
-                emitted_all + finished_all
-                + [cur[:, 0], pos[:, 0], active.to(torch.int32), remaining,
-                   stepno])
+            if self.page_native:
+                arena = self.pool.arena
+                page_table = torch.from_numpy(
+                    self._write_masked_table()).to(dev)
+                packed = _decode_steps(
+                    lambda cur, pos: decode_step_paged(
+                        model, arena, cur, pos, page_table),
+                    model.cfg.max_seq_len, row_state, temp, self._top_k,
+                    seeds_at, steps=steps)
+            elif self.paged:
+                packed = _paged_step_impl(
+                    model, self.pool.arena,
+                    torch.from_numpy(self.pool.page_table).to(dev),
+                    row_state, temp, self._top_k, seeds_at, steps=steps)
+            else:
+                packed = _engine_step_impl(
+                    model, self.pool.cache, row_state, temp, self._top_k,
+                    seeds_at, steps=steps)
         self.steps += 1
         self.decode_substeps += steps
         return PendingDispatch(rounds=steps, packed=packed)
@@ -757,8 +944,10 @@ class ServeEngine:
     def _spec_enqueue(self) -> PendingDispatch:
         """One speculative dispatch: refill stale draft rows from the
         host-side token streams, then ``steps_per_dispatch`` rounds (k+1
-        draft feeds, one ``(B, k+1)`` verify, the accept rule each) on
-        the write-masked table."""
+        draft feeds, one ``(B, k+1)`` verify, the accept rule each):
+        through the write-masked table (page-native), on the gathered
+        view of the full table with write-masked scatter (dense view), or
+        on the slot pool (dense)."""
         spec = self.spec
         for slot in spec.stale:
             req = self.pool.active.get(slot)
@@ -770,15 +959,27 @@ class ServeEngine:
             spec.refill(slot, list(req.prompt) + self._tokens[slot][:-1])
         k, rounds = spec.k, self.steps_per_dispatch
         cur, pos, active, remaining, stepno, eos = self._row_state()
-        page_table = torch.from_numpy(self._write_masked_table()).to(
-            self.device)
         temp = np.where(self._active, self._temp, 0.0)
+        rows = (spec.cache, cur, pos, active, remaining, temp, self._top_k,
+                eos, stepno, self.seed, self._seeds)
         with torch.inference_mode():
+            if self.page_native:
+                page_table = torch.from_numpy(
+                    self._write_masked_table()).to(self.device)
+                out = _spec_rounds_page_native_impl(
+                    self.model, spec.model, self.pool.arena, page_table,
+                    *rows, k=k, rounds=rounds)
+            elif self.paged:
+                out = _spec_rounds_paged_impl(
+                    self.model, spec.model, self.pool.arena,
+                    torch.from_numpy(self.pool.page_table).to(self.device),
+                    *rows, k=k, rounds=rounds)
+            else:
+                out = _spec_rounds_impl(self.model, spec.model,
+                                        self.pool.cache, *rows, k=k,
+                                        rounds=rounds)
             (cur, pos, active, remaining, stepno, emitted, accepted,
-             rejected, finished) = _spec_rounds_page_native_impl(
-                self.model, spec.model, self.pool.arena, page_table,
-                spec.cache, cur, pos, active, remaining, temp, self._top_k,
-                eos, stepno, self.seed, self._seeds, k=k, rounds=rounds)
+             rejected, finished) = out
             packed = torch.cat([
                 x.to(torch.int32).reshape(-1)
                 for x in (emitted, finished, accepted, rejected, cur, pos,

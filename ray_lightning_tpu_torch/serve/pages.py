@@ -22,11 +22,20 @@ extends a cached chain adopts those pages **read-only** (refcounted)
 instead of prefilling them again. The cache holds its own reference on
 every published page, so a retired publisher keeps its prefix warm;
 eviction under pressure drops least-recently-matched entries whose page
-only the cache still holds. Not yet ported: the dense-view
-``gather_pages``.
+only the cache still holds.
+
+Two storage round trips serve the engine's dense programs (JAX's names
+and arithmetic): :func:`gather_pages` / :func:`scatter_pages` build the
+dense per-slot view of the arena and write it back (the dense-view
+paged step, ``page_native=False``), and :func:`quantize_dense_cache` /
+:func:`dense_storage_values` / :func:`dense_storage_commit` hold the
+dense slot pool (``page_size=None``) as int8 codes with one f32 scale
+per (slot, position, head), dequantized for a dispatch and re-quantized
+whole after it.
 """
 from __future__ import annotations
 
+import dataclasses
 from bisect import insort
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -34,7 +43,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ray_lightning_tpu_torch.models.quant import kv_quantize, kv_scales
+from ray_lightning_tpu_torch.models.quant import (kv_dequantize,
+                                                  kv_quantize, kv_scales)
 from ray_lightning_tpu_torch.models.transformer import (DenseKV, PagedKV,
                                                         TransformerConfig,
                                                         new_arena)
@@ -57,13 +67,95 @@ def check_kv_dtype(kv_dtype) -> bool:
         f"kv_dtype must be None, 'bf16' or 'int8', got {kv_dtype!r}")
 
 
+# ------------------------------------------------------- dense int8 KV
+@dataclasses.dataclass
+class QuantizedDenseKV:
+    """One layer of int8 dense storage: ``key``/``value`` codes
+    (num_slots, max_seq_len, H, D) and ``key_scale``/``value_scale``
+    (num_slots, max_seq_len, H, 1) f32 absmax scales, one per (slot,
+    position, head)."""
+    key: torch.Tensor
+    value: torch.Tensor
+    key_scale: torch.Tensor
+    value_scale: torch.Tensor
+
+
+#: dense pool granularity: per (slot, position, head) -- the head_dim
+#: axis alone is reduced
+_DENSE_AXES = (3,)
+
+
+def quantize_dense_cache(cache: Sequence[DenseKV]) -> List[QuantizedDenseKV]:
+    """Plain dense caches -> int8 dense storage."""
+    out = []
+    for kv in cache:
+        ks = kv_scales(kv.key, _DENSE_AXES)
+        vs = kv_scales(kv.value, _DENSE_AXES)
+        out.append(QuantizedDenseKV(kv_quantize(kv.key, ks),
+                                    kv_quantize(kv.value, vs), ks, vs))
+    return out
+
+
+def dense_storage_values(storage, dtype: torch.dtype) -> List[DenseKV]:
+    """The compute-dtype caches a dispatch runs on: the storage itself
+    when it is plain (writes land in place), else the dequantized
+    codes."""
+    if not storage or isinstance(storage[0], DenseKV):
+        return storage
+    return [DenseKV(kv_dequantize(kv.key, kv.key_scale, dtype),
+                    kv_dequantize(kv.value, kv.value_scale, dtype))
+            for kv in storage]
+
+
+def dense_storage_commit(storage, values: Sequence[DenseKV]) -> None:
+    """Write a dispatch's caches back into int8 storage: the whole pool
+    re-quantized with fresh scales, in place (plain storage already holds
+    them). Untouched rows come back with their codes, and with their
+    scales up to the rounding of ``absmax / 127`` of a dequantized
+    group."""
+    if not storage or isinstance(storage[0], DenseKV):
+        return
+    for kv, new in zip(storage, values):
+        for codes, scales, x in ((kv.key, kv.key_scale, new.key),
+                                 (kv.value, kv.value_scale, new.value)):
+            ns = kv_scales(x, _DENSE_AXES)
+            codes.copy_(kv_quantize(x, ns))
+            scales.copy_(ns)
+
+
+# ------------------------------------------------ arena gather / scatter
+def gather_pages(arena: Sequence[PagedKV], page_table: torch.Tensor,
+                 dtype: torch.dtype) -> List[DenseKV]:
+    """The dense per-slot view of the arena: ``page_table`` (S, pp) ->
+    one ``DenseKV`` per layer, (S, pp * page_size, H, D) in ``dtype``.
+    Unmapped (−1) entries clamp to page 0: finite bytes the per-row
+    position mask never admits and the scatter never writes back. int8
+    pages dequantize inside the gather."""
+    S, pp = page_table.shape
+    idx = page_table.clamp_min(0).reshape(-1).long()
+    view = []
+    for kv in arena:
+        rows = []
+        for store, scales in ((kv.k, kv.k_scale), (kv.v, kv.v_scale)):
+            pages = store[idx]
+            pages = (pages.to(dtype) if scales is None
+                     else kv_dequantize(pages, scales[idx], dtype))
+            rows.append(pages.reshape(S, pp * pages.shape[1],
+                                      *pages.shape[2:]))
+        view.append(DenseKV(*rows))
+    return view
+
+
 def scatter_pages(arena: Sequence[PagedKV], view: Sequence[DenseKV],
                   page_table: torch.Tensor) -> None:
     """Write each row of a dense per-slot view (one ``DenseKV`` per
     layer, (B, pages_per_slot * page_size, H, D)) into its arena pages,
-    in place. ``page_table`` (B, pages_per_slot) maps the row's page
-    columns to arena pages; −1 entries go to the sink. int8 arenas
-    quantize each page with its own per-head absmax scales."""
+    in place: the inverse of :func:`gather_pages`. ``page_table`` (B,
+    pages_per_slot) maps the row's page columns to arena pages; −1
+    entries go to the sink (the prefill's padding rows, a step's
+    write-masked inactive rows). Pages two rows share receive the same
+    values from both. int8 arenas quantize each page with its own
+    per-head absmax scales."""
     B, pp = page_table.shape
     for kv, dense in zip(arena, view):
         idx = torch.where(page_table >= 0, page_table,

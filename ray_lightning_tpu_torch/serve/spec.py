@@ -4,11 +4,14 @@ Leviathan et al. 2023 on the engine's fixed shapes: a small **draft
 model** (a sibling sharing the target's vocab and ``max_seq_len``, e.g.
 a few layers of it) proposes ``k`` tokens a slot, one single-token step
 at a time, and the target scores all ``k`` proposals in ONE
-``(num_slots, k+1)`` **verify** through the page arena
-(:func:`~ray_lightning_tpu_torch.models.generate.verify_step_paged`;
+``(num_slots, k+1)`` **verify**: through the page arena on page-native
+engines (:func:`~ray_lightning_tpu_torch.models.generate.verify_step_paged`;
 the read side is the paged-attention kernel K1 at T = k+1 under
-``attention_kernel="cuda"``). The longest agreeing prefix is accepted
-plus one target token, so each target pass commits 1..k+1 tokens.
+``attention_kernel="cuda"``), else on the dense slot pool or the dense
+view of the arena (:func:`~ray_lightning_tpu_torch.models.generate.verify_step`;
+:func:`_spec_rounds_impl`, :func:`_spec_rounds_paged_impl`). The
+longest agreeing prefix is accepted plus one target token, so each
+target pass commits 1..k+1 tokens.
 
 Acceptance, per row, by the row's own sampling parameters:
 
@@ -30,8 +33,8 @@ Acceptance, per row, by the row's own sampling parameters:
 
 Rollback is a position decrement: the verify writes K/V for every draft
 token, and a rejected token's K/V stays past the new commit point, where
-the next writes land before any mask admits it (the slot owns those
-pages; a write past its pages goes to the sink).
+the next writes land before any mask admits it (the slot owns that row
+or those pages; a write past its pages goes to the sink).
 
 The draft keeps its own DENSE ``(num_slots, max_seq_len)`` KV cache
 (a per-row :class:`~ray_lightning_tpu_torch.models.transformer.DenseKV`
@@ -54,10 +57,14 @@ import torch
 from ray_lightning_tpu_torch.models.generate import (_mix64, _prefill_impl,
                                                     decode_step, row_seed,
                                                     sample_logits_rows,
+                                                    verify_step,
                                                     verify_step_paged)
 from ray_lightning_tpu_torch.models.quant import param_bytes
 from ray_lightning_tpu_torch.models.transformer import (TransformerLM,
                                                         new_cache)
+from ray_lightning_tpu_torch.serve.pages import (dense_storage_commit,
+                                                 dense_storage_values,
+                                                 gather_pages, scatter_pages)
 
 __all__ = ["SpecDecoder", "stream_seed"]
 
@@ -222,18 +229,17 @@ def _round_seeds(engine_seed: int, request_seeds: np.ndarray,
             for j in range(k + 1)]
 
 
-def _spec_rounds_page_native_impl(model, draft_model, arena, page_table,
-                                  draft_cache, cur, pos, active, remaining,
-                                  temp, top_k, eos, stepno, engine_seed,
-                                  request_seeds, *, k, rounds):
+def _spec_rounds(verify, max_seq_len, draft_model, draft_cache, cur, pos,
+                 active, remaining, temp, top_k, eos, stepno, engine_seed,
+                 request_seeds, *, k, rounds):
     """``rounds`` spec rounds: each is k+1 draft feeds, one ``(B, k+1)``
-    verify through the (write-masked) page table, and the accept rule.
-    Inactive rows run the same math at frozen positions: their target
-    writes go to the sink, their draft writes into a row the next
+    target verify (``verify(tokens, kv_positions)`` gives its (B, k+1,
+    V) logits), and the accept rule. Inactive rows run the same math at
+    frozen positions: their draft writes go into a row the next
     activation refills. ``temp`` (B,) is zero for rows not in flight at
     entry. Returns the row state and ``emitted`` (rounds, B, k+1),
     ``accepted``, ``rejected``, ``finished`` (rounds, B)."""
-    max_pos = model.cfg.max_seq_len - 1
+    max_pos = max_seq_len - 1
     sampled = np.asarray(temp) > 0.0
     offs = torch.arange(k + 1, dtype=pos.dtype, device=pos.device)[None]
     outs = []
@@ -247,9 +253,7 @@ def _spec_rounds_page_native_impl(model, draft_model, arena, page_table,
             draft_model, draft_cache, cur, pos, temp, top_k, draft_seeds,
             max_pos, k=k)
         tokens_in = torch.cat([cur, draft_toks], dim=1)
-        L = verify_step_paged(model, arena, tokens_in,
-                              torch.clamp(pos + offs, max=max_pos),
-                              page_table)
+        L = verify(tokens_in, torch.clamp(pos + offs, max=max_pos))
         (cur, pos, active, remaining, stepno, emitted, accepted, rejected,
          finished) = _spec_accept(
             L, draft_toks, draft_logits, cur, pos, active, remaining, temp,
@@ -259,6 +263,47 @@ def _spec_rounds_page_native_impl(model, draft_model, arena, page_table,
                                              zip(*outs))
     return (cur, pos, active, remaining, stepno, emitted, accepted,
             rejected, finished)
+
+
+def _spec_rounds_page_native_impl(model, draft_model, arena, page_table,
+                                  *rows, k, rounds):
+    """The spec rounds with the verify through the (write-masked) page
+    table: inactive rows' target writes go to the sink. ``rows`` are
+    :func:`_spec_rounds`' from ``draft_cache`` on."""
+    return _spec_rounds(
+        lambda tokens, positions: verify_step_paged(
+            model, arena, tokens, positions, page_table),
+        model.cfg.max_seq_len, draft_model, *rows, k=k, rounds=rounds)
+
+
+def _spec_rounds_impl(model, draft_model, storage, *rows, k, rounds):
+    """The spec rounds on dense target storage (the slot pool, or a
+    gathered view): the verify block-writes each row's k+1 tokens into
+    its own row (:func:`~ray_lightning_tpu_torch.models.generate.verify_step`).
+    int8 storage is dequantized whole before the rounds and re-quantized
+    whole after, as the plain dense step does."""
+    cache = dense_storage_values(storage, model.cfg.dtype)
+    out = _spec_rounds(
+        lambda tokens, positions: verify_step(model, cache, tokens,
+                                              positions),
+        model.cfg.max_seq_len, draft_model, *rows, k=k, rounds=rounds)
+    dense_storage_commit(storage, cache)
+    return out
+
+
+def _spec_rounds_paged_impl(model, draft_model, arena, page_table, *rows, k,
+                            rounds):
+    """The spec rounds on a page arena without page-native attention:
+    gather the dense view through the full ``page_table``, run
+    :func:`_spec_rounds_impl` on it, scatter back the mapped pages of
+    the rows active at entry (``rows[3]``), as the dense-view step
+    does."""
+    view = gather_pages(arena, page_table, model.cfg.dtype)
+    write_pt = torch.where(rows[3][:, None], page_table, -1)
+    out = _spec_rounds_impl(model, draft_model, view, *rows, k=k,
+                            rounds=rounds)
+    scatter_pages(arena, view, write_pt)
+    return out
 
 
 def _draft_refill_impl(draft_model, pool_cache, tokens: torch.Tensor,

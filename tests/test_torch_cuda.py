@@ -35,7 +35,12 @@ Speculative decoding: the paged-attention kernel at a verify's T = 5, and
 a nano spec engine whose greedy tokens equal the non-spec engine's in
 f32, whose verify launches the kernel once per layer and round at T =
 k+1, whose identical draft is always accepted, and whose quantized verify
-runs K5 on the tensor cores and its draft's feeds on the GEMVs.
+runs K5 on the tensor cores and its draft's feeds on the GEMVs. The
+dense KV layouts (the slot pool, the dense view): K5 routed by M as on
+the page-native engine and no K1, a decode dispatch's launches as
+``chip_smoke.py`` phase G records them, ``generate()`` with int8 weights
+on the GEMVs and ``tc``, spec equal to non-spec in f32, and the
+paged-attention kernel refused without ``page_native=True``.
 ``chip_smoke.py`` repeats this at the serving and training paths' full
 shapes.
 """
@@ -1415,3 +1420,137 @@ def test_lm_head_losses_on_the_card(cuda):
         for got, ref in ((gh, want[1]), (gt, want[2])):
             scale = ref.abs().max().item()
             assert (got - ref).abs().max().item() <= 2 * 2.0 ** -7 * scale
+
+
+# --------------------------- dense KV and decode outside the engine (S1, T9)
+DENSE_LAYOUTS = {"dense": {}, "view": dict(page_size=4),
+                 "page-native": dict(page_size=4, page_native=True,
+                                     attention_kernel="cuda")}
+
+
+@pytest.mark.parametrize("layout", list(DENSE_LAYOUTS))
+def test_dense_layouts_route_k5_as_the_page_native_engine(cuda, layout):
+    """bf16 with int8 weights through K5 on every KV layout: the decode
+    GEMVs at M = 3 slots, ``tc`` at the prefill's M = 3 x 8, never
+    ``tiled_f32``; K1 only on the page-native engine."""
+    cfg, sd, _, _ = _spec_models(torch.bfloat16)
+    qmm.reset_kernel_launches()
+    pa.reset_kernel_launches()
+    client = ServeClient(TransformerLM(cfg, device="meta"), sd, num_slots=3,
+                         prefill_len=8, weight_dtype="int8",
+                         matmul_kernel="cuda", device=cuda,
+                         **DENSE_LAYOUTS[layout])
+    out = client.serve_trace(list(SPEC_TRACE))
+    eng = client.engine
+    assert [len(out[r].tokens) for r in range(4)] == [10, 10, 10, 3]
+    per_forward = 4 * cfg.n_layers + 1
+    assert qmm.route_launches() == {
+        "gemv_dense": 4 * cfg.n_layers * eng.decode_substeps,
+        "gemv_attend": eng.decode_substeps,
+        "tc": per_forward * eng.prefills, "tiled_f32": 0}
+    k1 = cfg.n_layers * eng.decode_substeps if layout == "page-native" else 0
+    assert pa.kernel_launches() == k1
+    client.shutdown()
+
+
+@pytest.fixture(scope="module")
+def gpt2_small_serving():
+    """``chip_smoke.py`` phase 2's GPT-2-small weights and trace."""
+    import chip_smoke
+    from ray_lightning_tpu_torch.interop import load_flax_params
+    cfg = gpt2_config("small")
+    rng = np.random.default_rng(0)
+    sd = load_flax_params(TransformerLM(cfg, device="cpu"),
+                          chip_smoke.random_flax_params(cfg, rng)
+                          ).state_dict()
+    return chip_smoke, cfg, sd, chip_smoke.make_trace(rng, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("layout", ["dense", "view"])
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_dense_decode_dispatch_launches_match_phase_g(
+        cuda, gpt2_small_serving, layout, kv_dtype):
+    """One decode dispatch of GPT-2-small on the dense pool and on the
+    dense view, bf16 and int8 KV, as ``chip_smoke.py`` phase G (a) and
+    (b) profile it, launches the kernels that phase records
+    (``G_DECODE_LAUNCHES``, within the profiler's spread between calls,
+    ``G_LAUNCH_SPREAD``)."""
+    chip_smoke, cfg, sd, trace = gpt2_small_serving
+    prof = chip_smoke.profile_decode(TransformerLM(cfg, device="meta"), sd,
+                                     trace, chip_smoke.G_LAYOUTS[layout],
+                                     kv_dtype=kv_dtype)
+    key = f"{layout} {kv_dtype or 'bf16'}"
+    assert chip_smoke.launches_close(prof["launches"], key), (
+        prof["launches"], chip_smoke.G_DECODE_LAUNCHES[key])
+
+
+def test_generate_with_int8_weights_runs_k5_on_gemvs_and_tc(cuda):
+    """``generate()`` with int8 weights, bf16: K5 on the GEMVs for every
+    decode step (M = 3 rows) and on ``tc`` for the prefill (M = 3 x 8);
+    in f32 its greedy tokens equal ``generate_full_scan``'s and the dense
+    engine's."""
+    from ray_lightning_tpu_torch.models import generate, generate_full_scan
+    prompts = [[5, 17, 3, 9, 1, 2, 3, 4], [9, 2, 44], [42, 7]]
+    batch = np.zeros((3, 8), np.int64)
+    for i, p in enumerate(prompts):
+        batch[i, :len(p)] = p
+    lengths = np.array([len(p) for p in prompts])
+    n = 6
+    cfg, sd, _, _ = _spec_models(torch.bfloat16)
+    model = TransformerLM(dataclasses.replace(cfg, matmul_kernel="cuda"),
+                          device="meta").to_empty(device=cuda)
+    model.load_state_dict(sd)
+    model.quantize_weights("int8")
+    qmm.reset_kernel_launches()
+    out = generate(model, None, batch, n, 0, temperature=0.0,
+                   prompt_lengths=lengths)
+    assert out.shape == (3, 8 + n) and out.device.type == "cuda"
+    assert qmm.route_launches() == {
+        "gemv_dense": 4 * cfg.n_layers * (n - 1), "gemv_attend": n - 1,
+        "tc": 4 * cfg.n_layers + 1, "tiled_f32": 0}
+    cfg32, sd32, _, _ = _spec_models(torch.float32)
+    m32 = TransformerLM(cfg32, device="meta").to_empty(device=cuda)
+    m32.load_state_dict(sd32)
+    kw = dict(temperature=0.0, prompt_lengths=lengths)
+    split = generate(m32, None, batch, n, 0, **kw).cpu().numpy()
+    full = generate_full_scan(m32, None, batch, n, 0, **kw).cpu().numpy()
+    client = ServeClient(TransformerLM(cfg32, device="meta"), sd32,
+                         num_slots=3, prefill_len=8, device=cuda)
+    served = client.serve_trace([(0, dict(prompt=p, max_new_tokens=n))
+                                 for p in prompts])
+    for i, L in enumerate(lengths):
+        assert split[i, L:L + n].tolist() == full[i, L:L + n].tolist()
+        assert split[i, L:L + n].tolist() == served[i].tokens
+
+
+def test_paged_attention_kernel_needs_page_native_on_the_card(cuda):
+    """``attention_kernel="cuda"`` on a dense layout raises, as the JAX
+    engine refuses its Pallas kernel without ``page_native=True``: never
+    a quiet dense attention."""
+    cfg, sd, _, _ = _spec_models(torch.bfloat16)
+    for layout in ({}, dict(page_size=4)):
+        with pytest.raises(ValueError, match="page_native=True"):
+            ServeClient(TransformerLM(cfg, device="meta"), sd, num_slots=3,
+                        prefill_len=8, attention_kernel="cuda", device=cuda,
+                        **layout)
+
+
+@pytest.mark.parametrize("layout", ["dense", "view"])
+def test_spec_on_dense_layouts_equals_non_spec_in_f32(cuda, layout):
+    """f32: spec (k = 4, a 1-layer draft) on the dense pool and on the
+    dense view gives the non-spec engine's greedy tokens."""
+    cfg, sd, dcfg, dsd = _spec_models(torch.float32)
+
+    def run(**kw):
+        client = ServeClient(TransformerLM(cfg, device="meta"), sd,
+                             num_slots=4, prefill_len=8, device=cuda,
+                             **DENSE_LAYOUTS[layout], **kw)
+        out = client.serve_trace(list(SPEC_TRACE))
+        rounds = client.engine.spec_rounds
+        client.shutdown()
+        return _tokens(out), rounds
+
+    plain, _ = run()
+    spec, rounds = run(draft_model=TransformerLM(dcfg, device="meta"),
+                       draft_params=dsd, spec_k=4)
+    assert rounds > 0 and spec == plain

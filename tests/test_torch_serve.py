@@ -257,12 +257,25 @@ def test_unported_arguments_raise(port, name):
 
 
 def test_unported_layouts_and_unknown_arguments(port):
+    """Every KV layout constructs (the dense slot pool by default, the
+    dense-view paged path with ``page_size`` alone); the JAX engine's
+    layout rules raise its ``ValueError``\ s; an unknown keyword is a
+    ``TypeError``."""
     sd = port.state_dict()
-    with pytest.raises(NotImplementedError, match="S1"):
-        ServeClient(port, sd, num_slots=2, prefill_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="page_native"):
+    dense = ServeClient(port, sd, num_slots=2, prefill_len=8, device="cpu")
+    assert not dense.engine.paged and dense.engine.free_pages is None
+    dense.shutdown()
+    view = ServeClient(port, sd, num_slots=2, prefill_len=8, device="cpu",
+                       page_size=4)
+    assert view.engine.paged and not view.engine.page_native
+    view.shutdown()
+    with pytest.raises(ValueError, match="page_native=True.*page_size"):
         ServeClient(port, sd, num_slots=2, prefill_len=8, device="cpu",
-                    page_size=4)
+                    page_native=True)
+    for layout in ({}, dict(page_size=4)):
+        with pytest.raises(ValueError, match="attention_kernel='cuda'"):
+            ServeClient(port, sd, num_slots=2, prefill_len=8, device="cpu",
+                        attention_kernel="cuda", **layout)
     with pytest.raises(TypeError, match="bogus"):
         ServeClient(port, sd, device="cpu", bogus=1, **PAGED)
     # the defaults of unported arguments are accepted (None / False)
