@@ -129,10 +129,13 @@ G. The dense KV layouts and decode outside the engine, phase 2's weights,
    never reach them); printed per run: decode tokens/s, ms per decode
    dispatch, TTFT (median, max) beside phase 2's, and from one profiled
    decode dispatch of the trace's first 8 prompts (phase 2's page-native
-   layout too): kernel launches (held to ``G_DECODE_LAUNCHES`` within
-   ``G_LAUNCH_SPREAD``, the profiler's spread between calls), the host's
-   launch calls, device busy ms and idle share, the top kernels, and the
-   KV storage's bytes.
+   layout too; the window padded on both sides and taken again while
+   the device's records and the host's launch calls differ in number):
+   kernel launches (the device's records, or the host's launch calls
+   where more, held to ``G_DECODE_LAUNCHES`` within
+   ``G_LAUNCH_SPREAD``, the profiler's spread between calls; on a miss
+   every kernel's count goes to stderr), the host's launch calls, device
+   busy ms and idle share, the top kernels, and the KV storage's bytes.
    (c) ``weight_dtype="int8", matmul_kernel="cuda"``
    on the dense pool: K5 on the GEMVs 49 times a decode step, on ``tc``
    49 times a prefill, never on ``tiled_f32``; in f32 the first decode
@@ -147,6 +150,41 @@ G. The dense KV layouts and decode outside the engine, phase 2's weights,
    dense layouts: f32 greedy tokens equal the non-spec engine's of the
    layout; with int8 weights for both models, K5's verify (M = 40) and
    prefills on ``tc``, the draft's feeds on the GEMVs.
+P. Async dispatch, phase 2's weights and trace (greedy and sampled rows),
+   8 slots, on four engines: page-native (K1), int8 weights (K5),
+   chunked with the prefix cache (phase L's layout, K2) and spec at k = 4
+   (phase S's draft). (a) Each in bf16 and in f32 through
+   ``ServeClient(async_dispatch=True)`` and the sync client: tokens and
+   finish reasons bitwise equal. (b) Every steady-state ``step_enqueue``
+   (one chaining on an outstanding carry) of the bf16 runs, and of a
+   greedy-only spec run, under ``torch.cuda.set_sync_debug_mode("error")``:
+   no synchronizing call, and at least one such enqueue checked. (c) Per
+   engine, sync beside async: host ms a step tick, the ms a sync waits on
+   its event, decode tokens/s (decode tokens over the step ticks' and the
+   pipeline drains' host time) and their ratio, and one profiled decode
+   tick (``p_profile``): launches, device busy ms and idle share.
+A. Multi-LoRA and tenancy, phase 2's weights, a page-native engine with
+   ``max_resident_adapters=4, lora_rank=16`` and three random adapters
+   (N(0, 0.1) entries). (a) f32, a mixed batch of 8 requests (two under
+   each adapter, two base): adapted rows equal a bankless engine with
+   merged weights W + A @ B, and differ from the base model's stream;
+   base rows equal the bankless engine; each request equals its solo run.
+   (b) bf16 with int8 weights (K5): the bankless and the armed engine on
+   the trace, K5's routes exactly 4 x n_layers GEMVs and one head GEMV a
+   decode step and 49 ``tc`` calls a prefill (the bank adds no K5
+   launch), K1 n_layers a decode step, ``param_bytes()`` and
+   ``adapter_bank_bytes()`` equal to the bytes worked out from the
+   shapes; a decode tick's launches and device busy ms armed beside
+   bankless; the trace with adapters through chunks (phase L's layout):
+   K2 n_layers a chunk on ``tc``, K5 49 ``tc`` calls a chunk. (c) Hot
+   load during a trace on the async client, LRU eviction of the least
+   recently bound adapter, a pinned adapter that refuses to unload, an
+   ``UnknownAdapter`` shed, and the hot-loaded adapter's tokens equal a
+   fresh engine's. (d) Two tenant classes (weights 3:1, the heavier with
+   a default adapter): the first 8 admissions 6 : 2, and every request's
+   tokens equal its solo run's. (e) Spec (phase S's draft) with adapters,
+   f32: (a)'s tokens. (f) The async client with adapters: (b)'s sync
+   tokens.
 T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
    max_epochs=1, limit_train_batches=20, limit_val_batches=2,
    seed=0).fit(GPTModule(config=gpt2_config("small",
@@ -269,21 +307,24 @@ C. The command line on the card, flags only: ``python -m
    equal the same fit built by hand in this process, bitwise.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K1 has two entries:
-   ``paged_attention`` at T=1 with phase 2's and phase L's bf16 runs'
-   launches, ``paged_attention_verify`` at T=5 with phase S (a)'s bf16
-   run's. K2 has two entries: ``flash_fwd`` at the
-   training shape with T2's launches, ``flash_fwd_chunk`` at the chunk's
-   shape (S=1024) with phase L's bf16 launches. K2-K4's training entries
-   count T2's launches and phase M's (a), (b) and (e) fits'. K5 has five
-   entries,
-   each one forward's 49 calls, bf16 x, int8 codes (times and bound
-   their sums, the error the largest of them): ``quantized_matmul`` at
-   M=8 (a decode step, the GEMVs; Q2's, phase L's, phase S (d)'s and
-   phase G (c), (d) and (e)'s int8 launches on those routes),
+   ``paged_attention`` at T=1 with phase 2's, phase L's, phase P's and
+   phase A's bf16 runs' launches, ``paged_attention_verify`` at T=5 with
+   phase S (a)'s and phase P's spec bf16 runs'. K2 has two entries:
+   ``flash_fwd`` at the training shape with T2's launches,
+   ``flash_fwd_chunk`` at the chunk's shape (S=1024) with phase L's,
+   phase P's chunked and phase A's chunked bf16 launches. K2-K4's
+   training entries count T2's launches and phase M's (a), (b) and (e)
+   fits'. K5 has five entries, each one forward's 49 calls, bf16 x,
+   int8 codes (times and bound their sums, the error the largest of
+   them): ``quantized_matmul`` at
+   M=8 (a decode step, the GEMVs; Q2's, phase L's, phase S (d)'s, phase
+   G (c), (d) and (e)'s, phase P's int8-weights bf16 runs' and phase A
+   (b), (f) and its chunked run's int8 launches on those routes),
    ``quantized_matmul_prefill`` at M=1024 (a prefill, the tensor-core
-   kernel; Q2's and phase G (c) and (d)'s ``tc`` launches),
+   kernel; Q2's, phase G (c) and (d)'s, phase P's and phase A (b) and
+   (f)'s ``tc`` launches),
    ``quantized_matmul_chunk`` at M=128 (a chunk dispatch, the
-   tensor-core kernel; phase L's ``tc`` launches) and
+   tensor-core kernel; phase L's and phase A's chunked ``tc`` launches) and
    ``quantized_matmul_verify`` at M=40 (a spec verify, the tensor-core
    kernel; phase S (d)'s and phase G (e)'s verify launches), and
    ``quantized_matmul_untied_head``, one call of the untied head at M=8
@@ -1440,12 +1481,29 @@ G_LAUNCH_SPREAD = 0.005
 G_HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx",
                        "cudaMemcpyAsync", "cudaMemsetAsync")
+# idle host time on both sides of a profiled window: the profiler keeps
+# only device records whose span lies inside the window on ITS clock, so
+# work launched right at an edge can be dropped (one card recorded 1386
+# of a view int8 dispatch's 1401 launches while another recorded all)
+PROFILE_PAD_S = 0.02
+# profiled windows tried until the device's kernel and copy records match
+# the host's launch and copy calls one for one
+PROFILE_TRIES = 3
 
 
 def launches_close(measured: int, key: str) -> bool:
     """``measured`` within G_LAUNCH_SPREAD of G_DECODE_LAUNCHES[key]."""
     want = G_DECODE_LAUNCHES[key]
     return abs(measured - want) <= G_LAUNCH_SPREAD * want
+
+
+def dispatch_launches(prof) -> int:
+    """The launches of a profiled dispatch (:func:`profile_decode`): the
+    device's kernel and copy records, or the host's launch and copy calls
+    where the profiler kept fewer device records than there were calls
+    (it dropped one of a dense view dispatch's in every window of one
+    run)."""
+    return max(prof["launches"], prof["host_launch_calls"])
 
 
 def storage_bytes(eng) -> int:
@@ -1461,17 +1519,45 @@ def storage_bytes(eng) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def profiled(work):
+    """``torch.profiler``'s ``key_averages()`` of one call of ``work``
+    (CPU and CUDA), in a window padded by PROFILE_PAD_S of idle host time
+    on both sides and closed after the device has finished; called again,
+    up to PROFILE_TRIES windows, while the device's kernel and copy
+    records differ in number from the host's launch and copy calls (a
+    record the profiler dropped). Returns the last window's events and
+    the number of windows taken."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            work()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = prof.key_averages()
+        device = sum(a.count for a in events
+                     if a.device_type == DeviceType.CUDA)
+        host = sum(a.count for a in events if a.key in G_HOST_LAUNCH_CALLS)
+        if device == host:
+            break
+    return events, tries
+
+
 def profile_decode(proto, sd, trace, layout, **kw):
     """One decode dispatch of an engine of ``layout`` with the trace's
     first 8 prompts admitted (greedy, G_NEW_TOKENS each, so every row
     stays in flight): the median host ms of G_PROFILE_HOST dispatches
-    after G_PROFILE_WARM, then one dispatch under ``torch.profiler``:
-    its kernel launches (the device's kernel and copy records) and the
-    host's launch and copy calls, device busy ms, the idle share against
+    after G_PROFILE_WARM, then one dispatch under ``torch.profiler``
+    (:func:`profiled`: a further dispatch while records were dropped):
+    its kernel launches (the device's kernel and copy records, and each
+    kernel's count) and the host's launch and copy calls, the windows
+    taken, device busy ms, the idle share against
     the host median, the six kernels that take the most device time (name,
     ms, launches), and the engine's KV storage bytes."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from ray_lightning_tpu_torch.serve import ServeEngine
     from ray_lightning_tpu_torch.serve.request import Request
     eng = ServeEngine(proto, sd, device=DEVICE, **layout, **kw)
@@ -1485,11 +1571,7 @@ def profile_decode(proto, sd, trace, layout, **kw):
         t0 = time.perf_counter()
         eng.step()                   # ends in a host copy: synchronized
         host.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    events, tries = profiled(eng.step)
     kernels = [a for a in events if a.device_type == DeviceType.CUDA]
     busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
     host_ms = 1e3 * statistics.median(host)
@@ -1497,6 +1579,8 @@ def profile_decode(proto, sd, trace, layout, **kw):
     out = dict(launches=sum(a.count for a in kernels),
                host_launch_calls=sum(a.count for a in events
                                      if a.key in G_HOST_LAUNCH_CALLS),
+               profile_tries=tries,
+               kernel_counts={a.key: a.count for a in kernels},
                device_busy_ms=busy_ms if kernels else "not measured",
                host_ms_median=host_ms,
                idle_share=1 - busy_ms / host_ms if kernels
@@ -1710,6 +1794,7 @@ def phase_g_dense(cfg, sd, trace, served, card):
     cf.reset_kernel_launches()
     out["profiles"]["page-native bf16"] = profile_decode(
         proto, sd, trace, SERVE, attention_kernel="cuda")
+    out["profiles"]["page-native bf16"].pop("kernel_counts")
     p1_launches = pa.kernel_launches()
     pa.reset_kernel_launches()
     # (a) and (b)
@@ -1722,10 +1807,18 @@ def phase_g_dense(cfg, sd, trace, served, card):
             check_completions(done, trace, cfg.vocab_size, f"phaseG {key}")
             prof = profile_decode(proto, sd, trace, layout,
                                   kv_dtype=kv_dtype)
-            check(launches_close(prof["launches"], key),
-                  f"phaseG {key}: {prof['launches']} launches a decode "
-                  f"dispatch, recorded {G_DECODE_LAUNCHES[key]} "
-                  f"(+-{G_LAUNCH_SPREAD:.1%})")
+            counts = prof.pop("kernel_counts")
+            n = dispatch_launches(prof)
+            if not launches_close(n, key):
+                for name, c in sorted(counts.items(), key=lambda x: -x[1]):
+                    print(f"phaseG {key} kernel {c} {name[:160]}",
+                          file=sys.stderr)
+            check(launches_close(n, key),
+                  f"phaseG {key}: {n} launches a decode dispatch "
+                  f"({prof['launches']} device records, "
+                  f"{prof['host_launch_calls']} host launch calls, "
+                  f"{prof['profile_tries']} windows), recorded "
+                  f"{G_DECODE_LAUNCHES[key]} (+-{G_LAUNCH_SPREAD:.1%})")
             ref = served[kv_dtype or "bf16"]
             res = dict(layout=name, kv_dtype=kv_dtype or "bf16",
                        requests=len(done), decode_steps=eng.decode_substeps,
@@ -1767,6 +1860,553 @@ def phase_g_dense(cfg, sd, trace, served, card):
     out["spec"] = g_spec(cfg, sd, trace, card)
     print("phaseG profiles", json.dumps(dict(out["profiles"], card=card)),
           flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase P
+P_ENGINES = {"page-native": dict(SERVE, attention_kernel="cuda"),
+             "int8-weights": dict(SERVE, attention_kernel="cuda",
+                                  weight_dtype="int8", matmul_kernel="cuda"),
+             "chunked": dict(L_SERVE, attention_kernel="cuda"),
+             "spec": dict(SERVE, attention_kernel="cuda")}
+P_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def p_models(cfg, sd, dtype, engine):
+    """The target's prototype at ``dtype`` and the engine's extra
+    arguments (phase S's 2-layer draft for ``"spec"``)."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    c = dataclasses.replace(cfg, dtype=dtype)
+    kw = {}
+    if engine == "spec":
+        kw = spec_kw(dataclasses.replace(c, n_layers=S_DRAFT_LAYERS),
+                     draft_state(sd, S_DRAFT_LAYERS))
+    return TransformerLM(c, device="meta"), kw
+
+
+def p_serve(proto, sd, trace, layout, *, async_dispatch, debug=False, **kw):
+    """Replay ``trace`` through a fresh ``ServeClient`` (tick clock), sync
+    or pipelined. Times every step tick on the host (the sync ``step()``
+    ends in its event wait; a pipelined tick is the enqueue of N+1 and
+    the sync of N) and every drain of the pipeline outside a step tick,
+    keeps each synced handle's event wait, and with ``debug`` runs every
+    steady-state enqueue (one that chains on an outstanding carry) under
+    ``torch.cuda.set_sync_debug_mode("error")``: any synchronizing call
+    raises. Returns the completions, the engine and the stats."""
+    from ray_lightning_tpu_torch.serve import ServeClient
+    client = ServeClient(proto, sd, device=DEVICE,
+                         async_dispatch=async_dispatch, **layout, **kw)
+    eng = client.engine
+    st = {"tick_s": [], "drain_s": [], "wait_s": [], "checked": 0}
+    enqueue, sync = eng.step_enqueue, eng.step_sync
+
+    def checked_enqueue():
+        if not (debug and eng.carry_deferred):
+            return enqueue()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = enqueue()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        st["checked"] += 1
+        return out
+
+    def waited_sync(pending):
+        out = sync(pending)
+        st["wait_s"].append(pending.wait_s)
+        return out
+
+    def timed(fn, key):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            st[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    eng.step_enqueue, eng.step_sync = checked_enqueue, waited_sync
+    if async_dispatch:
+        pipelined, drain = client._step_pipelined, client._sync_pending
+        in_tick = []
+
+        def tick_step(done):
+            in_tick.append(1)
+            try:
+                return pipelined(done)
+            finally:
+                in_tick.pop()
+
+        def timed_drain(done):
+            if in_tick or client._pending is None:
+                return drain(done)
+            return timed(drain, "drain_s")(done)
+        client._step_pipelined = timed(tick_step, "tick_s")
+        client._sync_pending = timed_drain
+    else:
+        eng.step = timed(eng.step, "tick_s")
+    t0 = time.perf_counter()
+    done = client.serve_trace(list(trace))
+    st["trace_s"] = time.perf_counter() - t0
+    client.shutdown()
+    return done, eng, st
+
+
+def p_figures(done, st):
+    """Host ms a step tick (median), the ms a sync waited on its event
+    (median), decode tokens over the step ticks' and drains' host time,
+    and the replay's wall seconds."""
+    decode_tokens = sum(len(c.tokens) - 1 for c in done.values())
+    return dict(
+        tick_ms_median=1e3 * statistics.median(st["tick_s"]),
+        sync_wait_ms_median=1e3 * statistics.median(st["wait_s"]),
+        decode_tokens=decode_tokens,
+        decode_tokens_per_s=decode_tokens / (sum(st["tick_s"])
+                                             + sum(st["drain_s"])),
+        drains=len(st["drain_s"]), trace_s=st["trace_s"],
+        step_ticks=len(st["tick_s"]))
+
+
+def p_profile(proto, sd, prompts, layout, *, async_dispatch,
+              row_adapters=None, **kw):
+    """One decode tick of an engine of ``layout`` with ``prompts``
+    admitted (greedy, G_NEW_TOKENS each; ``row_adapters`` the rows'
+    adapter names): sync, ``step()``; pipelined, the enqueue of the next
+    dispatch and the sync of the last. The median host ms of
+    G_PROFILE_HOST ticks after G_PROFILE_WARM, then one tick under
+    ``torch.profiler`` (:func:`profiled`): the device's kernel launches,
+    busy ms, and the idle share against the host median."""
+    from torch.autograd import DeviceType
+    from ray_lightning_tpu_torch.serve import ServeEngine
+    from ray_lightning_tpu_torch.serve.request import Request
+    eng = ServeEngine(proto, sd, device=DEVICE, **layout, **kw)
+    eng.prefill([Request(id=i, prompt=p, max_new_tokens=G_NEW_TOKENS,
+                         adapter=row_adapters[i] if row_adapters else None)
+                 for i, p in enumerate(prompts)])
+    while eng.chunk_pending:
+        eng.prefill_chunk_step()
+    pending = []
+
+    def tick():
+        if not async_dispatch:
+            eng.step()
+            return
+        pending.append(eng.step_enqueue())
+        if len(pending) > 1:
+            eng.step_sync(pending.pop(0))
+
+    for _ in range(G_PROFILE_WARM):
+        tick()
+    host = []
+    for _ in range(G_PROFILE_HOST):
+        t0 = time.perf_counter()
+        tick()
+        host.append(time.perf_counter() - t0)
+    events, _ = profiled(tick)
+    for p in pending:
+        eng.step_sync(p)
+    kernels = [a for a in events if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    host_ms = 1e3 * statistics.median(host)
+    eng.shutdown()
+    return dict(launches=sum(a.count for a in kernels),
+                device_busy_ms=busy_ms if kernels else "not measured",
+                host_ms_median=host_ms,
+                idle_share=(1 - busy_ms / host_ms if kernels
+                            else "not measured"))
+
+
+def p_launches():
+    """Every kernel counter, as one dict."""
+    from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    return dict(k1_by_t=pa.launches_by_t(), k5=qmm.route_launches(),
+                k2=cf.route_launches("flash_fwd"))
+
+
+def p_reset():
+    from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    for mod in (pa, qmm, cf):
+        mod.reset_kernel_launches()
+
+
+def add_launches(total, got):
+    """Add one run's counters (``p_launches``) into ``total``."""
+    for key, counts in got.items():
+        into = total.setdefault(key, {})
+        for k, n in counts.items():
+            into[k] = into.get(k, 0) + n
+
+
+def phase_p_async(cfg, sd, trace, card):
+    """Async dispatch at GPT-2-small width, phase 2's weights and trace,
+    8 slots, on four engines: page-native (K1), int8 weights (K5),
+    chunked with the prefix cache (K2) and spec at k = 4 (phase S's
+    draft). (a) For each, in bf16 and f32, the pipelined client against
+    the sync client: tokens and finish reasons bitwise equal (the same
+    kernels on the same inputs). (b) Every steady-state enqueue of the
+    bf16 runs, and of a greedy-only spec run, under
+    ``set_sync_debug_mode("error")``: no synchronizing call. (c) Per
+    engine, sync beside async: host ms a step tick, the ms a sync waits
+    on its event, decode tokens/s, and one profiled decode tick's
+    launches, device busy ms and idle share."""
+    out = {"runs": {}, "launches": {}}
+    greedy = [(t, {k: v for k, v in kw.items()
+                   if k not in ("temperature", "top_k")}) for t, kw in trace]
+    prompts = [kw["prompt"] for _, kw in trace[:8]]
+    for engine, layout in P_ENGINES.items():
+        for dtype in P_DTYPES:
+            proto, kw = p_models(cfg, sd, dtype, engine)
+            tag = f"{engine} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+            serve(proto, sd, WARM, layout=layout, **kw)
+            res, tokens = {}, {}
+            for mode in ("sync", "async"):
+                p_reset()
+                done, eng, st = p_serve(proto, sd, trace, layout,
+                                        async_dispatch=mode == "async",
+                                        debug=dtype == torch.bfloat16, **kw)
+                if dtype == torch.bfloat16:
+                    add_launches(out["launches"].setdefault(engine, {}),
+                                 p_launches())
+                check_completions(done, trace, cfg.vocab_size,
+                                  f"phaseP {tag} {mode}")
+                tokens[mode] = {r: (c.tokens, c.finish_reason)
+                                for r, c in done.items()}
+                res[mode] = dict(p_figures(done, st),
+                                 dispatches=eng.steps,
+                                 enqueues_checked=st["checked"])
+            differ = [r for r in tokens["sync"]
+                      if tokens["sync"][r] != tokens["async"].get(r)]
+            check(not differ, f"phaseP {tag}: async tokens differ from "
+                  f"sync for requests {differ}")
+            if dtype == torch.bfloat16:
+                if engine == "spec":
+                    # the spec engine drains while a sampled row is in
+                    # flight: the greedy batch checks its steady state
+                    done, _, st = p_serve(proto, sd, greedy, layout,
+                                          async_dispatch=True, debug=True,
+                                          **kw)
+                    res["async"]["enqueues_checked_greedy"] = st["checked"]
+                    checked = st["checked"]
+                else:
+                    checked = res["async"]["enqueues_checked"]
+                check(checked > 0, f"phaseP {tag}: no steady-state enqueue "
+                      "was checked under set_sync_debug_mode")
+                for mode in ("sync", "async"):
+                    res[mode]["profile"] = p_profile(
+                        proto, sd, prompts, layout,
+                        async_dispatch=mode == "async", **kw)
+            res["tokens_per_s_async_over_sync"] = (
+                res["async"]["decode_tokens_per_s"]
+                / res["sync"]["decode_tokens_per_s"])
+            print("phaseP", tag, json.dumps(dict(res, card=card)),
+                  flush=True)
+            out["runs"][tag] = res
+    return out
+
+
+# --------------------------------------------------------------- phase A
+A_RANK, A_CAPACITY, A_ADAPTERS = 16, 4, 3
+A_SCALE = 0.1                     # std of the adapters' A and B entries
+A_NEW_TOKENS = 16
+A_SEED = 14                       # the adapters' generator
+A_LAYOUT = dict(SERVE, attention_kernel="cuda")
+A_TARGETS = (("attn", "qkv"), ("attn", "out"), ("mlp", "up"),
+             ("mlp", "down"))
+
+
+def a_dims(cfg, name):
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"qkv": (d, 3 * d), "out": (d, d), "up": (d, ff),
+            "down": (ff, d)}[name]
+
+
+def a_adapters(cfg, rng, n):
+    """``n`` adapter trees in the JAX package's layout (numpy, rank
+    A_RANK, entries N(0, A_SCALE)) for every projection of ``cfg``."""
+    out = {}
+    for i in range(n):
+        tree = {"stack": {}}
+        for layer in range(cfg.n_layers):
+            blk = tree["stack"].setdefault(f"block_{layer}", {})
+            for mod, name in A_TARGETS:
+                d_in, d_out = a_dims(cfg, name)
+                blk.setdefault(mod, {})[name] = {
+                    "lora_A": A_SCALE * rng.standard_normal(
+                        (d_in, A_RANK), dtype=np.float32),
+                    "lora_B": A_SCALE * rng.standard_normal(
+                        (A_RANK, d_out), dtype=np.float32)}
+        out[f"ad{i}"] = tree
+    return out
+
+
+def a_merged(sd, tree):
+    """The state dict with each targeted projection's weight merged:
+    W + scale * (A @ B)^T (scale 1: alpha defaults to the rank)."""
+    out = dict(sd)
+    for name, blk in tree["stack"].items():
+        layer = name.split("_")[1]
+        for mod, name2 in A_TARGETS:
+            pair = blk[mod][name2]
+            key = f"stack.blocks.{layer}.{mod}.{name2}.weight"
+            delta = torch.from_numpy(pair["lora_A"] @ pair["lora_B"]).T
+            out[key] = (sd[key].double() + delta.double()).float()
+    return out
+
+
+def a_bank_bytes(cfg):
+    """One adapter slot's bytes across every bank, from the shapes (f32
+    A (in, r) and B (r, out) per projection and layer), times the bank's
+    capacity."""
+    per = sum(4 * A_RANK * sum(a_dims(cfg, n)) for _, n in A_TARGETS)
+    return A_CAPACITY * cfg.n_layers * per
+
+
+def a_int8_param_bytes(cfg):
+    """The int8-weight model's bytes from the shapes (the JAX rule: every
+    matrix as int8 codes plus one f32 scale per slice of its last axis;
+    biases and LayerNorm f32)."""
+    d, ff, V, S = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.max_seq_len
+    emb = V * d + 4 * d + S * d + 4 * d
+    layer = (d * 3 * d + 4 * cfg.head_dim + 4 * 3 * d       # qkv
+             + d * d + 4 * d + 4 * d                        # out
+             + d * ff + 4 * ff + 4 * ff                     # up
+             + ff * d + 4 * d + 4 * d                       # down
+             + 2 * 2 * 4 * d)                               # ln1, ln2
+    return emb + cfg.n_layers * layer + 2 * 4 * d
+
+
+def a_tokens(proto, sd, trace, layout=A_LAYOUT, **kw):
+    done, eng, _ = serve(proto, sd, trace, layout=layout, **kw)
+    return {r: c.tokens for r, c in done.items()}, done, eng
+
+
+def phase_a_adapters(cfg, sd, trace, card):
+    """Multi-LoRA and tenancy at GPT-2-small width, phase 2's weights: a
+    page-native engine with ``max_resident_adapters=4, lora_rank=16`` and
+    three random adapters. (a) f32, a mixed batch (rows under each
+    adapter and base rows): adapted rows equal a bankless engine with
+    merged weights, base rows the bankless base engine, every request
+    its solo run, and every adapted stream differs from its base stream.
+    (b) bf16 with int8 weights: K5's routes exactly the bankless
+    engine's, K1 n_layers a decode step, chunked prompts through K2, the
+    param and bank bytes from the shapes; a decode tick's launches and
+    device busy ms armed beside bankless. (c) Hot load during a trace,
+    LRU eviction, a pinned adapter that refuses to unload, an
+    ``UnknownAdapter`` shed. (d) Two tenant classes (weights 3:1, the
+    heavier with a default adapter): the first admissions follow the
+    weights and every request's tokens equal its solo run. (e) Spec with
+    adapters, f32: the non-spec adapted engine's tokens. (f) The async
+    client with adapters: the sync client's tokens."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.serve import (ServeClient, TenantClass,
+                                               UnknownAdapter)
+    from ray_lightning_tpu_torch.serve.request import OccupancyError
+    rng = np.random.default_rng(A_SEED)
+    ads = a_adapters(cfg, rng, A_ADAPTERS)
+    names = sorted(ads)
+    bank = dict(adapters=ads, max_resident_adapters=A_CAPACITY,
+                lora_rank=A_RANK)
+    out = {"launches": {}}
+    # (a) f32: merged weights, base rows, solo runs
+    p32 = TransformerLM(dataclasses.replace(cfg, dtype=torch.float32),
+                        device="meta")
+    rows = [names[0], names[1], names[2], None, names[0], names[1], None,
+            names[2]]
+    mixed = [(0, dict(prompt=kw["prompt"], max_new_tokens=A_NEW_TOKENS,
+                      adapter=rows[i]))
+             for i, (_, kw) in enumerate(trace[:8])]
+    got, done, _ = a_tokens(p32, sd, mixed, **bank)
+    check(all(done[i].adapter == rows[i] for i in range(8)),
+          "phaseA (a): completions carry the wrong adapter")
+    base, _, _ = a_tokens(p32, sd, [(t, dict(kw, adapter=None))
+                                    for t, kw in mixed])
+    merged_equal = differs = 0
+    for name in names:
+        ids = [i for i in range(8) if rows[i] == name]
+        want, _, _ = a_tokens(p32, a_merged(sd, ads[name]),
+                              [(0, dict(mixed[i][1], adapter=None))
+                               for i in ids])
+        for j, i in enumerate(ids):
+            check(got[i] == want[j], f"phaseA (a): request {i} under "
+                  f"{name} differs from the merged-weight engine")
+            check(got[i] != base[i], f"phaseA (a): request {i} under "
+                  f"{name} equals the base model's stream")
+            merged_equal += 1
+            differs += 1
+    for i in range(8):
+        if rows[i] is None:
+            check(got[i] == base[i], f"phaseA (a): base request {i} "
+                  "differs from the bankless engine")
+        solo, _, _ = a_tokens(p32, sd, [mixed[i]], **bank)
+        check(solo[0] == got[i], f"phaseA (a): request {i} differs from "
+              "its solo run")
+    out["a"] = dict(requests=8, adapted_equal_merged=merged_equal,
+                    adapted_differ_from_base=differs,
+                    base_rows_equal_bankless=rows.count(None),
+                    solo_equal=8, card=card)
+    print("phaseA (a) f32", json.dumps(out["a"]), flush=True)
+    # (b) bf16, int8 weights
+    proto = TransformerLM(cfg, device="meta")
+    qkw = dict(weight_dtype="int8", matmul_kernel="cuda")
+    atrace = [(t, dict(kw, adapter=([None] + names)[i % 4]))
+              for i, (t, kw) in enumerate(trace)]
+    serve(proto, sd, WARM, layout=A_LAYOUT, **qkw, **bank)
+    res = {}
+    per_forward = 4 * cfg.n_layers + 1
+    for label, tr, extra in (("bankless", trace, {}),
+                             ("armed", atrace, bank)):
+        p_reset()
+        done, eng, st = serve(proto, sd, tr, layout=A_LAYOUT, **qkw, **extra)
+        launches = p_launches()
+        add_launches(out["launches"], launches)
+        check_completions(done, tr, cfg.vocab_size, f"phaseA (b) {label}")
+        want = {"gemv_dense": 4 * cfg.n_layers * eng.decode_substeps,
+                "gemv_attend": eng.decode_substeps,
+                "tc": per_forward * eng.prefills, "tiled_f32": 0}
+        check(launches["k5"] == want,
+              f"phaseA (b) {label}: K5 routes {launches['k5']}, expected "
+              f"{want}")
+        check(launches["k1_by_t"] == {1: cfg.n_layers * eng.decode_substeps},
+              f"phaseA (b) {label}: K1 {launches['k1_by_t']}, expected "
+              f"{cfg.n_layers} a decode step")
+        res[label] = dict(decode_steps=eng.decode_substeps,
+                          prefills=eng.prefills, k5=launches["k5"],
+                          param_bytes=eng.param_bytes(),
+                          adapter_bank_bytes=eng.adapter_bank_bytes(),
+                          **serving_times(done, st),
+                          tokens={r: c.tokens for r, c in done.items()})
+    check(res["armed"]["param_bytes"] == a_int8_param_bytes(cfg)
+          + a_bank_bytes(cfg) and res["bankless"]["param_bytes"]
+          == a_int8_param_bytes(cfg),
+          f"phaseA (b): param bytes {res['armed']['param_bytes']} / "
+          f"{res['bankless']['param_bytes']}, from the shapes "
+          f"{a_int8_param_bytes(cfg) + a_bank_bytes(cfg)} / "
+          f"{a_int8_param_bytes(cfg)}")
+    check(res["armed"]["adapter_bank_bytes"] == a_bank_bytes(cfg),
+          f"phaseA (b): bank bytes {res['armed']['adapter_bank_bytes']}, "
+          f"from the shapes {a_bank_bytes(cfg)}")
+    prompts = [kw["prompt"] for _, kw in trace[:8]]
+    res["profiles"] = {
+        "bankless": p_profile(proto, sd, prompts, A_LAYOUT,
+                              async_dispatch=False, **qkw),
+        "armed": p_profile(proto, sd, prompts, A_LAYOUT,
+                           async_dispatch=False,
+                           row_adapters=[([None] + names)[i % 4]
+                                     for i in range(8)], **qkw, **bank)}
+    # chunked prompts with adapters through K2 (and K5 at M = 128)
+    p_reset()
+    chunked = dict(L_SERVE, attention_kernel="cuda")
+    done, eng, st = serve(proto, sd, atrace, layout=chunked, **qkw, **bank)
+    launches = p_launches()
+    out["chunk_launches"] = launches
+    check_completions(done, atrace, cfg.vocab_size, "phaseA (b) chunked")
+    check(eng.prefills == 0 and launches["k2"]
+          == {"tc": cfg.n_layers * eng.chunk_dispatches, "simt": 0},
+          f"phaseA (b) chunked: K2 {launches['k2']} over "
+          f"{eng.chunk_dispatches} chunks")
+    check(launches["k5"]["tc"] == per_forward * eng.chunk_dispatches,
+          f"phaseA (b) chunked: K5 tc {launches['k5']['tc']}")
+    res["chunked"] = dict(chunk_dispatches=eng.chunk_dispatches,
+                          k2=launches["k2"], k5=launches["k5"])
+    out["b"] = {k: ({n: v for n, v in r.items() if n != "tokens"}
+                    if isinstance(r, dict) else r) for k, r in res.items()}
+    print("phaseA (b) bf16 int8 weights", json.dumps(dict(out["b"],
+                                                          card=card)),
+          flush=True)
+    # (f) the async client with adapters: the sync client's tokens
+    p_reset()
+    done, _, _ = serve(proto, sd, atrace, layout=A_LAYOUT, **qkw, **bank,
+                       async_dispatch=True)
+    add_launches(out["launches"], p_launches())
+    check({r: c.tokens for r, c in done.items()} == res["armed"]["tokens"],
+          "phaseA (f): async tokens with adapters differ from sync")
+    # (c) hot load during a trace, eviction, pinning, an unknown adapter
+    extra = a_adapters(cfg, rng, A_ADAPTERS + 2)
+    client = ServeClient(proto, sd, device=DEVICE, async_dispatch=True,
+                         **A_LAYOUT, **bank)
+    rid0 = client.submit(prompt=prompts[0], max_new_tokens=24,
+                         adapter=names[0])
+    client.submit(prompt=prompts[1], max_new_tokens=24, adapter=names[1])
+    for _ in range(4):
+        client.tick()
+    evicted = [client.load_adapter("ad3", extra["ad3"]),
+               client.load_adapter("ad4", extra["ad4"])]
+    check(evicted == [None, names[2]], f"phaseA (c): evicted {evicted}, "
+          f"expected [None, {names[2]!r}] (the least recently bound)")
+    try:
+        client.unload_adapter(names[0])
+        refused = False
+    except OccupancyError:
+        refused = True
+    check(refused, "phaseA (c): a pinned adapter unloaded")
+    try:
+        client.submit(prompt=prompts[2], max_new_tokens=8,
+                      adapter=names[2])
+        shed = None
+    except UnknownAdapter as exc:
+        shed = exc.resident
+    check(shed is not None, "phaseA (c): an evicted adapter was admitted")
+    rid4 = client.submit(prompt=prompts[3], max_new_tokens=16,
+                         adapter="ad4")
+    done = client.run_until_idle()
+    residents = client.engine.resident_adapters
+    client.shutdown()
+    solo, _, _ = a_tokens(proto, sd, [(0, dict(prompt=prompts[3],
+                                               max_new_tokens=16,
+                                               adapter="ad4"))],
+                          adapters={"ad4": extra["ad4"]},
+                          max_resident_adapters=A_CAPACITY,
+                          lora_rank=A_RANK)
+    check(done[rid4].tokens == solo[0] and len(done[rid0].tokens) == 24,
+          "phaseA (c): the hot-loaded adapter's tokens differ from a "
+          "fresh engine's")
+    out["c"] = dict(evicted=evicted, unload_refused=refused,
+                    shed_residents=shed, residents=residents, card=card)
+    print("phaseA (c)", json.dumps(out["c"]), flush=True)
+    # (d) two tenant classes with weights and a class default adapter
+    classes = [TenantClass("gold", weight=3.0, tier="batch",
+                           adapter=names[0]),
+               TenantClass("free", weight=1.0, tier="batch")]
+    ttrace = [(0, dict(prompt=trace[i][1]["prompt"], max_new_tokens=8,
+                       tenant="gold" if i < 8 else "free"))
+              for i in range(12)]
+    client = ServeClient(proto, sd, device=DEVICE, tenant_classes=classes,
+                         **A_LAYOUT, **bank)
+    admitted = []
+    prefill = client.engine.prefill
+
+    def record(reqs):
+        admitted.extend(r.tenant for r in reqs)
+        return prefill(reqs)
+    client.engine.prefill = record
+    done = client.serve_trace(list(ttrace))
+    client.shutdown()
+    first = admitted[:SERVE["num_slots"]]
+    check(first.count("gold") == 6 and first.count("free") == 2,
+          f"phaseA (d): first admissions {first}, expected 6 gold : 2 free")
+    for i, (_, kw) in enumerate(ttrace):
+        solo, _, _ = a_tokens(proto, sd, [(0, dict(kw))],
+                              tenant_classes=classes, **bank)
+        check(solo[0] == done[i].tokens, f"phaseA (d): request {i} differs "
+              "from its solo run")
+        check(done[i].adapter == (names[0] if i < 8 else None),
+              f"phaseA (d): request {i} adapter {done[i].adapter}")
+    out["d"] = dict(admission_order=admitted, solo_equal=len(ttrace),
+                    card=card)
+    print("phaseA (d)", json.dumps(out["d"]), flush=True)
+    # (e) spec with adapters, f32: the non-spec adapted engine's tokens
+    dcfg = dataclasses.replace(cfg, dtype=torch.float32,
+                               n_layers=S_DRAFT_LAYERS)
+    spec, _, eng = a_tokens(p32, sd, mixed, **bank,
+                            **spec_kw(dcfg, draft_state(sd, S_DRAFT_LAYERS)))
+    check(spec == got, "phaseA (e): spec tokens with adapters differ from "
+          "the non-spec adapted engine's")
+    out["e"] = dict(spec_rounds=eng.spec_rounds, requests=len(spec),
+                    card=card)
+    print("phaseA (e) f32 spec", json.dumps(out["e"]), flush=True)
     return out
 
 
@@ -3448,6 +4088,8 @@ def main() -> int:
     long_prompts = phase_l_long_prompts(cfg, sd, rng, card)
     speculative = phase_s_speculative(cfg, sd, trace, served, quantized, card)
     dense = phase_g_dense(cfg, sd, trace, served, card)
+    pipelined = phase_p_async(cfg, sd, trace, card)
+    adapted = phase_a_adapters(cfg, sd, trace, card)
     del sd
 
     fpath = flash[("path", "bfloat16")]
@@ -3475,12 +4117,20 @@ def main() -> int:
     verify = next(r for r in rows
                   if (r["q"], r["pages"], r["T"]) == ("bfloat16", "bfloat16",
                                                       S_K + 1))
+    # phases P's and A's bf16 runs: K1 by T, K2's chunk route, K5 by route
+    pl, al, ac = (pipelined["launches"], adapted["launches"],
+                  adapted["chunk_launches"])
+    p_k1 = sum(pl[e]["k1_by_t"].get(1, 0)
+               for e in ("page-native", "int8-weights", "chunked"))
+    a_k1 = al["k1_by_t"].get(1, 0) + ac["k1_by_t"].get(1, 0)
     kernels = []
     for name, row, n in (
             (pa.KERNEL, path,
-             launches + long_prompts["runs"]["bf16"]["k1_launches"]),
+             launches + long_prompts["runs"]["bf16"]["k1_launches"]
+             + p_k1 + a_k1),
             (pa.KERNEL + "_verify", verify,
-             speculative["runs"]["bf16"]["k1_launches"])):
+             speculative["runs"]["bf16"]["k1_launches"]
+             + pl["spec"]["k1_by_t"].get(S_K + 1, 0))):
         kernels.append(dict(
             name=name, route="cuda",
             source="ray_lightning_tpu_torch/csrc/paged_attention.cu",
@@ -3512,7 +4162,8 @@ def main() -> int:
     kernels.append(dict(
         name="flash_fwd_chunk", route="cuda", source=flash_source,
         replaces="ray_lightning_tpu/ops/pallas_flash.py:41",
-        launches=long_prompts["runs"]["bf16"]["k2_routes"]["tc"],
+        launches=(long_prompts["runs"]["bf16"]["k2_routes"]["tc"]
+                  + pl["chunked"]["k2"]["tc"] + ac["k2"]["tc"]),
         **{k: chunk[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}))
     # K5: one forward's calls -- n_layers x (qkv, out, up, down) and the
@@ -3530,14 +4181,17 @@ def main() -> int:
     qg = dense["quantized"]["route_launches"]
     qd = dense["generate"]["int8-weights"]["route_launches"]
     qe = [dense["spec"][n]["int8_weights"] for n in G_LAYOUTS]
+    qp, qa, qc = pl["int8-weights"]["k5"], al["k5"], ac["k5"]
     decode = ("gemv_dense", "gemv_attend")
     for name, M, launches5 in (
             (qmm.KERNEL, 8, sum(q2[r] + ql[r] + qs["route_launches"][r]
                                 + qg[r] + qd[r]
                                 + sum(e["route_launches"][r] for e in qe)
+                                + qp[r] + qa[r] + qc[r]
                                 for r in decode)),
-            (qmm.KERNEL + "_prefill", 1024, q2["tc"] + qg["tc"] + qd["tc"]),
-            (qmm.KERNEL + "_chunk", L_CHUNK, ql["tc"]),
+            (qmm.KERNEL + "_prefill", 1024, q2["tc"] + qg["tc"] + qd["tc"]
+             + qp["tc"] + qa["tc"]),
+            (qmm.KERNEL + "_chunk", L_CHUNK, ql["tc"] + qc["tc"]),
             (qmm.KERNEL + "_verify", S_VERIFY_M,
              qs["verify_tc_launches"]
              + sum(e["verify_tc_launches"] for e in qe))):

@@ -17,7 +17,14 @@ module in place. The layouts differ in these places:
 - the LM head is tied to ``wte/embedding`` (vocab, d), or, untied
   (``tie_embeddings=False``), a bias-free Dense kernel ``lm_head/kernel``
   (d, vocab), the port's ``lm_head.weight`` transposed;
-- embeddings are ``embedding`` (rows, d), the same layout as torch.
+- embeddings are ``embedding`` (rows, d), the same layout as torch;
+- a LoRA model's adapter banks (``lora_A`` (N, in, r) and ``lora_B``
+  (N, r, out) beside a targeted projection's kernel) keep their layout:
+  the port's banks are the flax ones (``models/lora.py``). An adapter
+  tree (one bank slot, nested dicts under the flax paths) is the same
+  in both packages: the port's ``install_adapter`` reads the JAX
+  package's as it is, and :func:`adapter_to_numpy` gives the JAX
+  package a port tree.
 
 Quantized weights keep the flax layout (``models/quant.py``):
 :func:`flax_weights` gives the flax-layout view of each of a port
@@ -42,6 +49,10 @@ _DENSE_SUFFIXES = (".attn.out.weight", ".mlp.up.weight", ".mlp.down.weight")
 _LM_HEAD = "lm_head.weight"        # the untied head, also weight.T
 _QKV_SUFFIX = ".attn.qkv.weight"
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _is_lora(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in ("lora_A", "lora_B")
 
 
 def _is_dense(name: str) -> bool:
@@ -111,8 +122,12 @@ def _flax_leaves(params: Mapping[str, Any]) -> Iterator[Tuple[str, Any]]:
         pre = f"stack.blocks.{i}."
         for mod, name in (("attn", "qkv"), ("attn", "out"), ("mlp", "up"),
                           ("mlp", "down")):
-            yield pre + f"{mod}.{name}.weight", blk[mod][name]["kernel"]
-            yield pre + f"{mod}.{name}.bias", blk[mod][name]["bias"]
+            proj = blk[mod][name]
+            yield pre + f"{mod}.{name}.weight", proj["kernel"]
+            yield pre + f"{mod}.{name}.bias", proj["bias"]
+            for bank in ("lora_A", "lora_B"):
+                if bank in proj:
+                    yield pre + f"{mod}.{name}.{bank}", proj[bank]
         for ln in ("ln1", "ln2"):
             yield pre + f"{ln}.weight", blk[ln]["scale"]
             yield pre + f"{ln}.bias", blk[ln]["bias"]
@@ -155,7 +170,8 @@ def flax_weights(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     two embedding tables -- the leaves JAX ``quantize_params`` quantizes
     -- keyed by the port's state-dict names."""
     return {name: flax_layout(name, p.detach(), model.cfg.n_heads)
-            for name, p in model.named_parameters() if p.ndim >= 2}
+            for name, p in model.named_parameters()
+            if p.ndim >= 2 and not _is_lora(name)}
 
 
 def load_flax_params(model: torch.nn.Module,
@@ -194,3 +210,14 @@ def load_flax_quantized(model: torch.nn.Module,
     model.load_quantized(quantized)
     model.load_state_dict(plain, strict=True)
     return model
+
+
+def adapter_to_numpy(adapter: Mapping[str, Any]) -> Dict[str, Any]:
+    """An adapter tree (``models/lora.py:extract_adapter``) with every
+    leaf as a float32 numpy array on the host: what the JAX package's
+    ``install_adapter`` takes."""
+    if isinstance(adapter, Mapping):
+        return {k: adapter_to_numpy(v) for k, v in adapter.items()}
+    if isinstance(adapter, torch.Tensor):
+        return adapter.detach().float().cpu().numpy()
+    return np.array(adapter, dtype=np.float32)

@@ -8,6 +8,7 @@ from ray_lightning_tpu_torch.models.generate import (decode_step,
                                                     sample_logits_rows,
                                                     verify_step,
                                                     verify_step_paged)
+from ray_lightning_tpu_torch.models.lora import LoraConfig
 from ray_lightning_tpu_torch.models.gpt import (GPT2_SIZES, GPTModule,
                                                gpt2_config)
 from ray_lightning_tpu_torch.models.quant import (QTensor, dequantize_params,
@@ -28,4 +29,5 @@ __all__ = [
     "GPTModule", "gpt2_config", "DenseKV", "PagedKV", "TransformerConfig",
     "TransformerLM", "latch_eos", "new_arena", "new_cache", "QTensor",
     "dequantize_params", "is_quantized", "param_bytes", "quantize_params",
+    "LoraConfig",
 ]

@@ -17,7 +17,9 @@ and :func:`decode_step` one on dense per-row caches;
 :func:`sample_logits_rows` samples each row with its own parameters.
 Speculative decoding adds :func:`verify_step` and
 :func:`verify_step_paged` (the target scoring T tokens a row, on dense
-caches or through the arena).
+caches or through the arena). Each of these takes ``adapter_ids`` (B,),
+the rows' LoRA bank slots on a model with adapter banks (−1 = the base
+model); None leaves the model's default (slot 0 on a LoRA model).
 
 **Sampling keys.** The JAX engine draws row ``r``'s noise from the
 threefry key ``fold_in(fold_in(base, seed), step)``, which torch cannot
@@ -142,45 +144,57 @@ def sample_logits(logits: torch.Tensor,
     return _gumbel_argmax(scaled, gen).to(torch.int32)
 
 
+def _adapter_kw(adapter_ids):
+    """The ``adapter_ids`` keyword only when set: a model call without
+    it is the call every path made before LoRA."""
+    return {} if adapter_ids is None else {"adapter_ids": adapter_ids}
+
+
 def _arena_apply(model, arena, tokens: torch.Tensor,
-                 kv_positions: torch.Tensor, page_table: torch.Tensor):
+                 kv_positions: torch.Tensor, page_table: torch.Tensor,
+                 adapter_ids=None):
     """Page-native forward: the arena (one ``PagedKV`` per layer) is read
     and written in place through ``page_table``."""
     return model(tokens, positions=kv_positions, kv_positions=kv_positions,
-                 page_table=page_table, cache=arena)
+                 page_table=page_table, cache=arena,
+                 **_adapter_kw(adapter_ids))
 
 
 def decode_step_paged(model, arena, tokens: torch.Tensor,
-                      kv_positions: torch.Tensor, page_table: torch.Tensor):
+                      kv_positions: torch.Tensor, page_table: torch.Tensor,
+                      adapter_ids=None):
     """ONE cached step through the page arena: ``tokens`` (B, 1) at
     ``kv_positions`` (B, 1); ``page_table`` (B, pages_per_slot) int32 is
     the engine's write-masked table (−1 rows write nothing that is read).
     Returns the last logits (B, V)."""
-    return _arena_apply(model, arena, tokens, kv_positions, page_table)[:, -1]
+    return _arena_apply(model, arena, tokens, kv_positions, page_table,
+                        adapter_ids)[:, -1]
 
 
 def verify_step_paged(model, arena, tokens: torch.Tensor,
-                      kv_positions: torch.Tensor, page_table: torch.Tensor):
+                      kv_positions: torch.Tensor, page_table: torch.Tensor,
+                      adapter_ids=None):
     """The speculative verify through the page arena: ``tokens`` (B, T)
     -- each row's current token and its T-1 draft proposals -- at
     ``kv_positions`` (B, T), the run ``pos..pos+T-1``. Every token's K/V
     is written before the read side attends, so offset ``j``'s logits
     are what T sequential :func:`decode_step_paged` calls give. Returns
     all of them, (B, T, V)."""
-    return _arena_apply(model, arena, tokens, kv_positions, page_table)
+    return _arena_apply(model, arena, tokens, kv_positions, page_table,
+                        adapter_ids)
 
 
 def decode_step(model, cache, tokens: torch.Tensor,
-                kv_positions: torch.Tensor):
+                kv_positions: torch.Tensor, adapter_ids=None):
     """ONE cached step on dense per-row caches (a list of ``DenseKV``,
     updated in place): ``tokens`` (B, 1) at ``kv_positions`` (B, 1), each
     row at its own position. Returns the last logits (B, V)."""
     return model(tokens, positions=kv_positions, kv_positions=kv_positions,
-                 cache=cache)[:, -1]
+                 cache=cache, **_adapter_kw(adapter_ids))[:, -1]
 
 
 def verify_step(model, cache, tokens: torch.Tensor,
-                kv_positions: torch.Tensor):
+                kv_positions: torch.Tensor, adapter_ids=None):
     """The speculative verify on dense per-row caches (a list of
     ``DenseKV``, updated in place): ``tokens`` (B, T) -- each row's
     current token and its T-1 draft proposals -- block-written at the
@@ -188,11 +202,11 @@ def verify_step(model, cache, tokens: torch.Tensor,
     ``j``'s logits are what T sequential :func:`decode_step` calls give.
     Returns all of them, (B, T, V)."""
     return model(tokens, positions=kv_positions, kv_positions=kv_positions,
-                 cache=cache)
+                 cache=cache, **_adapter_kw(adapter_ids))
 
 
 def _prefill_impl(model, prompt_tokens: torch.Tensor,
-                  prompt_lengths: Optional[torch.Tensor]):
+                  prompt_lengths: Optional[torch.Tensor], adapter_ids=None):
     """Single-pass prompt fill of (B, P) left-aligned prompts into fresh
     shared-index caches covering the whole ``max_seq_len`` row (zeros
     past P). Returns ``(cache, last_logits (B, V))``, the logits at each
@@ -201,7 +215,8 @@ def _prefill_impl(model, prompt_tokens: torch.Tensor,
     B, P = prompt_tokens.shape
     cache = new_cache(model.cfg, B, model.device)
     positions = torch.arange(P, device=prompt_tokens.device)[None]
-    logits = model(prompt_tokens, positions=positions, cache=cache)
+    logits = model(prompt_tokens, positions=positions, cache=cache,
+                   **_adapter_kw(adapter_ids))
     if prompt_lengths is None:
         last = logits[:, -1]
     else:
@@ -211,7 +226,8 @@ def _prefill_impl(model, prompt_tokens: torch.Tensor,
 
 
 def _chunk_prefill_impl(model, arena, row_pages: torch.Tensor,
-                        tokens: torch.Tensor, offset: int, valid_len: int):
+                        tokens: torch.Tensor, offset: int, valid_len: int,
+                        adapter_ids=None):
     """One ``(1, C)`` chunk of one prompt at absolute ``offset`` (the
     counterpart of the JAX engine's ``_chunk_prefill_impl``): its K/V go
     into the pages it covers (``row_pages`` (pages_per_slot,) is the
@@ -223,7 +239,8 @@ def _chunk_prefill_impl(model, arena, row_pages: torch.Tensor,
     C = tokens.shape[1]
     positions = offset + torch.arange(C, device=tokens.device)[None]
     cache = [ChunkKV(kv, row_pages, offset) for kv in arena]
-    logits = model(tokens, positions=positions, cache=cache)
+    logits = model(tokens, positions=positions, cache=cache,
+                   **_adapter_kw(adapter_ids))
     return logits[:, valid_len - 1]
 
 

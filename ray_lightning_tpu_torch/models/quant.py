@@ -193,7 +193,9 @@ def quantize_params(params: Params, weight_dtype: str = "int8",
                     ) -> Dict[str, Union[torch.Tensor, QTensor]]:
     """Quantize every eligible leaf of ``params`` (a name -> flax-layout
     tensor mapping): floating leaves with ndim >= 2 whose name does not
-    end in ``bias``. ``group_size`` sizes the int4 groups (default
+    end in ``bias`` nor in a LoRA bank (``lora_A``, ``lora_B``: rank-r
+    slices that hot loads write in place stay full precision, as JAX
+    keeps them). ``group_size`` sizes the int4 groups (default
     :data:`DEFAULT_GROUP_SIZE`); int8 refuses one. Deterministic: the
     same leaves give the same codes and scales."""
     if not check_weight_dtype(weight_dtype):
@@ -219,7 +221,9 @@ def quantize_params(params: Params, weight_dtype: str = "int8",
             "silently destroy the weights; pass the original params")
     out: Dict[str, Union[torch.Tensor, QTensor]] = {}
     for name, leaf in params.items():
-        if (name.split(".")[-1] == "bias" or leaf.ndim < 2
+        leaf_name = name.split(".")[-1]
+        if (leaf_name == "bias" or leaf_name.startswith("lora_")
+                or leaf.ndim < 2
                 or not leaf.is_floating_point()):
             out[name] = leaf
         elif weight_dtype == "int8":

@@ -39,6 +39,15 @@ or ``"torch"`` (its plain version; JAX's ``"xla"``); the embedding
 lookups gather code rows and dequantize only those. A model with no
 quantized weights computes what it always did.
 
+**LoRA** (``cfg.lora``, a :class:`~ray_lightning_tpu_torch.models.lora.LoraConfig`):
+each targeted projection (``qkv``, ``out``, ``up``, ``down``) carries a
+zero-initialized adapter bank, and ``forward(adapter_ids=)`` (B,) picks
+each row's bank slot (−1 = the base model; None = slot 0, the training
+path); the low-rank delta is added after the base projection, in plain
+PyTorch (:func:`~ray_lightning_tpu_torch.models.lora.lora_delta`). A
+JAX ``LoraConfig`` is taken by its fields. Quantization skips the banks:
+they stay in the parameter dtype beside int8 or int4 codes.
+
 The plain forward is the training path. Its attention is
 ``attention_impl="dot"`` (:func:`~ray_lightning_tpu_torch.ops.attention.dot_product_attention`,
 its softmax in ``attention_softmax_dtype``)
@@ -63,7 +72,7 @@ copied. :class:`TransformerConfig` takes every field of the JAX config.
 ``scan_layers``, ``scan_unroll`` and ``decode`` have no counterpart and
 change nothing (every module carries its caches). Not yet ported (they
 raise ``NotImplementedError`` naming their ``ROADMAP.md`` item): the
-ring/ulysses attention impls, segment embeddings, LoRA.
+ring/ulysses attention impls, segment embeddings.
 """
 from __future__ import annotations
 
@@ -78,6 +87,8 @@ import torch.nn.functional as F
 
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models import remat as _remat
+from ray_lightning_tpu_torch.models.lora import (LoraConfig, as_lora_config,
+                                                 lora_delta)
 from ray_lightning_tpu_torch.models.paged_attention import (
     paged_attention, paged_attention_reference)
 from ray_lightning_tpu_torch.models.quant import (QTensor, kv_dequantize,
@@ -180,10 +191,8 @@ class TransformerConfig:
             raise NotImplementedError(
                 "num_segments > 0 (segment embeddings, BERT) is not ported "
                 "yet (ROADMAP.md A, item 8: the zoo)")
-        if self.lora is not None:
-            raise NotImplementedError(
-                "lora= is not ported yet (ROADMAP.md A, item S4: "
-                "multi-LoRA serving)")
+        # a JAX LoraConfig comes across by its fields
+        object.__setattr__(self, "lora", as_lora_config(self.lora))
         if self.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r} (sequence "
@@ -295,6 +304,13 @@ def new_arena(cfg: TransformerConfig, num_pages: int, page_size: int,
 
 
 # ---------------------------------------------------------------- layers
+def _lora_for(cfg: TransformerConfig, name: str) -> Optional[LoraConfig]:
+    """The config's LoRA arming if it targets projection ``name``."""
+    if cfg.lora is not None and name in cfg.lora.targets:
+        return cfg.lora
+    return None
+
+
 def _quant_matmul(x: torch.Tensor, qt: QTensor, matmul_kernel: str,
                   transpose: bool = False) -> torch.Tensor:
     """One quantized-leaf contraction in the compute dtype: the fused
@@ -310,10 +326,13 @@ class Dense(nn.Module):
     weight (out, in), computed in the compute dtype; or, once quantized,
     ``qweight`` (codes of the flax kernel ``(in, *features)``) and no f32
     weight (``QuantDense``/``QuantDenseGeneral``). ``bias=False`` is
-    ``use_bias=False`` (the untied LM head)."""
+    ``use_bias=False`` (the untied LM head). ``lora=`` (a
+    :class:`LoraConfig`) arms an adapter bank, ``lora_A`` (N, in, r) and
+    ``lora_B`` (N, r, out), zero-initialized (``LoraDense``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 cfg: TransformerConfig, device, bias: bool = True):
+                 cfg: TransformerConfig, device, bias: bool = True,
+                 lora: Optional[LoraConfig] = None):
         super().__init__()
         self.dtype = cfg.dtype
         self.matmul_kernel = cfg.matmul_kernel
@@ -323,14 +342,40 @@ class Dense(nn.Module):
             out_features, dtype=cfg.param_dtype, device=device)) \
             if bias else None
         self.qweight: Optional[QTensor] = None
+        self.in_features, self.out_features = in_features, out_features
+        self.lora_A: Optional[nn.Parameter] = None
+        self.lora_B: Optional[nn.Parameter] = None
+        self.lora_scale = 1.0
+        if lora is not None:
+            self.arm_lora(lora, cfg.param_dtype, device)
 
-    def forward(self, x):
+    def arm_lora(self, lora: LoraConfig, dtype: torch.dtype,
+                 device=None) -> None:
+        """Give this projection a zero adapter bank of ``lora``'s shape
+        (replacing any it had)."""
+        if device is None:
+            device = (self.qweight.device if self.qweight is not None
+                      else self.weight.device)
+        n, r = lora.num_adapters, lora.rank
+        self.lora_A = nn.Parameter(torch.zeros(
+            n, self.in_features, r, dtype=dtype, device=device))
+        self.lora_B = nn.Parameter(torch.zeros(
+            n, r, self.out_features, dtype=dtype, device=device))
+        self.lora_scale = lora.scale
+
+    def forward(self, x, adapter_ids: Optional[torch.Tensor] = None):
+        x_in = x
         x = x.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(self.dtype)
         if self.qweight is None:
-            return F.linear(x, self.weight.to(self.dtype), bias)
-        y = _quant_matmul(x, self.qweight, self.matmul_kernel)
-        return y if bias is None else y + bias
+            y = F.linear(x, self.weight.to(self.dtype), bias)
+        else:
+            y = _quant_matmul(x, self.qweight, self.matmul_kernel)
+            y = y if bias is None else y + bias
+        if self.lora_A is None:
+            return y
+        return lora_delta(x_in, y, self.lora_A, self.lora_B, adapter_ids,
+                          self.lora_scale)
 
 
 class Embed(nn.Embedding):
@@ -392,18 +437,23 @@ class MultiHeadAttention(nn.Module):
         hd = cfg.n_heads * cfg.head_dim
         # qkv weight rows are ordered (3, H, head_dim), like the flax
         # DenseGeneral kernel's (d, 3, H, head_dim) feature axes
-        self.qkv = Dense(cfg.d_model, 3 * hd, cfg, device)
-        self.out = Dense(hd, cfg.d_model, cfg, device)
+        self.qkv = Dense(cfg.d_model, 3 * hd, cfg, device,
+                         lora=_lora_for(cfg, "qkv"))
+        self.out = Dense(hd, cfg.d_model, cfg, device,
+                         lora=_lora_for(cfg, "out"))
 
     def forward(self, x, kv_positions=None, page_table=None,
                 kv: Union[DenseKV, PagedKV, None] = None,
-                dropout_rng: Optional[int] = None, seats: bool = False):
+                dropout_rng: Optional[int] = None, seats: bool = False,
+                adapter_ids: Optional[torch.Tensor] = None):
         """``dropout_rng``: the integer seed of this layer's attention
         dropout (None: deterministic); ``seats``: inside a rematerialized
-        block, the output goes through the ``attn_out`` seat."""
+        block, the output goes through the ``attn_out`` seat;
+        ``adapter_ids``: each row's LoRA bank slot."""
         cfg = self.cfg
         B, T, _ = x.shape
-        qkv = self.qkv(x).view(B, T, 3, cfg.n_heads, cfg.head_dim)
+        qkv = self.qkv(x, adapter_ids).view(B, T, 3, cfg.n_heads,
+                                            cfg.head_dim)
         q, k, v = qkv.unbind(dim=2)
         # the softmax dtype reaches the dot impl only (flash keeps f32)
         softmax_dtype = (cfg.attention_softmax_dtype
@@ -429,7 +479,8 @@ class MultiHeadAttention(nn.Module):
                                             dropout_rng=dropout_rng,
                                             softmax_dtype=softmax_dtype)
             out = _remat.checkpoint_name(out, "attn_out", seats)
-        return self.out(out.reshape(B, T, cfg.n_heads * cfg.head_dim))
+        return self.out(out.reshape(B, T, cfg.n_heads * cfg.head_dim),
+                        adapter_ids)
 
     def _decode_cache(self, k, v, cache: DenseKV, kv_positions=None):
         """Dense cache write, then the mask over the whole cache.
@@ -569,14 +620,18 @@ class MlpBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
         self.rate = cfg.dropout
-        self.up = Dense(cfg.d_model, cfg.d_ff, cfg, device)
-        self.down = Dense(cfg.d_ff, cfg.d_model, cfg, device)
+        self.up = Dense(cfg.d_model, cfg.d_ff, cfg, device,
+                        lora=_lora_for(cfg, "up"))
+        self.down = Dense(cfg.d_ff, cfg.d_model, cfg, device,
+                          lora=_lora_for(cfg, "down"))
 
     def forward(self, x, dropout_rng: Optional[int] = None,
-                seats: bool = False):
+                seats: bool = False,
+                adapter_ids: Optional[torch.Tensor] = None):
         # flax nn.gelu is the tanh approximation
-        h = F.gelu(self.up(x), approximate="tanh")
-        h = self.down(_remat.checkpoint_name(h, "mlp_act", seats))
+        h = F.gelu(self.up(x, adapter_ids), approximate="tanh")
+        h = self.down(_remat.checkpoint_name(h, "mlp_act", seats),
+                      adapter_ids)
         if dropout_rng is not None:
             h = _dropout.apply_dropout(h, self.rate, dropout_rng)
         return h
@@ -597,21 +652,22 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, kv_positions=None, page_table=None, kv=None,
                 deterministic: bool = True,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, adapter_ids=None):
         if (self.cfg.remat and kv is None and page_table is None
                 and torch.is_grad_enabled()):
             return _remat.checkpoint_block(
                 self._remat_forward, x, deterministic, dropout_seed,
-                policy=self.cfg.remat_policy)
+                adapter_ids, policy=self.cfg.remat_policy)
         return self._forward(x, kv_positions, page_table, kv, deterministic,
-                             dropout_seed)
+                             dropout_seed, adapter_ids=adapter_ids)
 
-    def _remat_forward(self, x, deterministic, dropout_seed):
+    def _remat_forward(self, x, deterministic, dropout_seed, adapter_ids):
         return self._forward(x, None, None, None, deterministic,
-                             dropout_seed, seats=True)
+                             dropout_seed, seats=True,
+                             adapter_ids=adapter_ids)
 
     def _forward(self, x, kv_positions, page_table, kv, deterministic,
-                 dropout_seed, seats: bool = False):
+                 dropout_seed, seats: bool = False, adapter_ids=None):
         attn_rng = mlp_rng = None
         if self.cfg.dropout > 0.0 and not deterministic:
             # derived here, inside a rematerialized region: the replay
@@ -622,8 +678,9 @@ class TransformerBlock(nn.Module):
                                          _dropout.MLP)
         x = x + self.attn(self.ln1(x), kv_positions=kv_positions,
                           page_table=page_table, kv=kv, dropout_rng=attn_rng,
-                          seats=seats)
-        return x + self.mlp(self.ln2(x), dropout_rng=mlp_rng, seats=seats)
+                          seats=seats, adapter_ids=adapter_ids)
+        return x + self.mlp(self.ln2(x), dropout_rng=mlp_rng, seats=seats,
+                            adapter_ids=adapter_ids)
 
 
 class TransformerStack(nn.Module):
@@ -639,11 +696,12 @@ class TransformerStack(nn.Module):
     def forward(self, x, kv_positions=None, page_table=None,
                 cache: Optional[Sequence] = None,
                 deterministic: bool = True,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, adapter_ids=None):
         for i, block in enumerate(self.blocks):
             x = block(x, kv_positions=kv_positions, page_table=page_table,
                       kv=None if cache is None else cache[i],
-                      deterministic=deterministic, dropout_seed=dropout_seed)
+                      deterministic=deterministic, dropout_seed=dropout_seed,
+                      adapter_ids=adapter_ids)
         return x
 
 
@@ -705,7 +763,9 @@ class TransformerLM(nn.Module):
     absolute position); ``cache``, ``kv_positions`` and ``page_table``
     select the cached modes of the module docstring. ``deterministic=
     False`` with ``dropout > 0`` needs ``dropout_seed``, an integer the
-    step's masks derive from. ``device=None`` builds on the card.
+    step's masks derive from. ``adapter_ids`` (B,) picks each row's
+    LoRA bank slot on a model with banks (−1 = base; None = slot 0).
+    ``device=None`` builds on the card.
     """
 
     def __init__(self, cfg: TransformerConfig, device=None):
@@ -733,7 +793,9 @@ class TransformerLM(nn.Module):
         for name, p in self.named_parameters():
             if p.device.type == "meta":
                 continue
-            if name.endswith("bias"):
+            if name.endswith("bias") or ".lora_" in name:
+                # biases, and adapter banks (a fresh slot is the null
+                # adapter, as the JAX LoraDense inits it)
                 p.zero_()
             elif ".ln" in name or name.startswith("ln_f"):
                 p.fill_(1.0)
@@ -794,7 +856,8 @@ class TransformerLM(nn.Module):
                 kv_positions=None, page_table=None,
                 cache=None, deterministic: bool = True,
                 dropout_seed: Optional[int] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                adapter_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         T = tokens.shape[1]
         if positions is None:
@@ -809,7 +872,7 @@ class TransformerLM(nn.Module):
         x = self.wte(tokens) + self.wpe(positions)
         x = self.stack(x, kv_positions=kv_positions, page_table=page_table,
                        cache=cache, deterministic=deterministic,
-                       dropout_seed=dropout_seed)
+                       dropout_seed=dropout_seed, adapter_ids=adapter_ids)
         x = self.ln_f(x)
         if return_hidden:
             return x

@@ -72,25 +72,59 @@ state (current token, position, budget, step number) lives on the host
 between dispatches -- the synced frontier -- and crosses to the device
 as one packed array each way per dispatch.
 
+**Async dispatch** (:meth:`ServeEngine.step_enqueue` /
+:meth:`ServeEngine.step_sync`): an enqueue launches a step or spec
+dispatch and returns a :class:`PendingDispatch` without waiting on the
+card. Its outputs come back through a non-blocking copy into pinned
+host memory behind a CUDA event, and its row state stays on the device
+as the **carry** the next enqueue chains on, so dispatch N+1 is queued
+before N's tokens reach the host. Every other host input of a dispatch
+(eos ids, the page table, the adapter ids) goes up through pinned
+staging, non-blocking, and is cached on the device until the host copy
+changes: a steady-state enqueue makes no synchronizing call. Handles
+sync exactly once, in enqueue order; admission, chunks, cancels and
+adapter loads are barriers that need the synced frontier and refuse
+while a handle is outstanding. A row that retired inside an un-synced
+dispatch keeps its page entries one more dispatch and re-writes its
+frozen K/V into its own pages; they are freed at its sync and handed to
+the next admission only behind the barrier.
+
+**Multi-LoRA** (``max_resident_adapters=``, ``lora_rank=``,
+``adapters=``): a zero bank of ``max_resident_adapters`` slots is
+grafted onto every targeted projection after weight quantization
+(:mod:`~ray_lightning_tpu_torch.models.lora`); an
+:class:`~ray_lightning_tpu_torch.serve.adapters.AdapterRegistry` maps
+names to slots (LRU eviction, pinning by in-flight rows). A request's
+adapter (its own, else its tenant class's default) is bound at
+admission and unbound at retire, cancel or rollback; every dispatch
+carries the rows' bank ids (−1 = the base model). ``tenant_classes=``
+lets :meth:`ServeEngine.validate` refuse unknown tenants and
+:meth:`ServeEngine.prefill` enforce each class's ``max_active_slots``.
+
 This port covers the three layouts with chunked prefill and the prefix
-cache (paged engines) and speculative decoding; a crashed request's
-replay (``replay_tokens``) is not ported, so a chunk feeds the prompt
-alone. Every constructor argument of an unported feature raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item
-(:data:`UNPORTED`).
+cache (paged engines), speculative decoding, async dispatch and
+multi-LoRA with tenancy; a crashed request's replay (``replay_tokens``)
+is not ported, so a chunk feeds the prompt alone. Every constructor
+argument of an unported feature raises ``NotImplementedError`` naming
+its ``ROADMAP.md`` item (:data:`UNPORTED`).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from collections import deque
-from typing import Deque, Dict, FrozenSet, List, NamedTuple, Optional
+from typing import Deque, Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.models import paged_attention as _pa
+from ray_lightning_tpu_torch.models.lora import (LoraConfig, adapter_bytes,
+                                                 install_adapter,
+                                                 install_lora_bank,
+                                                 zero_adapter)
 from ray_lightning_tpu_torch.models.generate import (_chunk_prefill_impl,
                                                     _prefill_impl,
                                                     decode_step,
@@ -113,24 +147,25 @@ from ray_lightning_tpu_torch.serve.pages import (PagePool, PrefixCache,
                                                  gather_pages,
                                                  quantize_dense_cache,
                                                  scatter_pages)
-from ray_lightning_tpu_torch.serve.request import (Completion, FINISH_EOS,
+from ray_lightning_tpu_torch.serve.adapters import (AdapterRegistry,
+                                                    UnknownAdapter)
+from ray_lightning_tpu_torch.serve.request import (Completion,
+                                                   DEFAULT_TENANT,
+                                                   FINISH_EOS,
                                                    FINISH_LENGTH,
                                                    FINISH_TIMEOUT, Request)
 from ray_lightning_tpu_torch.serve.spec import (SpecDecoder,
                                                 _spec_rounds_impl,
                                                 _spec_rounds_page_native_impl,
                                                 _spec_rounds_paged_impl)
+from ray_lightning_tpu_torch.serve.tenancy import resolve_tenant_classes
 
-__all__ = ["ServeEngine", "KVSlotPool", "SlotPoolFull", "UNPORTED",
-           "refuse_unported"]
+__all__ = ["ServeEngine", "KVSlotPool", "SlotPoolFull", "PendingDispatch",
+           "UNPORTED", "refuse_unported"]
 
 #: constructor arguments of features this slice does not port yet ->
 #: the ROADMAP.md queue-A item that ports them
 UNPORTED = {
-    "adapters": "S4 (multi-LoRA serving, tenancy)",
-    "max_resident_adapters": "S4 (multi-LoRA serving, tenancy)",
-    "lora_rank": "S4 (multi-LoRA serving, tenancy)",
-    "tenant_classes": "S4 (multi-LoRA serving, tenancy)",
     "telemetry": "S6 (serving reliability and observability)",
 }
 
@@ -194,17 +229,17 @@ def _decode_steps(step, max_seq_len: int, row_state, temp, top_k,
 
 
 def _engine_step_impl(model, storage, row_state, temp, top_k, seeds_at, *,
-                      steps: int) -> torch.Tensor:
+                      steps: int, adapter_ids=None) -> torch.Tensor:
     """The decode step program on dense storage (the slot pool, or a
     paged engine's gathered view): ``steps`` per-row
     :func:`~ray_lightning_tpu_torch.models.generate.decode_step`\\ s on
     the compute-dtype caches. int8 storage is dequantized whole before
     them and re-quantized whole after (JAX's ``dense_storage_values`` /
     ``dense_storage_commit``). An inactive row re-writes its frozen K/V
-    into its own row."""
+    into its own row. ``adapter_ids`` (B,): the rows' LoRA bank slots."""
     cache = dense_storage_values(storage, model.cfg.dtype)
     packed = _decode_steps(
-        lambda cur, pos: decode_step(model, cache, cur, pos),
+        lambda cur, pos: decode_step(model, cache, cur, pos, adapter_ids),
         model.cfg.max_seq_len, row_state, temp, top_k, seeds_at,
         steps=steps)
     dense_storage_commit(storage, cache)
@@ -212,7 +247,8 @@ def _engine_step_impl(model, storage, row_state, temp, top_k, seeds_at, *,
 
 
 def _paged_step_impl(model, arena, page_table, row_state, temp, top_k,
-                     seeds_at, *, steps: int) -> torch.Tensor:
+                     seeds_at, *, steps: int,
+                     adapter_ids=None) -> torch.Tensor:
     """The decode step program on a page arena without page-native
     attention: gather the dense view through the FULL page table
     (dequantizing int8 pages), run :func:`_engine_step_impl`'s body on
@@ -224,13 +260,14 @@ def _paged_step_impl(model, arena, page_table, row_state, temp, top_k,
     active = row_state[2]
     write_pt = torch.where(active[:, None], page_table, -1)
     packed = _engine_step_impl(model, view, row_state, temp, top_k,
-                               seeds_at, steps=steps)
+                               seeds_at, steps=steps,
+                               adapter_ids=adapter_ids)
     scatter_pages(arena, view, write_pt)
     return packed
 
 
 def _prefill_inject_impl(model, storage, prompts, lengths, slots, seeds,
-                         temp, top_k) -> torch.Tensor:
+                         temp, top_k, adapter_ids=None) -> torch.Tensor:
     """Batched prompt fill on the slot pool: the prefill forward at
     ``(prefill_batch, prefill_len)``, each row's first token sampled,
     then each of the ``len(slots)`` valid rows' WHOLE KV row (zeros past
@@ -238,7 +275,7 @@ def _prefill_inject_impl(model, storage, prompts, lengths, slots, seeds,
     int8 storage is dequantized whole and re-quantized whole around the
     copy. Returns the first tokens (B_pf,)."""
     cache = dense_storage_values(storage, model.cfg.dtype)
-    pf_cache, last = _prefill_impl(model, prompts, lengths)
+    pf_cache, last = _prefill_impl(model, prompts, lengths, adapter_ids)
     first = sample_logits_rows(last, seeds, temp, top_k)
     n = len(slots)
     idx = torch.tensor(slots, dtype=torch.long, device=prompts.device)
@@ -310,16 +347,32 @@ class _ChunkState:
     #                      sets it past any adopted prefix pages)
 
 
-class PendingDispatch(NamedTuple):
-    """One launched step dispatch: ``packed`` is the device array
-    :meth:`ServeEngine.step_sync` copies to the host -- rows
-    ``[0, steps)`` emitted tokens (−1 = parked), ``[steps, 2*steps)``
-    finished flags, then cur, pos, active, remaining, stepno. A spec
-    dispatch (``spec=True``) packs it flat: emitted (rounds, B, k+1),
-    finished, accepted and rejected (rounds, B), then the row state."""
+@dataclasses.dataclass
+class PendingDispatch:
+    """The deferred-sync handle of one enqueued step or spec dispatch.
+
+    ``host`` is the dispatch's int32 output on the host -- a step
+    dispatch's rows ``[0, rounds)`` emitted tokens (−1 = parked),
+    ``[rounds, 2*rounds)`` finished flags, then cur, pos, active,
+    remaining, stepno; a spec dispatch (``kind="spec"``) packs emitted
+    (rounds, B, k+1), finished, accepted and rejected (rounds, B), then
+    the row state, flat. On the card it is a pinned buffer that a
+    non-blocking copy fills, with ``event`` recorded after that copy,
+    which :meth:`ServeEngine.step_sync` waits on (``wait_s``: how long
+    it waited); on the CPU the output itself.
+    ``carry`` (cur (B, 1), pos (B, 1), active, remaining, stepno) stays
+    on the device: the next enqueue chains on it. ``dispatch`` is the
+    engine's 1-based dispatch index and ``owner`` the issuing engine's
+    identity token: handles sync exactly once, in enqueue order, on the
+    engine that issued them."""
+    kind: str                       # "step" | "spec"
+    dispatch: int
     rounds: int
-    packed: torch.Tensor
-    spec: bool = False
+    carry: tuple
+    owner: object
+    host: torch.Tensor
+    event: Optional[object] = None  # torch.cuda.Event on the card
+    wait_s: float = 0.0
 
 
 class ServeEngine:
@@ -362,10 +415,19 @@ class ServeEngine:
     the kernel's ``MAX_T``. Unlike the JAX engine, neither model's
     config needs ``decode=True``.
 
+    ``max_resident_adapters=N, lora_rank=r`` arm a LoRA adapter bank of N
+    slots on every ``qkv``/``out``/``up``/``down`` projection
+    (``adapters=`` a ``{name: adapter tree}`` to load at once;
+    :meth:`load_adapter`, :meth:`unload_adapter` later);
+    ``tenant_classes=`` a list of
+    :class:`~ray_lightning_tpu_torch.serve.tenancy.TenantClass`.
+
     Drive it with :class:`~ray_lightning_tpu_torch.serve.client.ServeClient`
     or directly: ``prefill([reqs])`` starts requests, ``step()`` advances
     every in-flight one; each returns newly finished
-    :class:`Completion`\\ s.
+    :class:`Completion`\\ s. ``step()`` is :meth:`step_enqueue` and
+    :meth:`step_sync` back to back; ``ServeClient(async_dispatch=True)``
+    splits them across ticks.
     """
 
     def __init__(self, model, params, *, num_slots: int = 8,
@@ -384,6 +446,9 @@ class ServeEngine:
                  draft_model=None, draft_params=None,
                  spec_k: Optional[int] = None,
                  draft_weight_dtype: Optional[str] = None,
+                 tenant_classes=None, adapters=None,
+                 max_resident_adapters: Optional[int] = None,
+                 lora_rank: Optional[int] = None,
                  device=None, **unported):
         refuse_unported(unported, UNPORTED)
         if page_native and page_size is None:
@@ -487,6 +552,40 @@ class ServeEngine:
                 f"{self.prefill_batch} (valid range 1..num_slots="
                 f"{num_slots})", stacklevel=2)
         check_kv_dtype(kv_dtype)
+        # tenancy: the engine keeps the class map so validate() refuses
+        # unknown tenants and prefill() enforces max_active_slots for
+        # direct callers; the scheduling policy is the client's
+        self.tenant_classes = (resolve_tenant_classes(tenant_classes)
+                               if tenant_classes else None)
+        self.max_resident_adapters = max_resident_adapters
+        self.lora_rank = lora_rank
+        if max_resident_adapters is None:
+            if adapters:
+                raise ValueError(
+                    "adapters= needs max_resident_adapters= too: the "
+                    "bank's num_adapters axis is sized up front")
+            if lora_rank is not None:
+                raise ValueError(
+                    "lora_rank is a multi-LoRA serving option: pass "
+                    "max_resident_adapters= to arm the adapter bank")
+        else:
+            if max_resident_adapters < 1:
+                raise ValueError(
+                    f"max_resident_adapters must be >= 1, got "
+                    f"{max_resident_adapters}")
+            if lora_rank is None or lora_rank < 1:
+                raise ValueError(
+                    "multi-LoRA serving needs lora_rank >= 1 (the bank's "
+                    f"low-rank dimension), got {lora_rank!r}")
+            if adapters and len(adapters) > max_resident_adapters:
+                raise ValueError(
+                    f"{len(adapters)} initial adapters exceed "
+                    f"max_resident_adapters={max_resident_adapters}")
+            # the bank is grafted below, after quantization: a bank in
+            # the caller's weights is replaced by a zero one
+            cfg = dataclasses.replace(cfg, lora=None)
+            params = {k: v for k, v in params.items()
+                      if not k.rsplit(".", 1)[-1].startswith("lora_")}
         # the engine's own model: built without initializing (meta), then
         # filled from params on the target device
         self.model = TransformerLM(cfg, device="meta").to_empty(
@@ -498,6 +597,23 @@ class ServeEngine:
             self.model.quantize_weights(
                 weight_dtype,
                 weight_group_size if weight_dtype == "int4" else None)
+        # the adapter bank rides beside the (possibly quantized) base
+        # weights at full precision, and its delta outside the base
+        # matmuls: a null row is the unadapted engine's
+        self._registry: Optional[AdapterRegistry] = None
+        self._adapter_ids: Optional[np.ndarray] = None
+        self._adapter_of: Dict[int, str] = {}
+        if max_resident_adapters is not None:
+            install_lora_bank(self.model, LoraConfig(
+                rank=lora_rank, num_adapters=max_resident_adapters))
+            self.model.requires_grad_(False)
+            self._registry = AdapterRegistry(
+                max_resident_adapters,
+                bytes_per_adapter=adapter_bytes(self.model))
+            self._adapter_ids = np.full((num_slots,), -1, np.int32)
+            for name, tree in dict(adapters or {}).items():
+                index, _ = self._registry.admit(name)
+                install_adapter(self.model, tree, index)
         # speculative decoding: the draft runs the target's matmul kernel
         self.spec_k: Optional[int] = None
         self.spec: Optional[SpecDecoder] = None
@@ -549,6 +665,20 @@ class ServeEngine:
         self._seeds = np.zeros((B,), np.int64)      # request seeds
         self._stepno = np.zeros((B,), np.int32)
         self._tokens: Dict[int, List[int]] = {}
+        # the async seat: the numpy fields above hold the SYNCED frontier
+        # (the newest dispatch whose tokens the host has seen); while a
+        # dispatch is enqueued but not synced, its device row state lives
+        # here and the next enqueue chains on it (None = synced, barriers
+        # allowed)
+        self._carry: Optional[tuple] = None
+        # the highest dispatch step_sync has committed (the in-order
+        # guard) and this engine's identity, stamped into its handles
+        self._synced_dispatch = 0
+        self._engine_token = object()
+        # host inputs cached on the device: name -> (host copy, tensor),
+        # re-uploaded (pinned, non-blocking) only when the host copy
+        # changes
+        self._staged: Dict[str, Tuple[np.ndarray, torch.Tensor]] = {}
 
         # counters: steps counts dispatches, decode_substeps decode
         # token-steps (steps x steps_per_dispatch)
@@ -564,6 +694,101 @@ class ServeEngine:
         self.spec_accepted_tokens = 0
         self.spec_rejected_tokens = 0
         self.spec_draft_steps = 0
+
+    # ------------------------------------------------------- multi-LoRA
+    @property
+    def resident_adapters(self) -> List[str]:
+        """Resident adapter names, least-recently-bound first (the
+        eviction order); empty without a bank."""
+        return (self._registry.residents
+                if self._registry is not None else [])
+
+    def adapter_bank_bytes(self) -> int:
+        """At-rest device bytes of the whole adapter bank: capacity times
+        one slot's bytes
+        (:func:`~ray_lightning_tpu_torch.models.lora.adapter_bytes`)."""
+        if self._registry is None:
+            return 0
+        return self._registry.capacity * self._registry.bytes_per_adapter
+
+    def adapter_refcount(self, name: str) -> int:
+        """In-flight rows bound to ``name`` (0 without a bank or when not
+        resident)."""
+        return (self._registry.refcount(name)
+                if self._registry is not None else 0)
+
+    def _need_bank(self) -> None:
+        if self._registry is None:
+            raise ValueError(
+                "this engine has no adapter bank -- pass "
+                "max_resident_adapters=/lora_rank= to arm multi-LoRA "
+                "serving")
+
+    def load_adapter(self, name: str, adapter) -> Optional[str]:
+        """Hot-load (or overwrite) adapter ``name``: claim a bank slot
+        (its own, else a free one, else the least-recently-bound unpinned
+        resident's), write the adapter tree into it. Returns the evicted
+        adapter's name, whose later submits shed with
+        :class:`~ray_lightning_tpu_torch.serve.adapters.UnknownAdapter`,
+        or None. A barrier: needs the synced frontier."""
+        self._need_bank()
+        self._require_synced("load_adapter")
+        index, evicted = self._registry.admit(name)
+        install_adapter(self.model, adapter, index)
+        return evicted
+
+    def unload_adapter(self, name: str) -> None:
+        """Release ``name``'s bank slot (refused while in-flight rows are
+        bound to it) and zero it. A barrier, like :meth:`load_adapter`."""
+        self._need_bank()
+        self._require_synced("unload_adapter")
+        index = self._registry.unload(name)
+        zero_adapter(self.model, index)
+
+    def _effective_adapter(self, request: Request) -> Optional[str]:
+        """The adapter a request decodes under: its own, else its tenant
+        class's default, else None (the base model)."""
+        name = request.adapter
+        if name is None and self.tenant_classes is not None:
+            cls = self.tenant_classes.get(request.tenant)
+            if cls is not None:
+                name = cls.adapter
+        return name
+
+    def _bind_adapter(self, req: Request, slot: int) -> int:
+        """Pin the request's adapter at admission (inside the atomic
+        admission; a rollback unbinds): bumps its refcount so eviction
+        never takes the slot from an in-flight row, arms the row's bank
+        id and stamps the resolved name on the request. Returns the bank
+        index (−1 = the base model)."""
+        name = self._effective_adapter(req)
+        if name is None or self._registry is None:
+            return -1
+        index = self._registry.bind(name)   # UnknownAdapter if evicted
+        self._adapter_ids[slot] = index
+        self._adapter_of[slot] = name
+        req.adapter = name
+        return index
+
+    def _unbind_adapter(self, slot: int) -> None:
+        """Drop a slot's adapter pin (retire, cancel, rollback)."""
+        if self._registry is None:
+            return
+        name = self._adapter_of.pop(slot, None)
+        if name is not None:
+            self._registry.unbind(name)
+        self._adapter_ids[slot] = -1
+
+    def _adapter_arg(self, ids: Optional[np.ndarray], name: str,
+                     slot: Optional[int] = None):
+        """The rows' bank ids (``ids``, or only ``slot``'s) on the device,
+        cached under ``name``; None without a bank: the model is then
+        called as before LoRA."""
+        if self._registry is None:
+            return None
+        if slot is not None:
+            ids = ids[slot:slot + 1]
+        return self._on_device(name, ids)
 
     # ------------------------------------------------------------- state
     def param_bytes(self) -> int:
@@ -598,8 +823,65 @@ class ServeEngine:
     def chunk_pending_ids(self) -> FrozenSet[int]:
         return frozenset(st.request.id for st in self._chunk_queue)
 
+    @property
+    def carry_deferred(self) -> bool:
+        """True while an enqueued dispatch's carry has not been synced
+        back to the host (an outstanding :class:`PendingDispatch`)."""
+        return self._carry is not None
+
+    @property
+    def spec_needs_refill(self) -> bool:
+        """True when the next spec dispatch rebuilds draft rows from the
+        host's token streams (stale slots): the async client drains its
+        pipeline first, so the refill reads the synced streams."""
+        return self.spec is not None and bool(self.spec.stale)
+
+    @property
+    def spec_sampled(self) -> bool:
+        """True when a spec dispatch would sample a row: its round seeds
+        come from the rows' step numbers, which a spec round advances by
+        a data-dependent count, so the dispatch reads them back and the
+        async client drains its pipeline first."""
+        return self.spec is not None and bool(
+            (self._temp[self._active] > 0).any())
+
+    def _require_synced(self, op: str) -> None:
+        """Barrier dispatches (admission, chunk, cancel, adapter loads)
+        change the host row state in place: they need the synced
+        frontier, or the next enqueue would chain on a stale carry."""
+        if self._carry is not None:
+            raise RuntimeError(
+                f"{op} needs the synced frontier but an enqueued dispatch "
+                "is still pending -- step_sync() the outstanding "
+                "PendingDispatch first (ServeClient(async_dispatch=True) "
+                "drains its pipeline before admission/chunk/cancel)")
+
     def validate(self, request: Request) -> None:
-        """Admission check: the request must fit the engine's shapes."""
+        """Admission check: the request must fit the engine's shapes,
+        name a declared tenant class (tenancy configured) and, if it
+        names an adapter, a resident one."""
+        tenant = request.tenant
+        if self.tenant_classes is not None:
+            if tenant not in self.tenant_classes:
+                raise ValueError(
+                    f"unknown tenant {tenant!r}: this engine's declared "
+                    f"classes are {list(self.tenant_classes)}")
+        elif tenant != DEFAULT_TENANT:
+            raise ValueError(
+                f"request names tenant {tenant!r} but the engine has no "
+                "tenant classes configured -- pass tenant_classes= to "
+                "arm multi-tenant scheduling")
+        # an unknown or evicted adapter sheds here, with the registry's
+        # context, never at a dispatch
+        adapter = self._effective_adapter(request)
+        if adapter is not None:
+            if self._registry is None:
+                raise UnknownAdapter(
+                    f"request names adapter {adapter!r} but the engine "
+                    "has no adapter bank -- pass max_resident_adapters=/"
+                    "lora_rank= to arm multi-LoRA serving",
+                    adapter=adapter, resident=[], capacity=0)
+            self._registry.index_of(adapter)
         cfg = self.model.cfg
         if self.prefill_chunk is None \
                 and request.prompt_len > self.prefill_len:
@@ -633,6 +915,24 @@ class ServeEngine:
                 f"{self.pool.num_pages} -- it can never be admitted")
 
     # ------------------------------------------------------- admission
+    def _check_slot_quota(self, request: Request) -> None:
+        """Per-class ``max_active_slots`` at admission (tenancy
+        configured): the scheduler never picks past it, so this is the
+        guard for direct callers; it raises inside the atomic admission,
+        so the batch rolls back."""
+        if self.tenant_classes is None:
+            return
+        cls = self.tenant_classes[request.tenant]
+        if cls.max_active_slots is None:
+            return
+        held = sum(1 for r in self.pool.active.values()
+                   if r.tenant == request.tenant)
+        if held >= cls.max_active_slots:
+            raise SlotPoolFull(
+                f"tenant {request.tenant!r} at max_active_slots="
+                f"{cls.max_active_slots}", tenant=request.tenant,
+                slots_free=self.free_slots, active=len(self.pool.active))
+
     def _routes_chunked(self, request: Request) -> bool:
         """Chunk routing: every prompt when the prefix cache is on (the
         pages it publishes must all come from chunk dispatches), else
@@ -708,6 +1008,7 @@ class ServeEngine:
         first token (eos or a budget of one)."""
         if not requests:
             return []
+        self._require_synced("prefill")
         n_batched = sum(not self._routes_chunked(r) for r in requests)
         if n_batched > self.prefill_batch \
                 or len(requests) > self.free_slots:
@@ -725,6 +1026,8 @@ class ServeEngine:
         seeds = [0] * B_pf
         temp = np.zeros((B_pf,), np.float32)
         top_k = np.zeros((B_pf,), np.int32)
+        # the rows' adapter bank ids (−1 = base model, padding rows too)
+        adapter_row = np.full((B_pf,), -1, np.int32)
         acquired: List[int] = []
         batched: List[Request] = []
         slots: List[int] = []
@@ -733,11 +1036,13 @@ class ServeEngine:
         try:
             for req in requests:
                 self.validate(req)
+                self._check_slot_quota(req)
                 fed = list(req.prompt)
                 if self._routes_chunked(req):
                     adopt = self._adoptable_prefix(fed)
                     slot = self._admit_paged(req, adopt)
                     acquired.append(slot)
+                    self._bind_adapter(req, slot)
                     hit = len(adopt) * self.pool.page_size
                     req.prefix_hit_tokens = hit
                     self._chunk_queue.append(_ChunkState(
@@ -754,6 +1059,7 @@ class ServeEngine:
                         else self.pool.acquire(req))
                 acquired.append(slot)
                 r = len(batched)
+                adapter_row[r] = self._bind_adapter(req, slot)
                 batched.append(req)
                 slots.append(slot)
                 prompts[r, :req.prompt_len] = fed
@@ -771,6 +1077,7 @@ class ServeEngine:
             # warmth, never tokens
             for slot in acquired:
                 self.pool.release(slot)
+                self._unbind_adapter(slot)
             for _ in range(n_chunked):
                 self._chunk_queue.pop()
             raise
@@ -782,9 +1089,11 @@ class ServeEngine:
         dev = self.device
         prompts_t = torch.from_numpy(prompts).to(dev)
         lengths_t = torch.from_numpy(lengths).to(dev)
+        adapter_arg = self._adapter_arg(adapter_row, "prefill_adapters")
         with torch.inference_mode():
             if self.paged:
-                cache, last = _prefill_impl(self.model, prompts_t, lengths_t)
+                cache, last = _prefill_impl(self.model, prompts_t, lengths_t,
+                                            adapter_arg)
                 first = sample_logits_rows(last, seeds, temp, top_k)
                 # padding rows' table is all −1: their pages go to the sink
                 scatter_pages(self.pool.arena, cache,
@@ -792,7 +1101,7 @@ class ServeEngine:
             else:
                 first = _prefill_inject_impl(
                     self.model, self.pool.cache, prompts_t, lengths_t,
-                    slots, seeds, temp, top_k)
+                    slots, seeds, temp, top_k, adapter_arg)
             first = first.cpu().numpy()
         done: List[Completion] = []
         for r, req in enumerate(batched):
@@ -813,6 +1122,7 @@ class ServeEngine:
         self.chunk_activated = None
         if not self._chunk_queue:
             return []
+        self._require_synced("prefill_chunk_step")
         st = self._chunk_queue[0]
         req = st.request
         C = self.prefill_chunk
@@ -827,7 +1137,9 @@ class ServeEngine:
             last = _chunk_prefill_impl(
                 self.model, self.pool.arena,
                 torch.from_numpy(self.pool.page_table[st.slot]).to(dev),
-                torch.from_numpy(tokens).to(dev), off, valid)
+                torch.from_numpy(tokens).to(dev), off, valid,
+                self._adapter_arg(self._adapter_ids, "chunk_adapters",
+                                  st.slot))
             self.chunk_logits = last
             first = None
             if final:
@@ -878,76 +1190,156 @@ class ServeEngine:
         """Advance every in-flight request up to ``steps_per_dispatch``
         tokens in one dispatch; returns the completions of rows that
         finished inside it (rows finishing at sub-step k park for the
-        rest)."""
+        rest). :meth:`step_enqueue` and :meth:`step_sync` back to back;
+        refused while a handle is outstanding (a sync step past an
+        un-synced enqueue would drop that dispatch's tokens)."""
+        # the seat of the sync driver's retry of a failed host copy
+        # (the reference's retry_pending) comes with crash supervision
+        self._require_synced("step")
         pending = self._enqueue()
         if pending is None:
             return []
         return self.step_sync(pending)
 
+    def step_enqueue(self) -> Optional[PendingDispatch]:
+        """Enqueue one step or spec dispatch against the device carry and
+        return without waiting for its outputs: the handle is reconciled
+        by :meth:`step_sync` while the next dispatch computes. Rows that
+        retire inside an un-synced dispatch are parked by the latches
+        the next dispatch already carries (they emit −1), so chained
+        enqueues commit the sync driver's tokens. None when nothing is in
+        flight at the synced frontier and no carry is deferred."""
+        return self._enqueue()
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device: on the card through pinned
+        staging with a non-blocking copy (the stream orders it before
+        the dispatch that reads it; the pinned block is not reused until
+        the copy is done), on the CPU a copy."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _on_device(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` on the device, cached under ``name``: uploaded again
+        only when the host copy changed since the last upload (eos ids,
+        page tables and adapter ids change at admissions and
+        retirements, not every dispatch)."""
+        hit = self._staged.get(name)
+        if hit is not None and np.array_equal(hit[0], arr):
+            return hit[1]
+        t = self._upload(arr)
+        self._staged[name] = (np.array(arr), t)
+        return t
+
     def _write_masked_table(self) -> np.ndarray:
         """The page table with inactive rows' entries masked to −1: their
-        parked writes go to the sink, their reads clamp harmlessly."""
+        parked writes go to the sink, their reads clamp harmlessly. The
+        mask is the SYNCED frontier's: a row that retired inside a
+        still-pending dispatch keeps its entries one dispatch more and
+        re-writes its own frozen K/V there; its pages are freed at its
+        sync and reused only behind the admission barrier."""
         return np.where(self._active[:, None], self.pool.page_table,
                         -1).astype(np.int32)
 
     def _row_state(self):
-        """The host row state on the device, in one copy: cur and pos
-        (B, 1), active, remaining, stepno, eos (B,)."""
-        state = torch.from_numpy(np.stack([
-            self._cur[:, 0], self._pos[:, 0], self._active.astype(np.int32),
-            self._remaining, self._stepno, self._eos])).to(self.device)
-        return (state[0][:, None], state[1][:, None], state[2].bool(),
-                state[3], state[4], state[5])
+        """The row state the next dispatch consumes: the newest
+        outstanding dispatch's device carry, else the synced host
+        frontier in one upload -- cur and pos (B, 1), active, remaining,
+        stepno (B,) -- plus eos (B,), cached on the device."""
+        if self._carry is not None:
+            carry = self._carry
+        else:
+            state = self._upload(np.stack([
+                self._cur[:, 0], self._pos[:, 0],
+                self._active.astype(np.int32), self._remaining,
+                self._stepno]))
+            carry = (state[0][:, None], state[1][:, None], state[2].bool(),
+                     state[3], state[4])
+        return carry + (self._on_device("eos", self._eos),)
+
+    def _outstanding(self) -> int:
+        """Enqueued dispatches the host has not synced yet."""
+        return self.steps - self._synced_dispatch
+
+    def _handle(self, kind: str, rounds: int, packed: torch.Tensor,
+                carry: tuple) -> PendingDispatch:
+        """Count the dispatch, start its outputs' copy to the host (on the
+        card: non-blocking into pinned memory, an event after it) and
+        make its handle; its carry becomes the one the next enqueue
+        chains on."""
+        host, event = packed, None
+        if packed.device.type == "cuda":
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        self._carry = carry
+        self.steps += 1
+        return PendingDispatch(kind=kind, dispatch=self.steps, rounds=rounds,
+                               carry=carry, owner=self._engine_token,
+                               host=host, event=event)
 
     def _enqueue(self) -> Optional[PendingDispatch]:
-        if not self._active.any():
+        if self._carry is None and not self._active.any():
             return None
         if self.spec is not None:
             return self._spec_enqueue()
-        dev = self.device
         steps = self.steps_per_dispatch
-        row_state = self._row_state()
-        # only rows in flight at entry sample; a row that finishes inside
-        # the dispatch keeps sampling into its masked-out emissions
+        cur, pos, active, remaining, stepno, eos = self._row_state()
+        # only rows in flight at the synced frontier sample; a row that
+        # finished inside an outstanding dispatch or inside this one
+        # keeps sampling into its masked-out emissions
         temp = np.where(self._active, self._temp, 0.0)
+        # a row still in flight at sub-step s of this dispatch has
+        # advanced one step for every sub-step of the dispatches the host
+        # has not synced yet
+        base = self._stepno + steps * self._outstanding()
 
         def seeds_at(s):
-            # a row still in flight at sub-step s is at step stepno+s
-            return [row_seed(self.seed, int(self._seeds[r]),
-                             int(self._stepno[r]) + s)
+            return [row_seed(self.seed, int(self._seeds[r]), int(base[r]) + s)
                     if temp[r] > 0 else 0 for r in range(self.num_slots)]
 
         model = self.model
+        row_state = (cur, pos, active, remaining, stepno, eos)
+        adapter_ids = self._adapter_arg(self._adapter_ids, "adapters")
         with torch.inference_mode():
             if self.page_native:
                 arena = self.pool.arena
-                page_table = torch.from_numpy(
-                    self._write_masked_table()).to(dev)
+                page_table = self._on_device("write_table",
+                                             self._write_masked_table())
                 packed = _decode_steps(
                     lambda cur, pos: decode_step_paged(
-                        model, arena, cur, pos, page_table),
+                        model, arena, cur, pos, page_table, adapter_ids),
                     model.cfg.max_seq_len, row_state, temp, self._top_k,
                     seeds_at, steps=steps)
             elif self.paged:
                 packed = _paged_step_impl(
                     model, self.pool.arena,
-                    torch.from_numpy(self.pool.page_table).to(dev),
-                    row_state, temp, self._top_k, seeds_at, steps=steps)
+                    self._on_device("table", self.pool.page_table),
+                    row_state, temp, self._top_k, seeds_at, steps=steps,
+                    adapter_ids=adapter_ids)
             else:
                 packed = _engine_step_impl(
                     model, self.pool.cache, row_state, temp, self._top_k,
-                    seeds_at, steps=steps)
-        self.steps += 1
+                    seeds_at, steps=steps, adapter_ids=adapter_ids)
+        n = 2 * steps
+        carry = (packed[n][:, None], packed[n + 1][:, None],
+                 packed[n + 2].bool(), packed[n + 3], packed[n + 4])
         self.decode_substeps += steps
-        return PendingDispatch(rounds=steps, packed=packed)
+        return self._handle("step", steps, packed, carry)
 
     def _spec_enqueue(self) -> PendingDispatch:
         """One speculative dispatch: refill stale draft rows from the
-        host-side token streams, then ``steps_per_dispatch`` rounds (k+1
-        draft feeds, one ``(B, k+1)`` verify, the accept rule each):
-        through the write-masked table (page-native), on the gathered
-        view of the full table with write-masked scatter (dense view), or
-        on the slot pool (dense)."""
+        host-side token streams (the synced ones: the async client drains
+        before a dispatch with stale rows), then ``steps_per_dispatch``
+        rounds (k+1 draft feeds, one ``(B, k+1)`` verify, the accept rule
+        each): through the write-masked table (page-native), on the
+        gathered view of the full table with write-masked scatter (dense
+        view), or on the slot pool (dense). The rows' adapter ids reach
+        the target's verify only."""
         spec = self.spec
         for slot in spec.stale:
             req = self.pool.active.get(slot)
@@ -962,40 +1354,59 @@ class ServeEngine:
         temp = np.where(self._active, self._temp, 0.0)
         rows = (spec.cache, cur, pos, active, remaining, temp, self._top_k,
                 eos, stepno, self.seed, self._seeds)
+        adapter_ids = self._adapter_arg(self._adapter_ids, "adapters")
         with torch.inference_mode():
             if self.page_native:
-                page_table = torch.from_numpy(
-                    self._write_masked_table()).to(self.device)
                 out = _spec_rounds_page_native_impl(
-                    self.model, spec.model, self.pool.arena, page_table,
-                    *rows, k=k, rounds=rounds)
+                    self.model, spec.model, self.pool.arena,
+                    self._on_device("write_table",
+                                    self._write_masked_table()),
+                    *rows, k=k, rounds=rounds, adapter_ids=adapter_ids)
             elif self.paged:
                 out = _spec_rounds_paged_impl(
                     self.model, spec.model, self.pool.arena,
-                    torch.from_numpy(self.pool.page_table).to(self.device),
-                    *rows, k=k, rounds=rounds)
+                    self._on_device("table", self.pool.page_table),
+                    *rows, k=k, rounds=rounds, adapter_ids=adapter_ids)
             else:
                 out = _spec_rounds_impl(self.model, spec.model,
                                         self.pool.cache, *rows, k=k,
-                                        rounds=rounds)
+                                        rounds=rounds,
+                                        adapter_ids=adapter_ids)
             (cur, pos, active, remaining, stepno, emitted, accepted,
              rejected, finished) = out
             packed = torch.cat([
                 x.to(torch.int32).reshape(-1)
                 for x in (emitted, finished, accepted, rejected, cur, pos,
                           active, remaining, stepno)])
-        self.steps += 1
         self.decode_substeps += rounds
         self.spec_rounds += rounds
         self.spec_draft_steps += (k + 1) * rounds
-        return PendingDispatch(rounds=rounds, packed=packed, spec=True)
+        return self._handle("spec", rounds, packed,
+                            (cur, pos, active, remaining, stepno))
 
     def step_sync(self, pending: PendingDispatch) -> List[Completion]:
-        """Copy one dispatch's outputs to the host (the blocking point),
-        catch the host row state up, and retire finished rows."""
-        data = pending.packed.cpu().numpy()
+        """Materialize one enqueued dispatch: wait on its event (the
+        blocking point; everything the caller did since the enqueue
+        overlapped the card), catch the synced frontier up to its carry,
+        and retire finished rows. Handles sync exactly once, in enqueue
+        order, on the engine that issued them."""
+        if pending.owner is not self._engine_token:
+            raise RuntimeError(
+                "step_sync on a foreign handle: this PendingDispatch was "
+                "issued by another engine -- discard it, never sync it")
+        if pending.dispatch != self._synced_dispatch + 1:
+            raise RuntimeError(
+                f"step_sync out of order: handle is dispatch "
+                f"{pending.dispatch}, engine expects "
+                f"{self._synced_dispatch + 1} -- handles sync exactly "
+                "once, in enqueue order")
+        if pending.event is not None:
+            t0 = time.perf_counter()
+            pending.event.synchronize()
+            pending.wait_s = time.perf_counter() - t0
+        data = pending.host.numpy()
         n, B = pending.rounds, self.num_slots
-        if pending.spec:
+        if pending.kind == "spec":
             # (rounds, B, k+1) emissions; accepted/rejected drafts
             w = n * B * (self.spec_k + 1)
             emitted = data[:w].reshape(n, B, -1).transpose(0, 2, 1)
@@ -1010,11 +1421,16 @@ class ServeEngine:
         else:
             emitted, finished = data[:n], data[n:2 * n].astype(bool)
             cur, pos, active, remaining, stepno = data[2 * n:]
+        self._synced_dispatch = pending.dispatch
         self._cur = cur[:, None].astype(np.int32)
         self._pos = pos[:, None].astype(np.int32)
         self._active = active.astype(bool)
         self._remaining = remaining.astype(np.int32)
         self._stepno = stepno.astype(np.int32)
+        if self._carry is pending.carry:
+            # the frontier caught up with the newest enqueue: barrier
+            # dispatches may run again
+            self._carry = None
         done: List[Completion] = []
         for slot in range(self.num_slots):
             toks = [int(t) for t in emitted[:, slot] if t >= 0]
@@ -1037,11 +1453,14 @@ class ServeEngine:
         slot = self.pool.slot_of(request_id)
         if slot is None:
             return None
+        self._require_synced("cancel")
         return self._retire(slot, reason)
 
     def shutdown(self) -> None:
         """Drop the prefix cache's page references and release the KV
-        arena and the draft's cache; the engine is unusable afterwards."""
+        arena and the draft's cache; the engine is unusable afterwards.
+        An outstanding dispatch is discarded with the carry: its tokens
+        were never committed."""
         if self.prefix is not None:
             self.prefix.drop()
         self.prefix = None
@@ -1051,6 +1470,9 @@ class ServeEngine:
         self.spec = None
         self._chunk_queue.clear()
         self._tokens.clear()
+        self._adapter_of.clear()
+        self._carry = None
+        self._staged.clear()
         self._active[:] = False
 
     def _retire(self, slot: int, reason: str) -> Completion:
@@ -1061,6 +1483,7 @@ class ServeEngine:
                 st for st in self._chunk_queue if st.slot != slot)
         req = self.pool.release(slot)
         self._active[slot] = False
+        self._unbind_adapter(slot)
         if self.spec is not None:
             # a cancel between activation and the next spec dispatch must
             # not refill a slot that no longer holds the request
@@ -1070,4 +1493,5 @@ class ServeEngine:
             request_id=req.id, prompt=list(req.prompt), tokens=tokens,
             finish_reason=reason, arrival_time=req.arrival_time,
             first_token_time=req.first_token_time,
-            prefix_hit_tokens=req.prefix_hit_tokens)
+            prefix_hit_tokens=req.prefix_hit_tokens, tenant=req.tenant,
+            adapter=req.adapter)

@@ -179,10 +179,10 @@ class SlotPoolFull(OccupancyError):
     def __init__(self, message: str, *, slots_free: Optional[int] = None,
                  pages_free: Optional[int] = None,
                  pages_needed: Optional[int] = None,
-                 active: Optional[int] = None):
+                 active: Optional[int] = None, **ctx):
         super().__init__(message, slots_free=slots_free,
                          pages_free=pages_free, pages_needed=pages_needed,
-                         active=active)
+                         active=active, **ctx)
 
 
 def check_seed_free(active_requests: Dict[int, Request],

@@ -10,13 +10,19 @@ request mid-flight.
 
 A :class:`Completion` is the retired request: the generated tokens (eos
 included when sampled), why it stopped, its latency stamps, and how many
-prompt tokens it took from the prefix cache. The fields of later slices
-(tenants, LoRA adapters, crash replay) are not carried yet.
+prompt tokens it took from the prefix cache, its tenant class and the
+LoRA adapter it decoded under. Crash replay's fields are not carried
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Sequence
+
+#: the tenant class a request belongs to when none is named: an engine
+#: without tenant classes only ever sees this one, and a
+#: TenantScheduler holding only it decides as the FIFO scheduler does
+DEFAULT_TENANT = "default"
 
 FINISH_EOS = "eos"            # sampled its eos id
 FINISH_LENGTH = "length"      # exhausted max_new_tokens
@@ -51,6 +57,14 @@ class Request:
 
     ``deadline``: optional absolute clock value (in the driving client's
     clock units) after which the request is abandoned.
+
+    ``tenant``: the tenant class whose queue, quotas and fair share the
+    request rides (:mod:`~ray_lightning_tpu_torch.serve.tenancy`); it
+    orders admissions and never changes tokens. ``adapter``: the
+    resident LoRA adapter whose bank slot the request's rows gather
+    (:mod:`~ray_lightning_tpu_torch.serve.adapters`); None is the base
+    model, or the tenant class's default adapter, which the engine
+    resolves at admission and stamps here.
     """
     id: int
     prompt: Sequence[int]
@@ -60,11 +74,13 @@ class Request:
     eos_id: Optional[int] = None
     seed: Optional[int] = None
     deadline: Optional[float] = None
+    tenant: str = DEFAULT_TENANT
     # timing bookkeeping, stamped by the driving client (clock units)
     arrival_time: Optional[float] = None
     first_token_time: Optional[float] = None
     # prompt tokens whose KV came from the prefix cache at admission
     prefix_hit_tokens: int = 0
+    adapter: Optional[str] = None
 
     def __post_init__(self):
         self.prompt = [int(t) for t in self.prompt]
@@ -78,6 +94,14 @@ class Request:
                 f"temperature must be >= 0, got {self.temperature}")
         if self.top_k is not None and self.top_k < 1:
             raise ValueError(f"top_k must be >= 1, got {self.top_k}")
+        if not self.tenant or not isinstance(self.tenant, str):
+            raise ValueError(
+                f"tenant must be a non-empty string, got {self.tenant!r}")
+        if self.adapter is not None and (
+                not self.adapter or not isinstance(self.adapter, str)):
+            raise ValueError(
+                f"adapter must be a non-empty string or None, "
+                f"got {self.adapter!r}")
         if self.seed is None:
             self.seed = self.id
 
@@ -97,6 +121,10 @@ class Completion:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     prefix_hit_tokens: int = 0
+    # the retiring request's tenant class, and the adapter it decoded
+    # under (after a tenant class's default; None = the base model)
+    tenant: str = DEFAULT_TENANT
+    adapter: Optional[str] = None
 
     @property
     def latency(self) -> Optional[float]:

@@ -46,6 +46,11 @@ adoption compose with a draft.
 
 The draft half runs no kernel of its own (plain PyTorch, as the JAX
 package runs it in XLA) except K5 when its weights are quantized.
+
+Multi-LoRA: the rows' adapter bank ids (``adapter_ids=``) reach the
+TARGET verify only; the draft stays unadapted (one draft serves every
+adapter: a draft that disagrees more costs acceptance, never
+correctness), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -266,17 +271,18 @@ def _spec_rounds(verify, max_seq_len, draft_model, draft_cache, cur, pos,
 
 
 def _spec_rounds_page_native_impl(model, draft_model, arena, page_table,
-                                  *rows, k, rounds):
+                                  *rows, k, rounds, adapter_ids=None):
     """The spec rounds with the verify through the (write-masked) page
     table: inactive rows' target writes go to the sink. ``rows`` are
     :func:`_spec_rounds`' from ``draft_cache`` on."""
     return _spec_rounds(
         lambda tokens, positions: verify_step_paged(
-            model, arena, tokens, positions, page_table),
+            model, arena, tokens, positions, page_table, adapter_ids),
         model.cfg.max_seq_len, draft_model, *rows, k=k, rounds=rounds)
 
 
-def _spec_rounds_impl(model, draft_model, storage, *rows, k, rounds):
+def _spec_rounds_impl(model, draft_model, storage, *rows, k, rounds,
+                      adapter_ids=None):
     """The spec rounds on dense target storage (the slot pool, or a
     gathered view): the verify block-writes each row's k+1 tokens into
     its own row (:func:`~ray_lightning_tpu_torch.models.generate.verify_step`).
@@ -285,14 +291,14 @@ def _spec_rounds_impl(model, draft_model, storage, *rows, k, rounds):
     cache = dense_storage_values(storage, model.cfg.dtype)
     out = _spec_rounds(
         lambda tokens, positions: verify_step(model, cache, tokens,
-                                              positions),
+                                              positions, adapter_ids),
         model.cfg.max_seq_len, draft_model, *rows, k=k, rounds=rounds)
     dense_storage_commit(storage, cache)
     return out
 
 
 def _spec_rounds_paged_impl(model, draft_model, arena, page_table, *rows, k,
-                            rounds):
+                            rounds, adapter_ids=None):
     """The spec rounds on a page arena without page-native attention:
     gather the dense view through the full ``page_table``, run
     :func:`_spec_rounds_impl` on it, scatter back the mapped pages of
@@ -301,7 +307,7 @@ def _spec_rounds_paged_impl(model, draft_model, arena, page_table, *rows, k,
     view = gather_pages(arena, page_table, model.cfg.dtype)
     write_pt = torch.where(rows[3][:, None], page_table, -1)
     out = _spec_rounds_impl(model, draft_model, view, *rows, k=k,
-                            rounds=rounds)
+                            rounds=rounds, adapter_ids=adapter_ids)
     scatter_pages(arena, view, write_pt)
     return out
 

@@ -74,8 +74,7 @@ def test_softmax_dtype_spellings(spelling):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(num_segments=2), "item 8: the zoo"),
-    (dict(lora=LoraConfig(rank=4, num_adapters=2)), "item S4"),
-], ids=["segments", "lora"])
+], ids=["segments"])
 def test_values_the_port_cannot_honour_name_their_item(kw, item):
     JaxTransformerConfig(**kw)      # the reference takes them
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md A, {item}"):
@@ -91,12 +90,15 @@ NANO = dict(vocab_size=128, max_seq_len=32, d_model=128, n_heads=4,
     dict(tie_embeddings=False),
     dict(attention_softmax_dtype=jnp.bfloat16),
     dict(attention_softmax_dtype=torch.bfloat16),
-], ids=["remat_policy", "untied", "softmax-bf16-jnp", "softmax-bf16-torch"])
+    dict(lora=LoraConfig(rank=4, num_adapters=2)),
+], ids=["remat_policy", "untied", "softmax-bf16-jnp", "softmax-bf16-torch",
+        "lora"])
 def test_values_earlier_slices_refused_now_build_and_run_as_jax(kw):
-    """The values the port refused before T3 and item 8 build, and the
+    """The values the port refused before T3, item 8 and S4 build, and the
     model's forward equals JAX's: to 1e-5, or with a bf16 softmax no
     farther from JAX's than JAX's bf16-softmax logits are from its
-    f32-softmax ones."""
+    f32-softmax ones. A LoRA model's banks are filled with noise first,
+    so the forward (every row on bank slot 0) runs through them."""
     from ray_lightning_tpu.models.transformer import \
         TransformerLM as JaxTransformerLM
     from ray_lightning_tpu_torch.interop import load_flax_params
@@ -110,6 +112,11 @@ def test_values_earlier_slices_refused_now_build_and_run_as_jax(kw):
         np.int32)
     params = JaxTransformerLM(jcfg).init(jax.random.PRNGKey(0),
                                          tokens)["params"]
+    noise = np.random.default_rng(1)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, v: (0.1 * noise.standard_normal(v.shape)).astype(
+            np.float32) if "lora_" in jax.tree_util.keystr(path) else v,
+        params)
     want = np.asarray(JaxTransformerLM(jcfg).apply({"params": params},
                                                    tokens))
     model = load_flax_params(TransformerLM(cfg, device="cpu"), params)

@@ -40,9 +40,14 @@ dense KV layouts (the slot pool, the dense view): K5 routed by M as on
 the page-native engine and no K1, a decode dispatch's launches as
 ``chip_smoke.py`` phase G records them, ``generate()`` with int8 weights
 on the GEMVs and ``tc``, spec equal to non-spec in f32, and the
-paged-attention kernel refused without ``page_native=True``.
-``chip_smoke.py`` repeats this at the serving and training paths' full
-shapes.
+paged-attention kernel refused without ``page_native=True``. Async
+dispatch: the pipelined client's tokens bitwise the sync client's on
+every layout and with spec, bf16 and f32, and a steady-state enqueue
+making no synchronizing call under ``set_sync_debug_mode("error")``.
+Multi-LoRA: the bank's delta in f32 equal to ``F.linear`` by the merged
+weight, and an adapted int8-weight engine routing K5 exactly as the
+bankless engine does. ``chip_smoke.py`` repeats this at the serving and
+training paths' full shapes.
 """
 import dataclasses
 
@@ -1480,8 +1485,10 @@ def test_dense_decode_dispatch_launches_match_phase_g(
                                      trace, chip_smoke.G_LAYOUTS[layout],
                                      kv_dtype=kv_dtype)
     key = f"{layout} {kv_dtype or 'bf16'}"
-    assert chip_smoke.launches_close(prof["launches"], key), (
-        prof["launches"], chip_smoke.G_DECODE_LAUNCHES[key])
+    n = chip_smoke.dispatch_launches(prof)
+    assert chip_smoke.launches_close(n, key), (
+        n, prof["launches"], prof["host_launch_calls"],
+        chip_smoke.G_DECODE_LAUNCHES[key])
 
 
 def test_generate_with_int8_weights_runs_k5_on_gemvs_and_tc(cuda):
@@ -1554,3 +1561,156 @@ def test_spec_on_dense_layouts_equals_non_spec_in_f32(cuda, layout):
     spec, rounds = run(draft_model=TransformerLM(dcfg, device="meta"),
                        draft_params=dsd, spec_k=4)
     assert rounds > 0 and spec == plain
+
+
+# --------------------------- async dispatch and multi-LoRA serving (S5, S4)
+ASYNC_TRACE = SPEC_TRACE + [
+    (1, dict(prompt=[7, 3, 3], max_new_tokens=8, temperature=0.9, top_k=20,
+             seed=5))]
+ASYNC_ENGINES = {
+    "page-native": dict(page_size=4, page_native=True,
+                        attention_kernel="cuda"),
+    "int8-weights": dict(page_size=4, page_native=True,
+                         attention_kernel="cuda", weight_dtype="int8",
+                         matmul_kernel="cuda"),
+    "dense": {},
+    "view": dict(page_size=4),
+}
+
+
+def _async_serve(cuda, cfg, sd, trace, **kw):
+    client = ServeClient(TransformerLM(cfg, device="meta"), sd, num_slots=4,
+                         prefill_len=8, device=cuda, **kw)
+    out = client.serve_trace(list(trace))
+    client.shutdown()
+    return {r: (c.tokens, c.finish_reason) for r, c in out.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("engine", list(ASYNC_ENGINES) + ["spec"])
+def test_async_tokens_bitwise_equal_sync_on_the_card(cuda, engine, dtype):
+    """The pipelined client runs the same kernels on the same inputs as
+    the sync client: tokens and finish reasons equal, greedy and
+    sampled."""
+    cfg, sd, dcfg, dsd = _spec_models(dtype)
+    kw = dict(ASYNC_ENGINES.get(engine, ASYNC_ENGINES["page-native"]))
+    if engine == "spec":
+        kw.update(draft_model=TransformerLM(dcfg, device="meta"),
+                  draft_params=dsd, spec_k=4)
+    sync = _async_serve(cuda, cfg, sd, ASYNC_TRACE, **kw)
+    assert _async_serve(cuda, cfg, sd, ASYNC_TRACE, async_dispatch=True,
+                        **kw) == sync
+
+
+@pytest.mark.parametrize("engine", list(ASYNC_ENGINES) + ["spec"])
+def test_async_enqueue_makes_no_synchronizing_call(cuda, engine):
+    """A steady-state ``step_enqueue`` (greedy rows; bf16) launches its
+    dispatch without one synchronizing call: under
+    ``torch.cuda.set_sync_debug_mode("error")`` any would raise."""
+    from ray_lightning_tpu_torch.serve import ServeEngine
+    from ray_lightning_tpu_torch.serve.request import Request
+    cfg, sd, dcfg, dsd = _spec_models(torch.bfloat16)
+    kw = dict(ASYNC_ENGINES.get(engine, ASYNC_ENGINES["page-native"]))
+    if engine == "spec":
+        kw.update(draft_model=TransformerLM(dcfg, device="meta"),
+                  draft_params=dsd, spec_k=4)
+    eng = ServeEngine(TransformerLM(cfg, device="meta"), sd, num_slots=4,
+                      prefill_len=8, device=cuda, **kw)
+    eng.prefill([Request(id=i, prompt=p["prompt"], max_new_tokens=40)
+                 for i, (_, p) in enumerate(SPEC_TRACE)])
+    pending = [eng.step_enqueue(), eng.step_enqueue()]
+    eng.step_sync(pending.pop(0))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            pending.append(eng.step_enqueue())
+            torch.cuda.set_sync_debug_mode(0)
+            eng.step_sync(pending.pop(0))
+            torch.cuda.set_sync_debug_mode("error")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eng.step_sync(pending.pop(0))
+    assert not eng.carry_deferred
+    eng.shutdown()
+
+
+def test_lora_delta_equals_a_merged_weight_linear(cuda):
+    """f32 on the card: a Dense with a bank gives, for each adapted row,
+    ``F.linear`` by the merged weight W + scale * (A @ B)^T, to 1e-5 of
+    the output's scale; a null row is the base projection bitwise."""
+    from ray_lightning_tpu_torch.models.lora import LoraConfig
+    from ray_lightning_tpu_torch.models.transformer import (Dense,
+                                                            TransformerConfig)
+    gen = torch.Generator().manual_seed(0)
+    lora = LoraConfig(rank=16, num_adapters=4, alpha=32.0)
+    layer = Dense(768, 2304, TransformerConfig(dtype=torch.float32), cuda,
+                  lora=lora)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, generator=gen))
+    x = torch.randn(4, 5, 768, generator=gen).to(cuda)
+    ids = torch.tensor([2, -1, 0, 3], device=cuda)
+    with torch.no_grad():
+        got = layer(x, ids)
+        base = torch.nn.functional.linear(x, layer.weight, layer.bias)
+        assert torch.equal(got[1], base[1])
+        for r in (0, 2, 3):
+            a = int(ids[r])
+            merged = layer.weight + lora.scale * (
+                layer.lora_A[a] @ layer.lora_B[a]).T
+            want = torch.nn.functional.linear(x[r], merged, layer.bias)
+            err = (got[r] - want).abs().max().item()
+            assert err <= 1e-5 * max(1.0, want.abs().max().item()), (r, err)
+
+
+def _lora_adapters(model, n, seed):
+    """``n`` random adapter trees for ``model``'s projections (rank 16)."""
+    from ray_lightning_tpu_torch.models.lora import (LoraConfig,
+                                                     extract_adapter,
+                                                     install_lora_bank)
+    probe = TransformerLM(model.cfg, device="cpu")
+    install_lora_bank(probe, LoraConfig(rank=16, num_adapters=1))
+    gen = torch.Generator().manual_seed(seed)
+
+    def fill(t):
+        return {k: fill(v) if isinstance(v, dict)
+                else 0.2 * torch.randn(v.shape, generator=gen)
+                for k, v in t.items()}
+    tree = extract_adapter(probe, 0)
+    return {f"ad{i}": fill(tree) for i in range(n)}
+
+
+def test_adapted_int8_engine_routes_k5_as_the_bankless_engine(cuda):
+    """bf16, int8 weights through K5: the bank adds no K5 launch (its
+    delta is plain PyTorch outside the base matmuls) -- the route counts
+    equal the bankless engine's on the same trace, the GEMVs at decode,
+    ``tc`` at the prefills, none ``tiled_f32``; K1 once a layer a decode
+    step."""
+    cfg, sd, _, _ = _spec_models(torch.bfloat16)
+    ads = _lora_adapters(TransformerLM(cfg, device="meta"), 2, 1)
+    trace = [(t, dict(kw, adapter=("ad0", "ad1", None, "ad0")[i]))
+             for i, (t, kw) in enumerate(SPEC_TRACE)]
+    counts = []
+    for bank in (None, ads):
+        kw = dict(ASYNC_ENGINES["int8-weights"])
+        if bank is not None:
+            kw.update(adapters=bank, max_resident_adapters=4, lora_rank=16)
+        qmm.reset_kernel_launches()
+        pa.reset_kernel_launches()
+        client = ServeClient(TransformerLM(cfg, device="meta"), sd,
+                             num_slots=4, prefill_len=8, device=cuda, **kw)
+        out = client.serve_trace(list(trace) if bank else [
+            (t, {k: v for k, v in e.items() if k != "adapter"})
+            for t, e in trace])
+        eng = client.engine
+        assert [len(out[r].tokens) for r in range(4)] == [10, 10, 10, 3]
+        per_forward = 4 * cfg.n_layers + 1
+        assert qmm.route_launches() == {
+            "gemv_dense": 4 * cfg.n_layers * eng.decode_substeps,
+            "gemv_attend": eng.decode_substeps,
+            "tc": per_forward * eng.prefills, "tiled_f32": 0}
+        assert pa.kernel_launches() == cfg.n_layers * eng.decode_substeps
+        counts.append((qmm.route_launches(), eng.decode_substeps))
+        client.shutdown()
+    assert counts[0] == counts[1]

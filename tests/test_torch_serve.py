@@ -245,7 +245,7 @@ def test_engine_defaults_to_the_card(port):
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_arguments_raise(port, name):
-    value = 4 if name in ("lora_rank", "max_resident_adapters") else "x"
+    value = "x"
     with pytest.raises(NotImplementedError, match=f"{name}=.*ROADMAP"):
         ServeClient(port, port.state_dict(), num_slots=2, prefill_len=8,
                     device="cpu", **PAGED, **{name: value})
