@@ -185,6 +185,42 @@ A. Multi-LoRA and tenancy, phase 2's weights, a page-native engine with
    tokens equal its solo run's. (e) Spec (phase S's draft) with adapters,
    f32: (a)'s tokens. (f) The async client with adapters: (b)'s sync
    tokens.
+F. Faults and telemetry, phase 2's weights (each run through a fresh
+   ``ServeClient(retry_policy=RetryPolicy(max_attempts=3, base_delay=0))``,
+   its recoveries, host ms and the card's allocated bytes after every
+   rebuild recorded). (a) Phase 2's page-native engine and trace, f32:
+   ``serve.dispatch`` crashes at the first prefill, the first decode
+   dispatch (8 rows in flight) and the first later decode dispatch where
+   some row's prompt + emitted tokens exceed ``max_replay_len`` (128),
+   the ticks worked out from the fault-free run's dispatches: every
+   replayed request's tokens, greedy and sampled, equal the fault-free
+   run's, the over-long rows retire ``"failed"`` with a prefix of theirs
+   and are exactly those the third recovery's snapshot predicts, 3
+   rebuilds and recoveries; K1 launches after the first rebuild; bf16
+   with the same crashes, its tokens against phase 2's (information).
+   (b) Phase L's layout on a long trace from ``make_long_trace``
+   (``default_rng(15)``): a crash mid-chunk, a second on the first
+   replay's first re-fed chunk (a failed recovery attempt, in bf16 first,
+   K2 on ``tc``: it also counts the ticks that recovery adds), a third
+   mid-decode; f32: tokens equal, 3 rebuilds in 2 recoveries, K2
+   launched inside each recovery. (c) Phase S's spec engine (k = 4), f32,
+   two ``serve.verify`` crashes: tokens equal, K1 at T = 5 after the
+   rebuilds. (d) int8 weights through K5 on the async client, f32: a
+   crash at a steady-state enqueue; the in-flight handle is discarded
+   (kept until its copy's event completes), never synced; tokens equal;
+   K5 after the rebuild. (e) A journal (``sync_every=8``) on phase 2's
+   engine with ``prefill_chunk=128``: the ``serve.driver`` site kills
+   the driver at tick F_DRIVER_KILL; ``ServeClient.restore`` finishes
+   the trace with (a)'s fault-free tokens, re-emitting no retired
+   request; the journal's bytes, records, fsyncs and ms per fsync. (f)
+   Phase 2's bf16 trace with ``Telemetry(clock=time.perf_counter,
+   jsonl_path=...)`` armed beside disarmed: tokens equal; a profiled
+   decode dispatch's launches armed and disarmed within G_LAUNCH_SPREAD
+   of phase G's 749; the armed async client's steady-state enqueues under
+   ``set_sync_debug_mode("error")``; the Chrome trace parses with the
+   JAX span names; host ms a tick armed and disarmed, events by name.
+   (g) The allocated bytes equal after every rebuild of a run (no second
+   engine on the card); recovery ms per crash of each run.
 T2. The training path: ``Trainer(strategy=RayStrategy(num_workers=1),
    max_epochs=1, limit_train_batches=20, limit_val_batches=2,
    seed=0).fit(GPTModule(config=gpt2_config("small",
@@ -308,18 +344,21 @@ C. The command line on the card, flags only: ``python -m
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K1 has two entries:
    ``paged_attention`` at T=1 with phase 2's, phase L's, phase P's and
-   phase A's bf16 runs' launches, ``paged_attention_verify`` at T=5 with
-   phase S (a)'s and phase P's spec bf16 runs'. K2 has two entries:
+   phase A's bf16 runs' launches and every phase F run's,
+   ``paged_attention_verify`` at T=5 with phase S (a)'s, phase P's spec
+   bf16 runs' and phase F (c)'s. K2 has two entries:
    ``flash_fwd`` at the training shape with T2's launches,
    ``flash_fwd_chunk`` at the chunk's shape (S=1024) with phase L's,
-   phase P's chunked and phase A's chunked bf16 launches. K2-K4's
+   phase P's chunked, phase A's chunked and phase F (b)'s bf16 ``tc``
+   launches. K2-K4's
    training entries count T2's launches and phase M's (a), (b) and (e)
    fits'. K5 has five entries, each one forward's 49 calls, bf16 x,
    int8 codes (times and bound their sums, the error the largest of
    them): ``quantized_matmul`` at
    M=8 (a decode step, the GEMVs; Q2's, phase L's, phase S (d)'s, phase
-   G (c), (d) and (e)'s, phase P's int8-weights bf16 runs' and phase A
-   (b), (f) and its chunked run's int8 launches on those routes),
+   G (c), (d) and (e)'s, phase P's int8-weights bf16 runs', phase A
+   (b), (f) and its chunked run's and phase F (d)'s int8 launches on
+   those routes),
    ``quantized_matmul_prefill`` at M=1024 (a prefill, the tensor-core
    kernel; Q2's, phase G (c) and (d)'s, phase P's and phase A (b) and
    (f)'s ``tc`` launches),
@@ -2410,6 +2449,537 @@ def phase_a_adapters(cfg, sd, trace, card):
     return out
 
 
+
+# --------------------------------------------------------------- phase F
+F_POLICY = dict(max_attempts=3, base_delay=0.0)
+# device launches of phase 2's page-native bf16 decode dispatch as phase
+# G's profile counts it (runs EE and FE: 749), held within
+# G_LAUNCH_SPREAD armed and disarmed
+F_PAGE_NATIVE_LAUNCHES = 749
+F_SPANS = {"engine.prefill", "engine.chunk", "engine.step",
+           "engine.spec_round"}
+F_DRIVER_KILL = 50              # (e): the serve.driver tick that kills it
+F_JOURNAL_SYNC = 8
+
+
+def f_models(cfg, dtype):
+    from ray_lightning_tpu_torch.models import TransformerLM
+    return TransformerLM(dataclasses.replace(cfg, dtype=dtype),
+                         device="meta")
+
+
+def f_sub(a: dict, b: dict) -> dict:
+    """Counters ``a - b`` (``p_launches`` dicts)."""
+    return {key: {k: n - b.get(key, {}).get(k, 0) for k, n in c.items()}
+            for key, c in a.items()}
+
+
+def f_serve(proto, sd, trace, layout, plan=None, *, record_steps=False,
+            **kw):
+    """Replay ``trace`` through a fresh supervised ``ServeClient`` (tick
+    clock, ``RetryPolicy(**F_POLICY)``) of ``layout`` under ``plan`` (a
+    ``FaultPlan``; None = the fault-free run). Records each recovery's
+    entries as (id, prompt + emitted tokens) and its host ms, the card's
+    allocated bytes right after each rebuilt engine is built, the kernel
+    counters at the first rebuild and inside each recovery, and with
+    ``record_steps`` the in-flight rows at every dispatch (its index in
+    the fault-free numbering, a step or not, the rows' ids and lengths).
+    The card's allocated bytes before the client is built and after it
+    is shut down and dropped must agree. Returns the completions, the
+    supervisor's counters and the record."""
+    from ray_lightning_tpu_torch.reliability import RetryPolicy, faults
+    from ray_lightning_tpu_torch.serve import ServeClient
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    p_reset()
+    client = ServeClient(proto, sd, device=DEVICE,
+                         retry_policy=RetryPolicy(**F_POLICY), **layout, **kw)
+    sup = client.engine
+    rec = {"entries": [], "rebuilt_bytes": [], "recovery_ms": [],
+           "in_recovery": [], "fires_in_recovery": [],
+           "at_first_rebuild": None, "dispatches": []}
+    recover, new_engine = sup._recover, sup._new_engine
+
+    def recording_recover(entries):
+        rec["entries"].append([(req.id, req.prompt_len + len(toks))
+                               for req, toks in entries])
+        at, fires = p_launches(), faults.get_armed()
+        fired = fires.counts()["serve.dispatch"] if fires else 0
+        t0 = time.perf_counter()
+        done = recover(entries)
+        rec["recovery_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["in_recovery"].append(f_sub(p_launches(), at))
+        rec["fires_in_recovery"].append(
+            fires.counts()["serve.dispatch"] - fired if fires else 0)
+        return done
+
+    def recording_new_engine():
+        new_engine()
+        torch.cuda.synchronize()
+        rec["rebuilt_bytes"].append(torch.cuda.memory_allocated())
+        if rec["at_first_rebuild"] is None:
+            rec["at_first_rebuild"] = p_launches()
+
+    sup._recover, sup._new_engine = recording_recover, recording_new_engine
+    if record_steps:
+        for op in ("prefill", "step", "prefill_chunk_step"):
+            def recording(*a, _op=op, _fn=getattr(sup, op)):
+                rows = [(r.id, r.prompt_len + len(t))
+                        for r, t in sup.engine.snapshot_in_flight()]
+                rec["dispatches"].append((_op, rows))
+                return _fn(*a)
+            setattr(sup, op, recording)
+    if plan is None:
+        done = client.serve_trace(list(trace))
+    else:
+        with plan.armed():
+            done = client.serve_trace(list(trace))
+    rec["launches"] = p_launches()
+    counters = dict(rebuilds=sup.rebuilds, recoveries=sup.recoveries,
+                    failed_requests=sup.failed_requests,
+                    recovery_ms_per_crash=(
+                        1e3 * sup.recovery_s_total / sup.recoveries
+                        if sup.recoveries else None),
+                    fired=plan.fired if plan is not None else 0)
+    client.shutdown()
+    del client, sup, recover, new_engine
+    gc.collect()
+    torch.cuda.synchronize()
+    rec["bytes_leaked"] = torch.cuda.memory_allocated() - before
+    return done, counters, rec
+
+
+def f_tokens(done):
+    return {rid: (c.tokens, c.finish_reason) for rid, c in done.items()}
+
+
+def f_check_run(tag, done, ref, counters, rec, *, rebuilds,
+                recoveries=None, failed=()):
+    """The checks every faulted run shares: the plan fired, the counters
+    are as planned, every replayed request's tokens equal the fault-free
+    run's (``failed``: the ids that retire "failed" with a prefix of
+    theirs), memory equal after every rebuild and none left after the
+    client."""
+    recoveries = rebuilds if recoveries is None else recoveries
+    check(counters["fired"] > 0 and counters["rebuilds"] == rebuilds
+          and counters["recoveries"] == recoveries
+          and counters["failed_requests"] == len(failed),
+          f"phaseF {tag}: counters {counters}, expected {rebuilds} "
+          f"rebuilds, {recoveries} recoveries, {len(failed)} failed")
+    check(sorted(done) == sorted(ref), f"phaseF {tag}: completions "
+          f"{sorted(done)} against {sorted(ref)}")
+    for rid, (toks, reason) in ref.items():
+        got = done[rid]
+        if rid in failed:
+            check(got.finish_reason == "failed"
+                  and got.tokens == toks[:len(got.tokens)],
+                  f"phaseF {tag}: request {rid} should retire failed with "
+                  f"a prefix of its tokens, got {got.finish_reason} "
+                  f"{len(got.tokens)}")
+        else:
+            check((got.tokens, got.finish_reason) == (toks, reason),
+                  f"phaseF {tag}: request {rid} differs from the "
+                  "fault-free run")
+    check(len(set(rec["rebuilt_bytes"])) == 1,
+          f"phaseF {tag}: allocated bytes after each rebuild "
+          f"{rec['rebuilt_bytes']} (the card holds a second engine)")
+
+
+def f_after_rebuild(rec) -> dict:
+    """The kernel counters from the first rebuild to the end of the run:
+    what the rebuilt engines launched."""
+    return f_sub(rec["launches"], rec["at_first_rebuild"])
+
+
+def f_summary(counters, rec, extra=None) -> dict:
+    return dict(counters, rebuilt_bytes=rec["rebuilt_bytes"],
+                bytes_left_after_client=rec["bytes_leaked"],
+                recovery_ms=[round(t, 3) for t in rec["recovery_ms"]],
+                **(extra or {}))
+
+
+def f_page_native(cfg, sd, trace, served, card, out):
+    """(a) phase 2's page-native engine (K1) under three serve.dispatch
+    crashes: a prefill, a decode dispatch with at least 4 rows in flight,
+    and a dispatch where some rows' prompt + emitted tokens exceed
+    ``max_replay_len`` (the ticks chosen from the fault-free run's
+    dispatches). f32 checked; bf16 reported against phase 2's tokens."""
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    layout = dict(SERVE, attention_kernel="cuda")
+    p32 = f_models(cfg, torch.float32)
+    base, _, brec = f_serve(p32, sd, trace, layout, record_steps=True)
+    ref = f_tokens(base)
+    limit = SERVE["prefill_len"]           # max_replay_len, unchunked
+    steps = [(i, rows) for i, (op, rows) in enumerate(brec["dispatches"])
+             if op == "step"]
+    d2 = next(i for i, rows in steps if len(rows) >= 4)
+    d3, rows3 = next((i, rows) for i, rows in steps if i > d2 + 3
+                     and len(rows) >= 4
+                     and any(n > limit for _, n in rows)
+                     and any(n <= limit for _, n in rows))
+    over = sorted(rid for rid, n in rows3 if n > limit)
+    # each recovery before a fault replays its entries in one prefill
+    # wave, one extra serve.dispatch tick
+    ticks = [0, d2 + 1, d3 + 2]
+    plan = FaultPlan.at("serve.dispatch", ticks)
+    done, counters, rec = f_serve(p32, sd, trace, layout, plan)
+    check(rec["entries"][2] and sorted(rid for rid, n in rec["entries"][2]
+                                       if n > limit) == over
+          and len(rec["entries"][1]) >= 4,
+          f"phaseF (a): recoveries saw {rec['entries']}, expected {over} "
+          "over max_replay_len at the third")
+    f_check_run("(a) f32", done, ref, counters, rec, rebuilds=3,
+                failed=set(over))
+    sampled = [rid for rid, (_, kw) in enumerate(trace)
+               if kw.get("temperature") and rid not in over]
+    k1 = f_after_rebuild(rec)["k1_by_t"].get(1, 0)
+    check(k1 > 0, "phaseF (a): no K1 launch after the first rebuild")
+    res = {"f32": f_summary(counters, rec, dict(
+        ticks=ticks, failed=over, sampled_replay_exact=sampled,
+        k1_t1_after_rebuild=k1))}
+    add_launches(out["launches"], rec["launches"])
+    # bf16: reported (greedy margins on random weights sit below rounding)
+    pbf = f_models(cfg, torch.bfloat16)
+    done, counters, rec = f_serve(pbf, sd, trace, layout, plan.__class__.at(
+        "serve.dispatch", ticks))
+    add_launches(out["launches"], rec["launches"])
+    phase2 = served["bf16"]["tokens"]
+    same = [rid for rid, c in done.items()
+            if rid not in over and c.tokens == phase2[rid]]
+    res["bf16"] = f_summary(counters, rec, dict(
+        equal_to_phase2=f"{len(same)}/{len(done) - len(over)}"))
+    print("phaseF (a)", json.dumps(dict(res, card=card)), flush=True)
+    out["runs"]["a"] = res
+    return ref
+
+
+def f_chunked(cfg, sd, card, out):
+    """(b) phase L's layout (chunks of 128, the prefix cache, K2) on a long
+    trace of phase L's kind: a crash mid-chunk, a second during the first
+    replay's chunk re-feed (a failed recovery attempt), a third
+    mid-decode; every replay streams through chunks, one request a wave.
+    A bf16 run with the first two crashes (tokens reported; K2 on
+    ``tc``) finds how many serve.dispatch ticks the first recovery adds,
+    which places the third crash; the f32 run with all three (K2 on
+    ``simt``) is checked."""
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    layout = dict(L_SERVE, attention_kernel="cuda")
+    trace, _ = make_long_trace(np.random.default_rng(15), cfg.vocab_size)
+    p32 = f_models(cfg, torch.float32)
+    base, _, brec = f_serve(p32, sd, trace, layout, record_steps=True)
+    ref = f_tokens(base)
+    ops = brec["dispatches"]
+    c1 = next(i for i, (op, _) in enumerate(ops)
+              if op == "prefill_chunk_step" and i > 2)
+    d3 = next(i for i, (op, rows) in enumerate(ops)
+              if op == "step" and i > c1 + 10 and len(rows) >= 4)
+    # the first recovery's second serve.dispatch tick is its first
+    # replay's first chunk: the second crash
+    pbf = f_models(cfg, torch.bfloat16)
+    done, counters, rec = f_serve(pbf, sd, trace, layout, FaultPlan.at(
+        "serve.dispatch", [c1, c1 + 2]))
+    check(counters["fired"] == 2 and counters["recoveries"] == 1
+          and counters["rebuilds"] == 2 and len(done) == len(trace),
+          f"phaseF (b) bf16: the second crash missed the replay's chunk "
+          f"re-feed: {counters}")
+    add_launches(out["launches"], rec["launches"])
+    out["k2_chunk_tc"] += rec["launches"]["k2"].get("tc", 0)
+    res = {"bf16": f_summary(counters, rec, dict(
+        k2_tc=rec["launches"]["k2"].get("tc", 0),
+        equal_to_f32=sum(f_tokens(done)[r] == ref[r] for r in ref)))}
+    # the mid-decode crash: fault-free dispatch d3, shifted by the ticks
+    # the first recovery fired beyond the crashed dispatch
+    ticks = [c1, c1 + 2, d3 + sum(rec["fires_in_recovery"])]
+    done, counters, rec = f_serve(p32, sd, trace, layout,
+                                  FaultPlan.at("serve.dispatch", ticks))
+    f_check_run("(b) f32", done, ref, counters, rec, rebuilds=3,
+                recoveries=2)
+    check(len(rec["entries"][1]) >= 4, f"phaseF (b): the mid-decode crash "
+          f"replayed {len(rec['entries'][1])} rows")
+    k2 = [r["k2"] for r in rec["in_recovery"]]
+    check(all(sum(k.values()) > 0 for k in k2),
+          f"phaseF (b): a recovery replayed without a chunk (K2 {k2})")
+    add_launches(out["launches"], rec["launches"])
+    res["f32"] = f_summary(counters, rec, dict(
+        ticks=ticks, replayed=[len(e) for e in rec["entries"]],
+        k2_in_recovery=k2))
+    print("phaseF (b)", json.dumps(dict(res, card=card)), flush=True)
+    out["runs"]["b"] = res
+
+
+def f_spec(cfg, sd, trace, card, out):
+    """(c) phase S's spec engine (2-layer draft, k = 4, K1 at T = 5),
+    f32, two serve.verify crashes: greedy tokens equal the fault-free
+    run's, sampled ones too (replay-exact)."""
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    layout = dict(SERVE, attention_kernel="cuda")
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    kw = spec_kw(dataclasses.replace(c32, n_layers=S_DRAFT_LAYERS),
+                 draft_state(sd, S_DRAFT_LAYERS))
+    p32 = f_models(cfg, torch.float32)
+    base, _, _ = f_serve(p32, sd, trace, layout, **kw)
+    ref = f_tokens(base)
+    # early rounds: every row's prompt + emitted tokens still fit the
+    # batched prefill (max_replay_len 128), so nothing retires failed
+    plan = FaultPlan.at("serve.verify", [1, 4])
+    done, counters, rec = f_serve(p32, sd, trace, layout, plan, **kw)
+    f_check_run("(c) f32 spec", done, ref, counters, rec, rebuilds=2)
+    k1 = f_after_rebuild(rec)["k1_by_t"].get(S_K + 1, 0)
+    check(k1 > 0, "phaseF (c): no K1 launch at T = 5 after a rebuild")
+    add_launches(out["launches"], rec["launches"])
+    res = f_summary(counters, rec, dict(
+        k1_t5_after_rebuild=k1,
+        sampled=[r for r, (_, k) in enumerate(trace)
+                 if k.get("temperature")]))
+    print("phaseF (c)", json.dumps(dict(res, card=card)), flush=True)
+    out["runs"]["c"] = res
+
+
+def f_async_int8(cfg, sd, trace, card, out):
+    """(d) int8 weights through K5 on the async client, f32: a crash at an
+    enqueue while the previous dispatch's handle is in flight. The older
+    handle is discarded (kept until its copy's event completes), never
+    synced; tokens equal the fault-free async run's."""
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    from ray_lightning_tpu_torch.serve import client as client_mod
+    layout = dict(P_ENGINES["int8-weights"], async_dispatch=True)
+    p32 = f_models(cfg, torch.float32)
+    base, _, _ = f_serve(p32, sd, trace, layout)
+    ref = f_tokens(base)
+    seen = {"discarded": [], "synced": []}
+    discard = client_mod.ServeClient._discard
+
+    def recording_discard(self, handle):
+        seen["discarded"].append(handle)
+        return discard(self, handle)
+
+    from ray_lightning_tpu_torch.serve.engine import ServeEngine as engine_cls
+    sync = engine_cls.step_sync
+
+    def recording_sync(self, pending):
+        # ids only: a kept handle would keep its device carry allocated
+        seen["synced"].append(id(pending))
+        return sync(self, pending)
+
+    client_mod.ServeClient._discard = recording_discard
+    engine_cls.step_sync = recording_sync
+    try:
+        # tick 4: a steady-state enqueue, dispatch 3's handle in flight
+        plan = FaultPlan.at("serve.dispatch", [4])
+        done, counters, rec = f_serve(p32, sd, trace, layout, plan)
+    finally:
+        client_mod.ServeClient._discard = discard
+        engine_cls.step_sync = sync
+    f_check_run("(d) f32 async int8", done, ref, counters, rec, rebuilds=1)
+    gone = seen["discarded"]
+    check(gone and gone[0].event is not None
+          and id(gone[0]) not in seen["synced"],
+          f"phaseF (d): the in-flight handle was not discarded unsynced "
+          f"({len(gone)} discarded)")
+    k5 = f_after_rebuild(rec)["k5"]
+    check(sum(k5.values()) > 0, "phaseF (d): no K5 launch after the rebuild")
+    add_launches(out["launches"], rec["launches"])
+    res = f_summary(counters, rec, dict(
+        discarded=len(gone), discarded_dispatch=gone[0].dispatch,
+        k5_after_rebuild=k5))
+    print("phaseF (d)", json.dumps(dict(res, card=card)), flush=True)
+    out["runs"]["d"] = res
+
+
+def f_journal(cfg, sd, trace, ref, card, out, root):
+    """(e) phase 2's trace, f32, with a journal (``sync_every=8``) on
+    phase 2's engine with ``prefill_chunk=128`` (prompts of up to 128
+    tokens still take the batched prefill, so the fault-free tokens are
+    (a)'s; a restored request's prompt + frontier, which can exceed
+    ``prefill_len``, streams back in through chunks): the serve.driver
+    site kills the driver mid-trace; ``ServeClient.restore`` on a fresh
+    client finishes it with (a)'s fault-free tokens, and no request
+    retired before the kill is served again. Prints the journal's
+    bytes, records, fsyncs and ms per fsync."""
+    from ray_lightning_tpu_torch.reliability import FaultPlan, InjectedFault
+    from ray_lightning_tpu_torch.serve import (Journal, ServeClient,
+                                               read_journal)
+    layout = dict(SERVE, attention_kernel="cuda", prefill_chunk=L_CHUNK)
+    p32 = f_models(cfg, torch.float32)
+    path = os.path.join(root, "serve.journal")
+    journal = Journal(path, sync_every=F_JOURNAL_SYNC)
+    sync, fsync_s = journal.sync, []
+
+    def timed_sync():
+        pending = journal._unsynced
+        t0 = time.perf_counter()
+        sync()
+        if pending:
+            fsync_s.append(time.perf_counter() - t0)
+
+    journal.sync = timed_sync
+    dead = ServeClient(p32, sd, device=DEVICE, journal=journal, **layout)
+    plan = FaultPlan.at("serve.driver", [F_DRIVER_KILL])
+    killed = False
+    with plan.armed():
+        try:
+            dead.serve_trace(list(trace))
+        except InjectedFault:
+            killed = True
+    check(killed, "phaseF (e): the serve.driver site did not fire")
+    early = {rid: (c.tokens, c.finish_reason)
+             for rid, c in dead.completions.items()}
+    records = journal.records
+    # the driver is gone, its engine's device state with it; its journal
+    # is dropped unclosed (as JAX's test drops it)
+    dead.engine.shutdown()
+    del dead, journal, sync, timed_sync
+    gc.collect()
+    state = read_journal(path)
+    pending = {r.id for r, _ in state.pending()}
+    t0 = time.perf_counter()
+    client = ServeClient.restore(path, p32, sd, device=DEVICE, **layout)
+    restore_s = time.perf_counter() - t0
+    done = client.run_until_idle()
+    client.shutdown()
+    check(set(done) == pending and not pending & set(early),
+          f"phaseF (e): restored {sorted(done)}, pending {sorted(pending)}")
+    for rid in pending:
+        check(f_tokens({rid: done[rid]})[rid] == ref[rid],
+              f"phaseF (e): request {rid} differs after the restore")
+    for rid, toks in early.items():
+        check(toks == ref[rid], f"phaseF (e): request {rid} differs")
+    check(set(done) | set(early) == set(ref),
+          "phaseF (e): a request was lost across the restart")
+    res = dict(journal_bytes=os.path.getsize(path),
+               records_before_kill=records,
+               records_total=read_journal(path).records,
+               fsyncs=len(fsync_s),
+               fsync_ms_median=1e3 * statistics.median(fsync_s),
+               fsync_ms_max=1e3 * max(fsync_s),
+               bytes_per_request=os.path.getsize(path) / len(ref),
+               retired_before_kill=len(early), replayed=len(pending),
+               torn_tail=state.torn_tail, restore_ms=1e3 * restore_s,
+               card=card)
+    print("phaseF (e)", json.dumps(res), flush=True)
+    out["runs"]["e"] = res
+
+
+def f_telemetry(cfg, sd, trace, card, out, root):
+    """(f) phase 2's bf16 page-native trace with
+    ``Telemetry(clock=time.perf_counter, jsonl_path=...)`` armed beside
+    the same trace disarmed: tokens equal; a profiled decode dispatch's
+    launches equal armed and disarmed (phase G's count); the armed async
+    client's steady-state enqueues under
+    ``set_sync_debug_mode("error")``; the Chrome trace parses with the
+    JAX span names; host ms a tick, events by name."""
+    from ray_lightning_tpu_torch.obs import Telemetry
+    from ray_lightning_tpu_torch.serve import ServeClient
+    layout = dict(SERVE, attention_kernel="cuda")
+    proto = f_models(cfg, torch.bfloat16)
+    res, tokens = {}, {}
+    p_reset()
+    for armed in (False, True):
+        tel = (Telemetry(clock=time.perf_counter,
+                         jsonl_path=os.path.join(root, "f.jsonl"))
+               if armed else None)
+        client = ServeClient(proto, sd, device=DEVICE, telemetry=tel,
+                             **layout)
+        tick, tick_s = client.tick, []
+
+        def timed_tick(_tick=tick, _s=tick_s):
+            t0 = time.perf_counter()
+            got = _tick()
+            _s.append(time.perf_counter() - t0)
+            return got
+
+        client.tick = timed_tick
+        done = client.serve_trace(list(trace))
+        client.shutdown()
+        tokens[armed] = f_tokens(done)
+        key = "armed" if armed else "disarmed"
+        res[key] = dict(tick_ms_median=1e3 * statistics.median(tick_s),
+                        tick_ms_mean=1e3 * statistics.mean(tick_s),
+                        ticks=len(tick_s))
+        if armed:
+            tel.flush()
+            sites = [json.loads(line)["site"]
+                     for line in open(os.path.join(root, "f.jsonl"))]
+            counts = {s: sites.count(s) for s in sorted(set(sites))}
+            doc = json.load(open(tel.spans.export_chrome_trace(
+                os.path.join(root, "f_trace.json"))))
+            names = {e["name"] for e in doc["traceEvents"]}
+            check(names and names <= F_SPANS
+                  and {"engine.prefill", "engine.step"} <= names,
+                  f"phaseF (f): span names {sorted(names)}")
+            check(counts.get("serve.retire") == len(trace),
+                  f"phaseF (f): events {counts}")
+            res["armed"].update(events=counts, spans=len(doc["traceEvents"]),
+                                span_names=sorted(names),
+                                jsonl_bytes=os.path.getsize(
+                                    os.path.join(root, "f.jsonl")))
+    check(tokens[True] == tokens[False],
+          "phaseF (f): armed tokens differ from disarmed")
+    res["armed_over_disarmed_tick_ms"] = (res["armed"]["tick_ms_median"]
+                                          / res["disarmed"]["tick_ms_median"])
+    profiles = {}
+    for armed in (False, True):
+        tel = Telemetry(clock=time.perf_counter) if armed else None
+        prof = profile_decode(proto, sd, trace, SERVE,
+                              attention_kernel="cuda", telemetry=tel)
+        profiles[armed] = dispatch_launches(prof)
+        res["armed" if armed else "disarmed"]["profile"] = dict(
+            launches=prof["launches"],
+            host_launch_calls=prof["host_launch_calls"],
+            device_busy_ms=prof["device_busy_ms"],
+            host_ms_median=prof["host_ms_median"],
+            idle_share=prof["idle_share"])
+    spread = G_LAUNCH_SPREAD * F_PAGE_NATIVE_LAUNCHES
+    check(all(abs(n - F_PAGE_NATIVE_LAUNCHES) <= spread
+              for n in profiles.values())
+          and abs(profiles[True] - profiles[False]) <= spread,
+          f"phaseF (f): decode dispatch launches armed "
+          f"{profiles[True]}, disarmed {profiles[False]}, expected "
+          f"{F_PAGE_NATIVE_LAUNCHES}")
+    done, _, st = p_serve(proto, sd, trace, layout, async_dispatch=True,
+                          debug=True, telemetry=Telemetry(
+                              clock=time.perf_counter))
+    check(st["checked"] > 0 and f_tokens(done) == tokens[False],
+          f"phaseF (f): {st['checked']} armed enqueues checked under "
+          "set_sync_debug_mode, or async tokens differ")
+    res["async_enqueues_checked"] = st["checked"]
+    add_launches(out["launches"], p_launches())
+    print("phaseF (f)", json.dumps(dict(res, card=card)), flush=True)
+    out["runs"]["f"] = res
+
+
+def phase_f_faults(cfg, sd, trace, served, card):
+    """Faults and telemetry at GPT-2-small width (the module docstring):
+    (a)-(d) crash replay through the page-native, chunked, spec and async
+    int8-weights engines, (e) a journal across a driver kill, (f)
+    telemetry armed against disarmed, (g) memory across rebuilds (every
+    faulted run's own check) and recovery ms per crash."""
+    import tempfile
+    out = {"runs": {}, "launches": {}, "k2_chunk_tc": 0}
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phaseF-")
+    try:
+        ref = f_page_native(cfg, sd, trace, served, card, out)
+        f_chunked(cfg, sd, card, out)
+        f_spec(cfg, sd, trace, card, out)
+        f_async_int8(cfg, sd, trace, card, out)
+        f_journal(cfg, sd, trace, ref, card, out, root)
+        f_telemetry(cfg, sd, trace, card, out, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    runs = out["runs"]
+    g = {tag: runs[tag]["f32"]["recovery_ms_per_crash"] if "f32" in runs[
+        tag] else runs[tag]["recovery_ms_per_crash"] for tag in "abcd"}
+    print("phaseF (g)", json.dumps(dict(
+        recovery_ms_per_crash=g, rebuilt_bytes={
+            tag: (runs[tag]["f32"] if "f32" in runs[tag] else runs[tag]
+                  )["rebuilt_bytes"] for tag in "abcd"},
+        launches=out["launches"], seconds=time.perf_counter() - t0,
+        card=card)), flush=True)
+    return out
+
+
 # -------------------------------------------------------------- phase T1
 FLASH_CASES = [  # (label, B, T, S, causal); H=12, D=64 throughout
     ("path", 8, 1024, 1024, True),
@@ -4090,6 +4660,7 @@ def main() -> int:
     dense = phase_g_dense(cfg, sd, trace, served, card)
     pipelined = phase_p_async(cfg, sd, trace, card)
     adapted = phase_a_adapters(cfg, sd, trace, card)
+    faulted = phase_f_faults(cfg, sd, trace, served, card)
     del sd
 
     fpath = flash[("path", "bfloat16")]
@@ -4123,14 +4694,18 @@ def main() -> int:
     p_k1 = sum(pl[e]["k1_by_t"].get(1, 0)
                for e in ("page-native", "int8-weights", "chunked"))
     a_k1 = al["k1_by_t"].get(1, 0) + ac["k1_by_t"].get(1, 0)
+    # phase F: every run's K1 by T, K2's chunk launches on tc (its bf16
+    # chunked run), K5 by route
+    fl = faulted["launches"]
     kernels = []
     for name, row, n in (
             (pa.KERNEL, path,
              launches + long_prompts["runs"]["bf16"]["k1_launches"]
-             + p_k1 + a_k1),
+             + p_k1 + a_k1 + fl["k1_by_t"].get(1, 0)),
             (pa.KERNEL + "_verify", verify,
              speculative["runs"]["bf16"]["k1_launches"]
-             + pl["spec"]["k1_by_t"].get(S_K + 1, 0))):
+             + pl["spec"]["k1_by_t"].get(S_K + 1, 0)
+             + fl["k1_by_t"].get(S_K + 1, 0))):
         kernels.append(dict(
             name=name, route="cuda",
             source="ray_lightning_tpu_torch/csrc/paged_attention.cu",
@@ -4163,7 +4738,8 @@ def main() -> int:
         name="flash_fwd_chunk", route="cuda", source=flash_source,
         replaces="ray_lightning_tpu/ops/pallas_flash.py:41",
         launches=(long_prompts["runs"]["bf16"]["k2_routes"]["tc"]
-                  + pl["chunked"]["k2"]["tc"] + ac["k2"]["tc"]),
+                  + pl["chunked"]["k2"]["tc"] + ac["k2"]["tc"]
+                  + faulted["k2_chunk_tc"]),
         **{k: chunk[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}))
     # K5: one forward's calls -- n_layers x (qkv, out, up, down) and the
@@ -4182,12 +4758,13 @@ def main() -> int:
     qd = dense["generate"]["int8-weights"]["route_launches"]
     qe = [dense["spec"][n]["int8_weights"] for n in G_LAYOUTS]
     qp, qa, qc = pl["int8-weights"]["k5"], al["k5"], ac["k5"]
+    qf = fl["k5"]
     decode = ("gemv_dense", "gemv_attend")
     for name, M, launches5 in (
             (qmm.KERNEL, 8, sum(q2[r] + ql[r] + qs["route_launches"][r]
                                 + qg[r] + qd[r]
                                 + sum(e["route_launches"][r] for e in qe)
-                                + qp[r] + qa[r] + qc[r]
+                                + qp[r] + qa[r] + qc[r] + qf.get(r, 0)
                                 for r in decode)),
             (qmm.KERNEL + "_prefill", 1024, q2["tc"] + qg["tc"] + qd["tc"]
              + qp["tc"] + qa["tc"]),

@@ -25,10 +25,13 @@ reporting (``tune.py``: ``TuneReportCallback``,
 session queue that crosses to the worker processes, the command line
 (``cli.py``: ``TpuLightningCLI``, ``python -m
 ray_lightning_tpu_torch.cli``), ZeRO by the JAX package's split of the
-optimizer state, and the memory presets under ZeRO and FSDP2. Still raising
-``NotImplementedError``, each naming its ``ROADMAP.md`` item:
-``telemetry=``, ``gang=`` and ``standby=`` (S6/T7), dropout and remat
-(T3).
+optimizer state, and the memory presets under ZeRO and FSDP2. Slice 15
+is serving reliability and observability: ``obs/`` (``Telemetry``),
+``ServeClient(retry_policy=, journal=, telemetry=, clock_epoch=)``,
+crash replay through every serving route, ``ServeSupervisor`` and
+``ServeClient.restore``. Still raising ``NotImplementedError``, each
+naming its ``ROADMAP.md`` item: the Trainer's ``telemetry=``, ``gang=``
+and ``standby=`` (S6/T7, item 6; the training half, T7, is next).
 
 Ground rules of the port:
 
@@ -65,7 +68,11 @@ from ray_lightning_tpu_torch.interop import (load_flax_params,
 from ray_lightning_tpu_torch.models import (BoringModel, GPTModule,
                                             TransformerConfig, TransformerLM,
                                             gpt2_config)
-from ray_lightning_tpu_torch.reliability import FaultPlan, NonFiniteError
+from ray_lightning_tpu_torch.obs import Telemetry
+from ray_lightning_tpu_torch.reliability import (FaultPlan, NonFiniteError,
+                                                 RetriesExhausted,
+                                                 RetryPolicy,
+                                                 ServeSupervisor)
 from ray_lightning_tpu_torch.serve import ServeClient, ServeEngine
 from ray_lightning_tpu_torch.strategies import (FSDPStrategy,
                                                 HorovodRayStrategy,
@@ -77,6 +84,7 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "TpuDataModule", "TpuModule", "Trainer", "make_optimizer",
            "resolve_device", "load_flax_params", "load_flax_quantized",
            "BoringModel", "GPTModule", "TransformerConfig", "TransformerLM",
-           "gpt2_config", "FaultPlan", "NonFiniteError", "ServeClient",
+           "gpt2_config", "FaultPlan", "NonFiniteError", "RetriesExhausted",
+           "RetryPolicy", "ServeSupervisor", "Telemetry", "ServeClient",
            "ServeEngine", "RayStrategy", "HorovodRayStrategy",
            "RayShardedStrategy", "FSDPStrategy"]

@@ -31,7 +31,7 @@ The JAX launcher's TPU rule -- one actor per host, enforced unless
 ``allow_colocated_workers`` -- does not apply: a card has one owner
 either way, and ``allow_colocated_workers`` has no effect here. Gang
 supervision (``gang=``), warm standbys (``standby=``) and the in-memory
-checkpoint tier are ``ROADMAP.md`` S6/T7 (item 7) and raise.
+checkpoint tier are ``ROADMAP.md`` S6/T7 (item 6) and raise.
 
 Ray is optional: the launcher takes any ray-compatible module, which is
 also the test seam (``testing/fake_ray.py``, ``process_backend.py``).
@@ -53,7 +53,7 @@ from ray_lightning_tpu_torch.util import process_results
 MASTER_ADDR_ENV = "MASTER_ADDR"
 MASTER_PORT_ENV = "MASTER_PORT"
 WORLD_SIZE_ENV = "WORLD_SIZE"
-_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 7"
+_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 6"
 
 
 def _import_ray():

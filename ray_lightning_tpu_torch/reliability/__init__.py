@@ -1,13 +1,22 @@
-"""Fault tolerance for the one-process trainer (counterpart of ``ray_lightning_tpu/reliability/``).
+"""Fault tolerance (counterpart of ``ray_lightning_tpu/reliability/``).
 
 - :mod:`.faults` -- the seedable :class:`FaultPlan` that injects failures
   (raise / NaN-poison / stall) at named sites by tick, copied from the
   JAX package: the trainer fires ``train.step``, ``loader.next`` and
-  ``ckpt.save`` where the JAX trainer does.
+  ``ckpt.save``, the serving engine ``serve.dispatch``, ``serve.verify``
+  and ``serve.poison``, the client ``serve.driver``, where the JAX
+  package fires them.
+- :mod:`.retry` -- :class:`RetryPolicy` (bounded attempts, exponential
+  backoff, deterministic jitter, optional deadline) and
+  :func:`call_with_retry`, copied.
+- :mod:`.supervisor` -- :class:`ServeSupervisor`: rebuilds a crashed
+  :class:`~ray_lightning_tpu_torch.serve.engine.ServeEngine` and
+  re-admits every in-flight request by replaying its prompt + emitted
+  tokens.
 - :mod:`.guard` -- the non-finite loss/gradient guard's helpers.
 
-Retry, the supervisors, gang supervision and the warm recovery tiers
-come with ``ROADMAP.md`` T6/T7.
+``FitSupervisor``, gang supervision and the warm recovery tiers come
+with ``ROADMAP.md`` T7.
 """
 from __future__ import annotations
 
@@ -17,22 +26,43 @@ logger = logging.getLogger("ray_lightning_tpu_torch.reliability")
 
 
 def log_suppressed(site: str, exc: BaseException, detail: str = "") -> None:
-    """Record a swallowed exception instead of silently dropping it."""
+    """Record a swallowed exception instead of silently dropping it.
+
+    With a :class:`~ray_lightning_tpu_torch.obs.Telemetry` handle
+    activated, every suppression also lands on its event bus (site
+    ``log.suppressed``) and in ``reliability_suppressed_total``."""
+    # the message, not the exception, goes to the log: a handler that
+    # keeps records (a test's capture) must not pin the traceback's
+    # frames -- a crashed engine among them
     logger.warning("suppressed at %s: %s: %s%s", site,
-                   type(exc).__name__, exc,
+                   type(exc).__name__, str(exc),
                    f" ({detail})" if detail else "")
+    from ray_lightning_tpu_torch.obs import emit_global, get_global
+    emit_global("log.suppressed", site=site, exc=type(exc).__name__,
+                detail=detail)
+    tel = get_global()
+    if tel is not None:
+        tel.metrics.counter(
+            "reliability_suppressed_total",
+            help="exceptions swallowed via log_suppressed").inc()
 
 
 from ray_lightning_tpu_torch.reliability.faults import (  # noqa: E402
     FaultPlan, FaultSpec, InjectedFault, MODE_EXIT, MODE_NAN, MODE_RAISE,
-    MODE_STALL, SITE_CKPT_SAVE, SITE_LOADER_NEXT, SITE_TRAIN_STEP, arm,
-    disarm, ensure_armed, fire, get_armed)
+    MODE_STALL, SITE_CKPT_SAVE, SITE_LOADER_NEXT, SITE_SERVE_DISPATCH,
+    SITE_TRAIN_STEP, arm, disarm, ensure_armed, fire, get_armed)
 from ray_lightning_tpu_torch.reliability.guard import (  # noqa: E402
     NonFiniteError)
+from ray_lightning_tpu_torch.reliability.retry import (  # noqa: E402
+    RetriesExhausted, RetryPolicy, call_with_retry)
+from ray_lightning_tpu_torch.reliability.supervisor import (  # noqa: E402
+    ServeSupervisor, failed_completion)
 
 __all__ = [
     "FaultPlan", "FaultSpec", "InjectedFault", "MODE_EXIT", "MODE_NAN",
     "MODE_RAISE", "MODE_STALL", "SITE_CKPT_SAVE", "SITE_LOADER_NEXT",
-    "SITE_TRAIN_STEP", "arm", "disarm", "ensure_armed", "fire",
-    "get_armed", "NonFiniteError", "logger", "log_suppressed",
+    "SITE_SERVE_DISPATCH", "SITE_TRAIN_STEP", "arm", "disarm",
+    "ensure_armed", "fire", "get_armed", "NonFiniteError",
+    "RetriesExhausted", "RetryPolicy", "call_with_retry",
+    "ServeSupervisor", "failed_completion", "logger", "log_suppressed",
 ]

@@ -1,8 +1,9 @@
 """Deterministic fault injection at named sites (copied from ``ray_lightning_tpu/reliability/faults.py``).
 
 The standard library only, as in the JAX package: the same sites, modes,
-tick counting and arming. The injections are logged; their telemetry
-events come with ``ROADMAP.md`` S6/T7.
+tick counting and arming. Every injection is logged and, with a
+:class:`~ray_lightning_tpu_torch.obs.Telemetry` activated, lands on its
+bus as ``fault.injected`` and in ``reliability_faults_total``.
 
 Chaos testing on XLA's terms: failures must be *replayable*. A
 :class:`FaultPlan` is a finite schedule of :class:`FaultSpec`\\ s keyed by
@@ -304,6 +305,16 @@ class FaultPlan:
         self.fired += 1
         logger.warning("injecting %s at %s tick %d (rank %s)", spec.mode,
                        site, tick, "any" if rank is None else rank)
+        # chaos is observable, not just survivable: injections land on
+        # the activated telemetry's event bus (no-op without one)
+        from ray_lightning_tpu_torch import obs
+        obs.emit_global("fault.injected", site=site, tick=tick,
+                        mode=spec.mode)
+        tel = obs.get_global()
+        if tel is not None:
+            tel.metrics.counter(
+                "reliability_faults_total",
+                help="faults injected by the armed FaultPlan").inc()
         if spec.mode == MODE_RAISE:
             raise InjectedFault(site, tick)
         if spec.mode == MODE_EXIT:
@@ -346,6 +357,14 @@ class FaultPlan:
         self.fired += 1
         logger.warning("injecting poison crash: request %d present "
                        "(hit %d, mode %s)", hit, tick, self.poison_mode)
+        from ray_lightning_tpu_torch import obs
+        obs.emit_global("fault.injected", site=SITE_SERVE_POISON,
+                        tick=tick, mode=self.poison_mode, request=hit)
+        tel = obs.get_global()
+        if tel is not None:
+            tel.metrics.counter(
+                "reliability_faults_total",
+                help="faults injected by the armed FaultPlan").inc()
         if self.poison_mode == MODE_EXIT:
             if os.environ.get(WORKER_PROCESS_ENV):
                 os._exit(17)

@@ -101,12 +101,35 @@ carries the rows' bank ids (−1 = the base model). ``tenant_classes=``
 lets :meth:`ServeEngine.validate` refuse unknown tenants and
 :meth:`ServeEngine.prefill` enforce each class's ``max_active_slots``.
 
-This port covers the three layouts with chunked prefill and the prefix
-cache (paged engines), speculative decoding, async dispatch and
-multi-LoRA with tenancy; a crashed request's replay (``replay_tokens``)
-is not ported, so a chunk feeds the prompt alone. Every constructor
-argument of an unported feature raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item (:data:`UNPORTED`).
+**Crash replay** (driven by
+:class:`~ray_lightning_tpu_torch.reliability.ServeSupervisor`): a
+request re-admitted with ``replay_tokens`` feeds ``prompt +
+replay_tokens`` through the batched prefill (up to ``prefill_len``
+tokens) or through chunk dispatches (chunked engines: up to
+``max_seq_len``; :attr:`ServeEngine.max_replay_len`) and samples its
+next token with the seed of step ``len(replay_tokens)``, so the KV the
+dead engine held is rebuilt and the stream continues where it stopped.
+On a spec engine the replay prefill's draw is discarded and the row is
+armed one step early: the next spec round regenerates that step through
+the accept rule. :meth:`ServeEngine.snapshot_in_flight` is the synced
+frontier a supervisor replays from. Every dispatch fires the fault site
+``serve.dispatch`` (a spec round ``serve.verify`` too, after its draft
+refills) and the ``serve.poison`` check before it launches anything or
+advances the carry, so an injected crash leaves no half-issued dispatch.
+Only host-side faults and out-of-memory errors recover in-process: a
+sticky CUDA error poisons the process's context.
+
+**Telemetry** (``telemetry=``, a
+:class:`~ray_lightning_tpu_torch.obs.Telemetry`): the JAX engine's
+events (``engine.prefill``, ``engine.chunk``, ``engine.step``,
+``engine.spec_round``, ``engine.dispatch_enqueued``/``_synced``,
+``engine.prefix_hit``, ``engine.adapter_*``, ``engine.weights_quantized``,
+``engine.config_clamped``), spans around each dispatch and its metrics,
+each payload built from host state (no device read, no added launch);
+``None`` (the default) costs one attribute read a dispatch.
+
+:data:`UNPORTED` is empty: every constructor argument of the JAX engine
+is ported.
 """
 from __future__ import annotations
 
@@ -120,6 +143,8 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.device import resolve_device
+from ray_lightning_tpu_torch.obs.spans import NULL_SPAN
+from ray_lightning_tpu_torch.reliability import faults
 from ray_lightning_tpu_torch.models import paged_attention as _pa
 from ray_lightning_tpu_torch.models.lora import (LoraConfig, adapter_bytes,
                                                  install_adapter,
@@ -131,7 +156,8 @@ from ray_lightning_tpu_torch.models.generate import (_chunk_prefill_impl,
                                                     decode_step_paged,
                                                     row_seed,
                                                     sample_logits_rows)
-from ray_lightning_tpu_torch.models.quant import (check_weight_dtype,
+from ray_lightning_tpu_torch.models.quant import (DEFAULT_GROUP_SIZE,
+                                                  check_weight_dtype,
                                                   param_bytes)
 from ray_lightning_tpu_torch.models.transformer import (ATTENTION_KERNELS,
                                                         MATMUL_KERNELS,
@@ -163,11 +189,9 @@ from ray_lightning_tpu_torch.serve.tenancy import resolve_tenant_classes
 __all__ = ["ServeEngine", "KVSlotPool", "SlotPoolFull", "PendingDispatch",
            "UNPORTED", "refuse_unported"]
 
-#: constructor arguments of features this slice does not port yet ->
-#: the ROADMAP.md queue-A item that ports them
-UNPORTED = {
-    "telemetry": "S6 (serving reliability and observability)",
-}
+#: constructor arguments of features not ported yet -> the ROADMAP.md
+#: queue-A item that ports them (empty: every argument is ported)
+UNPORTED: Dict[str, str] = {}
 
 
 def refuse_unported(kwargs: Dict[str, object],
@@ -181,6 +205,18 @@ def refuse_unported(kwargs: Dict[str, object],
             raise NotImplementedError(
                 f"{name}= is not ported to ray_lightning_tpu_torch yet "
                 f"(ROADMAP.md queue A, item {table[name]})")
+
+
+def _quantized_event(which: str, weight_dtype: str,
+                     group_size: Optional[int], before: int,
+                     after: int) -> dict:
+    """The ``engine.weights_quantized`` payload of one model (the JAX
+    engine's keys): its dtype, the int4 group, at-rest bytes before and
+    after."""
+    return dict(model=which, dtype=weight_dtype,
+                group_size=(None if weight_dtype == "int8"
+                            else group_size or DEFAULT_GROUP_SIZE),
+                bytes_before=before, bytes_after=after)
 
 
 def _advance_rows(max_seq_len: int, last, cur, pos, active, remaining,
@@ -342,7 +378,7 @@ class _ChunkState:
     dispatches."""
     request: Request
     slot: int
-    fed: List[int]       # the prompt
+    fed: List[int]       # prompt + replayed tokens
     next_off: int        # first position not yet written (admission
     #                      sets it past any adopted prefix pages)
 
@@ -364,7 +400,11 @@ class PendingDispatch:
     on the device: the next enqueue chains on it. ``dispatch`` is the
     engine's 1-based dispatch index and ``owner`` the issuing engine's
     identity token: handles sync exactly once, in enqueue order, on the
-    engine that issued them."""
+    engine that issued them; a rebuilt-away engine's handle is
+    discarded, never synced. ``asynchronous`` marks a
+    :meth:`~ServeEngine.step_enqueue` handle, ``enqueued_at`` its
+    ``time.perf_counter()`` at enqueue, and ``enqueued_tick`` the
+    driving client's clock at enqueue (set by an armed client)."""
     kind: str                       # "step" | "spec"
     dispatch: int
     rounds: int
@@ -373,6 +413,9 @@ class PendingDispatch:
     host: torch.Tensor
     event: Optional[object] = None  # torch.cuda.Event on the card
     wait_s: float = 0.0
+    asynchronous: bool = False
+    enqueued_at: float = 0.0
+    enqueued_tick: Optional[float] = None
 
 
 class ServeEngine:
@@ -422,6 +465,9 @@ class ServeEngine:
     ``tenant_classes=`` a list of
     :class:`~ray_lightning_tpu_torch.serve.tenancy.TenantClass`.
 
+    ``telemetry=`` a :class:`~ray_lightning_tpu_torch.obs.Telemetry`
+    arms the engine's events, spans and metrics (module docstring).
+
     Drive it with :class:`~ray_lightning_tpu_torch.serve.client.ServeClient`
     or directly: ``prefill([reqs])`` starts requests, ``step()`` advances
     every in-flight one; each returns newly finished
@@ -449,7 +495,7 @@ class ServeEngine:
                  tenant_classes=None, adapters=None,
                  max_resident_adapters: Optional[int] = None,
                  lora_rank: Optional[int] = None,
-                 device=None, **unported):
+                 telemetry=None, device=None, **unported):
         refuse_unported(unported, UNPORTED)
         if page_native and page_size is None:
             raise ValueError(
@@ -551,6 +597,11 @@ class ServeEngine:
                 f"prefill_batch={prefill_batch} clamped to "
                 f"{self.prefill_batch} (valid range 1..num_slots="
                 f"{num_slots})", stacklevel=2)
+            if telemetry is not None:
+                telemetry.event("engine.config_clamped",
+                                field="prefill_batch",
+                                requested=prefill_batch,
+                                effective=self.prefill_batch)
         check_kv_dtype(kv_dtype)
         # tenancy: the engine keeps the class map so validate() refuses
         # unknown tenants and prefill() enforces max_active_slots for
@@ -593,16 +644,23 @@ class ServeEngine:
         self.model.load_state_dict(params)
         self.model.requires_grad_(False).eval()
         self.weight_dtype = weight_dtype
+        # the weights_quantized events' payloads, emitted at the end of
+        # __init__ (the JAX engine's order)
+        quantized_events: List[dict] = []
         if weight_dtype is not None:
-            self.model.quantize_weights(
-                weight_dtype,
-                weight_group_size if weight_dtype == "int4" else None)
+            group = weight_group_size if weight_dtype == "int4" else None
+            before = param_bytes(self.model.named_weights())
+            self.model.quantize_weights(weight_dtype, group)
+            quantized_events.append(_quantized_event(
+                "target", weight_dtype, group, before,
+                param_bytes(self.model.named_weights())))
         # the adapter bank rides beside the (possibly quantized) base
         # weights at full precision, and its delta outside the base
         # matmuls: a null row is the unadapted engine's
         self._registry: Optional[AdapterRegistry] = None
         self._adapter_ids: Optional[np.ndarray] = None
         self._adapter_of: Dict[int, str] = {}
+        adapter_events: List[dict] = []
         if max_resident_adapters is not None:
             install_lora_bank(self.model, LoraConfig(
                 rank=lora_rank, num_adapters=max_resident_adapters))
@@ -614,6 +672,8 @@ class ServeEngine:
             for name, tree in dict(adapters or {}).items():
                 index, _ = self._registry.admit(name)
                 install_adapter(self.model, tree, index)
+                adapter_events.append(
+                    dict(adapter=name, index=index, evicted=None))
         # speculative decoding: the draft runs the target's matmul kernel
         self.spec_k: Optional[int] = None
         self.spec: Optional[SpecDecoder] = None
@@ -629,6 +689,11 @@ class ServeEngine:
                 weight_group_size=(weight_group_size
                                    if draft_weight_dtype == "int4"
                                    else None))
+            if draft_weight_dtype is not None:
+                quantized_events.append(_quantized_event(
+                    "draft", draft_weight_dtype,
+                    weight_group_size if draft_weight_dtype == "int4"
+                    else None, *self.spec.quantized_bytes))
         self.num_slots = num_slots
         self.prefill_len = prefill_len
         self.steps_per_dispatch = steps_per_dispatch
@@ -679,6 +744,11 @@ class ServeEngine:
         # re-uploaded (pinned, non-blocking) only when the host copy
         # changes
         self._staged: Dict[str, Tuple[np.ndarray, torch.Tensor]] = {}
+        # the sync step()'s retry seat: a handle whose host copy failed
+        # after its dispatch launched (step_sync left the engine
+        # untouched, so the next step() syncs the SAME dispatch instead
+        # of wedging behind _require_synced with the handle lost)
+        self._retry_sync: Optional[PendingDispatch] = None
 
         # counters: steps counts dispatches, decode_substeps decode
         # token-steps (steps x steps_per_dispatch)
@@ -694,6 +764,24 @@ class ServeEngine:
         self.spec_accepted_tokens = 0
         self.spec_rejected_tokens = 0
         self.spec_draft_steps = 0
+
+        # off by default: one attribute read + None check a dispatch
+        self._tel = telemetry
+        # extra args splatted into every engine span (a fleet stamps its
+        # replica's seat here); empty for a standalone engine
+        self._span_extra: Dict[str, object] = {}
+        if telemetry is not None:
+            for payload in quantized_events:
+                telemetry.event("engine.weights_quantized", **payload)
+            telemetry.metrics.gauge(
+                "serve_param_bytes",
+                help="at-rest parameter bytes this engine streams per "
+                "decode pass (target + draft; quantized codes + scales "
+                "when weight_dtype is set)").set(self.param_bytes())
+            if self._registry is not None:
+                for payload in adapter_events:
+                    telemetry.event("engine.adapter_loaded", **payload)
+                self._set_adapter_gauge()
 
     # ------------------------------------------------------- multi-LoRA
     @property
@@ -717,6 +805,12 @@ class ServeEngine:
         return (self._registry.refcount(name)
                 if self._registry is not None else 0)
 
+    def _set_adapter_gauge(self) -> None:
+        self._tel.metrics.gauge(
+            "serve_adapter_resident",
+            help="LoRA adapters currently resident in the engine's "
+            "adapter bank").set(len(self._registry.residents))
+
     def _need_bank(self) -> None:
         if self._registry is None:
             raise ValueError(
@@ -735,6 +829,14 @@ class ServeEngine:
         self._require_synced("load_adapter")
         index, evicted = self._registry.admit(name)
         install_adapter(self.model, adapter, index)
+        tel = self._tel
+        if tel is not None:
+            if evicted is not None:
+                tel.event("engine.adapter_evicted", adapter=evicted,
+                          index=index, by=name)
+            tel.event("engine.adapter_loaded", adapter=name,
+                      index=index, evicted=evicted)
+            self._set_adapter_gauge()
         return evicted
 
     def unload_adapter(self, name: str) -> None:
@@ -744,6 +846,10 @@ class ServeEngine:
         self._require_synced("unload_adapter")
         index = self._registry.unload(name)
         zero_adapter(self.model, index)
+        tel = self._tel
+        if tel is not None:
+            tel.event("engine.adapter_unloaded", adapter=name, index=index)
+            self._set_adapter_gauge()
 
     def _effective_adapter(self, request: Request) -> Optional[str]:
         """The adapter a request decodes under: its own, else its tenant
@@ -768,6 +874,13 @@ class ServeEngine:
         self._adapter_ids[slot] = index
         self._adapter_of[slot] = name
         req.adapter = name
+        tel = self._tel
+        if tel is not None:
+            tel.event("engine.adapter_bound", id=req.id, adapter=name,
+                      slot=slot, index=index)
+            tel.metrics.counter(
+                f"serve_adapter_requests_total_{name}",
+                help="requests admitted under this LoRA adapter").inc()
         return index
 
     def _unbind_adapter(self, slot: int) -> None:
@@ -828,6 +941,25 @@ class ServeEngine:
         """True while an enqueued dispatch's carry has not been synced
         back to the host (an outstanding :class:`PendingDispatch`)."""
         return self._carry is not None
+
+    @property
+    def retry_pending(self) -> bool:
+        """True while a failed sync step's handle waits in the retry
+        seat -- the next :meth:`step` drains it before dispatching anew
+        (the sync client's tick does this ahead of any barrier, so a
+        transient host-copy error cannot wedge deadline cancels or
+        admissions)."""
+        return self._retry_sync is not None
+
+    @property
+    def max_replay_len(self) -> int:
+        """Longest prompt + already-emitted-tokens sequence a crash
+        recovery can re-feed: one batched prefill pass without chunking
+        (``prefill_len``), the whole sequence axis with it (chunked
+        replay streams any admissible request back in)."""
+        if self.prefill_chunk is not None:
+            return self.model.cfg.max_seq_len
+        return self.prefill_len
 
     @property
     def spec_needs_refill(self) -> bool:
@@ -942,7 +1074,7 @@ class ServeEngine:
             return False
         if self.prefix is not None:
             return True
-        fed = request.prompt_len
+        fed = request.prompt_len + len(request.replay_tokens or ())
         return fed > self.prefill_chunk or fed > self.prefill_len
 
     def _chunk_floor(self, pages: int) -> int:
@@ -1001,14 +1133,21 @@ class ServeEngine:
         """Start ``requests``: slots (and pages) are acquired atomically
         for the whole batch. Prompts the batched prefill takes run one
         pass that samples every first token and copies every KV row into
-        its slot or scatters it into its pages; chunk-routed prompts (longer than ``prefill_chunk``, or
-        any prompt under a prefix cache) are queued for
-        :meth:`prefill_chunk_step` instead, past any prefix pages they
-        adopt. Returns completions of requests that finish on their
-        first token (eos or a budget of one)."""
+        its slot or scatters it into its pages; chunk-routed prompts
+        (longer than ``prefill_chunk``, or any prompt under a prefix
+        cache) are queued for :meth:`prefill_chunk_step` instead, past
+        any prefix pages they adopt. Returns completions of requests that
+        finish on their first token (eos or a budget of one).
+
+        A request carrying ``replay_tokens`` (crash recovery, see
+        :class:`~ray_lightning_tpu_torch.reliability.ServeSupervisor`)
+        feeds its prompt + those tokens: the pass rebuilds the KV the
+        dead engine held and samples with the seed of step
+        ``len(replay_tokens)``."""
         if not requests:
             return []
         self._require_synced("prefill")
+        faults.fire("serve.dispatch")
         n_batched = sum(not self._routes_chunked(r) for r in requests)
         if n_batched > self.prefill_batch \
                 or len(requests) > self.free_slots:
@@ -1037,7 +1176,8 @@ class ServeEngine:
             for req in requests:
                 self.validate(req)
                 self._check_slot_quota(req)
-                fed = list(req.prompt)
+                replay = list(req.replay_tokens or ())
+                fed = list(req.prompt) + replay
                 if self._routes_chunked(req):
                     adopt = self._adoptable_prefix(fed)
                     slot = self._admit_paged(req, adopt)
@@ -1053,8 +1193,15 @@ class ServeEngine:
                         # served under the same chunk-alignment cap
                         eligible = self._chunk_floor(
                             (len(fed) - 1) // self.pool.page_size)
-                        adoptions.append((eligible, len(adopt)))
+                        adoptions.append((eligible, len(adopt), req))
                     continue
+                L = len(fed)
+                if L > self.prefill_len:
+                    raise ValueError(
+                        f"request {req.id}: prompt ({req.prompt_len}) + "
+                        f"replayed tokens ({len(replay)}) exceed "
+                        f"prefill_len ({self.prefill_len}) -- not "
+                        "resumable in one prefill pass")
                 slot = (self._admit_paged(req, []) if self.paged
                         else self.pool.acquire(req))
                 acquired.append(slot)
@@ -1062,11 +1209,11 @@ class ServeEngine:
                 adapter_row[r] = self._bind_adapter(req, slot)
                 batched.append(req)
                 slots.append(slot)
-                prompts[r, :req.prompt_len] = fed
-                lengths[r] = req.prompt_len
+                prompts[r, :L] = fed
+                lengths[r] = L
                 if self.paged:
                     inject_pt[r] = self.pool.page_table[slot]
-                seeds[r] = row_seed(self.seed, req.seed, 0)
+                seeds[r] = row_seed(self.seed, req.seed, len(replay))
                 temp[r] = req.temperature
                 top_k[r] = req.top_k or 0
         except Exception:
@@ -1081,16 +1228,29 @@ class ServeEngine:
             for _ in range(n_chunked):
                 self._chunk_queue.pop()
             raise
+        # poison fires AFTER the batch is seated (the dispatch fire above
+        # precedes slot acquisition): a poison crash leaves its request
+        # in flight, where snapshot_in_flight() sees it
+        faults.poison_check(requests)
         # statistics only once the whole batch's admission held
-        for eligible, adopted in adoptions:
+        tel = self._tel
+        for eligible, adopted, req in adoptions:
             self.prefix.record_admission(eligible, adopted)
+            if tel is not None and adopted:
+                tel.event("engine.prefix_hit", id=req.id, pages=adopted,
+                          tokens=adopted * self.pool.page_size)
+                tel.metrics.counter(
+                    "serve_prefix_pages_reused_total",
+                    help="KV pages adopted from the prefix cache"
+                ).inc(adopted)
         if not batched:
             return []
         dev = self.device
         prompts_t = torch.from_numpy(prompts).to(dev)
         lengths_t = torch.from_numpy(lengths).to(dev)
         adapter_arg = self._adapter_arg(adapter_row, "prefill_adapters")
-        with torch.inference_mode():
+        with (tel.span("engine.prefill", n=len(batched), **self._span_extra)
+              if tel is not None else NULL_SPAN), torch.inference_mode():
             if self.paged:
                 cache, last = _prefill_impl(self.model, prompts_t, lengths_t,
                                             adapter_arg)
@@ -1103,6 +1263,9 @@ class ServeEngine:
                     self.model, self.pool.cache, prompts_t, lengths_t,
                     slots, seeds, temp, top_k, adapter_arg)
             first = first.cpu().numpy()
+        if tel is not None:
+            tel.event("engine.prefill", n=len(batched),
+                      ids=[r.id for r in batched], slots=list(slots))
         done: List[Completion] = []
         for r, req in enumerate(batched):
             comp = self._activate(req, slots[r], int(first[r]))
@@ -1113,17 +1276,19 @@ class ServeEngine:
 
     def prefill_chunk_step(self) -> List[Completion]:
         """One chunk dispatch for the head of the chunk queue: the next
-        ``prefill_chunk`` tokens at the request's offset. On the final
-        chunk the sampled first token (the same ``row_seed(engine seed,
-        request seed, 0)`` draw as the batched prefill's) activates the
-        decode row, or retires the request (eos or a budget of one);
-        with a prefix cache the prompt's full pages are published
-        first."""
+        ``prefill_chunk`` tokens of prompt + replayed tokens at the
+        request's offset. On the final chunk the sampled token (the same
+        ``row_seed(engine seed, request seed, len(replay_tokens))`` draw
+        as the batched prefill's) activates the decode row, or retires
+        the request (eos or an exhausted budget); with a prefix cache the
+        prompt's full pages are published first."""
         self.chunk_activated = None
         if not self._chunk_queue:
             return []
         self._require_synced("prefill_chunk_step")
+        faults.fire("serve.dispatch")
         st = self._chunk_queue[0]
+        faults.poison_check((st.request,))
         req = st.request
         C = self.prefill_chunk
         L = len(st.fed)
@@ -1132,8 +1297,12 @@ class ServeEngine:
         final = off + valid >= L
         tokens = np.zeros((1, C), np.int64)
         tokens[0, :valid] = st.fed[off:off + valid]
+        startno = len(req.replay_tokens or ())
         dev = self.device
-        with torch.inference_mode():
+        tel = self._tel
+        with (tel.span("engine.chunk", id=req.id, off=off, n=valid,
+                       slot=st.slot, **self._span_extra)
+              if tel is not None else NULL_SPAN), torch.inference_mode():
             last = _chunk_prefill_impl(
                 self.model, self.pool.arena,
                 torch.from_numpy(self.pool.page_table[st.slot]).to(dev),
@@ -1144,10 +1313,13 @@ class ServeEngine:
             first = None
             if final:
                 first = int(sample_logits_rows(
-                    last, [row_seed(self.seed, req.seed, 0)],
+                    last, [row_seed(self.seed, req.seed, startno)],
                     [req.temperature], [req.top_k or 0])[0])
         st.next_off = off + valid
         self.chunk_dispatches += 1
+        if tel is not None:
+            tel.event("engine.chunk", id=req.id, off=off, n=valid,
+                      final=final)
         if not final:
             return []
         self._chunk_queue.popleft()
@@ -1163,26 +1335,38 @@ class ServeEngine:
 
     def _activate(self, req: Request, slot: int,
                   tok: int) -> Optional[Completion]:
-        """First-token bookkeeping: record the token, retire on
-        eos-on-first or a budget of one, else arm the slot's row."""
-        self._tokens[slot] = [tok]
-        self.tokens_generated += 1
-        hit_eos = req.eos_id is not None and tok == req.eos_id
-        if hit_eos or req.max_new_tokens <= 1:
+        """First-token bookkeeping shared by the batched prefill and the
+        final chunk: record the token after any replayed ones, retire on
+        eos or an exhausted budget, else arm the slot's row."""
+        toks = list(req.replay_tokens or ())
+        if self.spec is None or not toks:
+            toks.append(tok)
+            self.tokens_generated += 1
+        # else: spec-engine replay -- the prefill's plain draw is NOT the
+        # token the uninterrupted spec stream committed at this step
+        # (that one came through the accept rule). Discard it and arm the
+        # row one step earlier: the next spec round regenerates step
+        # len(replay) through the same accept rule off the same seeds, so
+        # sampled streams stay replay-exact (greedy commits the target
+        # argmax either way)
+        self._tokens[slot] = toks
+        hit_eos = req.eos_id is not None and toks[-1] == req.eos_id
+        if hit_eos or len(toks) >= req.max_new_tokens:
             return self._retire(slot, FINISH_EOS if hit_eos
                                 else FINISH_LENGTH)
-        self._cur[slot, 0] = tok
-        self._pos[slot, 0] = req.prompt_len
+        self._cur[slot, 0] = toks[-1]
+        self._pos[slot, 0] = req.prompt_len + len(toks) - 1
         self._active[slot] = True
-        self._remaining[slot] = req.max_new_tokens - 1
+        self._remaining[slot] = req.max_new_tokens - len(toks)
         self._temp[slot] = req.temperature
         self._top_k[slot] = req.top_k or 0
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         self._seeds[slot] = req.seed
-        self._stepno[slot] = 1
+        self._stepno[slot] = len(toks)
         if self.spec is not None:
-            # whatever armed the row (a prefill, a final chunk), the draft
-            # rebuilds its KV from the whole context before the next round
+            # whatever armed the row (a prefill, a final chunk, a crash
+            # replay), the draft rebuilds its KV from the whole context
+            # before the next round
             self.spec.mark_stale(slot)
         return None
 
@@ -1192,14 +1376,24 @@ class ServeEngine:
         finished inside it (rows finishing at sub-step k park for the
         rest). :meth:`step_enqueue` and :meth:`step_sync` back to back;
         refused while a handle is outstanding (a sync step past an
-        un-synced enqueue would drop that dispatch's tokens)."""
-        # the seat of the sync driver's retry of a failed host copy
-        # (the reference's retry_pending) comes with crash supervision
-        self._require_synced("step")
-        pending = self._enqueue()
-        if pending is None:
-            return []
-        return self.step_sync(pending)
+        un-synced enqueue would drop that dispatch's tokens). A failed
+        host copy is retryable: the failed sync leaves the engine
+        untouched and the handle parks in a retry seat, so the next
+        ``step()`` syncs the SAME dispatch before launching anew."""
+        if self._retry_sync is not None:
+            # a prior step()'s sync failed after its dispatch launched:
+            # drain it first (the carry is deliberately still deferred)
+            pending, self._retry_sync = self._retry_sync, None
+        else:
+            self._require_synced("step")
+            pending = self._enqueue(asynchronous=False)
+            if pending is None:
+                return []
+        try:
+            return self.step_sync(pending)
+        except Exception:
+            self._retry_sync = pending
+            raise
 
     def step_enqueue(self) -> Optional[PendingDispatch]:
         """Enqueue one step or spec dispatch against the device carry and
@@ -1209,7 +1403,7 @@ class ServeEngine:
         the next dispatch already carries (they emit −1), so chained
         enqueues commit the sync driver's tokens. None when nothing is in
         flight at the synced frontier and no carry is deferred."""
-        return self._enqueue()
+        return self._enqueue(asynchronous=True)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the engine's device: on the card through pinned
@@ -1264,7 +1458,7 @@ class ServeEngine:
         return self.steps - self._synced_dispatch
 
     def _handle(self, kind: str, rounds: int, packed: torch.Tensor,
-                carry: tuple) -> PendingDispatch:
+                carry: tuple, asynchronous: bool) -> PendingDispatch:
         """Count the dispatch, start its outputs' copy to the host (on the
         card: non-blocking into pinned memory, an event after it) and
         make its handle; its carry becomes the one the next enqueue
@@ -1278,15 +1472,24 @@ class ServeEngine:
             event.record()
         self._carry = carry
         self.steps += 1
+        if self._tel is not None and asynchronous:
+            self._tel.event("engine.dispatch_enqueued", dispatch=self.steps,
+                            kind=kind)
         return PendingDispatch(kind=kind, dispatch=self.steps, rounds=rounds,
                                carry=carry, owner=self._engine_token,
-                               host=host, event=event)
+                               host=host, event=event,
+                               asynchronous=asynchronous,
+                               enqueued_at=time.perf_counter())
 
-    def _enqueue(self) -> Optional[PendingDispatch]:
+    def _enqueue(self, *, asynchronous: bool) -> Optional[PendingDispatch]:
         if self._carry is None and not self._active.any():
             return None
         if self.spec is not None:
-            return self._spec_enqueue()
+            return self._spec_enqueue(asynchronous)
+        # fault sites fire before anything launches or the carry moves
+        faults.fire("serve.dispatch")
+        faults.poison_check(self.pool.active.values())
+        tel = self._tel
         steps = self.steps_per_dispatch
         cur, pos, active, remaining, stepno, eos = self._row_state()
         # only rows in flight at the synced frontier sample; a row that
@@ -1305,7 +1508,9 @@ class ServeEngine:
         model = self.model
         row_state = (cur, pos, active, remaining, stepno, eos)
         adapter_ids = self._adapter_arg(self._adapter_ids, "adapters")
-        with torch.inference_mode():
+        with (tel.span("engine.step", active=int(self._active.sum()),
+                       **self._span_extra)
+              if tel is not None else NULL_SPAN), torch.inference_mode():
             if self.page_native:
                 arena = self.pool.arena
                 page_table = self._on_device("write_table",
@@ -1329,9 +1534,9 @@ class ServeEngine:
         carry = (packed[n][:, None], packed[n + 1][:, None],
                  packed[n + 2].bool(), packed[n + 3], packed[n + 4])
         self.decode_substeps += steps
-        return self._handle("step", steps, packed, carry)
+        return self._handle("step", steps, packed, carry, asynchronous)
 
-    def _spec_enqueue(self) -> PendingDispatch:
+    def _spec_enqueue(self, asynchronous: bool) -> PendingDispatch:
         """One speculative dispatch: refill stale draft rows from the
         host-side token streams (the synced ones: the async client drains
         before a dispatch with stale rows), then ``steps_per_dispatch``
@@ -1339,7 +1544,11 @@ class ServeEngine:
         each): through the write-masked table (page-native), on the
         gathered view of the full table with write-masked scatter (dense
         view), or on the slot pool (dense). The rows' adapter ids reach
-        the target's verify only."""
+        the target's verify only. ``serve.dispatch`` fires first,
+        ``serve.verify`` after the draft refills, both before the
+        rounds launch."""
+        faults.fire("serve.dispatch")
+        faults.poison_check(self.pool.active.values())
         spec = self.spec
         for slot in spec.stale:
             req = self.pool.active.get(slot)
@@ -1349,13 +1558,17 @@ class ServeEngine:
             # the draft KV covers 0..pos-1: the whole context but the
             # current token, which the round's first feed supplies
             spec.refill(slot, list(req.prompt) + self._tokens[slot][:-1])
+        faults.fire("serve.verify")
+        tel = self._tel
         k, rounds = spec.k, self.steps_per_dispatch
         cur, pos, active, remaining, stepno, eos = self._row_state()
         temp = np.where(self._active, self._temp, 0.0)
         rows = (spec.cache, cur, pos, active, remaining, temp, self._top_k,
                 eos, stepno, self.seed, self._seeds)
         adapter_ids = self._adapter_arg(self._adapter_ids, "adapters")
-        with torch.inference_mode():
+        with (tel.span("engine.spec_round", active=int(self._active.sum()),
+                       k=k, **self._span_extra)
+              if tel is not None else NULL_SPAN), torch.inference_mode():
             if self.page_native:
                 out = _spec_rounds_page_native_impl(
                     self.model, spec.model, self.pool.arena,
@@ -1382,14 +1595,17 @@ class ServeEngine:
         self.spec_rounds += rounds
         self.spec_draft_steps += (k + 1) * rounds
         return self._handle("spec", rounds, packed,
-                            (cur, pos, active, remaining, stepno))
+                            (cur, pos, active, remaining, stepno),
+                            asynchronous)
 
     def step_sync(self, pending: PendingDispatch) -> List[Completion]:
         """Materialize one enqueued dispatch: wait on its event (the
         blocking point; everything the caller did since the enqueue
         overlapped the card), catch the synced frontier up to its carry,
         and retire finished rows. Handles sync exactly once, in enqueue
-        order, on the engine that issued them."""
+        order, on the engine that issued them; a handle from a
+        rebuilt-away engine must be DISCARDED, never synced (its tokens
+        were regenerated by the replay)."""
         if pending.owner is not self._engine_token:
             raise RuntimeError(
                 "step_sync on a foreign handle: this PendingDispatch was "
@@ -1400,12 +1616,18 @@ class ServeEngine:
                 f"{pending.dispatch}, engine expects "
                 f"{self._synced_dispatch + 1} -- handles sync exactly "
                 "once, in enqueue order")
+        tel = self._tel
+        overlap_ms = 1e3 * (time.perf_counter() - pending.enqueued_at)
+        # every fallible step (the event wait, the host read) comes
+        # before the commit point below: a failure leaves the engine
+        # untouched, and the caller can retry this same sync
         if pending.event is not None:
             t0 = time.perf_counter()
             pending.event.synchronize()
             pending.wait_s = time.perf_counter() - t0
         data = pending.host.numpy()
         n, B = pending.rounds, self.num_slots
+        acc_total = rej_total = 0
         if pending.kind == "spec":
             # (rounds, B, k+1) emissions; accepted/rejected drafts
             w = n * B * (self.spec_k + 1)
@@ -1414,14 +1636,16 @@ class ServeEngine:
             finished, accepted, rejected = data[w:w + 3 * n * B].reshape(
                 3, n, B)
             finished = finished.astype(bool)
-            self.spec_accepted_tokens += int(accepted.sum())
-            self.spec_rejected_tokens += int(rejected.sum())
+            acc_total, rej_total = int(accepted.sum()), int(rejected.sum())
             cur, pos, active, remaining, stepno = data[w + 3 * n * B:
                                                        ].reshape(5, B)
         else:
             emitted, finished = data[:n], data[n:2 * n].astype(bool)
             cur, pos, active, remaining, stepno = data[2 * n:]
+        # ---- commit point: everything below is host-side bookkeeping
         self._synced_dispatch = pending.dispatch
+        self.spec_accepted_tokens += acc_total
+        self.spec_rejected_tokens += rej_total
         self._cur = cur[:, None].astype(np.int32)
         self._pos = pos[:, None].astype(np.int32)
         self._active = active.astype(bool)
@@ -1432,20 +1656,90 @@ class ServeEngine:
             # dispatches may run again
             self._carry = None
         done: List[Completion] = []
+        committed = 0
         for slot in range(self.num_slots):
             toks = [int(t) for t in emitted[:, slot] if t >= 0]
             if not toks:
                 continue
             self._tokens[slot].extend(toks)
+            committed += len(toks)
             self.tokens_generated += len(toks)
             if finished[:, slot].any():
                 req = self.pool.active[slot]
                 hit_eos = req.eos_id is not None and toks[-1] == req.eos_id
                 done.append(self._retire(
                     slot, FINISH_EOS if hit_eos else FINISH_LENGTH))
+        if tel is not None:
+            self._sync_telemetry(tel, pending, done, overlap_ms, committed,
+                                 acc_total, rej_total)
         return done
 
+    def _sync_telemetry(self, tel, pending: PendingDispatch,
+                        done: List[Completion], overlap_ms: float,
+                        committed: int, acc_total: int,
+                        rej_total: int) -> None:
+        """The armed half of :meth:`step_sync` (the JAX engine's events
+        and metrics): ``engine.dispatch_synced`` and the overlap
+        histogram for an async handle, else ``engine.step`` /
+        ``engine.spec_round``; a spec dispatch's acceptance counters and
+        accept-rate histogram. Every value is a host int or float."""
+        m = tel.metrics
+        if pending.kind == "spec":
+            # judged = drafts the verify ruled on in the committed stream
+            # (accepted + contradicted): the rate reads the draft's
+            # quality, 1.0 for a draft that always agrees
+            judged = acc_total + rej_total
+            if pending.asynchronous:
+                tel.event("engine.dispatch_synced",
+                          dispatch=pending.dispatch, kind="spec",
+                          judged=judged, accepted=acc_total,
+                          committed=committed, retired=len(done))
+            else:
+                tel.event("engine.spec_round", dispatch=pending.dispatch,
+                          rounds=pending.rounds, judged=judged,
+                          accepted=acc_total, committed=committed,
+                          retired=len(done))
+        elif pending.asynchronous:
+            tel.event("engine.dispatch_synced", dispatch=pending.dispatch,
+                      kind="step", retired=len(done))
+        else:
+            tel.event("engine.step", dispatch=pending.dispatch,
+                      active=self.active_count, retired=len(done))
+        if pending.asynchronous:
+            m.histogram(
+                "serve_dispatch_overlap_ms",
+                help="host work overlapped with an in-flight "
+                "dispatch: enqueue return -> sync start, wall ms"
+            ).observe(overlap_ms)
+        if pending.kind == "spec":
+            m.counter("serve_spec_accepted_tokens_total",
+                      help="draft tokens accepted by the verify step"
+                      ).inc(acc_total)
+            m.counter("serve_spec_rejected_tokens_total",
+                      help="draft tokens contradicted by the verify "
+                      "step").inc(rej_total)
+            if judged:
+                m.histogram(
+                    "serve_spec_accept_rate",
+                    help="per-dispatch draft acceptance rate "
+                    "(accepted / judged)").observe(acc_total / judged)
+
     # -------------------------------------------------------- lifecycle
+    def snapshot_in_flight(self) -> List[Tuple[Request, List[int]]]:
+        """``[(request, tokens_emitted_so_far)]`` for every in-flight
+        slot, in slot order: what a supervisor re-admits after a crash
+        (copies, never live buffers). The tokens are the SYNCED frontier
+        (an un-synced async dispatch is invisible). Mid-chunking prompts
+        have no token list yet (decode hasn't started, or, for a
+        replay-of-a-replay, hasn't REstarted), so they fall back to their
+        ``replay_tokens``: a second crash during a replay's chunk
+        re-feed keeps the first crash's emissions."""
+        active = self.pool.active
+        return [(active[slot],
+                 list(self._tokens.get(
+                     slot, active[slot].replay_tokens or ())))
+                for slot in sorted(active)]
+
     def cancel(self, request_id: int,
                reason: str = FINISH_TIMEOUT) -> Optional[Completion]:
         """Abort an in-flight request (deadline expiry): frees its slot,
@@ -1471,8 +1765,12 @@ class ServeEngine:
         self._chunk_queue.clear()
         self._tokens.clear()
         self._adapter_of.clear()
+        # an in-flight enqueued dispatch is discarded with the carry and
+        # the retry seat: its tokens were never committed
         self._carry = None
+        self._retry_sync = None
         self._staged.clear()
+        self.chunk_logits = None
         self._active[:] = False
 
     def _retire(self, slot: int, reason: str) -> Completion:
@@ -1488,7 +1786,12 @@ class ServeEngine:
             # a cancel between activation and the next spec dispatch must
             # not refill a slot that no longer holds the request
             self.spec.discard(slot)
-        tokens = self._tokens.pop(slot, [])
+        # a mid-chunking REPLAY has no token list yet: its pre-crash
+        # emissions live in replay_tokens, and a cancel must still
+        # surface them
+        tokens = self._tokens.pop(slot, None)
+        if tokens is None:
+            tokens = list(req.replay_tokens or ())
         return Completion(
             request_id=req.id, prompt=list(req.prompt), tokens=tokens,
             finish_reason=reason, arrival_time=req.arrival_time,

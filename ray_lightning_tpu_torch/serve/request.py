@@ -11,8 +11,10 @@ request mid-flight.
 A :class:`Completion` is the retired request: the generated tokens (eos
 included when sampled), why it stopped, its latency stamps, and how many
 prompt tokens it took from the prefix cache, its tenant class and the
-LoRA adapter it decoded under. Crash replay's fields are not carried
-yet.
+LoRA adapter it decoded under. A request a crash recovery re-admits
+carries the tokens it had emitted (``replay_tokens``) and how many
+recoveries it has been part of (``crash_implications``); a recovery that
+gives up retires it ``FINISH_FAILED`` with its partial tokens.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ FINISH_EOS = "eos"            # sampled its eos id
 FINISH_LENGTH = "length"      # exhausted max_new_tokens
 FINISH_TIMEOUT = "timeout"    # deadline expired (queued or mid-decode)
 FINISH_REJECTED = "rejected"  # shed at admission (trace replay only)
+FINISH_FAILED = "failed"      # engine crash recovery exhausted its retries
 
 
 class OccupancyError(RuntimeError):
@@ -78,8 +81,16 @@ class Request:
     # timing bookkeeping, stamped by the driving client (clock units)
     arrival_time: Optional[float] = None
     first_token_time: Optional[float] = None
+    # crash-recovery replay (set by ServeSupervisor or a journal restore,
+    # never by submit): tokens this request had already emitted before
+    # its engine died. Prefill re-feeds prompt + replay_tokens and
+    # samples step len(replay_tokens) with that step's seed
+    replay_tokens: Optional[List[int]] = None
     # prompt tokens whose KV came from the prefix cache at admission
     prefix_hit_tokens: int = 0
+    # recovery episodes this request has been co-batched with (bumped by
+    # ServeSupervisor per recovery, carried through re-admission)
+    crash_implications: int = 0
     adapter: Optional[str] = None
 
     def __post_init__(self):

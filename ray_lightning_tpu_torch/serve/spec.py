@@ -358,8 +358,13 @@ class SpecDecoder:
             device=device)
         self.model.load_state_dict(draft_params)
         self.model.requires_grad_(False).eval()
+        # at-rest bytes before and after quantization (the engine's
+        # engine.weights_quantized event); None unquantized
+        self.quantized_bytes = None
         if weight_dtype is not None:
+            before = self.param_bytes()
             self.model.quantize_weights(weight_dtype, weight_group_size)
+            self.quantized_bytes = (before, self.param_bytes())
         self.k = k
         self.num_slots = num_slots
         self.prefill_len = cfg.max_seq_len

@@ -38,7 +38,7 @@ say how gradients are averaged and state is held: :meth:`wrap_model`,
 :meth:`make_optimizer`, :meth:`sync_gradients`, :meth:`state_dict` and
 :meth:`load_state_dict`. Gang supervision (``gang=``) and warm
 standbys (``standby=``) raise ``NotImplementedError`` (``ROADMAP.md``
-S6/T7, item 7).
+S6/T7, item 6).
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.launchers.local import LocalLauncher
 from ray_lightning_tpu_torch.reliability.guard import tree_all_finite
 
-_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 7"
+_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 6"
 # how long a rank waits in the rendezvous and in a collective for its
 # peers before it raises instead of hanging
 PROCESS_GROUP_TIMEOUT_S = 300

@@ -46,8 +46,13 @@ every layout and with spec, bf16 and f32, and a steady-state enqueue
 making no synchronizing call under ``set_sync_debug_mode("error")``.
 Multi-LoRA: the bank's delta in f32 equal to ``F.linear`` by the merged
 weight, and an adapted int8-weight engine routing K5 exactly as the
-bankless engine does. ``chip_smoke.py`` repeats this at the serving and
-training paths' full shapes.
+bankless engine does. Serving reliability: crash replay on the
+page-native, chunked, spec and async int8-weight engines equal to the
+fault-free run in f32 with the kernels on, each kernel launched by the
+rebuilt engines, the card's allocated bytes equal after every rebuild;
+armed telemetry adding no launch and no synchronizing call.
+``chip_smoke.py`` repeats this at the serving and training paths' full
+shapes.
 """
 import dataclasses
 
@@ -1714,3 +1719,123 @@ def test_adapted_int8_engine_routes_k5_as_the_bankless_engine(cuda):
         counts.append((qmm.route_launches(), eng.decode_substeps))
         client.shutdown()
     assert counts[0] == counts[1]
+
+
+# ----------------------- serving reliability and observability (S6)
+REPLAY_TRACE = ASYNC_TRACE + [
+    (2, dict(prompt=[3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8], max_new_tokens=6))]
+#: engine -> (layout, fault site, ticks, rebuilds, recoveries): 4 slots,
+#: prefill_len 16 (every prompt + emitted sequence of the trace fits the
+#: batched prefill), f32
+REPLAY_ENGINES = {
+    "page-native": (dict(page_size=4, page_native=True,
+                         attention_kernel="cuda"), "serve.dispatch",
+                    [0, 3, 7], 3, 3),
+    # the second crash lands on the first recovery's replay re-feed (a
+    # failed attempt): 3 rebuilds in 2 recoveries
+    "chunked-prefix": (dict(page_size=4, page_native=True,
+                            attention_kernel="cuda", prefill_chunk=8,
+                            prefix_cache=True), "serve.dispatch",
+                       [1, 3, 12], 3, 2),
+    "spec": (dict(page_size=4, page_native=True, attention_kernel="cuda"),
+             "serve.verify", [1, 3], 2, 2),
+    "int8-weights-async": (dict(ASYNC_ENGINES["int8-weights"],
+                                async_dispatch=True), "serve.dispatch",
+                           [4], 1, 1),
+}
+
+
+def _replay(cuda, engine, plan=None):
+    """REPLAY_TRACE through ``chip_smoke.f_serve`` (a supervised client on
+    the card, recording rebuilds) on ``engine``'s layout, f32."""
+    import chip_smoke
+    layout, *_ = REPLAY_ENGINES[engine]
+    cfg, sd, dcfg, dsd = _spec_models(torch.float32)
+    kw = dict(layout, num_slots=4, prefill_len=16)
+    if engine == "spec":
+        kw.update(draft_model=TransformerLM(dcfg, device="meta"),
+                  draft_params=dsd, spec_k=4)
+    return chip_smoke.f_serve(TransformerLM(cfg, device="meta"), sd,
+                              REPLAY_TRACE, kw, plan)
+
+
+@pytest.mark.parametrize("engine", sorted(REPLAY_ENGINES))
+def test_crash_replay_identity_on_the_card(cuda, engine):
+    """f32 with the kernels on: under the fault plan every request's
+    tokens (greedy and sampled) equal the fault-free run's; the rebuilt
+    engines launch the path's kernel (K1 at T = 1, K1 at T = 5, K2 in
+    the chunk replays, K5); the card's allocated bytes are the same after
+    every rebuild."""
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    _, site, ticks, rebuilds, recoveries = REPLAY_ENGINES[engine]
+    base, _, _ = _replay(cuda, engine)
+    done, counters, rec = _replay(cuda, engine, FaultPlan.at(site, ticks))
+    assert (counters["fired"], counters["rebuilds"],
+            counters["recoveries"], counters["failed_requests"]) == (
+        len(ticks), rebuilds, recoveries, 0)
+    assert {r: (c.tokens, c.finish_reason) for r, c in done.items()} == {
+        r: (c.tokens, c.finish_reason) for r, c in base.items()}
+    after = {key: {k: n - rec["at_first_rebuild"][key].get(k, 0)
+                   for k, n in counts.items()}
+             for key, counts in rec["launches"].items()}
+    launched = {"page-native": after["k1_by_t"].get(1, 0),
+                "spec": after["k1_by_t"].get(5, 0),
+                "chunked-prefix": sum(sum(r["k2"].values())
+                                      for r in rec["in_recovery"]),
+                "int8-weights-async": sum(after["k5"].values())}[engine]
+    assert launched > 0
+    assert len(set(rec["rebuilt_bytes"])) == 1, rec["rebuilt_bytes"]
+
+
+def _decode_dispatch_launches(cuda, telemetry):
+    """Kernel launches of one profiled decode dispatch of the nano
+    page-native engine (4 rows in flight), as ``chip_smoke.py`` counts
+    them: the larger of the device's records and the host's launch
+    calls."""
+    import chip_smoke
+    from torch.autograd import DeviceType
+    from ray_lightning_tpu_torch.serve import ServeEngine
+    from ray_lightning_tpu_torch.serve.request import Request
+    cfg, sd, _, _ = _spec_models(torch.bfloat16)
+    eng = ServeEngine(TransformerLM(cfg, device="meta"), sd, num_slots=4,
+                      prefill_len=8, device=cuda, telemetry=telemetry,
+                      **ASYNC_ENGINES["page-native"])
+    eng.prefill([Request(id=i, prompt=p["prompt"], max_new_tokens=40)
+                 for i, (_, p) in enumerate(SPEC_TRACE)])
+    eng.step()
+    events, _ = chip_smoke.profiled(eng.step)
+    eng.shutdown()
+    device = sum(a.count for a in events if a.device_type == DeviceType.CUDA)
+    host = sum(a.count for a in events
+               if a.key in chip_smoke.G_HOST_LAUNCH_CALLS)
+    return max(device, host)
+
+
+def test_armed_telemetry_adds_no_launch_and_no_sync(cuda):
+    """Armed telemetry builds every payload from host state: a decode
+    dispatch launches what the disarmed one does, and a steady-state
+    enqueue makes no synchronizing call."""
+    import time
+    from ray_lightning_tpu_torch.obs import Telemetry
+    from ray_lightning_tpu_torch.serve import ServeEngine
+    from ray_lightning_tpu_torch.serve.request import Request
+    tel = Telemetry(clock=time.perf_counter)
+    assert _decode_dispatch_launches(cuda, tel) == \
+        _decode_dispatch_launches(cuda, None)
+    assert tel.events("engine.step")
+    cfg, sd, _, _ = _spec_models(torch.bfloat16)
+    eng = ServeEngine(TransformerLM(cfg, device="meta"), sd, num_slots=4,
+                      prefill_len=8, device=cuda, telemetry=tel,
+                      **ASYNC_ENGINES["page-native"])
+    eng.prefill([Request(id=i, prompt=p["prompt"], max_new_tokens=40)
+                 for i, (_, p) in enumerate(SPEC_TRACE)])
+    pending = [eng.step_enqueue()]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending.append(eng.step_enqueue())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for p in pending:
+        eng.step_sync(p)
+    eng.shutdown()
+    assert len(tel.events("engine.dispatch_synced")) == 2

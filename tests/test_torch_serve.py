@@ -243,17 +243,51 @@ def test_engine_defaults_to_the_card(port):
                     **PAGED)
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_arguments_raise(port, name):
-    value = "x"
-    with pytest.raises(NotImplementedError, match=f"{name}=.*ROADMAP"):
-        ServeClient(port, port.state_dict(), num_slots=2, prefill_len=8,
-                    device="cpu", **PAGED, **{name: value})
-    if name in ENGINE_UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeEngine(port, port.state_dict(), num_slots=2,
-                        prefill_len=8, device="cpu", **PAGED,
-                        **{name: value})
+#: the arguments the S6 slice ported (they raised NotImplementedError
+#: before it)
+S6_ARGUMENTS = ("clock_epoch", "journal", "retry_policy", "telemetry")
+
+
+def _s6_argument(name, jax_side, tmp_path):
+    """A value of ``name`` for the JAX package's client or the port's."""
+    from ray_lightning_tpu import obs as jax_obs
+    from ray_lightning_tpu import reliability as jax_rel
+    from ray_lightning_tpu import serve as jax_serve
+    from ray_lightning_tpu_torch import obs, reliability, serve
+    o, r, s = (jax_obs, jax_rel, jax_serve) if jax_side else (
+        obs, reliability, serve)
+    if name == "clock_epoch":
+        ticks = iter(range(1000))
+        return dict(clock=lambda: float(next(ticks)), clock_epoch=-2.0)
+    if name == "journal":
+        return dict(journal=s.Journal(tmp_path / f"{jax_side}.jsonl"))
+    if name == "retry_policy":
+        return dict(retry_policy=r.RetryPolicy(base_delay=0.0))
+    return dict(telemetry=o.Telemetry())
+
+
+@pytest.mark.parametrize("name", S6_ARGUMENTS)
+def test_unported_arguments_raise(nano, port, name, tmp_path):
+    """Every argument the JAX client takes is ported now (both UNPORTED
+    tables are empty): each of the S6 arguments builds and serves the
+    trace as the JAX client does -- tokens and stamps equal -- and an
+    unknown argument still raises ``TypeError``."""
+    assert UNPORTED == {} and ENGINE_UNPORTED == {}
+    ref = _run_jax(nano, **_s6_argument(name, True, tmp_path))
+    out = _run_port(port, **_s6_argument(name, False, tmp_path))
+    _same_completions(ref, out)
+    if name == "telemetry":
+        eng = ServeEngine(port, port.state_dict(), num_slots=2,
+                          prefill_len=8, device="cpu", **PAGED,
+                          **_s6_argument(name, False, tmp_path))
+        assert eng._tel is not None
+        eng.shutdown()
+    if name == "journal":
+        assert (tmp_path / "False.jsonl").read_bytes() == \
+            (tmp_path / "True.jsonl").read_bytes()
+    with pytest.raises(TypeError, match="bogus"):
+        ServeClient(port, port.state_dict(), device="cpu", bogus=1,
+                    **_s6_argument(name, False, tmp_path))
 
 
 def test_unported_layouts_and_unknown_arguments(port):
