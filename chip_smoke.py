@@ -274,9 +274,13 @@ R. Checkpoint and resume on the card, at T2's configuration (12 steps,
    final params and optimizer state equal (a)'s bitwise, so do its losses
    for steps 9-12, and K2-K4 ran on the tensor cores for every resumed
    step; (d) ``fit(ckpt_path=)`` of (a)'s stream checkpoint, bitwise (a)
-   again. A directory save killed at ``ckpt.save`` leaves nothing resume
-   picks up. Prints each format's checkpoint bytes, save and load ms and
-   GB/s. Checkpoints live in a temporary directory the phase removes.
+   again; (e) (b) and (c) again with ``async_save=True`` (the one-process
+   asynchronous directory save: host copies on the step's thread, the
+   write on the commit thread): the resume bitwise (a) as well, and each
+   save's ms until it returns beside the synchronous one's. A directory
+   save killed at ``ckpt.save`` leaves nothing resume picks up. Prints
+   each format's checkpoint bytes, save and load ms and GB/s.
+   Checkpoints live in a temporary directory the phase removes.
 O. The optimizer presets, predict and the guard on the card, at T2's
    shapes: 10 steps each with ``adamw``, ``adamw_bf16m`` and
    ``adafactor`` -- every loss finite, the last 5 steps' mean below the
@@ -341,6 +345,41 @@ C. The command line on the card, flags only: ``python -m
    validation batch) in a subprocess: its printed ``callback_metrics``
    (``train_loss``, the mean of its steps' losses, and ``val_loss``)
    equal the same fit built by hand in this process, bitwise.
+H. The health of a fit, at T2's configuration (GPT-2-small, flash,
+   batch 8 x 1024, AdamW, seed 0). (a) T2's 20 steps and 2 validation
+   batches with ``Telemetry(clock=time.perf_counter)``,
+   ``StepStatsCallback(tel, block=True)`` and ``profiler="simple"``: the
+   lifecycle events in order from ``launch.start`` to ``launch.done``,
+   ``train_step_ms`` with 20 observations, the ``profile_*_s`` gauges,
+   K2-K4 launched 264, 240 and 240 times as in T2's disarmed fit, the
+   median ``step_time_ms`` (steps 4-20) against the same fit's
+   synchronized step (``block=True`` must cover the device work) and
+   T2's, and the synchronized step's ms armed against T2's disarmed one.
+   (b) ``FitSupervisor`` over a one-process fit of 12 steps with
+   directory saves every 4 and ``FaultPlan.at("train.step", [9])``: two
+   attempts (9 steps, then the 4 after the step-8 save), the final params
+   and optimizer state bitwise phase R (a)'s.
+   (c)-(e) one fit under ``GangSupervisor`` over a ``RayLauncher`` on
+   ``ProcessRay``, each attempt one spawned worker owning the card in an
+   NCCL group of world size 1, armed with a ``GangConfig``, a
+   ``MemoryCheckpointStore`` installed, 8 steps with a periodic stream
+   save every 4, a ``StandbyPool(num_standby=1)`` warming on the card
+   from the start and attached from the third attempt: (c) attempt 1
+   ends by ``FaultPlan.at("worker.exit", [5], mode="exit")`` (a real
+   ``os._exit``) and restarts cold; (d) attempt 2, resumed from the
+   memory tier (step 4), wedges on ``worker.stall`` before step 7; (e)
+   its restart promotes the standby and finishes. The events in order
+   (``worker.dead``, ``gang.teardown``, ``gang.restart``,
+   ``worker.heartbeat_missed``, ``gang.teardown``, ``gang.restart``,
+   ``standby.promoted``), each failure's postmortem, the resume from
+   ``<memory:step=4>`` ahead of the disk, the final state bitwise the
+   same fit run in this process without faults (a DDP world of one is
+   the one-process fit), the card's free memory at the cold restart's
+   first step within H_MEM_SLACK of the fresh worker's (one rank's
+   memory, not two), the stall's detection within 10 s past
+   ``heartbeat_timeout``. Printed: ms from each fault to its detection
+   and to ``gang.teardown``, s from each restart to its first step (cold
+   against warm), the memory tier's bytes and ms per put.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K1 has two entries:
    ``paged_attention`` at T=1 with phase 2's, phase L's, phase P's and
@@ -351,8 +390,8 @@ C. The command line on the card, flags only: ``python -m
    ``flash_fwd_chunk`` at the chunk's shape (S=1024) with phase L's,
    phase P's chunked, phase A's chunked and phase F (b)'s bf16 ``tc``
    launches. K2-K4's
-   training entries count T2's launches and phase M's (a), (b) and (e)
-   fits'. K5 has five entries, each one forward's 49 calls, bf16 x,
+   training entries count T2's launches, phase M's (a), (b) and (e)
+   fits' and phase H (a)'s and (b)'s. K5 has five entries, each one forward's 49 calls, bf16 x,
    int8 codes (times and bound their sums, the error the largest of
    them): ``quantized_matmul`` at
    M=8 (a decode step, the GEMVs; Q2's, phase L's, phase S (d)'s, phase
@@ -387,7 +426,8 @@ import torch
 
 # the spawned workers of phase D import this script to unpickle its
 # callback, so the port is imported here, not only inside the phases
-from ray_lightning_tpu_torch.core.callbacks import Callback
+from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
+from ray_lightning_tpu_torch.reliability import GangSupervisor
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
@@ -4009,9 +4049,436 @@ def phase_r_resume(card):
         check(not diff, f"R (d) differs from (a) at {diff[:5]}")
         del td
         release()
+
+        # (e) (b) and (c) with asynchronous directory saves: in one
+        # process the tensors are copied to the host on the step's thread
+        # and written on the commit thread
+        res["async"] = r_async(root, mc, losses_a, state_a)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print("phaseR checkpoint and resume", json.dumps(res), flush=True)
+    return res, state_a
+
+
+class TimedCheckpoint(ModelCheckpoint):
+    """``ModelCheckpoint`` recording the ms each periodic save takes until
+    it returns."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.ms = []
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, idx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super().on_train_batch_end(trainer, module, outputs, batch, idx)
+        if trainer.global_step % R_EVERY == 0:
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+
+
+def r_async(root, mc, losses_a, state_a) -> dict:
+    """Phase R (e): the kill and the resume of (b) and (c) with
+    ``async_save=True``; the resumed fit bitwise (a)."""
+    from ray_lightning_tpu_torch import FaultPlan, ModelCheckpoint
+    from ray_lightning_tpu_torch.core.checkpoint import wait_for_async_saves
+    from ray_lightning_tpu_torch.reliability import InjectedFault
+    ck = os.path.join(root, "ck_async")
+    amc = dict(mc, dirpath=ck, async_save=True)
+    out = {}
+    timer = TimedCheckpoint(**amc)
+    tb = r_trainer(root, [], callbacks=[timer])
+    try:
+        with FaultPlan.at("train.step", [R_KILL]).armed():
+            tb.fit(train_module())
+        check(False, "R (e) was not killed")
+    except InjectedFault:
+        pass
+    wait_for_async_saves()
+    out["save_returned_ms"] = list(timer.ms)
+    del tb, timer
+    release()
+    names = sorted(os.listdir(ck))
+    check(names == [f"epoch=0-step={2 * R_EVERY}.orbax"],
+          f"R (e) left {names}")
+    losses = []
+    tc = r_trainer(root, losses, resume="auto",
+                   callbacks=[ModelCheckpoint(**amc)])
+    tc.fit(train_module())
+    resumed = R_STEPS - 2 * R_EVERY
+    check(losses == losses_a[-resumed:],
+          f"R (e) losses {losses} != (a) {losses_a[-resumed:]}")
+    diff = bitwise_diff(state_a, host_state(tc))
+    check(not diff, f"R (e) differs from (a) at {diff[:5]}")
+    out["resumed_bitwise"] = True
+    del tc
+    release()
+    return out
+
+
+# -------------------------------------------------------------- phase H
+H_LIFECYCLE = ["launch.start", "worker.start", "fit.start", "epoch.start",
+               "epoch.end", "fit.end", "launch.done"]
+H_GAUGES = {"profile_train_step_s", "profile_get_train_batch_s",
+            "profile_validation_s", "profile_epoch_end_callbacks_s"}
+# a beat follows each step; the longest gap between two is step 8's, with
+# its directory save and the memory tier's host copy and put (~1.5 GB)
+H_HEARTBEAT_TIMEOUT = 20.0
+# a fresh worker's first step: spawn, torch import, the CUDA context, the
+# kernels' loads and the first step
+H_STARTUP_GRACE = 300.0
+H_STALL_S = 600.0                # far past the timeout: never waited out
+# free device memory at a restarted worker's first step against the
+# fault-free worker's: a dead worker left on the card would hold its
+# whole ~10 GB, while a resumed worker's allocator keeps ~1.06 GB more
+# cached from the restore's uploads
+H_MEM_SLACK = 4 << 30
+# the gang fit: 8 steps, a save every 4 (periodic only); attempt 1 dies
+# before step 6 (tick 5), attempt 2 (resumed at step 4) wedges before
+# step 7 (its tick 2)
+H_STEPS, H_EVERY, H_KILL, H_STALL_AT = 8, 4, 5, 2
+H_GANG_SITES = ("worker.dead", "worker.error", "worker.heartbeat_missed",
+                "gang.teardown", "gang.restart", "standby.promoted")
+
+
+class PeriodicCheckpoint(ModelCheckpoint):
+    """``ModelCheckpoint`` without its epoch-end save (the gang fits end
+    on a periodic one, and each save is a memory put too)."""
+
+    def on_train_epoch_end(self, trainer, module):
+        pass
+
+
+class HProbe(Callback):
+    """What a gang worker's fit looks like from inside: the wall time
+    (``time.time``) of this attempt's fit start and of each of its steps'
+    ends (each step synchronized; the state a resume restores is dropped
+    at fit start), and the card's free memory at its first step's end;
+    carried back as this callback's state. ``stamp``: a file the end of
+    each step writes its wall time, the first step's and the free memory
+    to, which outlives a worker that dies (the fault sites fire right
+    after the end hooks)."""
+
+    def __init__(self, stamp=None):
+        self.stamp = stamp
+        self.fit_start, self.ends, self.free_at_first = None, [], None
+
+    def on_fit_start(self, trainer, module):
+        self.fit_start, self.ends, self.free_at_first = time.time(), [], None
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, idx):
+        torch.cuda.synchronize()
+        self.ends.append(time.time())
+        if self.free_at_first is None:
+            self.free_at_first = torch.cuda.mem_get_info()[0]
+        if self.stamp is not None:
+            with open(self.stamp, "w") as f:
+                f.write(json.dumps({"wall": self.ends[-1],
+                                    "first_wall": self.ends[0],
+                                    "free_at_first": self.free_at_first}))
+
+    def state_dict(self):
+        return {"fit_start": self.fit_start, "ends": self.ends,
+                "free_at_first": self.free_at_first}
+
+    def load_state_dict(self, state):
+        self.fit_start = state["fit_start"]
+        self.ends = state["ends"]
+        self.free_at_first = state["free_at_first"]
+
+
+def h_armed_fit(card, t2):
+    """(a): T2's fit with telemetry, StepStats(block=True) and the simple
+    profiler, against T2's disarmed fit of the same call (the same
+    per-step synchronize, the same steps)."""
+    from ray_lightning_tpu_torch import (GPTModule, RayStrategy,
+                                         StepStatsCallback, Telemetry,
+                                         Trainer)
+    from ray_lightning_tpu_torch.core import LambdaCallback
+    from ray_lightning_tpu_torch.models import gpt2_config
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    release()
+    ends, step_ms = [], []
+
+    def on_end(trainer, m, outputs, batch, idx):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        step_ms.append(trainer.callback_metrics["step_time_ms"])
+    tel = Telemetry(clock=time.perf_counter)
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=TRAIN_STEPS,
+                      limit_val_batches=VAL_BATCHES, seed=0, callbacks=[
+                          StepStatsCallback(tel, block=True),
+                          LambdaCallback(on_train_batch_end=on_end)],
+                      telemetry=tel, profiler="simple")
+    cf.reset_kernel_launches()
+    trainer.fit(GPTModule(config=gpt2_config("small",
+                                             attention_impl="flash"),
+                          batch_size=8, seq_len=1024))
+    launches = check_flash_launches("H (a)", TRAIN_STEPS,
+                                    fwd_extra=VAL_BATCHES)
+    check(launches == t2["launches"],
+          f"H (a) launches {launches}, T2's disarmed {t2['launches']}")
+    sites = [e.site for e in tel.events()]
+    life = [x for x in sites if x != "train.straggler"]
+    check(life == H_LIFECYCLE, f"H (a) events {sites}")
+    snap = tel.metrics.snapshot()
+    check(snap["train_step_ms"]["count"] == TRAIN_STEPS,
+          f"H (a) train_step_ms {snap['train_step_ms']}")
+    gauges = {k: v for k, v in snap.items() if k.startswith("profile_")}
+    check(set(gauges) == H_GAUGES and all(v > 0 for v in gauges.values()),
+          f"H (a) gauges {gauges}")
+    res = dict(card=card, launches=launches, events=life,
+               stragglers=sites.count("train.straggler"),
+               train_step_ms=snap["train_step_ms"], gauges=gauges,
+               step_time_ms_median=float(np.median(step_ms[WARMUP_STEPS:])),
+               armed_step_ms_median=1e3 * float(np.median(
+                   np.diff(ends)[WARMUP_STEPS - 1:])),
+               t2_step_ms_median=t2["step_ms_median"])
+    # block=True times the device work: a step timed at its enqueue
+    # would read a fraction of the same fit's synchronized step
+    res["step_time_over_synced_step"] = (res["step_time_ms_median"]
+                                         / res["armed_step_ms_median"])
+    check(res["step_time_over_synced_step"] > 0.9,
+          f"H (a) step_time_ms {res['step_time_ms_median']} against the "
+          f"synchronized step's {res['armed_step_ms_median']} ms")
+    res["step_time_over_t2_step"] = (res["step_time_ms_median"]
+                                     / t2["step_ms_median"])
+    res["armed_over_disarmed_step"] = (res["armed_step_ms_median"]
+                                       / t2["step_ms_median"])
+    del trainer
+    release()
+    return res
+
+
+def h_supervised_fit(state_r) -> dict:
+    """(b): FitSupervisor over phase R's fit, killed at step 10; the final
+    state bitwise phase R (a)'s."""
+    import tempfile
+    from ray_lightning_tpu_torch import FaultPlan, ModelCheckpoint
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    from ray_lightning_tpu_torch.reliability import (FitSupervisor,
+                                                     RetryPolicy)
+    root = tempfile.mkdtemp(prefix="chip_smoke_h_")
+    try:
+        mc = dict(dirpath=os.path.join(root, "ck"), save_format="orbax",
+                  every_n_train_steps=R_EVERY, keep_last_n=1)
+        sup = FitSupervisor(
+            lambda: r_trainer(root, [], callbacks=[ModelCheckpoint(**mc)]),
+            RetryPolicy(max_attempts=3, base_delay=0.0),
+            sleep=lambda s: None)
+        cf.reset_kernel_launches()
+        t0 = time.perf_counter()
+        with FaultPlan.at("train.step", [R_KILL]).armed():
+            trainer = sup.fit(train_module)
+        fit_s = time.perf_counter() - t0
+        # attempt 1 runs R_KILL steps, attempt 2 the steps after the
+        # step-8 save
+        launches = check_flash_launches(
+            "H (b)", R_KILL + R_STEPS - 2 * R_EVERY)
+        check(sup.attempts == 2, f"H (b) attempts {sup.attempts}")
+        diff = bitwise_diff(state_r, host_state(trainer))
+        check(not diff, f"H (b) differs from R (a) at {diff[:5]}")
+        del trainer, sup
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    return {"attempts": 2, "bitwise_vs_r": True, "fit_s": fit_s,
+            "launches": launches}
+
+
+class ChainedGang(GangSupervisor):
+    """Phase H's supervisor: attempt n runs under ``plans[n - 1]`` (armed
+    in the driver when the attempt's trainer is made, so its dispatch
+    carries it), the warm pool is attached from attempt ``warm_from`` on,
+    and each restart's wall time (``time.time``) is recorded."""
+
+    def __init__(self, *a, plans, pool, warm_from, **kw):
+        super().__init__(*a, standby=pool, **kw)
+        self.plans, self.pool, self.warm_from = plans, pool, warm_from
+        self.restart_walls = []
+
+    def _prepare_trainer(self, trainer):
+        from ray_lightning_tpu_torch.reliability import faults
+        faults.disarm()
+        faults.arm(self.plans[self.attempts - 1])
+        if self.attempts >= self.warm_from:
+            trainer._launcher._standby = self.pool
+        return super()._prepare_trainer(trainer)
+
+    def _on_retry(self, attempt):
+        self.restart_walls.append(time.time())
+        super()._on_retry(attempt)
+
+
+def h_reference(steps) -> dict:
+    """The fault-free reference of the gang fits: the same fit in this
+    process (a DDP world of one is the one-process fit bitwise: runs
+    HB-HD checked it against a fault-free gang fit)."""
+    import tempfile
+    from ray_lightning_tpu_torch import Trainer
+    root = tempfile.mkdtemp(prefix="chip_smoke_h_ref_")
+    try:
+        trainer = Trainer(strategy=train_strategy(), max_epochs=1,
+                          limit_train_batches=steps, limit_val_batches=0,
+                          seed=0, default_root_dir=root)
+        trainer.fit(train_module())
+        state = host_state(trainer)
+        del trainer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    return state
+
+
+def h_gang_chain(ray, gang, ref_state) -> dict:
+    """(c)-(e) in one supervised gang fit of T2's module (H_STEPS steps,
+    a periodic stream save every H_EVERY) on a spawned card worker, a
+    memory store installed: attempt 1 dies by ``os._exit`` before step 6
+    and restarts cold (c); attempt 2 resumes from memory and wedges
+    before step 7, and restarts on a warm standby (d, e); attempt 3
+    finishes."""
+    import tempfile
+    from ray_lightning_tpu_torch import (FaultPlan, RayStrategy, Telemetry,
+                                         Trainer)
+    from ray_lightning_tpu_torch.launchers import ExecutorBase, RayLauncher
+    from ray_lightning_tpu_torch.reliability import (MemoryCheckpointStore,
+                                                     RetryPolicy,
+                                                     StandbyPool, faults)
+    root = tempfile.mkdtemp(prefix="chip_smoke_h_gang_")
+    # wall-clock events: an event's time is t0 + wall_ms, t0 the first
+    tel = Telemetry(clock=time.time)
+    t0 = time.time()
+    tel.event("phaseH.start")
+    store = MemoryCheckpointStore(keep_last=1)
+    pool = StandbyPool(ray, num_standby=1, warmup_timeout=300.0)
+    # the standby spawns and warms off the critical path, while the
+    # first two attempts train
+    pool.refill_async(lambda: ray.remote(ExecutorBase).options(
+        num_gpus=1, construct_timeout=300).remote())
+    probes = []
+
+    def make_trainer():
+        probes.append(HProbe(os.path.join(root,
+                                          f"attempt_{len(probes)}")))
+        strategy = RayStrategy(num_workers=1)
+        trainer = Trainer(
+            strategy=strategy, max_epochs=1, limit_train_batches=H_STEPS,
+            limit_val_batches=0, seed=0, default_root_dir=root,
+            telemetry=tel, callbacks=[
+                PeriodicCheckpoint(dirpath=os.path.join(root, "ck"),
+                                   every_n_train_steps=H_EVERY,
+                                   keep_last_n=1), probes[-1]])
+        trainer._launcher = RayLauncher(strategy, ray_module=ray, gang=gang)
+        return trainer
+
+    plans = [FaultPlan.at("worker.exit", [H_KILL], mode="exit"),
+             FaultPlan.at("worker.stall", [H_STALL_AT], mode="stall",
+                          stall_s=H_STALL_S),
+             FaultPlan([])]
+    sup = ChainedGang(make_trainer, RetryPolicy(max_attempts=3,
+                                                base_delay=0.0),
+                      sleep=lambda s: None, telemetry=tel,
+                      restart_backoff=0.0, plans=plans, pool=pool,
+                      warm_from=3)
+    release()
+    try:
+        with store.installed():
+            t1 = time.perf_counter()
+            trainer = sup.fit(t2_module)
+            fit_s = time.perf_counter() - t1
+        # each attempt's last step end and first step's free memory: the
+        # dead and wedged workers' stamps outlive them
+        stamps = []
+        for n in range(3):
+            with open(os.path.join(root, f"attempt_{n}")) as f:
+                stamps.append(json.loads(f.read()))
+    finally:
+        faults.disarm()
+        pool.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    sites = [e.site for e in tel.events() if e.site in H_GANG_SITES]
+    want = ["worker.dead", "gang.teardown", "gang.restart",
+            "worker.heartbeat_missed", "gang.teardown", "gang.restart",
+            "standby.promoted"]
+    check(sites == want, f"H (c)-(e) events {sites} != {want}")
+    check(sup.attempts == 3 and pool.promotions == 1,
+          f"H attempts {sup.attempts}, promotions {pool.promotions}")
+    dead, wedged = sup.failures
+    check(dead.reason == "worker.dead" and dead.postmortems[0].dead
+          and dead.postmortems[0].last_step == H_KILL,
+          f"H (c) failure {dead}")
+    check(wedged.reason == "worker.heartbeat_missed"
+          and wedged.postmortems[0].silent
+          and wedged.postmortems[0].last_step == H_EVERY + H_STALL_AT,
+          f"H (d) failure {wedged}")
+    check(trainer.resumed_from == f"<memory:step={H_EVERY}>",
+          f"H resumed from {trainer.resumed_from}")
+    diff = bitwise_diff(ref_state, trainer.train_state_dict)
+    check(not diff, f"H (c)-(e) differ from the fault-free fit at "
+          f"{diff[:5]}")
+    ev = {}
+    for e in tel.events():
+        ev.setdefault(e.site, []).append(t0 + e.wall_ms / 1e3)
+    cold, warm = sup.restart_walls
+    out = dict(
+        fit_s=fit_s, memory_puts=[{"bytes": b, "ms": 1e3 * t}
+                                  for b, t in trainer.memory_puts],
+        store_puts=store.puts, resumed_from=trainer.resumed_from,
+        exit=dict(
+            fault_to_detection_ms=1e3 * (ev["worker.dead"][0]
+                                         - stamps[0]["wall"]),
+            fault_to_teardown_ms=1e3 * (ev["gang.teardown"][0]
+                                        - stamps[0]["wall"]),
+            restart_to_first_step_s=stamps[1]["first_wall"] - cold,
+            free_at_first_step=stamps[1]["free_at_first"],
+            free_at_first_step_fresh=stamps[0]["free_at_first"]),
+        stall=dict(
+            heartbeat_timeout_s=H_HEARTBEAT_TIMEOUT,
+            last_beat_age_s=wedged.postmortems[0].last_beat_age_s,
+            fault_to_detection_ms=1e3 * (ev["worker.heartbeat_missed"][0]
+                                         - stamps[1]["wall"]),
+            fault_to_teardown_ms=1e3 * (ev["gang.teardown"][1]
+                                        - stamps[1]["wall"])),
+        standby=dict(
+            restart_to_first_step_s=stamps[2]["first_wall"] - warm,
+            cold_restart_to_first_step_s=stamps[1]["first_wall"] - cold,
+            promotions=pool.promotions))
+    # a dead worker left on the card would hold its whole ~10 GB; the
+    # resumed one's allocator keeps ~1 GB more cached than a fresh one's
+    check(abs(stamps[1]["free_at_first"] - stamps[0]["free_at_first"])
+          <= H_MEM_SLACK,
+          f"H (c) free memory at the restarted worker's first step "
+          f"{stamps[1]['free_at_first']} against the fresh worker's "
+          f"{stamps[0]['free_at_first']}")
+    latency = out["stall"]["fault_to_detection_ms"] / 1e3
+    check(H_HEARTBEAT_TIMEOUT <= latency < H_HEARTBEAT_TIMEOUT + 10.0,
+          f"H (d) detected {latency} s after the stall began")
+    store.shutdown()
+    del trainer, sup
+    release()
+    return out
+
+
+def phase_h_fit_health(card, t2, state_r):
+    """The health of a fit: telemetry, FitSupervisor and the gang."""
+    from ray_lightning_tpu_torch.launchers import ProcessRay
+    from ray_lightning_tpu_torch.reliability import GangConfig
+    res = {"card": card, "armed": h_armed_fit(card, t2)}
+    print("phaseH (a) telemetry", json.dumps(res["armed"]), flush=True)
+    res["supervised"] = h_supervised_fit(state_r)
+    print("phaseH (b) FitSupervisor", json.dumps(res["supervised"]),
+          flush=True)
+    ref_state = h_reference(H_STEPS)
+    gang = GangConfig(heartbeat_timeout=H_HEARTBEAT_TIMEOUT,
+                      startup_grace=H_STARTUP_GRACE)
+    ray = ProcessRay()
+    ray.init()
+    try:
+        res["gang"] = h_gang_chain(ray, gang, ref_state)
+    finally:
+        ray.shutdown()
+    check(ray.live_actor_count() == 0, "H: a worker outlived the phase")
+    print("phaseH fit health", json.dumps(res), flush=True)
     return res
 
 
@@ -4601,6 +5068,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -4667,7 +5135,7 @@ def main() -> int:
     trained = phase_t2_training(card, fpath)
     phase_t3_train_kernel_vs_plain()
     core = phase_m_model_core(card, trained, rng, trace)
-    phase_r_resume(card)
+    _resumed, state_r = phase_r_resume(card)
     presets = phase_o_optimizers(card)
     release()
     ray, workers, spawn_s = spawn_card_worker()
@@ -4678,6 +5146,11 @@ def main() -> int:
         ray.shutdown()
     check(ray.live_actor_count() == 0, "D/U: a worker outlived the phases")
     phase_c_cli(card)
+    t0 = time.perf_counter()
+    health = phase_h_fit_health(card, trained, state_r)
+    del state_r
+    print(f"phaseH took {time.perf_counter() - t0:.1f} s; the script "
+          f"{time.perf_counter() - started:.1f} s so far", flush=True)
 
     # the main paths' own calls: bf16 q and pages, T=1 (serving); bf16,
     # B=8, T=S=1024, causal (training)
@@ -4726,7 +5199,9 @@ def main() -> int:
             name=name, route="cuda", source=flash_source,
             replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
             launches=(trained["launches"][name]
-                      + core["flash_launches"][name]),
+                      + core["flash_launches"][name]
+                      + health["armed"]["launches"][name]
+                      + health["supervised"]["launches"][name]),
             max_abs_err=max(fpath[f"{e}_err"] for e in errs),
             ms=fpath[f"{kind}_ms"], plain_ms=fpath[f"{kind}_plain_ms"],
             bound_ms=fpath[f"{kind}_bound_ms"],

@@ -68,8 +68,10 @@ from ray_lightning_tpu_torch.interop import (load_flax_params,
 from ray_lightning_tpu_torch.models import (BoringModel, GPTModule,
                                             TransformerConfig, TransformerLM,
                                             gpt2_config)
-from ray_lightning_tpu_torch.obs import Telemetry
-from ray_lightning_tpu_torch.reliability import (FaultPlan, NonFiniteError,
+from ray_lightning_tpu_torch.obs import StepStatsCallback, Telemetry
+from ray_lightning_tpu_torch.reliability import (FaultPlan, FitSupervisor,
+                                                 GangConfig, GangSupervisor,
+                                                 NonFiniteError,
                                                  RetriesExhausted,
                                                  RetryPolicy,
                                                  ServeSupervisor)
@@ -85,6 +87,8 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "resolve_device", "load_flax_params", "load_flax_quantized",
            "BoringModel", "GPTModule", "TransformerConfig", "TransformerLM",
            "gpt2_config", "FaultPlan", "NonFiniteError", "RetriesExhausted",
-           "RetryPolicy", "ServeSupervisor", "Telemetry", "ServeClient",
+           "RetryPolicy", "ServeSupervisor", "FitSupervisor", "GangConfig",
+           "GangSupervisor", "StepStatsCallback", "Telemetry",
+           "ServeClient",
            "ServeEngine", "RayStrategy", "HorovodRayStrategy",
            "RayShardedStrategy", "FSDPStrategy"]

@@ -111,3 +111,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib
+
+
+def load_built() -> Sequence[str]:
+    """Load every kernel library that is already built, building
+    nothing (a warm standby's warm-up: the promoted worker's first step
+    then finds each library in this process's cache). Returns the names
+    loaded."""
+    names = [name for name in SOURCES if _target(name).exists()]
+    for name in names:
+        load(name)
+    return names

@@ -31,10 +31,18 @@ Crash-safety contract, both writers:
 - The ``ckpt.save`` fault site fires at the pre-commit point of every
   writer (and of the stream file's), so tests kill saves mid-flight.
 
-``async_save=True`` (DCP only) returns once DCP has staged the tensors in
-host memory; a background thread finishes the write, then the marker and
-the rename. :func:`wait_for_async_saves` waits for every such commit; the
-trainer calls it at fit end and before it reads a checkpoint.
+``async_save=True`` (DCP only) returns once the tensors are staged in
+host memory; a background thread (one for the process, so commits land
+in the order issued) finishes the write, then the marker and the rename.
+In one process the staging is the port's own: every tensor is copied to
+a CPU tensor on the caller's thread (no reference to a live CUDA tensor
+outlives the call, so the next step may overwrite the params), and the
+commit thread writes those copies with DCP's one-process ``save`` -- the
+JAX package's one-process async orbax save
+(``ray_lightning_tpu/core/checkpoint.py:144-148``). Under a process group
+the staging is DCP's ``async_save``. :func:`wait_for_async_saves` waits
+for every such commit; the trainer calls it at fit end and before it
+reads a checkpoint.
 
 Under a process group (a multi-worker strategy) a directory save is a
 collective: rank 0 stages the directory and broadcasts its name, every
@@ -42,9 +50,8 @@ rank writes its shards through DCP (replicated tensors are written
 once), and after a barrier rank 0 writes the marker and commits. DCP's
 exchanges run on the strategy's own gloo group, also from the async
 thread, and one async save is in flight at a time, so the collectives
-of two saves never interleave. ``async_save`` needs that process group:
-in one process DCP refuses it and it raises. Loading reads the whole
-state on every rank, with no collective.
+of two saves never interleave. Loading reads the whole state on every
+rank, with no collective.
 """
 from __future__ import annotations
 
@@ -218,21 +225,17 @@ def save_sharded_checkpoint(dirpath: str, ckpt: Dict[str, Any],
         global _COMMITS
         try:
             faults.fire("ckpt.save")
-            with _quiet():
-                future = _dcp().async_save(tensors, checkpoint_id=target,
-                                           process_group=group)
-        except faults.InjectedFault:
+            if world:
+                with _quiet():
+                    future = _dcp().async_save(tensors, checkpoint_id=target,
+                                               process_group=group)
+            else:
+                # host copies taken here, on the caller's thread: the
+                # commit thread never touches a live tensor
+                tensors = host_copy(tensors)
+        except BaseException:
             discard()
             raise
-        except (RuntimeError, ValueError) as exc:
-            discard()
-            if world:
-                raise
-            raise NotImplementedError(
-                "async_save needs a process group "
-                "(torch.distributed.checkpoint.async_save refused to run "
-                "in one process): fit through a multi-worker strategy, or "
-                "save synchronously") from exc
         if _COMMITS is None:
             _COMMITS = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="ckpt-commit")
@@ -244,7 +247,11 @@ def save_sharded_checkpoint(dirpath: str, ckpt: Dict[str, Any],
             # DCP's last exchange gathers every rank's write results on
             # rank 0, so rank 0's future resolves after every shard is in
             try:
-                future.result()
+                if world:
+                    future.result()
+                else:
+                    with _quiet():
+                        _dcp().save(tensors, checkpoint_id=target)
                 finish()
             except BaseException:
                 discard()
@@ -265,6 +272,21 @@ def save_sharded_checkpoint(dirpath: str, ckpt: Dict[str, Any],
         discard()
     if world:
         strategy.barrier()          # committed before any rank reads it
+
+
+def host_copy(tree: Any) -> Any:
+    """``tree`` with every tensor replaced by a copy of it in CPU memory
+    (a CPU tensor is cloned too): what an asynchronous writer or the
+    in-memory checkpoint tier may hold while training goes on. A CUDA
+    tensor is never kept, so nothing depends on the process (and the
+    CUDA context) that made it."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
 
 
 def _save_torch_checkpoint(dirpath: str, ckpt: Dict[str, Any]) -> None:
@@ -350,6 +372,31 @@ def _load_dcp(path: str, map_location) -> Dict[str, torch.Tensor]:
             f"failed to load the DCP state from {path}: "
             f"{type(exc).__name__}: {exc}") from exc
     return tensors
+
+
+def reshard_state(state: Any, restored: Dict[str, Any],
+                  strategy: Any) -> Any:
+    """Copy a restored ``state`` dict into the live train state under the
+    resuming strategy's layout -- the save-N-way / restore-M-way seat of
+    elastic recovery (the JAX package's ``reshard_state``).
+
+    Every loader here returns the *whole* state (the one-process layout,
+    full tensors) on every rank, whatever world wrote it, so resharding
+    is the strategy's own load: replicated under DDP and the all-reduce,
+    this rank's slices by the JAX rule under ZeRO, FSDP2's
+    ``torch.chunk`` split on the resuming mesh. A checkpoint of any
+    world size therefore restores element-identical params and optimizer
+    state. Raises :class:`CorruptCheckpointError` when the state cannot
+    adopt the live one (a foreign checkpoint), so ``resume="auto"`` falls
+    back to an older candidate."""
+    try:
+        strategy.load_state_dict(state, restored)
+    except (KeyError, IndexError, TypeError, RuntimeError,
+            ValueError) as exc:
+        raise CorruptCheckpointError(
+            "checkpoint state does not match the resuming run's state: "
+            f"{type(exc).__name__}: {exc}") from exc
+    return state
 
 
 def is_sharded_checkpoint(path: str) -> bool:

@@ -16,11 +16,25 @@ checkpoints in two formats (``save_checkpoint``, ``ModelCheckpoint``,
 ``"auto"``) on ``fit``, ``validate``, ``test`` and ``predict``, a resumed
 epoch fast-forwarding its loader to the saved batch, ``profiler=``, the
 non-finite guard (``nonfinite_action=``), ``predict()`` with
-``limit_predict_batches=``, and the fault sites ``train.step``,
-``loader.next`` and ``ckpt.save``. ``telemetry=`` raises
-``NotImplementedError`` (``ROADMAP.md`` S6/T7); the in-memory checkpoint
-tier's seats (``_memory_checkpoint``, ``_memory_resume``) do nothing, as
-the JAX trainer's do with no store installed.
+``limit_predict_batches=``, and the fault sites ``worker.stall``,
+``worker.exit``, ``train.step``, ``loader.next`` and ``ckpt.save``.
+
+``telemetry=`` (an :class:`~ray_lightning_tpu_torch.obs.Telemetry`)
+emits what the JAX trainer emits, in its order and with its payloads:
+``worker.start`` and ``fit.start`` after the train-start hooks,
+``epoch.start`` / ``epoch.end`` around each epoch, ``fit.end`` after
+the async saves have committed, the profiler's sections as
+``profile_<name>_s`` gauges, and ``ckpt.reshard`` with
+``ckpt_reshards_total`` when a restored checkpoint was saved by a world
+of another size; the log is flushed only in-process (a worker's copy
+never writes the driver's file). The reliability seats are the JAX
+trainer's too: a heartbeat after each step and each evaluation or
+prediction batch when the launcher has one (a gang's worker), and the
+in-memory checkpoint tier (``_memory_checkpoint`` mirrors each
+committed checkpoint's host copy into an installed
+:class:`~ray_lightning_tpu_torch.reliability.elastic.MemoryCheckpointStore`,
+``_memory_resume`` offers its candidates to ``resume="auto"`` ahead of
+the disk); uninstalled, each is one global read and a ``None`` check.
 
 Under a multi-worker strategy every stage runs in each worker process
 (``launchers/ray_launcher.py``): every rank takes its rows of each batch
@@ -68,6 +82,17 @@ def _normalize_step_output(out: Any):
     return out, {}
 
 
+def _tensor_bytes(tree: Any) -> int:
+    """Bytes of every tensor in a nest."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return 0
+
+
 def _detached(logs: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v.detach() if isinstance(v, torch.Tensor) else v
             for k, v in logs.items()}
@@ -99,9 +124,6 @@ class Trainer:
                  resume: Optional[str] = None,
                  nonfinite_action: Optional[str] = None,
                  telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "Trainer(telemetry=) is not ported yet (ROADMAP.md S6/T7)")
         from ray_lightning_tpu_torch.strategies.ddp import RayStrategy
         self.strategy = strategy if strategy is not None else RayStrategy(
             num_workers=1)
@@ -155,6 +177,9 @@ class Trainer:
         self.nonfinite_action = nonfinite_action
         self.nonfinite_batches = 0   # guarded steps that came back bad
         self.nonfinite_restores = 0  # times restore_last_ckpt fired
+        # obs.Telemetry handle (None = disarmed): the fit's lifecycle
+        # events; per-step stats are StepStatsCallback's
+        self.telemetry = telemetry
         if self.enable_checkpointing and not any(
                 isinstance(cb, ModelCheckpoint) for cb in self.callbacks):
             self.callbacks.append(ModelCheckpoint())
@@ -183,6 +208,10 @@ class Trainer:
         # checkpointed so resume can fast-forward a mid-epoch save
         self._batch_in_epoch: int = -1
         self._resume_skip: int = 0
+        # the in-memory checkpoint puts of the last fit: (bytes, seconds),
+        # and the checkpoint it resumed from
+        self.memory_puts: List[tuple] = []
+        self.resumed_from: Optional[str] = None
 
     # ------------------------------------------------------------------ #
     # properties
@@ -194,6 +223,11 @@ class Trainer:
     @property
     def world_size(self) -> int:
         return self.strategy.world_size
+
+    @property
+    def num_devices(self) -> int:
+        """The devices this rank drives: one (a process per device)."""
+        return 1
 
     @property
     def model(self) -> Optional[torch.nn.Module]:
@@ -385,14 +419,11 @@ class Trainer:
         state = TrainState(step=0, model=model, optimizer=optimizer,
                            generator=step_gen)
         if restored is not None:
+            # re-shard on restore: the loaders return the whole state, so
+            # a checkpoint saved N-way lands on this run's world of M
             from ray_lightning_tpu_torch.core.checkpoint import \
-                CorruptCheckpointError
-            try:
-                strategy.load_state_dict(state, restored)
-            except (KeyError, RuntimeError, ValueError) as exc:
-                raise CorruptCheckpointError(
-                    "checkpoint state does not match the resuming run's "
-                    f"state: {type(exc).__name__}: {exc}") from exc
+                reshard_state
+            reshard_state(state, restored, strategy)
         self.train_state = state
         return state
 
@@ -404,6 +435,7 @@ class Trainer:
                     ckpt_path: Optional[str]) -> WorkerOutput:
         self._attach(module, datamodule)
         self.should_stop = False
+        self.memory_puts = []
         self.profiler.reset()  # per-fit scope
         module.prepare_data()
         if datamodule is not None:
@@ -424,9 +456,26 @@ class Trainer:
         state = self._setup_state(
             sample_batch,
             restored_ckpt["state"] if restored_ckpt else None)
+        # where the fit resumed from: a path, "<memory:step=N>", or None
+        self.resumed_from = ckpt_path if restored_ckpt is not None else None
         start_epoch = 0
         self._resume_skip = 0
+        tel = self.telemetry
         if restored_ckpt is not None:
+            saved_world = int(
+                (restored_ckpt.get("world") or {}).get("world_size") or 0)
+            if saved_world and saved_world != self.strategy.num_workers \
+                    and tel is not None:
+                from ray_lightning_tpu_torch.reliability.elastic import (
+                    COUNTER_RESHARDS, EVENT_CKPT_RESHARD)
+                tel.event(EVENT_CKPT_RESHARD, from_world=saved_world,
+                          to_world=self.strategy.num_workers,
+                          global_step=int(
+                              restored_ckpt.get("global_step", 0)))
+                tel.metrics.counter(
+                    COUNTER_RESHARDS,
+                    help="checkpoints re-sharded onto a different world "
+                         "size on restore").inc()
             saved_epoch = int(restored_ckpt.get("epoch", -1))
             # a mid-epoch save recorded how many batches of its epoch were
             # done: resume re-enters that epoch and fast-forwards the
@@ -468,9 +517,26 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_train_start(self, module)
 
+        if tel is not None:
+            tel.event("worker.start", rank=self.global_rank,
+                      world_size=self.world_size,
+                      num_devices=self.num_devices)
+            tel.event("fit.start", max_epochs=self.max_epochs,
+                      max_steps=self.max_steps, start_epoch=start_epoch,
+                      global_step=self.global_step,
+                      resumed=restored_ckpt is not None)
+
+        # gang supervision seat: a gang's worker shim beats to the
+        # driver's watchdog; other launchers have no heartbeat
+        _beat = getattr(self._launcher, "heartbeat", None)
+        _rank = self.global_rank
+
         stop = False
         for epoch in range(start_epoch, self.max_epochs):
             self.current_epoch = epoch
+            if tel is not None:
+                tel.event("epoch.start", epoch=epoch,
+                          global_step=self.global_step)
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             module.on_train_epoch_start()
@@ -510,6 +576,11 @@ class Trainer:
                     self.profiler.profile_iterable(
                         self._prefetch(feed, max(0, n_batches - skip)),
                         "get_train_batch"), start=skip):
+                # worker-class chaos sites fire before the step: "stall"
+                # wedges this loop (heartbeats stop), "exit" ends the
+                # process outright
+                _faults.fire("worker.stall", rank=_rank)
+                _faults.fire("worker.exit", rank=_rank)
                 if _faults.fire("train.step") == _faults.MODE_NAN:
                     batch = poison_nan(batch)
                 module.on_train_batch_start(batch, batch_idx)
@@ -527,6 +598,8 @@ class Trainer:
                 self.train_state = state
                 self.global_step += 1
                 self._batch_in_epoch = batch_idx + 1
+                if _beat is not None:   # step completed: tick liveness
+                    _beat(self.global_step)
                 epoch_logs.append(logs)
                 module.on_train_batch_end(logs, batch, batch_idx)
                 for cb in self.callbacks:
@@ -579,6 +652,9 @@ class Trainer:
             with self.profiler.profile("epoch_end_callbacks"):
                 for cb in self.callbacks:
                     cb.on_train_epoch_end(self, module)
+            if tel is not None:
+                tel.event("epoch.end", epoch=epoch,
+                          global_step=self.global_step)
             if stop or self.should_stop:
                 break
 
@@ -594,6 +670,20 @@ class Trainer:
         from ray_lightning_tpu_torch.core.checkpoint import \
             wait_for_async_saves
         wait_for_async_saves()
+        if tel is not None:
+            tel.event("fit.end", epoch=self.current_epoch,
+                      global_step=self.global_step,
+                      stopped_early=self.should_stop)
+            # the profiler's sections become gauges
+            for name, (_count, total) in self.profiler.records().items():
+                tel.metrics.gauge(
+                    f"profile_{name}_s",
+                    help="SimpleProfiler section total (s)").set(total)
+            # in-process only: a worker's trainer is a copy, and its
+            # flush would overwrite the driver's log with this rank's
+            # events (the driver flushes after launch.done)
+            if not self.strategy.is_remote:
+                tel.flush()
         if self.global_rank == 0:
             self.profiler.describe()
         return self._collect_results()
@@ -665,9 +755,44 @@ class Trainer:
         return None, None
 
     def _memory_resume(self, disk_candidates):
-        """The in-memory checkpoint tier's seat (``ROADMAP.md`` T7): no
-        store is installed in this slice, so it offers nothing."""
-        del disk_candidates
+        """The in-memory checkpoint tier of ``resume="auto"``.
+
+        With a :class:`~ray_lightning_tpu_torch.reliability.elastic.
+        MemoryCheckpointStore` (or a worker's client) installed, its
+        candidates come ahead of the disk. The disk still wins with
+        strictly newer progress (the memory tier can die with its host
+        while the disk copy survives), and whenever its names carry no
+        ``step=`` to order against. Only the candidate restored is
+        copied. Uninstalled: one global read and a ``None`` check."""
+        from ray_lightning_tpu_torch.reliability import elastic as _elastic
+        store = _elastic.get_memory_store()
+        if store is None:
+            return None
+        from ray_lightning_tpu_torch.core.checkpoint import step_of
+        disk_best = step_of(disk_candidates[0]) if disk_candidates else -1
+        if disk_candidates and disk_best < 0:
+            # disk checkpoints we cannot order against: resuming from
+            # memory could roll back committed progress
+            return None
+        for step, ckpt in store.resume_candidates(copy_payloads=False):
+            if step < disk_best:
+                break   # the disk holds newer committed progress
+            if not isinstance(ckpt, dict) or ckpt.get("state") is None:
+                log_suppressed(
+                    "ckpt.memory",
+                    ValueError(f"malformed in-memory candidate at "
+                               f"step {step}"),
+                    "skipping to the next memory candidate")
+                continue
+            import copy
+            ckpt = copy.deepcopy(ckpt)   # callbacks and the restore mutate
+            for cb in self.callbacks:
+                cb.on_load_checkpoint(self, self._module, ckpt)
+            if self.telemetry is not None:
+                from ray_lightning_tpu_torch.reliability.elastic import \
+                    EVENT_MEMORY_RESUME
+                self.telemetry.event(EVENT_MEMORY_RESUME, step=step)
+            return f"<memory:step={step}>", ckpt
         return None
 
     def _run_validation(self, val_loader, module, limit=None):
@@ -695,6 +820,11 @@ class Trainer:
         steps draw from a generator seeded from (seed, global_step): fresh
         per evaluation, the same from run to run."""
         logs_list: List[Dict[str, Any]] = []
+        # gang liveness during evaluation: no global_step advances, but
+        # a rank working through batches is not hung (clamped to >= 1 so
+        # the watchdog leaves its startup grace; sanity checking beats
+        # -1 and keeps it)
+        _beat = getattr(self._launcher, "heartbeat", None)
         generator = torch.Generator().manual_seed(
             (self._eval_seed + self.global_step) % 2**63)
         for batch_idx, batch in enumerate(self._prefetch(loader, n_batches)):
@@ -706,6 +836,9 @@ class Trainer:
                         self, module, batch, batch_idx)
             logs = step_fn(self.train_state, batch, generator)
             logs_list.append(logs)
+            if _beat is not None:
+                _beat(-1 if self.sanity_checking
+                      else max(1, self.global_step))
             if mode is not None:
                 getattr(module, f"on_{mode}_batch_end",
                         lambda *a: None)(logs, batch, batch_idx)
@@ -828,6 +961,7 @@ class Trainer:
             (self._eval_seed + self.global_step) % 2**63)
         n = self._resolve_limit(loader, self.limit_predict_batches)
         outs = []
+        _beat = getattr(self._launcher, "heartbeat", None)
         for cb in self.callbacks:
             cb.on_predict_start(self, module)
             cb.on_predict_epoch_start(self, module)
@@ -844,6 +978,8 @@ class Trainer:
             out = tree_map(lambda t: t.cpu() if isinstance(
                 t, torch.Tensor) else t, out)
             outs.append(out)
+            if _beat is not None:   # gang liveness during prediction
+                _beat(max(1, self.global_step))
             for cb in self.callbacks:
                 cb.on_predict_batch_end(self, module, out, batch,
                                         batch_idx)
@@ -869,7 +1005,9 @@ class Trainer:
         ckpt_cb = self.checkpoint_callback
         trainer_state = dict(epoch=self.current_epoch,
                              global_step=self.global_step,
-                             should_stop=self.should_stop)
+                             should_stop=self.should_stop,
+                             memory_puts=list(self.memory_puts),
+                             resumed_from=self.resumed_from)
         stream = None
         if self.strategy.is_remote:
             state = self.strategy.state_dict(self.train_state, full=True)
@@ -901,6 +1039,8 @@ class Trainer:
         self.current_epoch = state.get("epoch", self.current_epoch)
         self.global_step = state.get("global_step", self.global_step)
         self.should_stop = state.get("should_stop", self.should_stop)
+        self.memory_puts = list(state.get("memory_puts", self.memory_puts))
+        self.resumed_from = state.get("resumed_from", self.resumed_from)
         self.callback_metrics.update(
             _util.numpy_metrics_to_device(output.callback_metrics))
         self.logged_metrics.update(
@@ -967,9 +1107,41 @@ class Trainer:
         self._memory_checkpoint(ckpt)
 
     def _memory_checkpoint(self, ckpt: Dict[str, Any]) -> None:
-        """The in-memory checkpoint tier's seat (``ROADMAP.md`` T7): no
-        store is installed in this slice, so nothing is mirrored."""
-        del ckpt
+        """Mirror a just-committed checkpoint into the in-memory tier.
+
+        Runs after the disk commit (the memory entry is never the only
+        copy of progress the disk lacks) and only with a store or a
+        worker's client installed -- otherwise one global read and a
+        ``None`` check. The payload is a host copy: every tensor is
+        copied to the CPU first (``core/checkpoint.py:host_copy``; FSDP's
+        shards of a directory checkpoint are gathered to full tensors
+        first, a collective every rank reaches here), so the store and
+        its channel never hold a CUDA tensor. Best-effort: a failure is
+        logged and the disk copy stands alone. Each put's payload bytes
+        and copy-and-put seconds are appended to ``memory_puts`` (rank
+        0's reach the driver with the fit's results)."""
+        from ray_lightning_tpu_torch.reliability import elastic as _elastic
+        store = _elastic.get_memory_store()
+        if store is None:
+            return
+        try:
+            t0 = time.perf_counter()
+            from ray_lightning_tpu_torch.core.checkpoint import host_copy
+            from ray_lightning_tpu_torch.strategies.sharding import \
+                full_state
+            state = ckpt.get("state")
+            if self.strategy.in_world:
+                state = full_state(state)
+            payload = host_copy({**ckpt, "state": state})
+            store.put(int(self.global_step), payload,
+                      rank=self.global_rank,
+                      world_size=self.strategy.num_workers)
+            self.memory_puts.append((_tensor_bytes(payload),
+                                     time.perf_counter() - t0))
+        except Exception as exc:  # noqa: BLE001 - the tier is best-effort
+            log_suppressed("ckpt.memory", exc,
+                           "in-memory checkpoint skipped; the disk copy "
+                           "is intact")
 
     def dump_checkpoint(self, consolidate: bool = True) -> Dict[str, Any]:
         """The checkpoint dict: progress, loop position, world size, the

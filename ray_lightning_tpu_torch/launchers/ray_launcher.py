@@ -29,9 +29,32 @@ chip of a host from one process:
 
 The JAX launcher's TPU rule -- one actor per host, enforced unless
 ``allow_colocated_workers`` -- does not apply: a card has one owner
-either way, and ``allow_colocated_workers`` has no effect here. Gang
-supervision (``gang=``), warm standbys (``standby=``) and the in-memory
-checkpoint tier are ``ROADMAP.md`` S6/T7 (item 6) and raise.
+either way, and ``allow_colocated_workers`` has no effect here.
+
+The reliability seams, each disarmed (no channel, no thread, no event)
+until asked for, as in the JAX launcher:
+
+- ``gang=`` (a :class:`~ray_lightning_tpu_torch.reliability.gang.
+  GangConfig`): each rank's trainer beats (``(rank, step, time)``)
+  into a driver-owned channel, and the driver's wait on the workers is
+  the watchdog (:meth:`RayLauncher._process_results`): a rank silent
+  past its timeout, or a worker whose future failed, raises a
+  :class:`~ray_lightning_tpu_torch.reliability.gang.GangFailure` with
+  the per-rank postmortem, and the teardown kills every worker process
+  (``gang.teardown``) -- no collective, no ``destroy_process_group``:
+  a rank that died inside a NCCL or gloo communicator leaves its peers
+  blocked in it. The world's collective timeout comes from the config.
+- ``standby=`` (a :class:`~ray_lightning_tpu_torch.reliability.elastic.
+  StandbyPool`): rank slots are filled by promoting warm standbys
+  (``standby.promoted``) before any cold spawn, and the pool is topped
+  up on a background thread once the gang is dispatched.
+- an installed :class:`~ray_lightning_tpu_torch.reliability.elastic.
+  MemoryCheckpointStore`: workers ship their checkpoints' host copies
+  through a channel the watchdog poll drains into it, and each dispatch
+  carries the store's resume candidates out.
+
+With a ``Telemetry`` on the trainer the driver emits ``launch.start``
+and ``launch.done`` around every launch and flushes its log after.
 
 Ray is optional: the launcher takes any ray-compatible module, which is
 also the test seam (``testing/fake_ray.py``, ``process_backend.py``).
@@ -48,12 +71,12 @@ from ray_lightning_tpu_torch.core.seed import GLOBAL_SEED_ENV, reset_seed
 from ray_lightning_tpu_torch.launchers.utils import (
     CUDA_VISIBLE_DEVICES_ENV, WorkerOutput, find_free_port,
     get_executable_cls, get_node_ip, visible_gpu_ids)
-from ray_lightning_tpu_torch.util import process_results
+from ray_lightning_tpu_torch.util import (POLL_INTERVAL_S, _drain_queue,
+                                          process_results)
 
 MASTER_ADDR_ENV = "MASTER_ADDR"
 MASTER_PORT_ENV = "MASTER_PORT"
 WORLD_SIZE_ENV = "WORLD_SIZE"
-_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 6"
 
 
 def _import_ray():
@@ -122,12 +145,11 @@ class RayLauncher:
         needs the same count and rank order. The caller owns their
         lifetime, unless a launch fails: a world that lost a rank may be
         stuck in a collective, so the launcher kills every worker and
-        forgets them."""
-        for name, value in (("gang", gang), ("standby", standby)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"RayLauncher({name}=...) is not ported yet "
-                    f"({_RELIABILITY_ITEM})")
+        forgets them.
+
+        ``gang`` and ``standby``: see the module docstring (the pool is
+        caller-owned: it survives the gang's teardown by design, and the
+        caller shuts it down)."""
         self._strategy = strategy
         self._ray = ray_module if ray_module is not None else _import_ray()
         if self._ray is None:
@@ -148,6 +170,16 @@ class RayLauncher:
         self._master_port: Optional[int] = None
         self._device_indices: List[Optional[int]] = []
         self.queue: Any = None
+        # gang supervision (None/False when disarmed)
+        self._gang = gang
+        self._gang_channel: Any = None
+        self._gang_monitor: Any = None
+        self._gang_failed = False
+        self._tel: Any = None   # the trainer's telemetry, per launch
+        # the warm tiers (None = disarmed)
+        self._standby = standby
+        self._memstore_channel: Any = None
+        self._memstore_driver: Any = None
 
     # ------------------------------------------------------------------ #
     # driver side: the launch pipeline
@@ -156,7 +188,13 @@ class RayLauncher:
                **kwargs: Any) -> Any:
         """setup -> run on every rank -> rank 0's result -> teardown; a
         failure anywhere still releases the workers."""
+        tel = getattr(trainer, "telemetry", None)
+        self._tel = tel
         self._failed = False
+        self._gang_failed = False
+        if tel is not None:
+            tel.event("launch.start", launcher="ray",
+                      num_workers=self._strategy.num_workers)
         try:
             self.setup_workers()
             return self.run_function_on_workers(
@@ -167,6 +205,9 @@ class RayLauncher:
         finally:
             self.teardown_workers()
             self._strategy.teardown()
+            if tel is not None:
+                tel.event("launch.done", launcher="ray")
+                tel.flush()   # the driver owns the jsonl log
 
     def setup_workers(self) -> None:
         """Create (or adopt) the workers, run ``init_hook`` on each, probe
@@ -177,7 +218,9 @@ class RayLauncher:
             self._workers = list(self._external_workers)
         else:
             self._check_enough_gpus()
-            self._workers = [self._create_worker(rank)
+            # warm standbys first: a restart with enough of them pays no
+            # spawn on its critical path
+            self._workers = [self._promote_or_create(rank)
                              for rank in range(strategy.num_workers)]
         if strategy.init_hook:
             self._ray.get([
@@ -199,8 +242,40 @@ class RayLauncher:
         if strategy.use_gpu:
             self._device_indices = self._share_cuda_visible_devices(
                 local_ranks)
+        self._gang_failed = False
+        if self._gang is not None:
+            from ray_lightning_tpu_torch.reliability.gang import GangMonitor
+            self._gang_channel = self._make_queue()
+            self._gang_monitor = GangMonitor(
+                strategy.num_workers, self._gang, node_ips=node_ips,
+                telemetry=self._tel)
+            strategy.collective_timeout_s = self._gang.collective_timeout()
+        # the store is captured here, so in-process fake workers
+        # installing their clients can never race the driver's drain
+        from ray_lightning_tpu_torch.reliability import elastic as _elastic
+        self._memstore_driver = _elastic.get_memory_store()
+        if self._memstore_driver is not None:
+            self._memstore_channel = self._make_queue()
         self.queue = self._make_queue() if self._in_tune_session() \
             else None
+
+    def _promote_or_create(self, rank: int):
+        """A warm standby promoted into rank slot ``rank``
+        (``standby.promoted``), or a freshly spawned worker when the pool
+        is absent or empty."""
+        worker = None if self._standby is None else self._standby.take()
+        if worker is None:
+            return self._create_worker(rank)
+        if self._tel is not None:
+            from ray_lightning_tpu_torch.reliability.elastic import (
+                COUNTER_STANDBY_PROMOTIONS, EVENT_STANDBY_PROMOTED)
+            self._tel.event(EVENT_STANDBY_PROMOTED, rank=rank,
+                            available=self._standby.available())
+            self._tel.metrics.counter(
+                COUNTER_STANDBY_PROMOTIONS,
+                help="warm standby workers promoted into gang rank "
+                     "slots").inc()
+        return worker
 
     @staticmethod
     def _in_tune_session() -> bool:
@@ -208,7 +283,8 @@ class RayLauncher:
         return is_session_enabled()
 
     def _make_queue(self):
-        """This launch's session queue, from the injected module: the
+        """One driver-owned queue (a Tune session's, the heartbeat
+        channel, the memory tier's), from the injected module: the
         backend's own (``ProcessRay``'s manager queue, the fakes'), or a
         Ray queue actor under Ray."""
         make_queue = getattr(self._ray, "make_queue", None)
@@ -344,27 +420,110 @@ class RayLauncher:
         # the driver's armed chaos schedule is armed in every worker too
         from ray_lightning_tpu_torch.reliability import faults as _faults
         fault_plan = _faults.get_armed()
+        memstore = None
+        if self._memstore_channel is not None:
+            memstore = {
+                "channel": self._memstore_channel,
+                "world_size": num_workers,
+                # no eager copy: the dispatch's pickle is the copy
+                "candidates": self._memstore_driver.resume_candidates(
+                    copy_payloads=False)}
         futures = [
             w.execute.remote(self._wrapping_function, rank, global_to_local,
                              self._device_indices[rank], trainer_ref,
                              function.__name__, args, kwargs, coordinator,
-                             num_workers, fault_plan, self.queue)
+                             num_workers, fault_plan, self.queue,
+                             self._heartbeat_for(rank), memstore)
             for rank, w in enumerate(self._workers)
         ]
-        return process_results(futures, self._ray, queue=self.queue)[0]
+        if self._standby is not None:
+            # top the pool back up off the critical path: the gang is
+            # already dispatched and training while replacements warm
+            self._standby.refill_async(lambda: self._create_worker(-1))
+        return self._process_results(futures, self.queue)[0]
+
+    def _heartbeat_for(self, rank: int):
+        """Rank ``rank``'s beat source into the gang channel (built here
+        so the config's throttle applies; the channel pickles by
+        reference into the worker), or None when disarmed."""
+        if self._gang_channel is None:
+            return None
+        from ray_lightning_tpu_torch.reliability.gang import \
+            HeartbeatEmitter
+        return HeartbeatEmitter(self._gang_channel, rank,
+                                interval=self._gang.heartbeat_interval)
+
+    def _process_results(self, futures: List[Any], queue) -> List[Any]:
+        """Wait on the workers' futures (``util.process_results``), and
+        with a gang armed or a memory store installed let the same poll
+        drain the heartbeat channel into the :class:`GangMonitor` and
+        the replicated checkpoints into the store. A rank silent past
+        its timeout, or a failed future, raises a ``GangFailure`` with
+        the per-rank postmortem; the unwind through :meth:`launch` then
+        kills the whole gang. Disarmed, a failed worker raises its own
+        error at once (peers blocked in a collective with it would
+        never finish)."""
+        monitor = self._gang_monitor
+        chan, store = self._memstore_channel, self._memstore_driver
+        if monitor is None and chan is None:
+            return process_results(futures, self._ray, queue=queue)
+        if monitor is not None:
+            monitor.start()
+        unfinished = list(futures)
+        while unfinished:
+            _drain_queue(queue)
+            if chan is not None:
+                store.drain(chan)
+            if monitor is not None:
+                monitor.drain(self._gang_channel)
+                silent = monitor.silent_ranks()
+                if silent:
+                    self._gang_failed = True
+                    raise monitor.heartbeat_failure(silent)
+            ready, unfinished = self._ray.wait(unfinished,
+                                               timeout=POLL_INTERVAL_S)
+            for ref in ready:
+                rank = futures.index(ref)
+                try:
+                    self._ray.get(ref)
+                except Exception as exc:
+                    if monitor is None:
+                        raise
+                    self._gang_failed = True
+                    monitor.drain(self._gang_channel)
+                    from ray_lightning_tpu_torch.reliability.gang import \
+                        actor_alive
+                    dead = (rank < len(self._workers)
+                            and not actor_alive(self._workers[rank]))
+                    raise monitor.worker_failure(rank, exc,
+                                                 dead=dead) from exc
+                if monitor is not None:
+                    # a finished rank stops beating by design
+                    monitor.mark_done(rank)
+        _drain_queue(queue)
+        if chan is not None:
+            store.drain(chan)
+        return self._ray.get(futures)
 
     @staticmethod
     def _wrapping_function(global_rank: int, global_to_local,
                            device_index: Optional[int], trainer_ref,
                            fn_name: str, args, kwargs, coordinator: str,
                            num_processes: int, fault_plan=None,
-                           queue=None) -> Optional[WorkerOutput]:
+                           queue=None, heartbeat=None,
+                           memstore=None) -> Optional[WorkerOutput]:
         """The worker's entry (the reference's ``ray_launcher.py:253-311``):
         the trainer, ranks and session (with this launch's queue, if
         any); the process group
         (``Strategy.worker_setup``, which also finds this worker's card);
         the stage; then the group destroyed and the trainer freed. Only
-        rank 0 returns its output."""
+        rank 0 returns its output. ``heartbeat`` (gang armed) is this
+        rank's beat source, which the trainer reaches as the shim's
+        ``heartbeat``; ``memstore`` (a store installed on the driver)
+        the channel and the shipped candidates, served by a
+        :class:`~ray_lightning_tpu_torch.reliability.elastic.
+        MemoryCheckpointClient` installed in this thread for the
+        stage."""
         trainer = trainer_ref
         if hasattr(trainer_ref, "_is_fake_object_ref"):
             trainer = trainer_ref.value  # in-process fake store (tests)
@@ -375,6 +534,16 @@ class RayLauncher:
         from ray_lightning_tpu_torch.reliability import faults as _faults
         armed_here = (fault_plan is not None
                       and _faults.ensure_armed(fault_plan))
+        from ray_lightning_tpu_torch.reliability import elastic as _elastic
+        prev_client = None
+        if memstore is not None:
+            prev_client = _elastic.install_worker_client(
+                _elastic.MemoryCheckpointClient(
+                    memstore["channel"], rank=global_rank,
+                    world_size=memstore.get("world_size", num_processes),
+                    candidates=memstore.get("candidates")))
+        if heartbeat is not None:
+            heartbeat.beat(-1)   # alive: entered, before any set-up
         reset_seed()
         strategy = trainer.strategy
         strategy.set_remote(True)
@@ -386,12 +555,16 @@ class RayLauncher:
             strategy.worker_setup(process_idx=global_rank,
                                   num_processes=num_processes,
                                   coordinator_address=coordinator)
-            trainer._launcher = _WorkerSideQueueShim()
+            if heartbeat is not None:
+                heartbeat.beat(-1)   # alive: rendezvous done
+            trainer._launcher = _WorkerSideQueueShim(heartbeat)
             results = getattr(trainer, fn_name)(*args, **kwargs)
         finally:
             _session.shutdown_session()
             if armed_here:
                 _faults.disarm()
+            if memstore is not None:
+                _elastic.install_worker_client(prev_client)
             strategy.teardown()
             # the trainer and its module refer to each other: collect the
             # cycle now, so a persistent worker's next fit starts with
@@ -405,10 +578,17 @@ class RayLauncher:
 
     def teardown_workers(self) -> None:
         """Kill the workers this launcher made (the reference's
-        ``ray_launcher.py:117-129``) and shut the session queue down.
-        External workers are released, unless the launch failed: then
-        they are killed and forgotten, so the next launch spawns a fresh
-        world."""
+        ``ray_launcher.py:117-129``) and shut the queues down. External
+        workers are released, unless the launch failed: then they are
+        killed and forgotten, so the next launch spawns a fresh world.
+        After a gang failure (``gang.teardown``) every worker process is
+        killed outright, busy ones by signal, whatever collective it is
+        blocked in; nothing waits on a dead rank."""
+        if self._gang_failed and self._tel is not None:
+            from ray_lightning_tpu_torch.reliability.gang import \
+                EVENT_GANG_TEARDOWN
+            self._tel.event(EVENT_GANG_TEARDOWN,
+                            num_workers=len(self._workers))
         if self._external_workers is None or self._failed:
             for worker in self._workers:
                 self._ray.kill(worker, no_restart=True)
@@ -417,13 +597,35 @@ class RayLauncher:
         if self.queue is not None:
             self.queue.shutdown()
             self.queue = None
+        if self._gang_channel is not None:
+            self._gang_channel.shutdown()
+            self._gang_channel = None
+        self._gang_monitor = None
+        if self._memstore_channel is not None:
+            # a commit shipped just as the gang failed is the one the
+            # restart wants: drain before the channel goes
+            self._memstore_driver.drain(self._memstore_channel)
+            self._memstore_channel.shutdown()
+            self._memstore_channel = None
+        self._memstore_driver = None
 
 
 class _WorkerSideQueueShim:
     """The worker's stand-in for the launcher: the fit loop calls
     ``launcher.drain_queue()`` between batches, and on a worker there is
     nothing to run -- the session queue belongs to the driver, which
-    drains it while it waits on the workers."""
+    drains it while it waits on the workers. It is also the trainer's
+    heartbeat seat: with a gang armed ``heartbeat(step)`` forwards to
+    the rank's
+    :class:`~ray_lightning_tpu_torch.reliability.gang.HeartbeatEmitter`,
+    otherwise it does nothing."""
+
+    def __init__(self, heartbeat=None):
+        self._heartbeat = heartbeat
 
     def drain_queue(self) -> None:
         return None
+
+    def heartbeat(self, step: int) -> None:
+        if self._heartbeat is not None:
+            self._heartbeat.beat(step)

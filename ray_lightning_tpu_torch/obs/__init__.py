@@ -35,9 +35,11 @@ workload writes a byte-identical JSONL log every run (and the same bytes
 as the JAX package's client on the same trace); ``clock=time.perf_counter``
 gives real timestamps.
 
-The trainer's telemetry and ``StepStatsCallback`` come with
-``ROADMAP.md`` T7, the per-request trace assembler
-(``Telemetry.request_traces``) with S8.
+The trainer takes the same handle (``Trainer(telemetry=tel)``: the
+launch, worker, fit and epoch lifecycle events, the profiler's sections
+as gauges), and :class:`StepStatsCallback` adds per-step timing and the
+straggler detector. The per-request trace assembler
+(``Telemetry.request_traces``) comes with ``ROADMAP.md`` S8.
 """
 from __future__ import annotations
 
@@ -142,10 +144,15 @@ def emit_global(site: str, /, **payload: Any) -> None:
     tel.bus.emit(site, **payload)
 
 
+# imported late: stepstats pulls in core.callbacks, which must find the
+# primitives above already defined
+from ray_lightning_tpu_torch.obs.stepstats import \
+    StepStatsCallback  # noqa: E402
+
 __all__ = [
     "Telemetry", "Event", "EventBus", "JsonlSink",
     "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "DEFAULT_LATENCY_BUCKETS", "log_buckets",
-    "Span", "SpanRecorder", "NULL_SPAN",
+    "Span", "SpanRecorder", "NULL_SPAN", "StepStatsCallback",
     "get_global", "set_global", "emit_global",
 ]

@@ -12,11 +12,17 @@
 - :mod:`.supervisor` -- :class:`ServeSupervisor`: rebuilds a crashed
   :class:`~ray_lightning_tpu_torch.serve.engine.ServeEngine` and
   re-admits every in-flight request by replaying its prompt + emitted
-  tokens.
+  tokens; :class:`FitSupervisor`: a fit retried to completion, each
+  attempt resuming from the newest checkpoint.
+- :mod:`.gang` -- gang supervision of a multi-process fit: worker
+  heartbeats, the driver's watchdog, :class:`GangFailure` postmortems
+  and :class:`GangSupervisor`'s coordinated (optionally elastic)
+  restart, copied.
+- :mod:`.elastic` -- the warm recovery tiers: :class:`StandbyPool`
+  (pre-spawned workers that have paid the CUDA context and the kernel
+  loads) and :class:`MemoryCheckpointStore` (host-memory checkpoints
+  replicated to a ring buddy, ahead of disk on ``resume="auto"``).
 - :mod:`.guard` -- the non-finite loss/gradient guard's helpers.
-
-``FitSupervisor``, gang supervision and the warm recovery tiers come
-with ``ROADMAP.md`` T7.
 """
 from __future__ import annotations
 
@@ -49,20 +55,34 @@ def log_suppressed(site: str, exc: BaseException, detail: str = "") -> None:
 
 from ray_lightning_tpu_torch.reliability.faults import (  # noqa: E402
     FaultPlan, FaultSpec, InjectedFault, MODE_EXIT, MODE_NAN, MODE_RAISE,
-    MODE_STALL, SITE_CKPT_SAVE, SITE_LOADER_NEXT, SITE_SERVE_DISPATCH,
-    SITE_TRAIN_STEP, arm, disarm, ensure_armed, fire, get_armed)
+    MODE_STALL, SITE_CKPT_SAVE, SITE_LOADER_NEXT, SITE_RENDEZVOUS_INIT,
+    SITE_SERVE_DISPATCH, SITE_TRAIN_STEP, SITE_WORKER_EXIT,
+    SITE_WORKER_STALL, arm, disarm, ensure_armed, fire, get_armed)
 from ray_lightning_tpu_torch.reliability.guard import (  # noqa: E402
     NonFiniteError)
 from ray_lightning_tpu_torch.reliability.retry import (  # noqa: E402
     RetriesExhausted, RetryPolicy, call_with_retry)
 from ray_lightning_tpu_torch.reliability.supervisor import (  # noqa: E402
-    ServeSupervisor, failed_completion)
+    FitSupervisor, ServeSupervisor, failed_completion)
+from ray_lightning_tpu_torch.reliability.gang import (  # noqa: E402
+    GangConfig, GangFailure, GangMonitor, GangSupervisor, HeartbeatEmitter,
+    RankPostmortem)
+from ray_lightning_tpu_torch.reliability.elastic import (  # noqa: E402
+    MemoryCheckpointClient, MemoryCheckpointStore, StandbyPool,
+    get_memory_store, install_memory_store, ring_buddy, standby_warmup)
 
 __all__ = [
     "FaultPlan", "FaultSpec", "InjectedFault", "MODE_EXIT", "MODE_NAN",
     "MODE_RAISE", "MODE_STALL", "SITE_CKPT_SAVE", "SITE_LOADER_NEXT",
-    "SITE_SERVE_DISPATCH", "SITE_TRAIN_STEP", "arm", "disarm",
+    "SITE_RENDEZVOUS_INIT", "SITE_SERVE_DISPATCH", "SITE_TRAIN_STEP",
+    "SITE_WORKER_EXIT", "SITE_WORKER_STALL", "arm", "disarm",
     "ensure_armed", "fire", "get_armed", "NonFiniteError",
     "RetriesExhausted", "RetryPolicy", "call_with_retry",
-    "ServeSupervisor", "failed_completion", "logger", "log_suppressed",
+    "FitSupervisor", "ServeSupervisor", "failed_completion",
+    "GangConfig", "GangFailure", "GangMonitor", "GangSupervisor",
+    "HeartbeatEmitter", "RankPostmortem",
+    "MemoryCheckpointClient", "MemoryCheckpointStore", "StandbyPool",
+    "get_memory_store", "install_memory_store", "ring_buddy",
+    "standby_warmup",
+    "logger", "log_suppressed",
 ]

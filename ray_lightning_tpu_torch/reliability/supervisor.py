@@ -34,7 +34,11 @@ supervisor's reference to it before the new engine allocates, so the
 card never holds two engines. With ``weight_dtype=`` the new engine
 quantizes again from the caller's f32 ``params``, to the same codes.
 
-``FitSupervisor`` comes with ``ROADMAP.md`` T7.
+**FitSupervisor** runs ``Trainer.fit`` to completion under a retry
+policy: a fresh trainer and a fresh module per attempt, every attempt
+resuming with ``ckpt_path="auto"`` from the newest checkpoint the failed
+one committed. :class:`~ray_lightning_tpu_torch.reliability.gang.
+GangSupervisor` extends it to a distributed fit.
 """
 from __future__ import annotations
 
@@ -331,3 +335,81 @@ class ServeSupervisor:
             while prefix_replay and self.engine.chunk_pending:
                 done.extend(self.engine.prefill_chunk_step())
         return done
+
+
+class FitSupervisor:
+    """Run ``Trainer.fit`` to completion under a retry policy.
+
+    ``make_trainer`` builds a *fresh* trainer per attempt (never reuse a
+    crashed one — its device state may be poisoned); ``module`` may be an
+    instance or a zero-arg factory. The same poisoning argument applies
+    to the module itself: a crashed attempt may leave mutated state
+    behind, so each attempt fits a **deep copy** of the caller's
+    instance (the original is never attached or mutated). A module that
+    cannot be deep-copied is reused with a one-time logged warning —
+    pass a zero-arg factory for the guaranteed-clean spelling. Every attempt
+    fits with ``ckpt_path="auto"``, so attempt N+1 resumes from the
+    newest valid checkpoint attempt N managed to commit. Raises
+    :class:`RetriesExhausted` when the policy runs out.
+    """
+
+    def __init__(self, make_trainer: Callable[[], Any],
+                 policy: Optional[RetryPolicy] = None,
+                 sleep: Callable[[float], None] = time.sleep):
+        self.make_trainer = make_trainer
+        self.policy = policy or RetryPolicy()
+        self._sleep = sleep
+        self.attempts = 0
+
+    def fit(self, module: Any, datamodule: Any = None):
+        """Returns the trainer whose fit completed."""
+        import copy
+
+        warned = False
+
+        def fresh_module():
+            # every attempt fits a deep copy of the caller's instance:
+            # the original is never attached/mutated, so attempt-1 state
+            # can't leak into attempt 2 (factories are simply called)
+            nonlocal warned
+            if callable(module):
+                return module()
+            try:
+                return copy.deepcopy(module)
+            except Exception as exc:  # noqa: BLE001 — degraded, logged
+                if not warned:
+                    warned = True
+                    log_suppressed(
+                        "supervisor.module_copy", exc,
+                        "module instance is not deep-copyable; attempts "
+                        "will reuse it as-is (a crashed attempt may leave "
+                        "poisoned state) — pass a zero-arg module factory "
+                        "for guaranteed-clean attempts")
+                return module
+
+        def attempt(i: int):
+            self.attempts = i
+            if i > 1:
+                self._on_retry(i)
+            trainer = self._prepare_trainer(self.make_trainer())
+            try:
+                trainer.fit(fresh_module(), datamodule=datamodule,
+                            ckpt_path="auto")
+            except BaseException as exc:
+                self._record_failure(exc)
+                raise
+            return trainer
+        return call_with_retry(attempt, self.policy, site="trainer.fit",
+                               sleep=self._sleep)
+
+    # subclass hooks (GangSupervisor) ------------------------------------
+    def _prepare_trainer(self, trainer: Any) -> Any:
+        """Adjust each attempt's freshly built trainer before it fits
+        (GangSupervisor's elastic world-size seat). Default: identity."""
+        return trainer
+
+    def _on_retry(self, attempt: int) -> None:
+        """Called before each retry attempt (attempt >= 2) starts."""
+
+    def _record_failure(self, exc: BaseException) -> None:
+        """Called with each failed attempt's exception before re-raise."""

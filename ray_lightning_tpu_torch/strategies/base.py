@@ -36,9 +36,14 @@ averaged over ranks, and the non-finite guard's verdict is one flag
 reduced over ranks, so every rank keeps or skips together. Subclasses
 say how gradients are averaged and state is held: :meth:`wrap_model`,
 :meth:`make_optimizer`, :meth:`sync_gradients`, :meth:`state_dict` and
-:meth:`load_state_dict`. Gang supervision (``gang=``) and warm
-standbys (``standby=``) raise ``NotImplementedError`` (``ROADMAP.md``
-S6/T7, item 6).
+:meth:`load_state_dict`.
+
+``gang=`` (a :class:`~ray_lightning_tpu_torch.reliability.gang.GangConfig`)
+and ``standby=`` (a :class:`~ray_lightning_tpu_torch.reliability.elastic.
+StandbyPool`) are handed to the ``RayLauncher`` this strategy makes: gang
+supervision and warm standbys, as in the JAX package (the in-process
+local launcher has no gang to supervise). :meth:`set_world_size` is the
+elastic restart's seat.
 """
 from __future__ import annotations
 
@@ -58,7 +63,6 @@ from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.launchers.local import LocalLauncher
 from ray_lightning_tpu_torch.reliability.guard import tree_all_finite
 
-_RELIABILITY_ITEM = "ROADMAP.md S6/T7, item 6"
 # how long a rank waits in the rendezvous and in a collective for its
 # peers before it raises instead of hanging
 PROCESS_GROUP_TIMEOUT_S = 300
@@ -130,11 +134,12 @@ class Strategy:
         ``allow_colocated_workers`` is accepted and has no effect: a card
         has one owner however workers share nodes. See the module
         docstring for ``device``."""
-        for name, value in (("gang", gang), ("standby", standby)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{type(self).__name__}({name}=...) is not ported yet "
-                    f"({_RELIABILITY_ITEM})")
+        # GangConfig (reliability.gang): worker heartbeats and the
+        # driver's watchdog on the RayLauncher; None = disarmed
+        self.gang = gang
+        # StandbyPool (reliability.elastic): warm workers promoted into
+        # rank slots on a restart; caller-owned
+        self.standby = standby
         self.num_workers = int(num_workers)
         if self.num_workers < 1:
             raise ValueError(f"num_workers must be >= 1, got {num_workers}")
@@ -159,7 +164,9 @@ class Strategy:
         self._is_remote = False
         self._device_index: Optional[int] = None
         self.global_to_local: Optional[list] = None
-        # the process group (set up by worker_setup)
+        # the process group (set up by worker_setup); the launcher of an
+        # armed gang shortens the rendezvous' and collectives' timeout
+        self.collective_timeout_s: float = PROCESS_GROUP_TIMEOUT_S
         self._in_world = False
         self._owns_group = False
         self._ckpt_group = None
@@ -172,7 +179,8 @@ class Strategy:
         from ray_lightning_tpu_torch.launchers import ray_launcher as rl
         ray = None if self.use_ray is False else rl._import_ray()
         if ray is not None and ray.is_initialized():
-            return rl.RayLauncher(self, ray_module=ray)
+            return rl.RayLauncher(self, ray_module=ray, gang=self.gang,
+                                  standby=self.standby)
         if self.use_ray is True:
             raise RuntimeError(
                 "use_ray=True but no Ray runtime is attached: install ray "
@@ -183,7 +191,8 @@ class Strategy:
         from ray_lightning_tpu_torch.launchers.process_backend import \
             ProcessRay
         return rl.RayLauncher(self, ray_module=ProcessRay(
-            num_threads=int(self.num_cpus_per_worker)))
+            num_threads=int(self.num_cpus_per_worker)), gang=self.gang,
+            standby=self.standby)
 
     def worker_setup(self, process_idx: int,
                      num_processes: Optional[int] = None,
@@ -218,7 +227,8 @@ class Strategy:
             dist.init_process_group(
                 backend, init_method="env://", world_size=num_processes,
                 rank=process_idx,
-                timeout=datetime.timedelta(seconds=PROCESS_GROUP_TIMEOUT_S))
+                timeout=datetime.timedelta(
+                    seconds=self.collective_timeout_s))
             self._owns_group = True
         if dist.get_rank() != process_idx or \
                 dist.get_world_size() != num_processes:
@@ -284,6 +294,28 @@ class Strategy:
                 self.global_to_local[process_idx]
         else:
             self._local_rank, self._node_rank = 0, process_idx
+
+    def set_world_size(self, num_workers: int) -> None:
+        """Adopt a world size chosen at restart time -- the elastic
+        recovery seat (``GangSupervisor(elastic=True)``; the JAX
+        package's ``Strategy.set_world_size``).
+
+        The driver-computed rank map describes a world that no longer
+        exists and is dropped (the next launch computes it at the new
+        size); the next restore re-shards the newest checkpoint onto the
+        new world (``core/checkpoint.py:reshard_state``). Resized to one
+        worker without Ray, the strategy trains in-process again, on
+        the device it was given."""
+        n = int(num_workers)
+        if n < 1:
+            raise ValueError(f"world size must be >= 1, got {n}")
+        if n == self.num_workers:
+            return
+        self.num_workers = n
+        self.global_to_local = None
+        self.set_world_ranks(min(self._global_rank, n - 1))
+        if n == 1 and not self.use_ray and self.device is None:
+            self.device = resolve_device(self._device_spec)
 
     @property
     def world_size(self) -> int:

@@ -417,16 +417,43 @@ def test_periodic_saves_do_not_hijack_monitored_best(tmp_path):
     assert "step=8" in periodic[0]
 
 
-def test_async_save_and_keep_last_n(tmp_path):
-    """async_save overlaps the directory write with training; the fit-end
-    wait leaves every directory committed, keep_last_n prunes the rest,
-    and the best checkpoint restores the final params."""
+def test_async_save_and_keep_last_n(tmp_path, monkeypatch):
+    """async_save overlaps the directory write with training in one
+    process, as the JAX package's orbax save does: every save returns
+    with its commit still pending on the commit thread, writing host
+    copies of the tensors through DCP's one-process save (never DCP's
+    ``async_save``, which needs a process group); the fit-end wait
+    leaves every directory committed, keep_last_n prunes the rest, and
+    the best checkpoint restores the final params."""
+    import torch.distributed.checkpoint as dcp
+    from ray_lightning_tpu_torch.core import checkpoint as ckpt_mod
+
+    def refused(*a, **k):
+        raise AssertionError("the one-process path must not need "
+                             "DCP's async_save")
+
+    monkeypatch.setattr(dcp, "async_save", refused)
+    pending, staged = [], []
+    real_copy = ckpt_mod.host_copy
+
+    def recording_copy(tree):
+        out = real_copy(tree)
+        if isinstance(tree, dict):      # a save's flat tensor dict
+            staged.append(out)
+        return out
+
+    monkeypatch.setattr(ckpt_mod, "host_copy", recording_copy)
     ck = os.path.join(str(tmp_path), "ck")
     cb = ModelCheckpoint(dirpath=ck, save_format="orbax", async_save=True,
                          save_top_k=-1, every_n_train_steps=1, keep_last_n=2)
-    t = _trainer(str(tmp_path), callbacks=[cb])
+    t = _trainer(str(tmp_path), callbacks=[cb, LambdaCallback(
+        on_train_batch_end=lambda *a: pending.append(
+            len(ckpt_mod._PENDING)))])
     t.fit(BoringModel())
     wait_for_async_saves()
+    assert len(staged) == 15 and any(pending)   # 12 periodic, 3 epoch-end
+    live = {t_.data_ptr() for t_ in t.model.state_dict().values()}
+    assert not any(x.data_ptr() in live for s in staged for x in s.values())
     names = sorted(os.listdir(ck))
     assert all(is_committed_checkpoint(os.path.join(ck, n)) for n in names)
     assert not any(".tmp-" in n for n in names)

@@ -50,7 +50,11 @@ bankless engine does. Serving reliability: crash replay on the
 page-native, chunked, spec and async int8-weight engines equal to the
 fault-free run in f32 with the kernels on, each kernel launched by the
 rebuilt engines, the card's allocated bytes equal after every rebuild;
-armed telemetry adding no launch and no synchronizing call.
+armed telemetry adding no launch and no synchronizing call. The health
+of a fit: ``StepStatsCallback(block=True)``'s step time covering the
+step's CUDA-event time, the in-memory checkpoint tier holding only host
+tensors after a fit on the card, and an armed fit (telemetry, step
+stats, the profiler) launching exactly what a disarmed one does.
 ``chip_smoke.py`` repeats this at the serving and training paths' full
 shapes.
 """
@@ -1839,3 +1843,111 @@ def test_armed_telemetry_adds_no_launch_and_no_sync(cuda):
         eng.step_sync(p)
     eng.shutdown()
     assert len(tel.events("engine.dispatch_synced")) == 2
+
+
+# ------------------------------------------------- the health of a fit
+class _EventStart(Callback):
+    """Records a CUDA event at each training batch's start hook (list it
+    after the callback whose clock it must not precede)."""
+
+    def __init__(self, pairs):
+        self.pairs = pairs
+
+    def on_train_batch_start(self, trainer, module, batch, idx):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.pairs.append([start, None])
+
+
+class _EventEnd(Callback):
+    """Records a CUDA event at each training batch's end hook (list it
+    before the callback that synchronizes there)."""
+
+    def __init__(self, pairs):
+        self.pairs = pairs
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, idx):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.pairs[-1][1] = end
+
+
+def test_stepstats_block_covers_the_steps_device_time(cuda, tmp_path):
+    """``StepStatsCallback(block=True)`` synchronizes the card before it
+    reads its clock: each step's ``step_time_ms`` is at least the CUDA
+    events' time between the same hooks (a step timed at its enqueue
+    would read less on an asynchronous card)."""
+    from ray_lightning_tpu_torch import StepStatsCallback
+
+    class Record(Callback):
+        def __init__(self):
+            self.ms = []
+
+        def on_train_batch_end(self, trainer, module, outputs, batch, idx):
+            self.ms.append(trainer.callback_metrics["step_time_ms"])
+
+    # device interval inside the callback's: the start event recorded
+    # after its clock reads, the end event before its synchronize
+    pairs, rec = [], Record()
+    _card_fit(tmp_path, _nano_bf16(), limit_val_batches=0,
+              callbacks=[_EventEnd(pairs), StepStatsCallback(block=True),
+                         _EventStart(pairs), rec])
+    torch.cuda.synchronize()
+    device_ms = [s.elapsed_time(e) for s, e in pairs]
+    assert len(rec.ms) == len(device_ms) == 8
+    for host, dev in zip(rec.ms, device_ms):
+        assert host >= dev, (host, dev)
+
+
+def test_memory_tier_holds_only_host_tensors(cuda, tmp_path):
+    """A fit on the card with a ``MemoryCheckpointStore`` installed:
+    every tensor the store holds is in CPU memory (never a CUDA tensor,
+    whose IPC handle would die with its process), equal to the live
+    state it copies, and the put's bytes are recorded."""
+    from ray_lightning_tpu_torch import ModelCheckpoint
+    from ray_lightning_tpu_torch.reliability import MemoryCheckpointStore
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                yield from leaves(v)
+        elif isinstance(tree, torch.Tensor):
+            yield tree
+
+    store = MemoryCheckpointStore(keep_last=1)
+    with store.installed():
+        t = _card_fit(tmp_path, _nano_bf16(), limit_val_batches=0,
+                      callbacks=[ModelCheckpoint(
+                          dirpath=str(tmp_path / "ck"))])
+    (step, ckpt), = store.resume_candidates(copy_payloads=False)
+    assert step == t.global_step
+    held = list(leaves(ckpt))
+    assert held and all(x.device.type == "cpu" for x in held)
+    for name, p in t.model.state_dict().items():
+        assert p.device.type == "cuda"
+        assert torch.equal(ckpt["state"]["params"][name], p.cpu()), name
+    nbytes, _s = t.memory_puts[-1]
+    assert nbytes == sum(x.numel() * x.element_size() for x in held)
+
+
+def test_armed_fit_launches_what_a_disarmed_one_does(cuda, tmp_path):
+    """Telemetry, ``StepStatsCallback`` and the profiler add no kernel
+    launch to a fit: K2-K4 launch as often, on the same routes."""
+    from ray_lightning_tpu_torch import StepStatsCallback
+    from ray_lightning_tpu_torch.obs import Telemetry
+    counts = {}
+    for armed in (False, True):
+        tel = Telemetry() if armed else None
+        cf.reset_kernel_launches()
+        _card_fit(tmp_path / str(armed), _nano_bf16(), telemetry=tel,
+                  profiler="simple" if armed else None,
+                  callbacks=[StepStatsCallback(tel)] if armed else [])
+        counts[armed] = {k: cf.route_launches(k) for k in cf.KERNELS}
+        if armed:
+            sites = [e.site for e in tel.events()]
+            assert sites[0] == "launch.start" and "fit.end" in sites
+    assert counts[True] == counts[False]
+    assert counts[True]["flash_fwd"]["tc"] > 0

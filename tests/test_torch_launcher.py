@@ -194,11 +194,19 @@ def test_external_workers_are_reused_and_released(recording):
 
 @pytest.mark.parametrize("what", ["gang", "standby"])
 def test_gang_and_standby_wait_for_their_item(what):
-    with pytest.raises(NotImplementedError, match="S6/T7"):
-        RayLauncher(RayStrategy(num_workers=2, device="cpu"),
-                    ray_module=FakeRay(), **{what: object()})
-    with pytest.raises(NotImplementedError, match="S6/T7"):
-        RayStrategy(num_workers=2, device="cpu", **{what: object()})
+    """Ported (T7): the launcher and the strategy take ``gang=`` and
+    ``standby=``, the strategy hands them to the launcher it makes, and
+    nothing is allocated before a launch (``tests/test_torch_gang.py``
+    and ``tests/test_torch_elastic.py`` hold them)."""
+    value = object()
+    launcher = RayLauncher(RayStrategy(num_workers=2, device="cpu"),
+                           ray_module=FakeRay(), **{what: value})
+    assert getattr(launcher, f"_{what}") is value
+    assert launcher._gang_channel is None \
+        and launcher._memstore_channel is None
+    strategy = RayStrategy(num_workers=2, device="cpu", **{what: value})
+    assert getattr(strategy, what) is value
+    assert getattr(strategy.configure_launcher(), f"_{what}") is value
 
 
 # ------------------------------------------------------ resources, spec

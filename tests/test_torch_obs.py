@@ -21,7 +21,8 @@ Two halves:
   the JAX async client with telemetry armed raises ``AttributeError``
   when a recovery happens inside an enqueue (its recovery sentinel has
   no ``enqueued_tick`` slot; ``ROADMAP.md`` C), so that case is held
-  inside the port by ``tests/test_torch_reliability.py``.
+  inside the port by
+  ``tests/test_torch_reliability.py::test_armed_async_client_survives_a_steady_state_enqueue_crash``.
 """
 import json
 import os

@@ -538,6 +538,67 @@ def test_async_unsupervised_enqueue_crash_keeps_the_pending_handle(env):
     assert {r: (c.tokens, c.finish_reason) for r, c in out.items()} == ref
 
 
+def test_armed_async_client_survives_a_steady_state_enqueue_crash(env):
+    """The armed async client through a crash inside ``step_enqueue``
+    with a dispatch in flight (the case where the port departs from the
+    reference: the JAX client raises ``AttributeError`` here, so it
+    cannot be the oracle). Telemetry armed on the tick clock, a
+    ``serve.dispatch`` crash at the first enqueue made while an earlier
+    handle is still out, under a retry policy: the greedy tokens (f32)
+    equal the disarmed fault-free run's, the recovery's sentinel carries
+    its ``enqueued_tick``, and the log holds exactly one
+    ``fault.injected`` followed by the recovery's ``engine.rebuild`` and
+    ``recovery.replay`` events."""
+    from ray_lightning_tpu_torch.obs import Telemetry
+    from ray_lightning_tpu_torch.reliability.supervisor import \
+        _RecoveredDispatch
+    trace = [(0, dict(prompt=p, max_new_tokens=6)) for p in PROMPTS[:3]]
+    ref = _port_run(env, trace, async_dispatch=True)
+
+    def armed_client(plan):
+        tel = Telemetry()
+        client = ServeClient(env["target"], env["target"].state_dict(),
+                             num_slots=3, prefill_len=8, device="cpu",
+                             async_dispatch=True, telemetry=tel,
+                             retry_policy=RetryPolicy(max_attempts=3,
+                                                      base_delay=0.0))
+        sup = client.engine
+        real_enqueue, real_sync = sup.step_enqueue, sup.step_sync
+        enqueues, handles, synced = [], [], []
+
+        def recording_enqueue():
+            # the serve.dispatch tick this enqueue fires, and whether an
+            # earlier dispatch is still out (enqueued, not yet synced)
+            enqueues.append((plan.counts().get("serve.dispatch", 0),
+                             len(handles) > len(synced)))
+            handles.append(real_enqueue())
+            return handles[-1]
+
+        def recording_sync(handle):
+            synced.append(handle)
+            return real_sync(handle)
+
+        sup.step_enqueue, sup.step_sync = recording_enqueue, recording_sync
+        with tel.activated(), plan.armed():
+            out = client.serve_trace(list(trace))
+        client.shutdown()
+        return out, tel, sup, enqueues, handles
+
+    # a fault-free armed run finds the first steady-state enqueue's tick
+    _out, _tel, _sup, enqueues, _h = armed_client(FaultPlan([]))
+    tick = next(t for t, in_flight in enqueues if in_flight)
+    plan = FaultPlan.at("serve.dispatch", [tick])
+    out, tel, sup, _enq, handles = armed_client(plan)
+    assert plan.fired == 1 and sup.rebuilds == 1
+    assert {r: (c.tokens, c.finish_reason) for r, c in out.items()} == ref
+    sentinels = [h for h in handles if isinstance(h, _RecoveredDispatch)]
+    assert len(sentinels) == 1 and sentinels[0].enqueued_tick is not None
+    sites = [e.site for e in tel.events()]
+    assert sites.count("fault.injected") == 1
+    after = sites[sites.index("fault.injected"):]
+    assert after.index("engine.rebuild") < after.index("recovery.replay")
+
+
 def test_supervised_sync_crash_discards_the_newer_handle(env, monkeypatch):
     """A recovery inside ``step_sync`` (a host-copy failure) rebuilds the
     engine while a newer handle is out: the client discards it, never

@@ -43,7 +43,10 @@ from ray_lightning_tpu_torch.core import optim
 from ray_lightning_tpu_torch.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.interop import (flax_state_dict,
                                              load_flax_params)
+from ray_lightning_tpu_torch.obs import Telemetry
 from ray_lightning_tpu_torch.ops.flash_attention import flash_attention
+from ray_lightning_tpu_torch.reliability import GangConfig, StandbyPool
+from ray_lightning_tpu_torch.testing import FakeRay
 
 torch.set_num_threads(1)
 
@@ -325,10 +328,6 @@ def test_trainer_and_strategy_default_to_the_card():
 
 
 UNPORTED = {
-    "telemetry": lambda: Trainer(strategy=RayStrategy(device="cpu"),
-                                 telemetry=object()),
-    "gang": lambda: RayStrategy(gang=object(), device="cpu"),
-    "standby": lambda: RayStrategy(standby=object(), device="cpu"),
     "ring": lambda: gpt2_config("nano", attention_impl="ring"),
     "ulysses": lambda: gpt2_config("nano", attention_impl="ulysses"),
 }
@@ -372,7 +371,23 @@ def _optimizer_class(**kw):
 # the arguments earlier slices raised on, each now ported (held against
 # the JAX package by tests/test_torch_checkpoint.py, test_torch_callbacks.py
 # and test_torch_optim.py): each runs
+def _launcher_with(**kw):
+    """The launcher a two-worker strategy with ``kw`` makes (nothing
+    spawned before its first launch)."""
+    return RayStrategy(num_workers=2, device="cpu", **kw).configure_launcher()
+
+
 PORTED = {
+    # T7 (held against JAX by tests/test_torch_fit_obs.py,
+    # tests/test_torch_gang.py and tests/test_torch_elastic.py)
+    "telemetry": lambda tmp: [e.site for e in _boring_fit(
+        tmp, telemetry=Telemetry())[0].telemetry.events()][:3] == [
+            "launch.start", "worker.start", "fit.start"],
+    "gang": lambda tmp: _launcher_with(
+        gang=GangConfig(heartbeat_timeout=5.0))._gang.heartbeat_timeout
+    == 5.0,
+    "standby": lambda tmp: _launcher_with(standby=StandbyPool(
+        FakeRay(), num_standby=0))._standby.num_standby == 0,
     "enable_checkpointing": lambda tmp: isinstance(
         _boring_fit(tmp)[0].checkpoint_callback, ModelCheckpoint),
     "resume": lambda tmp: _resumed_step(tmp, resume="auto") == 2,

@@ -101,6 +101,38 @@ class Failing(BoringModel):
         return super().training_step(model, batch, generator)
 
 
+class AdamBoring(BoringModel):
+    """BoringModel trained with the port's AdamW (optimizer state to
+    reshard)."""
+
+    def configure_optimizers(self):
+        from ray_lightning_tpu_torch.core.optim import make_optimizer
+        return make_optimizer("adamw", 1e-2)
+
+
+class EventProbe(Callback):
+    """The worker trainer's telemetry events at the end of its fit, as
+    ``(site, payload)`` pairs, and its metrics snapshot, carried to the
+    driver as this callback's state (a worker's events land on its own
+    copy of the handle)."""
+
+    def __init__(self):
+        self.events, self.metrics = [], {}
+
+    def on_fit_end(self, trainer, module):
+        tel = trainer.telemetry
+        if tel is not None:
+            self.events = [(e.site, dict(e.payload)) for e in tel.events()]
+            self.metrics = tel.metrics.snapshot()
+
+    def state_dict(self):
+        return {"events": list(self.events), "metrics": dict(self.metrics)}
+
+    def load_state_dict(self, state):
+        self.events = list(state["events"])
+        self.metrics = dict(state["metrics"])
+
+
 class LossRecorder(Callback):
     """Per-step losses, carried back to the driver as this callback's
     state (the worker -> driver channel for callback states)."""
@@ -238,24 +270,30 @@ def put_into(queue, item):
 
 
 class World:
-    """Two spawned worker processes, made on first use and reused by
-    every fit of a test file (``RayLauncher(workers=)``); a failed launch
-    kills them, and the next fit spawns a fresh pair."""
+    """``size`` spawned worker processes (two by default), made on first
+    use and reused by every fit of a test file (``RayLauncher(workers=)``;
+    a strategy of fewer workers takes the first ones); a failed launch
+    kills them, and the next fit spawns a fresh set."""
 
-    def __init__(self):
+    def __init__(self, size=2):
         self.ray = ProcessRay(num_threads=1)
         self.ray.init()
+        self.size = size
         self.workers = []
 
     def _live_workers(self):
         if not self.workers or any(w._killed for w in self.workers):
+            for w in self.workers:
+                if not w._killed:
+                    self.ray.kill(w)
             self.workers = [self.ray.remote(ExecutorBase).remote()
-                            for _ in range(2)]
+                            for _ in range(self.size)]
         return self.workers
 
-    def launcher(self, strategy):
-        return RayLauncher(strategy, ray_module=self.ray,
-                           workers=self._live_workers())
+    def launcher(self, strategy, **kw):
+        return RayLauncher(
+            strategy, ray_module=self.ray,
+            workers=self._live_workers()[:strategy.num_workers], **kw)
 
     def collective(self, fn, *args):
         """``fn(rank, world_size, init_method, *args)`` on both workers
@@ -265,7 +303,7 @@ class World:
         from ray_lightning_tpu_torch.launchers.utils import find_free_port
         from ray_lightning_tpu_torch.util import process_results
         for attempt in range(2):
-            workers = self._live_workers()
+            workers = self._live_workers()[:2]
             port = self.ray.get(workers[0].execute.remote(find_free_port))
             futures = [w.execute.remote(fn, r, len(workers),
                                         f"tcp://127.0.0.1:{port}", *args)
