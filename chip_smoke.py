@@ -380,27 +380,58 @@ H. The health of a fit, at T2's configuration (GPT-2-small, flash,
    ``heartbeat_timeout``. Printed: ms from each fault to its detection
    and to ``gang.teardown``, s from each restart to its first step (cold
    against warm), the memory tier's bytes and ms per put.
+I. The input pipeline, run after T2 at T2's configuration: 8 steps fed
+   by ``MultiprocessDataLoader(num_workers=2, auto_fallback=False)``
+   (producers spawned: CUDA is live) and ``DevicePrefetcher(depth=2)``
+   against the same 8 steps fed in-process. ``uses_ring`` and spawn;
+   every batch equal on the host; the final params and optimizer state
+   bitwise equal (the same token batches reach the same deterministic
+   steps); one step's kernel launches and copies equal under
+   ``torch.profiler`` (the host's calls; the prefetcher's two pinned
+   copies take the place of ``_to_device``'s two); K2-K4 on ``tc``.
+   Printed: the step ms of each, the producers' seconds to the first
+   batch, the ring's bytes per second in its pops, the prefetcher's
+   copies and bytes.
+N. The in-process replica fleet, run after phase F on phase 2's weights
+   and trace, page-native (``page_size=16, num_pages=512, num_slots=8,
+   prefill_len=128, attention_kernel="cuda"``). (a) bf16, 2 replicas and
+   a warm standby: the requests per replica, the fleet's tokens/s and ms
+   a fleet tick beside a single client of the layout (and phase 2's
+   figures), the card's bytes per client. (b) f32, a ``serve.replica``
+   raise while 8 rows decode (4 on the victim): every token equal to the
+   fault-free single client's, ``fleet.failover`` -> 4
+   ``recovery.replay`` -> ``fleet.replica_promoted``, the bytes of the
+   card's live tensors at the crash equal to those once the promoted
+   replica has decoded, and its allocated bytes within
+   N_ALLOCATOR_SLACK of them (the standby refilled, the dead replica
+   released), ms a failover, ``request_traces()`` telescoping exactly
+   on the tick clock, the Chrome trace written. (c) int8 weights on K5:
+   codes and scales byte-equal across the replicas and the standby, K5
+   on the GEMVs and ``tc``. (d) phase L's layout and trace on 2 replicas
+   with prefix affinity: the 8 shared-prefix requests on one replica,
+   pages saved and hit rates beside phase L's single client, K2 on
+   ``tc`` for every chunk. Each phase prints its seconds.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K1 has two entries:
    ``paged_attention`` at T=1 with phase 2's, phase L's, phase P's and
-   phase A's bf16 runs' launches and every phase F run's,
+   phase A's bf16 runs' launches, every phase F run's and phase N's,
    ``paged_attention_verify`` at T=5 with phase S (a)'s, phase P's spec
    bf16 runs' and phase F (c)'s. K2 has two entries:
    ``flash_fwd`` at the training shape with T2's launches,
    ``flash_fwd_chunk`` at the chunk's shape (S=1024) with phase L's,
-   phase P's chunked, phase A's chunked and phase F (b)'s bf16 ``tc``
-   launches. K2-K4's
-   training entries count T2's launches, phase M's (a), (b) and (e)
-   fits' and phase H (a)'s and (b)'s. K5 has five entries, each one forward's 49 calls, bf16 x,
+   phase P's chunked, phase A's chunked, phase F (b)'s bf16 and phase N
+   (d)'s ``tc`` launches. K2-K4's
+   training entries count T2's launches, phase I's two fits', phase M's
+   (a), (b) and (e) fits' and phase H (a)'s and (b)'s. K5 has five entries, each one forward's 49 calls, bf16 x,
    int8 codes (times and bound their sums, the error the largest of
    them): ``quantized_matmul`` at
    M=8 (a decode step, the GEMVs; Q2's, phase L's, phase S (d)'s, phase
    G (c), (d) and (e)'s, phase P's int8-weights bf16 runs', phase A
-   (b), (f) and its chunked run's and phase F (d)'s int8 launches on
-   those routes),
+   (b), (f) and its chunked run's, phase F (d)'s and phase N (c)'s int8
+   launches on those routes),
    ``quantized_matmul_prefill`` at M=1024 (a prefill, the tensor-core
-   kernel; Q2's, phase G (c) and (d)'s, phase P's and phase A (b) and
-   (f)'s ``tc`` launches),
+   kernel; Q2's, phase G (c) and (d)'s, phase P's, phase A (b) and
+   (f)'s and phase N (c)'s ``tc`` launches),
    ``quantized_matmul_chunk`` at M=128 (a chunk dispatch, the
    tensor-core kernel; phase L's and phase A's chunked ``tc`` launches) and
    ``quantized_matmul_verify`` at M=40 (a spec verify, the tensor-core
@@ -427,6 +458,7 @@ import torch
 # the spawned workers of phase D import this script to unpickle its
 # callback, so the port is imported here, not only inside the phases
 from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
+from ray_lightning_tpu_torch.models import GPTModule
 from ray_lightning_tpu_torch.reliability import GangSupervisor
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
@@ -1192,6 +1224,7 @@ def phase_l_long_prompts(cfg, sd, rng, card):
         res["runs"][label] = row
         client.shutdown()
     res["f32"] = phase_l_f32(cfg, sd, trace, kinds)
+    res["trace"] = (trace, kinds)       # phase N (d) serves it again
     return res
 
 
@@ -5015,6 +5048,517 @@ def phase_u_tune(card, ray, workers, spawn_s):
     return res
 
 
+# -------------------------------------------------------------- phase I
+I_STEPS = 8
+I_WORKERS, I_DEPTH = 2, 2
+I_COUNTED_STEP = 5          # the step whose launches each fit profiles
+
+
+class IRingModule(GPTModule):
+    """T2's module with its training batches from
+    ``MultiprocessDataLoader`` (spawned producers: CUDA is live) and
+    ``DevicePrefetcher`` (pinned staging, a side stream). Module level:
+    the producers' spawn re-imports this script."""
+
+    def train_dataloader(self):
+        from ray_lightning_tpu_torch.data import (DevicePrefetcher,
+                                                  MultiprocessDataLoader)
+        self.ring = MultiprocessDataLoader(
+            super().train_dataloader(), num_workers=I_WORKERS,
+            auto_fallback=False)
+        self.prefetcher = DevicePrefetcher(self.ring, depth=I_DEPTH)
+        return self.prefetcher
+
+
+class IProbe(Callback):
+    """Each step's batch on the host and its end time (synchronized),
+    and ``torch.profiler``'s records over step I_COUNTED_STEP: from the
+    end of the step before it (the next batch's loading and copies
+    included) to its own end."""
+
+    def __init__(self):
+        self.batches, self.ends, self.prof = [], [], None
+        self.window_copies = None
+
+    def on_train_batch_end(self, trainer, pl_module, outputs, batch,
+                           batch_idx):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.ends.append(time.perf_counter())
+        copies = getattr(getattr(pl_module, "prefetcher", None), "copies",
+                         None)
+        if batch_idx == I_COUNTED_STEP:
+            self.prof.__exit__(None, None, None)
+            self.events = self.prof.key_averages()
+            self.window_copies = (None if copies is None
+                                  else copies - self.window_copies)
+        self.batches.append([t.cpu() for t in batch])
+        if batch_idx == I_COUNTED_STEP - 1:
+            self.window_copies = copies
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+
+    def counts(self) -> dict:
+        """The counted step's kernel launches and copies: the host's launch
+        and copy calls (what the check compares: the profiler drops a
+        device record now and then, PERF.md §7), beside the device's
+        kernel and host-to-device copy records."""
+        from torch.autograd import DeviceType
+        dev = [a for a in self.events if a.device_type == DeviceType.CUDA]
+        host = {a.key: a.count for a in self.events
+                if a.key in G_HOST_LAUNCH_CALLS}
+        return dict(
+            launch_calls=sum(n for k, n in host.items()
+                             if "Launch" in k),
+            copy_calls=host.get("cudaMemcpyAsync", 0),
+            kernel_records=sum(a.count for a in dev if not a.key.startswith(
+                ("Memcpy", "Memset"))),
+            h2d_records=sum(a.count for a in dev
+                            if a.key.startswith("Memcpy HtoD")),
+            prefetcher_copies=self.window_copies)
+
+
+def i_fit(cls):
+    """T2's fit for I_STEPS steps (no validation) with the probe; returns
+    the trainer, the module and the probe."""
+    from ray_lightning_tpu_torch import Trainer
+    from ray_lightning_tpu_torch.models import gpt2_config
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    module = cls(config=gpt2_config("small", attention_impl="flash"),
+                 batch_size=8, seq_len=1024)
+    probe = IProbe()
+    trainer = Trainer(strategy=train_strategy(), max_epochs=1,
+                      limit_train_batches=I_STEPS, limit_val_batches=0,
+                      seed=0, callbacks=[probe])
+    cf.reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer.fit(module)
+    fit_s = time.perf_counter() - t0
+    check(trainer.global_step == I_STEPS,
+          f"I: global_step {trainer.global_step} != {I_STEPS}")
+    launches = check_flash_launches(f"I {cls.__name__}", I_STEPS)
+    return trainer, module, probe, launches, fit_s
+
+
+def phase_i_input_pipeline(card):
+    """T2's configuration fed by two spawned producers through the shared-
+    memory ring and the device prefetcher, against the same fit fed
+    in-process: every batch equal on the host, the final state bitwise
+    equal (the same token batches reach the same deterministic step),
+    the counted step's kernel launches and copies equal (the prefetcher's
+    copies replace ``_to_device``'s), K2-K4 on ``tc``; step ms of each,
+    the producers' start-up seconds and the ring's bytes per second."""
+    from ray_lightning_tpu_torch import GPTModule as Plain
+    release()
+    t_phase = time.perf_counter()
+    base, _, bprobe, blaunch, bfit = i_fit(Plain)
+    want = host_state(base)
+    del base
+    release()
+    ring_tr, ring_mod, rprobe, rlaunch, rfit = i_fit(IRingModule)
+    got = host_state(ring_tr)
+    ring, pref = ring_mod.ring, ring_mod.prefetcher
+    check(ring.uses_ring and ring.mp_context == "spawn"
+          and ring.num_workers == I_WORKERS,
+          f"I: the loader ran uses_ring={ring.uses_ring} "
+          f"mp_context={ring.mp_context} workers={ring.num_workers}")
+    check(len(rprobe.batches) == len(bprobe.batches) == I_STEPS
+          and all(torch.equal(a, b) for x, y in zip(rprobe.batches,
+                                                    bprobe.batches)
+                  for a, b in zip(x, y)),
+          "I: the ring's batches differ from the in-process loader's")
+    diff = bitwise_diff(got, want)
+    check(not diff, f"I: final state differs at {diff[:5]}")
+    bc, rc = bprobe.counts(), rprobe.counts()
+    check(rc["launch_calls"] == bc["launch_calls"]
+          and rc["copy_calls"] == bc["copy_calls"] == 2
+          and rc["prefetcher_copies"] == 2,
+          f"I: the counted step launched {rc} against in-process {bc}")
+    check(rlaunch == blaunch, f"I: flash launches {rlaunch} != {blaunch}")
+    stats = dict(ring.stats)
+    bstep = 1e3 * float(np.median(np.diff(bprobe.ends)[1:]))
+    rstep = 1e3 * float(np.median(np.diff(rprobe.ends)[1:]))
+    res = dict(
+        steps=I_STEPS, workers=I_WORKERS, depth=I_DEPTH,
+        mp_context=ring.mp_context, uses_ring=ring.uses_ring,
+        final_state_bitwise=True, batches_equal=True,
+        counted_step_in_process=bc, counted_step_ring=rc,
+        flash_launches=rlaunch, step_ms_in_process=bstep,
+        step_ms_ring=rstep, fit_s_in_process=bfit, fit_s_ring=rfit,
+        producers_first_batch_s=stats["first_batch_s"],
+        ring_bytes=stats["bytes"], ring_batches=stats["batches"],
+        ring_pop_s=stats["pop_s"],
+        ring_bytes_per_s=stats["bytes"] / stats["pop_s"],
+        prefetcher_copies=pref.copies, prefetcher_bytes=pref.bytes,
+        card=card)
+    print("phaseI input pipeline", json.dumps(res), flush=True)
+    del ring_tr, ring_mod, got, want
+    release()
+    print(f"phaseI took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    res["launches"] = {k: blaunch[k] + rlaunch[k] for k in blaunch}
+    return res
+
+
+# -------------------------------------------------------------- phase N
+N_LAYOUT = dict(num_slots=8, prefill_len=128, page_size=16, num_pages=512,
+                page_native=True, attention_kernel="cuda")
+N_REPLICAS, N_STANDBY = 2, 1
+# (b): the serve.replica firing that kills a replica -- replica turns are
+# counted in tick order, two a tick: fire 5 is tick 2's second turn,
+# replica 1 decoding its 4 rows while replica 0 decodes its 4
+N_KILL = 5
+
+
+def n_drive(obj, trace):
+    """``obj.serve_trace(trace)`` (a fleet or a client) with the wall
+    time of every tick; returns the completions, the serve seconds and
+    the tick seconds."""
+    ticks = []
+    tick = obj.tick
+
+    def timed():
+        t0 = time.perf_counter()
+        out = tick()                 # every dispatch ends in a host copy
+        ticks.append(time.perf_counter() - t0)
+        return out
+
+    obj.tick = timed
+    t0 = time.perf_counter()
+    done = obj.serve_trace(list(trace))
+    return done, time.perf_counter() - t0, ticks
+
+
+def n_rates(done, serve_s, ticks):
+    tokens = sum(len(c.tokens) for c in done.values())
+    return dict(tokens=tokens, serve_s=serve_s,
+                tokens_per_s=tokens / serve_s, ticks=len(ticks),
+                tick_ms_median=1e3 * statistics.median(ticks))
+
+
+def n_fleet(proto, sd, telemetry=None, **kw):
+    from ray_lightning_tpu_torch.serve import ReplicaFleet
+    return ReplicaFleet(proto, sd, num_replicas=N_REPLICAS,
+                        num_standby=N_STANDBY, telemetry=telemetry,
+                        device=DEVICE, **dict(N_LAYOUT, **kw))
+
+
+def n_routes(fleet):
+    """Record each admission's replica: ``{request id: replica id}``."""
+    routes = {}
+    note = fleet.router.note_admission
+
+    def noting(rep, req, load, affine):
+        routes[req.id] = (rep.id, affine)
+        return note(rep, req, load=load, affine=affine)
+
+    fleet.router.note_admission = noting
+    return routes
+
+
+def n_join_refill(fleet):
+    thread = fleet.standby._refill_thread if fleet.standby else None
+    if thread is not None:
+        thread.join(timeout=120)
+
+
+# what the allocator may hold outside any tensor (workspaces a library
+# allocates per thread and stream) between two reads of N (b): far below
+# one replica's ~1.1 GB (f32)
+N_ALLOCATOR_SLACK = 64 << 20
+
+
+def n_allocated() -> dict:
+    """The card's allocated bytes, and the bytes of the distinct device
+    storages that the process's live tensors hold (after a collection):
+    what the replicas own. The allocator also holds a few MB outside any
+    tensor, an amount that moved by -2.8 to +5.2 MB between the two reads
+    of N (b) as threads built clients."""
+    import warnings
+    gc.collect()
+    torch.cuda.synchronize()
+    storages = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for obj in gc.get_objects():
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                st = obj.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+    return dict(allocated=torch.cuda.memory_allocated(),
+                tensors=sum(storages.values()))
+
+
+def n_bf16(cfg, sd, trace, served, card, out):
+    """(a) bf16, 2 replicas and a warm standby, phase 2's trace: where
+    each request went, the fleet's tokens/s and ms a fleet tick beside a
+    single client of the same layout (and phase 2's), device bytes a
+    replica."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.serve import ServeClient
+    proto = TransformerLM(cfg, device="meta")
+    client = ServeClient(proto, sd, device=DEVICE, **N_LAYOUT)
+    client.serve_trace(WARM)
+    client.shutdown()
+    client = ServeClient(proto, sd, device=DEVICE, **N_LAYOUT)
+    single = n_rates(*n_drive(client, trace))
+    single_tokens = {r: c.tokens for r, c in client.completions.items()}
+    client.shutdown()
+    del client
+    before = n_allocated()["allocated"]
+    fleet = n_fleet(proto, sd)
+    built = n_allocated()["allocated"] - before
+    routes = n_routes(fleet)
+    p_reset()
+    done, serve_s, ticks = n_drive(fleet, trace)
+    add_launches(out["launches"], p_launches())
+    check_completions(done, trace, cfg.vocab_size, "N (a)")
+    eng = fleet._replicas[0].client.engine
+    per = {}
+    for rid, (rep, _aff) in routes.items():
+        per[rep] = per.get(rep, 0) + 1
+    check(len(per) == N_REPLICAS, f"N (a): requests per replica {per}")
+    same = sum(done[r].tokens == t for r, t in single_tokens.items())
+    res = dict(
+        requests_per_replica=per, fleet=n_rates(done, serve_s, ticks),
+        single_client=single,
+        equal_to_single_client=f"{same}/{len(done)}",
+        phase2_decode_tokens_per_s=served["bf16"]["decode_tokens_per_s"],
+        phase2_step_ms_median=served["bf16"]["step_ms_median"],
+        device_bytes_fleet=built,
+        device_bytes_per_client=built / (N_REPLICAS + N_STANDBY),
+        param_bytes_per_replica=eng.param_bytes(),
+        kv_bytes_per_replica=storage_bytes(eng), card=card)
+    fleet.shutdown()
+    print("phaseN (a)", json.dumps(res), flush=True)
+    out["runs"]["a"] = res
+
+
+def n_failover(cfg, sd, trace, card, out, root):
+    """(b) f32: one serve.replica raise while 8 rows decode (4 on the
+    victim): every token equals the fault-free single client's;
+    failover -> replay -> promoted in order; the card's allocated bytes
+    once the promoted replica has dispatched and the pool has refilled
+    equal those at the crash; ms a failover; request traces exact on
+    the tick clock; the fleet's Chrome trace written."""
+    from ray_lightning_tpu_torch.obs import Telemetry
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    from ray_lightning_tpu_torch.serve import ServeClient
+    p32 = f_models(cfg, torch.float32)
+    client = ServeClient(p32, sd, device=DEVICE, **N_LAYOUT)
+    ref = {r: c.tokens for r, c in client.serve_trace(list(trace)).items()}
+    client.shutdown()
+    del client
+    gc.collect()
+    tel = Telemetry()
+    fleet = n_fleet(p32, sd, telemetry=tel)
+    rec = {}
+    fail = fleet._fail_replica
+
+    def failing(rep, *, dead):
+        rec["rows"] = sum(r.client.engine.active_count
+                          for r in fleet._replicas)
+        rec["victim_rows"] = rep.client.engine.active_count
+        rec["at_crash"] = n_allocated()
+        rec["tick"] = fleet.ops
+        done = fail(rep, dead=dead)
+        rec["promoted"] = fleet._replicas[-1].client.engine
+        return done
+
+    fleet._fail_replica = failing
+    tick = fleet.tick
+
+    def measuring():
+        # the bytes once the tick holding the failover has ended (the
+        # dead replica released, the refill joined), and once the
+        # promoted replica has decoded: an engine keeps a few device
+        # buffers of its last dispatches, so only then does it hold what
+        # the dead one held
+        got = tick()
+        if "tick" in rec and "after" not in rec:
+            n_join_refill(fleet)
+            rec["after"] = n_allocated()
+        elif ("promoted" in rec and "decoded" not in rec
+                and rec["promoted"].decode_substeps > 0):
+            rec["decoded"] = n_allocated()
+            rec["decoded_tick"] = fleet.ops
+            del rec["promoted"]
+        return got
+
+    fleet.tick = measuring
+    p_reset()
+    plan = FaultPlan.at("serve.replica", [N_KILL])
+    with tel.activated(), plan.armed():
+        done = fleet.serve_trace(list(trace))
+    add_launches(out["launches"], p_launches())
+    check(plan.fired == 1 and fleet.failovers == 1,
+          f"N (b): fired {plan.fired}, failovers {fleet.failovers}")
+    check(rec["rows"] == 8 and rec["victim_rows"] == 4,
+          f"N (b): the kill saw {rec['rows']} rows in flight, "
+          f"{rec['victim_rows']} on the victim")
+    got = {r: c.tokens for r, c in done.items()}
+    differ = [r for r in ref if got.get(r) != ref[r]]
+    check(not differ and got.keys() == ref.keys(), "N (b): the fleet's "
+          f"tokens differ from the fault-free single client's at {differ}")
+    sites = [e.site for e in tel.events()
+             if e.site in ("fleet.failover", "recovery.replay",
+                           "fleet.replica_promoted")]
+    replays = sites.count("recovery.replay")
+    check(sites == ["fleet.failover"] + ["recovery.replay"] * replays
+          + ["fleet.replica_promoted"] and replays == 4,
+          f"N (b): events {sites}")
+    crash, decoded = rec["at_crash"], rec["decoded"]
+    check(decoded["tensors"] == crash["tensors"]
+          and abs(decoded["allocated"] - crash["allocated"])
+          < N_ALLOCATOR_SLACK,
+          f"N (b): the card's bytes {decoded} once the promoted replica "
+          f"decoded, {crash} at the crash ({rec['after']} after the "
+          "failover's tick)")
+    traces = fleet.request_traces()
+    check(sorted(traces) == sorted(done), "N (b): a request has no trace")
+    for rid, tr in traces.items():
+        segs = tr.segments
+        check(segs[0].start == tr.arrival and segs[-1].end == tr.retired
+              and all(a.end == b.start for a, b in zip(segs, segs[1:]))
+              and sum(s.dur for s in segs) == tr.total
+              and float(tr.total).is_integer()
+              and tr.tokens == len(done[rid].tokens),
+              f"N (b): request {rid}'s trace does not telescope: {tr}")
+    moved = sorted(r for r, tr in traces.items() if tr.resubmits)
+    check(len(moved) == 4 and all(
+        "failover" in [s.label for s in traces[r].segments] for r in moved),
+        f"N (b): displaced traces {moved}")
+    path = os.path.join(root, "fleet_trace.json")
+    fleet.export_fleet_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    check({e["pid"] for e in doc["traceEvents"]} >= {0, 1},
+          "N (b): the Chrome trace has no replica tracks")
+    res = dict(
+        kill_tick=rec["tick"], rows_in_flight=rec["rows"],
+        victim_rows=rec["victim_rows"], tokens_equal_single_client=True,
+        replays=replays, failover_ms=1e3 * fleet.failover_s_total,
+        bytes_at_crash=rec["at_crash"],
+        bytes_after_failover_tick=rec["after"],
+        bytes_once_promoted_decoded=rec["decoded"],
+        promoted_decoded_at_tick=rec["decoded_tick"],
+        promoted=[e.payload for e in tel.events("fleet.replica_promoted")],
+        trace_bytes=os.path.getsize(path),
+        trace_events=len(doc["traceEvents"]),
+        displaced=moved, card=card)
+    fleet.shutdown()
+    print("phaseN (b)", json.dumps(res), flush=True)
+    out["runs"]["b"] = res
+
+
+def n_int8(cfg, sd, trace, card, out):
+    """(c) int8 weights on K5 (bf16 x) on 2 replicas: every replica's
+    codes and scales byte-equal, K5 on the GEMVs at decode and on
+    ``tc`` at prefill."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    proto = TransformerLM(cfg, device="meta")
+    fleet = n_fleet(proto, sd, weight_dtype="int8", matmul_kernel="cuda")
+    reps = [r.client.engine.model.named_weights()
+            for r in fleet._replicas]
+    if fleet.standby is not None:
+        reps.append(fleet.standby._idle[0][0].engine.model.named_weights())
+    names = sorted(reps[0])
+    quantized = [n for n in names if hasattr(reps[0][n], "q")]
+    check(quantized and all(
+        sorted(w) == names and all(
+            torch.equal(w[n].q, reps[0][n].q)
+            and torch.equal(w[n].scale, reps[0][n].scale)
+            if n in quantized else torch.equal(w[n], reps[0][n])
+            for n in names) for w in reps[1:]),
+        "N (c): the replicas' quantized weights differ")
+    p_reset()
+    done, serve_s, ticks = n_drive(fleet, trace)
+    launches = p_launches()
+    add_launches(out["launches"], launches)
+    check_completions(done, trace, cfg.vocab_size, "N (c)")
+    k5 = launches["k5"]
+    check(k5["gemv_dense"] > 0 and k5["gemv_attend"] > 0 and k5["tc"] > 0
+          and k5["tiled_f32"] == 0, f"N (c): K5 routes {k5}")
+    res = dict(replicas=len(reps), quantized_leaves=len(quantized),
+               codes_equal=True, k5_routes=k5,
+               param_bytes_per_replica=fleet._replicas[0].client.engine
+               .param_bytes(), **n_rates(done, serve_s, ticks), card=card)
+    fleet.shutdown()
+    print("phaseN (c)", json.dumps(res), flush=True)
+    out["runs"]["c"] = res
+    out["k5"] = k5
+
+
+def n_affinity(cfg, sd, rng_trace, long_prompts, card, out):
+    """(d) phase L's layout and trace (chunks of 128, the prefix cache)
+    on 2 replicas with prefix affinity: where the 8 shared-prefix
+    requests land, the hit rate and pages saved beside phase L's single
+    client, K2 on the chunks (``tc``)."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    from ray_lightning_tpu_torch.serve import ReplicaFleet
+    trace, kinds = rng_trace
+    proto = TransformerLM(cfg, device="meta")
+    fleet = ReplicaFleet(proto, sd, num_replicas=N_REPLICAS,
+                         device=DEVICE, attention_kernel="cuda",
+                         **L_SERVE)
+    check(fleet.router.affinity_tokens == L_CHUNK,
+          f"N (d): affinity over {fleet.router.affinity_tokens} tokens")
+    routes = n_routes(fleet)
+    p_reset()
+    done, serve_s, ticks = n_drive(fleet, trace)
+    launches = p_launches()
+    add_launches(out["launches"], launches)
+    check_completions(done, trace, cfg.vocab_size, "N (d)")
+    shared = sorted(r for r, k in enumerate(kinds) if k == "shared")
+    homes = {routes[r][0] for r in shared}
+    check(len(homes) == 1 and all(routes[r][1] for r in shared[1:]),
+          f"N (d): the shared-prefix requests landed on {routes}")
+    engines = [r.client.engine for r in fleet._replicas]
+    chunks = sum(e.chunk_dispatches for e in engines)
+    k2 = launches["k2"]
+    check(k2 == {"simt": 0, "tc": cfg.n_layers * chunks},
+          f"N (d): K2 routes {k2} for {chunks} chunks")
+    hits = sum(e.prefix.hits for e in engines)
+    single = long_prompts["runs"]["bf16"]
+    check(hits > 0, "N (d): no prefix hits")
+    res = dict(
+        shared_requests=shared, shared_home=sorted(homes)[0],
+        routes={r: routes[r][0] for r in sorted(routes)},
+        affinity_hits=fleet.router.affinity_hits,
+        pages_saved=hits,
+        prefix_hit_rate=[e.prefix.hit_rate for e in engines],
+        single_client_pages_saved=single["pages_saved"],
+        single_client_hit_rate=single["prefix_hit_rate"],
+        chunk_dispatches=chunks, k2_routes=k2,
+        **n_rates(done, serve_s, ticks), card=card)
+    fleet.shutdown()
+    print("phaseN (d)", json.dumps(res), flush=True)
+    out["runs"]["d"] = res
+    out["k2_chunk_tc"] = k2["tc"]
+
+
+def phase_n_fleet(cfg, sd, trace, served, long_trace, long_prompts, card):
+    """The in-process replica fleet at GPT-2-small width, page-native with
+    the kernels on: (a) bf16 spread over 2 replicas, (b) an f32 failover,
+    (c) int8 weights on K5, (d) prefix affinity on phase L's trace."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {"runs": {}, "launches": {}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet-")
+    try:
+        n_bf16(cfg, sd, trace, served, card, out)
+        n_failover(cfg, sd, trace, card, out, root)
+        n_int8(cfg, sd, trace, card, out)
+        n_affinity(cfg, sd, long_trace, long_prompts, card, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phaseN took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 # -------------------------------------------------------------- phase C
 C_STEPS = 3
 C_ARGS = ["fit", "--strategy", "ddp_sharded", "--strategy.num_workers", "1",
@@ -5129,10 +5673,17 @@ def main() -> int:
     pipelined = phase_p_async(cfg, sd, trace, card)
     adapted = phase_a_adapters(cfg, sd, trace, card)
     faulted = phase_f_faults(cfg, sd, trace, served, card)
+    fleet = phase_n_fleet(cfg, sd, trace, served, long_prompts["trace"],
+                          long_prompts, card)
+    print(f"phaseN ended at {time.perf_counter() - started:.1f} s of the "
+          "script", flush=True)
     del sd
 
     fpath = flash[("path", "bfloat16")]
     trained = phase_t2_training(card, fpath)
+    piped = phase_i_input_pipeline(card)
+    print(f"phaseI ended at {time.perf_counter() - started:.1f} s of the "
+          "script", flush=True)
     phase_t3_train_kernel_vs_plain()
     core = phase_m_model_core(card, trained, rng, trace)
     _resumed, state_r = phase_r_resume(card)
@@ -5170,11 +5721,15 @@ def main() -> int:
     # phase F: every run's K1 by T, K2's chunk launches on tc (its bf16
     # chunked run), K5 by route
     fl = faulted["launches"]
+    # phase N: K1 by T over its four fleets, K2's chunk launches (d), K5
+    # by route (c)
+    nl = fleet["launches"]
     kernels = []
     for name, row, n in (
             (pa.KERNEL, path,
              launches + long_prompts["runs"]["bf16"]["k1_launches"]
-             + p_k1 + a_k1 + fl["k1_by_t"].get(1, 0)),
+             + p_k1 + a_k1 + fl["k1_by_t"].get(1, 0)
+             + nl["k1_by_t"].get(1, 0)),
             (pa.KERNEL + "_verify", verify,
              speculative["runs"]["bf16"]["k1_launches"]
              + pl["spec"]["k1_by_t"].get(S_K + 1, 0)
@@ -5199,6 +5754,7 @@ def main() -> int:
             name=name, route="cuda", source=flash_source,
             replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
             launches=(trained["launches"][name]
+                      + piped["launches"][name]
                       + core["flash_launches"][name]
                       + health["armed"]["launches"][name]
                       + health["supervised"]["launches"][name]),
@@ -5214,7 +5770,7 @@ def main() -> int:
         replaces="ray_lightning_tpu/ops/pallas_flash.py:41",
         launches=(long_prompts["runs"]["bf16"]["k2_routes"]["tc"]
                   + pl["chunked"]["k2"]["tc"] + ac["k2"]["tc"]
-                  + faulted["k2_chunk_tc"]),
+                  + faulted["k2_chunk_tc"] + fleet["k2_chunk_tc"]),
         **{k: chunk[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}))
     # K5: one forward's calls -- n_layers x (qkv, out, up, down) and the
@@ -5234,15 +5790,16 @@ def main() -> int:
     qe = [dense["spec"][n]["int8_weights"] for n in G_LAYOUTS]
     qp, qa, qc = pl["int8-weights"]["k5"], al["k5"], ac["k5"]
     qf = fl["k5"]
+    qn = fleet["k5"]
     decode = ("gemv_dense", "gemv_attend")
     for name, M, launches5 in (
             (qmm.KERNEL, 8, sum(q2[r] + ql[r] + qs["route_launches"][r]
                                 + qg[r] + qd[r]
                                 + sum(e["route_launches"][r] for e in qe)
                                 + qp[r] + qa[r] + qc[r] + qf.get(r, 0)
-                                for r in decode)),
+                                + qn[r] for r in decode)),
             (qmm.KERNEL + "_prefill", 1024, q2["tc"] + qg["tc"] + qd["tc"]
-             + qp["tc"] + qa["tc"]),
+             + qp["tc"] + qa["tc"] + qn["tc"]),
             (qmm.KERNEL + "_chunk", L_CHUNK, ql["tc"] + qc["tc"]),
             (qmm.KERNEL + "_verify", S_VERIFY_M,
              qs["verify_tc_launches"]

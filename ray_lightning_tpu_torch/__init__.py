@@ -29,9 +29,15 @@ optimizer state, and the memory presets under ZeRO and FSDP2. Slice 15
 is serving reliability and observability: ``obs/`` (``Telemetry``),
 ``ServeClient(retry_policy=, journal=, telemetry=, clock_epoch=)``,
 crash replay through every serving route, ``ServeSupervisor`` and
-``ServeClient.restore``. Still raising ``NotImplementedError``, each
-naming its ``ROADMAP.md`` item: the Trainer's ``telemetry=``, ``gang=``
-and ``standby=`` (S6/T7, item 6; the training half, T7, is next).
+``ServeClient.restore``. Slice 16 is the training half: the Trainer's
+``telemetry=``, ``FitSupervisor``, gang supervision, warm standbys and
+the in-memory checkpoint tier. Slice 17 is the multiprocess loader
+(``data/multiproc.py``: ``MultiprocessDataLoader`` over the native
+shared-memory ring, ``DevicePrefetcher``) and the in-process replica
+fleet (``serve/fleet.py``: ``ReplicaFleet`` with its router, failover,
+standbys, autoscaler and containment; ``obs/tracing.py``). Still raising
+``NotImplementedError``, naming its ``ROADMAP.md`` item: the process
+fleet, ``ReplicaFleet(backend="process")`` (S8b).
 
 Ground rules of the port:
 
@@ -62,6 +68,8 @@ from ray_lightning_tpu_torch.core import (Callback, CSVLogger,
                                           ModelCheckpoint, SimpleProfiler,
                                           TpuDataModule, TpuModule, Trainer,
                                           make_optimizer)
+from ray_lightning_tpu_torch.data import (DevicePrefetcher,
+                                          MultiprocessDataLoader)
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.interop import (load_flax_params,
                                              load_flax_quantized)
@@ -75,7 +83,9 @@ from ray_lightning_tpu_torch.reliability import (FaultPlan, FitSupervisor,
                                                  RetriesExhausted,
                                                  RetryPolicy,
                                                  ServeSupervisor)
-from ray_lightning_tpu_torch.serve import ServeClient, ServeEngine
+from ray_lightning_tpu_torch.serve import (FleetConfig, ReplicaFleet,
+                                           RouterConfig, ServeClient,
+                                           ServeEngine)
 from ray_lightning_tpu_torch.strategies import (FSDPStrategy,
                                                 HorovodRayStrategy,
                                                 RayShardedStrategy,
@@ -89,6 +99,7 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "gpt2_config", "FaultPlan", "NonFiniteError", "RetriesExhausted",
            "RetryPolicy", "ServeSupervisor", "FitSupervisor", "GangConfig",
            "GangSupervisor", "StepStatsCallback", "Telemetry",
-           "ServeClient",
-           "ServeEngine", "RayStrategy", "HorovodRayStrategy",
-           "RayShardedStrategy", "FSDPStrategy"]
+           "ServeClient", "ServeEngine", "ReplicaFleet", "FleetConfig",
+           "RouterConfig", "MultiprocessDataLoader", "DevicePrefetcher",
+           "RayStrategy", "HorovodRayStrategy", "RayShardedStrategy",
+           "FSDPStrategy"]

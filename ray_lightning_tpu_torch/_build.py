@@ -13,6 +13,14 @@ and an unchanged one is reused. :func:`build` starts one
 ``nvcc`` per source, all together, and waits for every one of them.
 Nothing here runs at import time: the CPU tests import every module and
 this machine may have no ``nvcc``.
+
+Host code (``csrc/<name>.cpp``: the shared-memory ring of the
+multiprocess loader) is not CUDA and never goes to ``nvcc``:
+:func:`build_host` compiles it with ``g++`` into the same directory, under
+the same hash rule, on the CPU machine as on the GPU machine::
+
+    g++ -O3 -std=c++17 -shared -fPIC -pthread csrc/<name>.cpp \
+        -o _build/lib<name>-<hash>.so -lrt
 """
 from __future__ import annotations
 
@@ -33,6 +41,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: every kernel source of the port, by name (``csrc/<name>.cu``)
 SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+GXX_LIBS = ["-lrt"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -57,6 +68,48 @@ def _target(name: str) -> pathlib.Path:
         src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _host_target(name: str) -> pathlib.Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes()
+                            + " ".join(GXX_FLAGS + GXX_LIBS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> pathlib.Path:
+    """The library of the host source ``csrc/<name>.cpp``, compiled with
+    ``g++`` first if it has no current build. Several processes may ask
+    at once (a loader's producers, a test run's workers): one compiles
+    under an ``fcntl`` lock, into a temporary file renamed into place, so
+    no process ever loads a half-written library. A failed compile raises
+    ``RuntimeError`` with the compiler's output."""
+    target = _host_target(name)
+    if target.exists():
+        return target
+    import fcntl
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / f"lib{name}.so.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():  # another process built it while we waited
+            return target
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(
+                f"g++ not found on PATH: csrc/{name}.cpp is compiled at "
+                "first use (TL_DISABLE_NATIVE=1 opts out of the native "
+                "library)")
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [gxx, *GXX_FLAGS, str(CSRC / f"{name}.cpp"), "-o", tmp,
+               *GXX_LIBS]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"g++ failed for csrc/{name}.cpp (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, target)
+    return target
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

@@ -92,20 +92,31 @@ class DataLoader:
         """This epoch's batches; a finished pass advances the epoch."""
         return self.iter_from(0)
 
+    def _order(self):
+        """This epoch's row order and the number of batches in it."""
+        n = len(self.dataset)
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + self._epoch
+                                          ).permutation(n)
+        else:
+            order = np.arange(n)
+        return order, len(self)
+
     def iter_from(self, start: int) -> Iterator[Any]:
         """This epoch's batches from the ``start``-th on (the earlier ones
         are not gathered); a finished pass advances the epoch."""
-        n = len(self.dataset)
-        if self.shuffle:
-            rng = np.random.default_rng(self.seed + self._epoch)
-            order = rng.permutation(n)
-        else:
-            order = np.arange(n)
-        stop = (n // self.batch_size) * self.batch_size if self.drop_last \
-            else n
-        for s in range(start * self.batch_size, stop, self.batch_size):
-            yield self.dataset.take(order[s:s + self.batch_size])
+        yield from self.iter_batches(start)
         self._epoch += 1
+
+    def iter_batches(self, start: int = 0, step: int = 1) -> Iterator[Any]:
+        """Batches ``start, start + step, ...`` of this epoch's sequence,
+        without advancing the epoch: the strided-worker protocol of
+        :class:`~ray_lightning_tpu_torch.data.multiproc.MultiprocessDataLoader`,
+        where worker ``i`` of ``N`` gathers only its own share."""
+        order, n_batches = self._order()
+        for b in range(start, n_batches, step):
+            s = b * self.batch_size
+            yield self.dataset.take(order[s:s + self.batch_size])
 
 
 def fast_forward(loader: Any, skip: int) -> Any:

@@ -38,12 +38,13 @@ gives real timestamps.
 The trainer takes the same handle (``Trainer(telemetry=tel)``: the
 launch, worker, fit and epoch lifecycle events, the profiler's sections
 as gauges), and :class:`StepStatsCallback` adds per-step timing and the
-straggler detector. The per-request trace assembler
-(``Telemetry.request_traces``) comes with ``ROADMAP.md`` S8.
+straggler detector. :meth:`Telemetry.request_traces` assembles the
+event ring into one trace per request (:mod:`.tracing`: the queue,
+prefill, decode, sync and failover segments, the fleet's Chrome export).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from ray_lightning_tpu_torch.obs.events import Event, EventBus, JsonlSink
 from ray_lightning_tpu_torch.obs.metrics import (Counter, Gauge, Histogram,
@@ -92,6 +93,15 @@ class Telemetry:
 
     def flush(self) -> None:
         self.bus.flush()
+
+    def request_traces(self) -> "Dict[int, Any]":
+        """Assemble per-request traces from the event ring: one
+        :class:`~ray_lightning_tpu_torch.obs.tracing.RequestTrace` per
+        request id, with the queue/prefill/decode/sync/failover latency
+        decomposition."""
+        from ray_lightning_tpu_torch.obs.tracing import \
+            assemble_request_traces
+        return assemble_request_traces(self.bus.events())
 
     # --------------------------------------------------------- global
     def activated(self) -> "_Activated":

@@ -2,8 +2,12 @@ from ray_lightning_tpu_torch.serve.adapters import (AdapterBankFull,
                                                     AdapterRegistry,
                                                     UnknownAdapter)
 from ray_lightning_tpu_torch.serve.client import ServeClient
+from ray_lightning_tpu_torch.serve.containment import SeatTable
 from ray_lightning_tpu_torch.serve.engine import (KVSlotPool, PendingDispatch,
                                                   ServeEngine)
+from ray_lightning_tpu_torch.serve.fleet import (FleetConfig, FleetDegraded,
+                                                 FleetSaturated, ReplicaFleet,
+                                                 Router, RouterConfig)
 from ray_lightning_tpu_torch.serve.journal import (Journal, JournalCorrupt,
                                                    JournalState,
                                                    read_journal)
@@ -29,4 +33,6 @@ __all__ = ["ServeClient", "ServeEngine", "KVSlotPool", "PendingDispatch",
            "AdapterRegistry", "UnknownAdapter", "ClassQueueFull",
            "TenantClass", "TenantScheduler", "Journal", "JournalCorrupt",
            "JournalState", "read_journal", "FINISH_EOS", "FINISH_FAILED",
-           "FINISH_LENGTH", "FINISH_REJECTED", "FINISH_TIMEOUT"]
+           "FINISH_LENGTH", "FINISH_REJECTED", "FINISH_TIMEOUT",
+           "ReplicaFleet", "Router", "RouterConfig", "FleetConfig",
+           "FleetSaturated", "FleetDegraded", "SeatTable"]

@@ -71,7 +71,13 @@ class and adapter, and a shed raises
 
 Only a host-side fault (an exception at a dispatch, an out-of-memory
 error) recovers in-process; a sticky CUDA error poisons the process's
-context and needs a new process (``ROADMAP.md`` S8, the fleets).
+context and needs a new process (``ROADMAP.md`` S8b, the process fleet).
+
+The fleet's seats (:class:`~ray_lightning_tpu_torch.serve.fleet.ReplicaFleet`):
+``ops``, ``load_stats()``, ``gauge_prefix`` (a member client's
+occupancy gauges carry ``replica<id>_``) and ``_fire_driver_site`` (a
+member client never fires ``serve.driver``). Their defaults leave a
+standalone client's events and metrics unchanged.
 """
 from __future__ import annotations
 
@@ -213,8 +219,22 @@ class ServeClient:
         # serve.retire event
         self._sync_durs: Dict[int, float] = {}
         self.num_slots = num_slots
+        # the serve.driver site fires on a driver's own tick only: a
+        # ReplicaFleet's member client is a replica turn (serve.replica)
+        # and turns this off
+        self._fire_driver_site = True
+        # prefix of this client's occupancy gauges: "" standalone; a
+        # ReplicaFleet gives each replica "replica<id>_" so their gauges
+        # do not overwrite each other in the shared registry (counters
+        # and histograms stay unprefixed: they add up across writers)
+        self.gauge_prefix = ""
 
     # ------------------------------------------------------------ clock
+    @property
+    def ops(self) -> int:
+        """Engine dispatches so far (the tick clock)."""
+        return self._ops
+
     def now(self) -> float:
         if self._clock is None:
             return float(self._ops)
@@ -278,7 +298,7 @@ class ServeClient:
                 "serve_requests_total",
                 help="requests accepted by admission control").inc()
             tel.metrics.gauge(
-                "serve_queue_depth",
+                self.gauge_prefix + "serve_queue_depth",
                 help="requests waiting in the scheduler queue"
             ).set(len(self.scheduler))
             if self._tenancy is not None:
@@ -286,7 +306,8 @@ class ServeClient:
                 tel.event("engine.tenant_admitted", id=req.id,
                           tenant=req.tenant, class_depth=depth)
                 tel.metrics.gauge(
-                    f"serve_tenant_queue_depth_{req.tenant}",
+                    self.gauge_prefix
+                    + f"serve_tenant_queue_depth_{req.tenant}",
                     help="requests waiting in this tenant class's queue"
                 ).set(depth)
         return req.id
@@ -404,9 +425,10 @@ class ServeClient:
         retired by this tick (including deadline expirations); under
         ``async_dispatch`` a step tick returns those of the dispatch
         before it."""
-        # the driver-death site: raise mode propagates out of tick(), the
-        # deterministic driver kill a journal restore replays
-        faults.fire(SITE_SERVE_DRIVER)
+        if self._fire_driver_site:
+            # the driver-death site: raise mode propagates out of tick(),
+            # the deterministic driver kill a journal restore replays
+            faults.fire(SITE_SERVE_DRIVER)
         now = self.now()
         done: List[Completion] = []
         # queued requests past deadline never touch the card -- but a
@@ -747,25 +769,26 @@ class ServeClient:
                         "(client clock units)").observe(
                         (comp.finish_time - comp.first_token_time)
                         / (len(comp.tokens) - 1))
-        m.gauge("serve_queue_depth",
+        gp = self.gauge_prefix
+        m.gauge(gp + "serve_queue_depth",
                 help="requests waiting in the scheduler queue"
                 ).set(len(self.scheduler))
         if self._tenancy is not None:
             for name, depth in self._tenancy.class_depths().items():
                 m.gauge(
-                    f"serve_tenant_queue_depth_{name}",
+                    gp + f"serve_tenant_queue_depth_{name}",
                     help="requests waiting in this tenant class's queue"
                 ).set(depth)
-        m.gauge("serve_slot_occupancy",
+        m.gauge(gp + "serve_slot_occupancy",
                 help="fraction of KV slots holding an in-flight request"
                 ).set(self.engine.active_count / self.num_slots)
         pages_free = self.engine.free_pages
         if pages_free is not None:
             num_pages = self.engine.pool.num_pages
-            m.gauge("serve_pages_free",
+            m.gauge(gp + "serve_pages_free",
                     help="free KV pages in the paged arena"
                     ).set(pages_free)
-            m.gauge("serve_page_occupancy",
+            m.gauge(gp + "serve_page_occupancy",
                     help="fraction of arena pages held (slots + prefix "
                     "cache)").set(1.0 - pages_free / num_pages)
 
@@ -782,6 +805,23 @@ class ServeClient:
         decoding, prompts streaming chunks, or a dispatch awaiting its
         sync."""
         return bool(len(self.scheduler) or self._engine_busy())
+
+    def load_stats(self) -> Dict[str, Any]:
+        """One host-side occupancy snapshot: every signal the fleet
+        router scores (:class:`~ray_lightning_tpu_torch.serve.fleet.Router`)
+        in one dict of plain values."""
+        sched = self.scheduler
+        stats: Dict[str, Any] = {
+            "queue_depth": len(sched),
+            "oldest_age": sched.oldest_age(self.now()),
+            "dispatch_in_flight": self.dispatch_in_flight,
+            "ops": self._ops,
+        }
+        stats.update(self.engine.occupancy())
+        if self._tenancy is not None:
+            stats["class_depths"] = self._tenancy.class_depths()
+            stats["class_oldest"] = self._tenancy.class_oldest(self.now())
+        return stats
 
     def run_until_idle(self, max_ticks: int = 100_000) \
             -> Dict[int, Completion]:

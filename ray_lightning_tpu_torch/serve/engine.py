@@ -936,6 +936,21 @@ class ServeEngine:
     def chunk_pending_ids(self) -> FrozenSet[int]:
         return frozenset(st.request.id for st in self._chunk_queue)
 
+    def occupancy(self) -> Dict[str, Any]:
+        """Host-side occupancy snapshot: the engine half of the fleet
+        router's signals (``ServeClient.load_stats`` adds the
+        scheduler's). Plain ints and None only."""
+        return {
+            "active": self.active_count,
+            "chunk_pending": self.chunk_pending,
+            "free_slots": self.free_slots,
+            "free_pages": self.free_pages,
+            "num_pages": self.pool.num_pages if self.paged else None,
+            "resident_adapters": (len(self._registry.residents)
+                                  if self._registry is not None
+                                  else None),
+        }
+
     @property
     def carry_deferred(self) -> bool:
         """True while an enqueued dispatch's carry has not been synced

@@ -54,9 +54,15 @@ armed telemetry adding no launch and no synchronizing call. The health
 of a fit: ``StepStatsCallback(block=True)``'s step time covering the
 step's CUDA-event time, the in-memory checkpoint tier holding only host
 tensors after a fit on the card, and an armed fit (telemetry, step
-stats, the profiler) launching exactly what a disarmed one does.
-``chip_smoke.py`` repeats this at the serving and training paths' full
-shapes.
+stats, the profiler) launching exactly what a disarmed one does. The
+input pipeline: the shared-memory ring's loader spawning its producers
+once CUDA is live, with the in-process loader's batches, and
+``DevicePrefetcher`` copying through pinned staging buffers on a side
+stream, each batch equal on the host. The in-process replica fleet: a
+2-replica fleet's tokens equal one client's in f32 with the kernels on,
+and a replica killed mid-decode fails over with every token kept and the
+card's allocated bytes back where they were. ``chip_smoke.py`` repeats
+this at the serving and training paths' full shapes.
 """
 import dataclasses
 
@@ -1951,3 +1957,131 @@ def test_armed_fit_launches_what_a_disarmed_one_does(cuda, tmp_path):
             assert sites[0] == "launch.start" and "fit.end" in sites
     assert counts[True] == counts[False]
     assert counts[True]["flash_fwd"]["tc"] > 0
+
+
+# ------------------------------ the input pipeline and the fleet (T7c, S8a)
+def _ring_loader(n=64, batch=8):
+    from ray_lightning_tpu_torch.data import ArrayDataset, DataLoader
+    x = np.arange(n * 4, dtype=np.float32).reshape(n, 4)
+    y = np.arange(n, dtype=np.int64)
+    return DataLoader(ArrayDataset((x, y)), batch_size=batch, shuffle=True,
+                      seed=7)
+
+
+def test_ring_loader_spawns_its_producers_once_cuda_is_live(cuda):
+    from ray_lightning_tpu_torch.data import MultiprocessDataLoader
+    torch.zeros(1, device=cuda)
+    assert torch.cuda.is_initialized()
+    loader = MultiprocessDataLoader(_ring_loader(), num_workers=2,
+                                    auto_fallback=False)
+    assert loader.mp_context == "spawn" and loader.uses_ring
+    got = list(loader)
+    want = list(_ring_loader())
+    assert len(got) == len(want) == 8
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert np.array_equal(gx, wx) and np.array_equal(gy, wy)
+
+
+def test_device_prefetcher_copies_on_a_side_stream(cuda):
+    from ray_lightning_tpu_torch.data import DevicePrefetcher
+    pref = DevicePrefetcher(_ring_loader(), depth=2)
+    want = list(_ring_loader())
+    got = []
+    for x, y in pref:
+        assert x.is_cuda and y.is_cuda and x.dtype == torch.float32
+        # work queued on the consumer's stream reads the copied values
+        got.append(((x * 1).cpu().numpy(), (y + 0).cpu().numpy()))
+    assert pref._stream is not None
+    assert pref._stream != torch.cuda.current_stream()
+    assert len(got) == len(want)
+    for (gx, gy), (wx, wy) in zip(got, want):
+        assert np.array_equal(gx, wx) and np.array_equal(gy, wy)
+    assert pref.copies == 2 * len(want)
+    assert pref.bytes == sum(x.nbytes + y.nbytes for x, y in want)
+    torch.cuda.synchronize()
+    pref._recycle()
+    pinned = [b for bufs in pref._free.values() for b in bufs]
+    # buffers went back to the pool and were reused: never one per batch
+    assert pinned and all(b.is_pinned() for b in pinned)
+    assert len(pinned) <= 2 * (pref.depth + 2) < 2 * len(want)
+    # a batch already on the card passes through with no copy
+    on_card = (torch.ones(2, device=cuda),)
+    (same,), = list(DevicePrefetcher([on_card]))
+    assert same.data_ptr() == on_card[0].data_ptr()
+
+
+def _fleet_models():
+    cfg, sd, _, _ = _spec_models(torch.float32)
+    return TransformerLM(cfg, device="meta"), sd
+
+
+FLEET_LAYOUT = dict(num_slots=2, prefill_len=16, page_size=4,
+                    page_native=True, attention_kernel="cuda")
+
+
+def test_two_replica_fleet_tokens_equal_one_clients(cuda):
+    from ray_lightning_tpu_torch.serve import ReplicaFleet
+    proto, sd = _fleet_models()
+    client = ServeClient(proto, sd, device=cuda, **dict(FLEET_LAYOUT,
+                                                        num_slots=8))
+    want = client.serve_trace(list(ASYNC_TRACE))
+    client.shutdown()
+    pa.reset_kernel_launches()
+    fleet = ReplicaFleet(proto, sd, num_replicas=2, device=cuda,
+                         **FLEET_LAYOUT)
+    got = fleet.serve_trace(list(ASYNC_TRACE))
+    fleet.shutdown()
+    assert {r: c.tokens for r, c in got.items()} == {
+        r: c.tokens for r, c in want.items()}
+    assert pa.kernel_launches() > 0
+
+
+def test_fleet_failover_keeps_tokens_and_frees_the_dead_replica(cuda):
+    """The live tensors' bytes once the promoted replica has decoded equal
+    those at the crash (the allocator's own few MB outside any tensor may
+    move: ``chip_smoke.n_allocated``)."""
+    import chip_smoke
+    from ray_lightning_tpu_torch.reliability import FaultPlan
+    from ray_lightning_tpu_torch.serve import ReplicaFleet
+    proto, sd = _fleet_models()
+    base = ReplicaFleet(proto, sd, num_replicas=2, device=cuda,
+                        **FLEET_LAYOUT)
+    want = base.serve_trace(list(ASYNC_TRACE))
+    base.shutdown()
+    del base
+    fleet = ReplicaFleet(proto, sd, num_replicas=2, num_standby=1,
+                         device=cuda, **FLEET_LAYOUT)
+    seen = {}
+    fail, tick = fleet._fail_replica, fleet.tick
+    allocated = chip_smoke.n_allocated
+
+    def failing(rep, *, dead):
+        seen["victim_decoded"] = rep.client.engine.decode_substeps > 0
+        seen["at_crash"] = allocated()
+        out = fail(rep, dead=dead)
+        seen["promoted"] = fleet._replicas[-1].client.engine
+        return out
+
+    def ticking():
+        # measured once the promoted replica has decoded: an engine keeps
+        # a few device buffers of its last dispatches
+        out = tick()
+        if "promoted" in seen and seen["promoted"].decode_substeps:
+            fleet.standby._refill_thread.join(timeout=60)
+            seen["after"] = allocated()
+            del seen["promoted"]
+        return out
+
+    fleet._fail_replica, fleet.tick = failing, ticking
+    # fire 5: tick 2's second turn, replica 1 after its prefill and a
+    # decode step (what the promoted replica has done when measured)
+    with FaultPlan.at("serve.replica", [5]).armed():
+        got = fleet.serve_trace(list(ASYNC_TRACE))
+    assert fleet.failovers == 1 and seen["victim_decoded"]
+    assert {r: c.tokens for r, c in got.items()} == {
+        r: c.tokens for r, c in want.items()}
+    crash, after = seen["at_crash"], seen["after"]
+    assert after["tensors"] == crash["tensors"], seen
+    assert abs(after["allocated"] - crash["allocated"]) < \
+        chip_smoke.N_ALLOCATOR_SLACK, seen
+    fleet.shutdown()

@@ -1,6 +1,7 @@
 """The port stays free of JAX: no module of ``ray_lightning_tpu_torch/``
-(nor ``chip_smoke.py``) imports jax, flax, optax or the JAX package, and
-importing the port loads none of them."""
+(nor ``chip_smoke.py``, nor the port's report tools) imports jax, flax,
+optax or the JAX package, and importing the port -- the native ring, the
+multiprocess loader and the fleet included -- loads none of them."""
 import ast
 import pathlib
 import subprocess
@@ -16,7 +17,8 @@ pytestmark = pytest.mark.torch_port
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "ray_lightning_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_lightning_tpu")
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*_torch.py")))
 
 
 def _forbidden(name: str) -> bool:
@@ -61,6 +63,10 @@ def test_import_loads_no_jax():
             "before = set(sys.modules)\n"
             "import ray_lightning_tpu_torch\n"
             "import ray_lightning_tpu_torch.serve.client\n"
+            "import ray_lightning_tpu_torch._native\n"
+            "import ray_lightning_tpu_torch.data.multiproc\n"
+            "import ray_lightning_tpu_torch.serve.fleet\n"
+            "import ray_lightning_tpu_torch.obs.tracing\n"
             "new = sorted(m for m in set(sys.modules) - before\n"
             "             if m.split('.')[0] in %r)\n"
             "print(new)\n"
