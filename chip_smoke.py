@@ -5,9 +5,11 @@
 Phases, in order; any failure raises and the script exits non-zero
 without printing its result line:
 
-0. Require a CUDA device; print the card's name and power limit; build
-   every kernel from ``ray_lightning_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together); check with ``cuobjdump -sass`` that
+0. Require a CUDA device; print the card's name and power limit; start
+   the fork server phase X's workers fork from (it imports torch while
+   the kernels build); build every kernel from
+   ``ray_lightning_tpu_torch/csrc`` (one ``nvcc`` per source, all started
+   together); check with ``cuobjdump -sass`` that
    every tensor-core kernel (``*tc_kernel``) holds ``HGMMA`` instructions
    (``wgmma``); turn TF32 off.
 1. The paged-attention kernel (K1) against its plain PyTorch version at
@@ -161,8 +163,9 @@ P. Async dispatch, phase 2's weights and trace (greedy and sampled rows),
    no synchronizing call, and at least one such enqueue checked. (c) Per
    engine, sync beside async: host ms a step tick, the ms a sync waits on
    its event, decode tokens/s (decode tokens over the step ticks' and the
-   pipeline drains' host time) and their ratio, and one profiled decode
-   tick (``p_profile``): launches, device busy ms and idle share.
+   pipeline drains' host time) and their ratio, and for the page-native
+   engine one profiled decode tick (``p_profile``): launches, device busy
+   ms and idle share.
 A. Multi-LoRA and tenancy, phase 2's weights, a page-native engine with
    ``max_resident_adapters=4, lora_rank=16`` and three random adapters
    (N(0, 0.1) entries). (a) f32, a mixed batch of 8 requests (two under
@@ -411,10 +414,39 @@ N. The in-process replica fleet, run after phase F on phase 2's weights
    with prefix affinity: the 8 shared-prefix requests on one replica,
    pages saved and hit rates beside phase L's single client, K2 on
    ``tc`` for every chunk. Each phase prints its seconds.
+X. The process replica fleet, run after phase N on phase 2's weights,
+   trace and phase N's layout: ``ReplicaFleet(backend="process")``, one
+   worker process per replica on this card, phase 2's trace on the wall
+   clock (a tick is phase 2's median step). (a) bf16, 2 workers, each
+   warmed by a greedy and a sampled request first: the requests per
+   replica, each worker's seconds from spawn to ``set_replica`` and its
+   bytes on the card (the free memory it took), the fleet's tokens/s and
+   ms a pump tick beside phase 2's single client and phase N (a)'s
+   in-process fleet. Then one f32 fleet of 2 workers and a warm standby
+   (refilled on the driver's thread, so no spawn lands inside another
+   measurement) under ``FleetConfig(max_request_failovers=3,
+   probation_after=2)``: (b) ``inject("exit")`` into replica 0 once rows
+   of both have flushed tokens: every token, sampled rows included,
+   equal to the fault-free f32 single client's, the verdict
+   ``replica.dead``, the card's free memory back (within
+   ``X_MEM_SLACK`` of what the worker took) after the reap, ms from the
+   kill to the verdict and to the re-admissions. (c) phase 2's trace
+   with explicit seeds after a request whose prompt holds an id >=
+   vocab_size: a device-side assert (a sticky CUDA error) in every
+   worker that seats it; it retires ``failed``, ``poison_failed == 1``,
+   every other request's tokens equal the fault-free single client's,
+   every crash message names a CUDA error, every crashed worker held the
+   poison row, the free memory back after each reap; the failovers and
+   the episode's seconds. After each fleet no worker is alive and the
+   free memory is back to its level before it. K1's launches in the
+   workers (their ``stop()`` stats) equal n_layers per decode step the
+   worker reports. Prints its seconds and the script's; every phase
+   prints the script's seconds at its end.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K1 has two entries:
    ``paged_attention`` at T=1 with phase 2's, phase L's, phase P's and
-   phase A's bf16 runs' launches, every phase F run's and phase N's,
+   phase A's bf16 runs' launches, every phase F run's, phase N's and
+   phase X's workers',
    ``paged_attention_verify`` at T=5 with phase S (a)'s, phase P's spec
    bf16 runs' and phase F (c)'s. K2 has two entries:
    ``flash_fwd`` at the training shape with T2's launches,
@@ -466,7 +498,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # dense tensor-core bf16
                   torch.float32: 67e12}     # f32 outside the tensor cores
 FLUSH_BYTES = 256 << 20              # > the 50 MB L2: every launch runs cold
 SPIN_CYCLES = 1_000_000              # ~0.5 ms of device spin before a call
-TIMED_LAUNCHES = 50
+TIMED_LAUNCHES = 25                  # the script's time limit: was 50
 DEVICE = "cuda"
 
 # phase-1 tolerances against the plain version, in f32 units of the output
@@ -1982,6 +2014,9 @@ P_ENGINES = {"page-native": dict(SERVE, attention_kernel="cuda"),
              "chunked": dict(L_SERVE, attention_kernel="cuda"),
              "spec": dict(SERVE, attention_kernel="cuda")}
 P_DTYPES = (torch.bfloat16, torch.float32)
+# (c)'s profiled tick, sync and async: the page-native engine's only
+# (the script's time limit; every engine's was profiled before)
+P_PROFILED = ("page-native",)
 
 
 def p_models(cfg, sd, dtype, engine):
@@ -2162,8 +2197,9 @@ def phase_p_async(cfg, sd, trace, card):
     bf16 runs, and of a greedy-only spec run, under
     ``set_sync_debug_mode("error")``: no synchronizing call. (c) Per
     engine, sync beside async: host ms a step tick, the ms a sync waits
-    on its event, decode tokens/s, and one profiled decode tick's
-    launches, device busy ms and idle share."""
+    on its event, decode tokens/s, and for the page-native engine
+    (``P_PROFILED``) one profiled decode tick's launches, device busy ms
+    and idle share."""
     out = {"runs": {}, "launches": {}}
     greedy = [(t, {k: v for k, v in kw.items()
                    if k not in ("temperature", "top_k")}) for t, kw in trace]
@@ -2206,6 +2242,7 @@ def phase_p_async(cfg, sd, trace, card):
                     checked = res["async"]["enqueues_checked"]
                 check(checked > 0, f"phaseP {tag}: no steady-state enqueue "
                       "was checked under set_sync_debug_mode")
+            if dtype == torch.bfloat16 and engine in P_PROFILED:
                 for mode in ("sync", "async"):
                     res[mode]["profile"] = p_profile(
                         proto, sd, prompts, layout,
@@ -2831,8 +2868,10 @@ def f_async_int8(cfg, sd, trace, card, out):
     sync = engine_cls.step_sync
 
     def recording_sync(self, pending):
-        # ids only: a kept handle would keep its device carry allocated
-        seen["synced"].append(id(pending))
+        # the issuing engine's token and the dispatch index, not the
+        # handle: a kept handle would keep its device carry allocated,
+        # and a freed one's id() is reused by later handles
+        seen["synced"].append((pending.owner, pending.dispatch))
         return sync(self, pending)
 
     client_mod.ServeClient._discard = recording_discard
@@ -2847,7 +2886,7 @@ def f_async_int8(cfg, sd, trace, card, out):
     f_check_run("(d) f32 async int8", done, ref, counters, rec, rebuilds=1)
     gone = seen["discarded"]
     check(gone and gone[0].event is not None
-          and id(gone[0]) not in seen["synced"],
+          and (gone[0].owner, gone[0].dispatch) not in seen["synced"],
           f"phaseF (d): the in-flight handle was not discarded unsynced "
           f"({len(gone)} discarded)")
     k5 = f_after_rebuild(rec)["k5"]
@@ -5325,6 +5364,10 @@ def n_bf16(cfg, sd, trace, served, card, out):
         equal_to_single_client=f"{same}/{len(done)}",
         phase2_decode_tokens_per_s=served["bf16"]["decode_tokens_per_s"],
         phase2_step_ms_median=served["bf16"]["step_ms_median"],
+        # each request's arrival, seconds from the run's start (the
+        # fleet admits a request due at tick t once t ticks are done):
+        # phase X (a) offers the process fleet the same wall-clock load
+        arrival_s=[sum(ticks[:t]) for t, _kw in trace],
         device_bytes_fleet=built,
         device_bytes_per_client=built / (N_REPLICAS + N_STANDBY),
         param_bytes_per_replica=eng.param_bytes(),
@@ -5559,6 +5602,477 @@ def phase_n_fleet(cfg, sd, trace, served, long_trace, long_prompts, card):
     return out
 
 
+# -------------------------------------------------------------- phase X
+X_REPLICAS = 2
+# what may stay missing from the card's free memory once a worker is
+# reaped, against what it took when it spawned, and once the fleet is
+# shut down, against before it: the survivors' allocators grow as they
+# serve (a worker holds ~1.2-1.8 GB)
+X_MEM_SLACK = 256 << 20
+# (c)'s containment settings, as tests/test_fleet_process.py's
+# test_process_poison_contained_exact_implication configures them
+X_POISON_CONFIG = dict(max_request_failovers=3, probation_after=2)
+
+
+def x_free() -> int:
+    """The card's free bytes (every process's allocations count)."""
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def x_wall(fleet, trace, tick_s):
+    """Phase 2's trace on the wall clock the process fleet runs on, from
+    now on: a request due at tick t arrives t x ``tick_s`` seconds from
+    now (the fleet's trace times count from its construction)."""
+    now = fleet.now()
+    return [(now + t * tick_s, kw) for t, kw in trace]
+
+
+def x_descendants():
+    """Every live process under this one (zombies left out), read from
+    /proc: pid, parent pid, command line, and whether it holds the card
+    (an open ``/dev/nvidia<N>``: a CUDA context). The fork server and
+    the resource tracker it started serve until this process exits."""
+    procs = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except OSError:
+            continue
+        if state not in "ZX":
+            procs[int(d)] = (int(ppid), cmd)
+    mine, frontier = {}, {os.getpid()}
+    while frontier:
+        frontier = {p for p, (pp, _c) in procs.items()
+                    if pp in frontier and p not in mine}
+        mine.update((p, procs[p]) for p in frontier)
+    out = []
+    for pid, (ppid, cmd) in sorted(mine.items()):
+        try:
+            fds = [os.readlink(f"/proc/{pid}/fd/{fd}")
+                   for fd in os.listdir(f"/proc/{pid}/fd")]
+        except OSError:
+            fds = []
+        kind = ("fork server" if "multiprocessing.forkserver" in cmd
+                else "resource tracker"
+                if "multiprocessing.resource_tracker" in cmd else "other")
+        out.append(dict(pid=pid, ppid=ppid, kind=kind, cmd=cmd[:200],
+                        card=any(re.fullmatch(r"/dev/nvidia\d+", f)
+                                 for f in fds)))
+    return out
+
+
+def x_left_over(what):
+    """Check that only the fork server and its resource tracker are left
+    under this process, neither holding the card."""
+    left = x_descendants()
+    print(f"{what} processes left", json.dumps(left), flush=True)
+    check(all(p["kind"] != "other" and not p["card"] for p in left),
+          f"{what}: processes left under the script: {left}")
+    return left
+
+
+def x_at(fleet, trace, arrival_s):
+    """``trace``'s requests arriving ``arrival_s`` seconds from now."""
+    now = fleet.now()
+    return [(now + a, kw) for a, (_t, kw) in zip(arrival_s, trace)]
+
+
+@contextlib.contextmanager
+def x_spawns(rec):
+    """Record every worker a process fleet spawns while this is open
+    (construction, standby refills, cold rebuilds): the card's free
+    bytes before and after its construction (what it took) and the
+    seconds from its spawn to the end of its ``set_replica`` (a
+    standby's until its promotion)."""
+    from ray_lightning_tpu_torch.serve.process_fleet import \
+        ProcessReplicaFleet as PF
+    spawn, activate = PF._spawn_actor, PF._activate
+
+    def spawning(self):
+        free, t0 = x_free(), time.perf_counter()
+        handle = spawn(self)
+        rec[id(handle)] = dict(t0=t0, free_before=free,
+                               bytes=free - x_free(), pid=handle._proc.pid,
+                               construct_s=time.perf_counter() - t0)
+        return handle
+
+    def activating(self, handle):
+        rep = activate(self, handle)
+        got = rec[id(handle)]
+        got.update(replica=rep.id,
+                   spawn_to_set_replica_s=time.perf_counter() - got["t0"])
+        return rep
+
+    PF._spawn_actor, PF._activate = spawning, activating
+    try:
+        yield rec
+    finally:
+        PF._spawn_actor, PF._activate = spawn, activate
+
+
+def x_fleet(proto, sd, **kw):
+    """A process fleet on the card, phase N's layout (build it inside
+    ``x_spawns``); standby refills run on the calling thread, inside
+    the failover (a background spawn would land its bytes inside
+    another measurement)."""
+    from ray_lightning_tpu_torch.serve import ReplicaFleet
+    fleet = ReplicaFleet(proto, sd, backend="process",
+                         num_replicas=X_REPLICAS, device=DEVICE,
+                         **dict(N_LAYOUT, **kw))
+    if fleet.standby is not None:
+        fleet.standby.refill_async = fleet.standby.fill
+    return fleet
+
+
+def x_watch(fleet, rec, fos, reaps, killed=None):
+    """Wrap ``_fail_replica`` and the kill inside it. Per failover: the
+    replica, its crash message and implicated ids (``MSG_CRASH``; None
+    after a messageless death), its ms and its re-admissions' ms, and,
+    when ``killed`` holds the perf-counter time ``"t"`` of a kill from
+    outside, the ms from it to the first failover's start (the verdict)
+    and to its last re-admission; the verdicts themselves are the fleet's
+    ``replica.dead``/``replica.error`` events. Per reap: after the kill,
+    wait (5 s at most) for the card's free memory to take back what the
+    worker took at its spawn, and record the bytes freed against the
+    free memory just before the kill (``killed["free"]`` for a kill from
+    outside: the process may be gone before its failover starts)."""
+    fail, kill, readmit = (fleet._fail_replica, fleet._ray.kill,
+                           fleet._readmit)
+    killed = {} if killed is None else killed
+    reaping, readmitted = [], {}
+
+    def readmitting(req, toks):
+        got = readmit(req, toks)
+        readmitted["t"] = time.perf_counter()
+        return got
+
+    def killing(actor, no_restart=False):
+        if not reaping:
+            return kill(actor, no_restart=no_restart)
+        before, t0 = killed.pop("free", None), time.perf_counter()
+        if before is None:
+            before = x_free()
+        kill(actor, no_restart=no_restart)
+        took = next(r["bytes"] for r in rec.values()
+                    if r["pid"] == actor._proc.pid)
+        while True:
+            freed = x_free() - before
+            if freed >= took - X_MEM_SLACK or \
+                    time.perf_counter() - t0 > 5:
+                break
+            time.sleep(0.01)
+        reaps.append(dict(pid=actor._proc.pid,
+                          exitcode=actor._proc.exitcode,
+                          took_at_spawn=took, freed=freed,
+                          reap_ms=1e3 * (time.perf_counter() - t0)))
+
+    def failing(rep):
+        t0 = time.perf_counter()
+        reaping.append(rep)
+        readmitted.clear()
+        try:
+            done = fail(rep)
+        finally:
+            reaping.clear()
+        t1 = time.perf_counter()
+        t_re = readmitted.get("t", t0)
+        # the failover's ms include the standby's refill (a spawn, on
+        # this thread: x_fleet), the re-admissions' do not
+        got = dict(replica=rep.id, crash_msg=rep.crash_msg,
+                   implicated=rep.crash_implicated,
+                   readmissions_ms=1e3 * (t_re - t0),
+                   failover_ms=1e3 * (t1 - t0))
+        if "t" in killed and "verdict_ms" not in killed:
+            killed["verdict_ms"] = got["kill_to_verdict_ms"] = \
+                1e3 * (t0 - killed["t"])
+            got["kill_to_readmitted_ms"] = 1e3 * (t_re - killed["t"])
+        fos.append(got)
+        return done
+
+    fleet._ray.kill = killing
+    fleet._fail_replica = failing
+    fleet._readmit = readmitting
+
+
+def x_launch_counts(fleet):
+    """Each live replica's K1 launches and decode steps so far, read in
+    its worker (``ServeReplicaWorker.launch_counts``)."""
+    return {rep.id: fleet._ray.get(rep.actor.launch_counts.remote(),
+                                   timeout=30)
+            for rep in fleet._replicas}
+
+
+def x_worker_launches(fleet, cfg, what, decoded=True, base=None):
+    """K1's launches the workers that stopped gracefully report, less
+    ``base``'s (``x_launch_counts`` after a warm-up), each held to
+    n_layers per decode step (one engine a process); with ``decoded``,
+    at least one of them must have decoded (in (c) the replica that
+    served the probation runs may be the last to crash, and a crashed
+    worker reports nothing)."""
+    k1 = steps = 0
+    for rid, st in sorted(fleet.final_stats.items()):
+        b = (base or {}).get(rid, {"kernel_launches": {"paged_attention":
+                                                       {}},
+                                   "decode_steps": 0})
+        was = b["kernel_launches"]["paged_attention"]
+        n = {t: c - was.get(t, 0) for t, c in st["kernel_launches"][
+            "paged_attention"].items() if c - was.get(t, 0)}
+        st = dict(st, decode_steps=st["decode_steps"] - b["decode_steps"])
+        check(set(n) <= {1} and n.get(1, 0) == cfg.n_layers
+              * st["decode_steps"], f"{what}: replica {rid} launched K1 "
+              f"{n} in {st['decode_steps']} decode steps")
+        k1 += n.get(1, 0)
+        steps += st["decode_steps"]
+    check(steps > 0 or not decoded,
+          f"{what}: no worker reported a decode step")
+    return dict(k1_launches=k1, decode_steps=steps,
+                workers_reporting=len(fleet.final_stats))
+
+
+def x_shutdown(fleet, free_before, what):
+    """Shut the fleet down: no live worker, the card's free memory back
+    to what it was before the fleet."""
+    backend = fleet.process_backend
+    fleet.shutdown()
+    deadline = time.perf_counter() + 5
+    while x_free() < free_before - X_MEM_SLACK and \
+            time.perf_counter() < deadline:
+        time.sleep(0.01)
+    after = x_free()
+    check(backend.live_actor_count() == 0, f"{what}: a worker outlived "
+          "the fleet")
+    check(after >= free_before - X_MEM_SLACK, f"{what}: the card's free "
+          f"memory {after} after shutdown, {free_before} before the fleet")
+    return dict(free_before_fleet=free_before, free_after_shutdown=after)
+
+
+def x_single_f32(cfg, sd, trace):
+    """The fault-free f32 single client's tokens on ``trace``."""
+    from ray_lightning_tpu_torch.serve import ServeClient
+    client = ServeClient(f_models(cfg, torch.float32), sd, device=DEVICE,
+                         **N_LAYOUT)
+    done = client.serve_trace(list(trace))
+    client.shutdown()
+    return {r: c.tokens for r, c in done.items()}
+
+
+def x_bf16(cfg, sd, trace, served, fleet_n, card, out):
+    """(a) bf16, 2 worker processes, phase 2's trace arriving on the wall
+    clock as it arrived at phase N (a)'s in-process fleet (the same
+    offered load): requests per replica, each worker's spawn seconds
+    and bytes, the fleet's tokens/s and ms a pump tick beside phase 2's
+    single client and phase N (a)'s in-process fleet. K1's launches are
+    the trace's alone: each worker's counts after the warm-up are taken
+    off its final ones."""
+    from ray_lightning_tpu_torch.models import TransformerLM
+    proto = TransformerLM(cfg, device="meta")
+    n_a = fleet_n["runs"]["a"]
+    free0, spawns = x_free(), {}
+    with x_spawns(spawns):
+        fleet = x_fleet(proto, sd)
+        # each worker's first dispatches load the CUDA modules, cuBLAS
+        # and the kernels (the in-process clients are warm): a greedy
+        # and a sampled request on each first
+        fleet.serve_trace(x_wall(fleet, WARM[:1] * 2 + WARM[1:] * 2, 0.0))
+        warm = x_launch_counts(fleet)
+        routes = n_routes(fleet)
+        done, serve_s, ticks = n_drive(fleet, x_at(fleet, trace,
+                                                   n_a["arrival_s"]))
+        mem = x_shutdown(fleet, free0, "X (a)")
+    done = {r - len(WARM) * 2: c for r, c in done.items()
+            if r >= len(WARM) * 2}
+    check_completions(done, trace, cfg.vocab_size, "X (a)")
+    per = {}
+    for rep, _aff in routes.values():
+        per[rep] = per.get(rep, 0) + 1
+    check(len(per) == X_REPLICAS, f"X (a): requests per replica {per}")
+    rates = n_rates(done, serve_s, ticks)
+    res = dict(
+        requests_per_replica=per, arrival_s=n_a["arrival_s"],
+        workers=[{k: w[k] for k in ("replica", "spawn_to_set_replica_s",
+                                    "construct_s", "bytes")}
+                 for w in spawns.values()],
+        fleet=rates, **x_worker_launches(fleet, cfg, "X (a)", base=warm),
+        single_client_decode_tokens_per_s=served["bf16"][
+            "decode_tokens_per_s"],
+        single_client_step_ms_median=served["bf16"]["step_ms_median"],
+        inproc_fleet=n_a["fleet"], inproc_single_client=n_a["single_client"],
+        tokens_per_s_vs_inproc_fleet=rates["tokens_per_s"]
+        / n_a["fleet"]["tokens_per_s"],
+        tokens_per_s_vs_inproc_single_client=rates["tokens_per_s"]
+        / n_a["single_client"]["tokens_per_s"], **mem, card=card)
+    print("phaseX (a)", json.dumps(res), flush=True)
+    out["runs"]["a"] = res
+    out["k1"] += res["k1_launches"]
+
+
+def x_f32(cfg, sd, trace, served, card, out):
+    """(b) and (c) on one f32 fleet of 2 workers and a warm standby under
+    ``FleetConfig(max_request_failovers=3, probation_after=2)``: the
+    kill -9 first, then the poison request once it has been served. No
+    worker is alive after its shutdown and the free memory is back."""
+    from ray_lightning_tpu_torch.obs import Telemetry
+    from ray_lightning_tpu_torch.serve import FleetConfig
+    tick_s = served["bf16"]["step_ms_median"] / 1e3
+    # (c) seeds the trace's requests explicitly with their (b) ids, the
+    # default seeds: one fault-free run is the reference of both
+    seeded = [(t, dict(kw, seed=i)) for i, (t, kw) in enumerate(trace)]
+    ref = x_single_f32(cfg, sd, seeded)
+    tel = Telemetry()
+    free0, spawns, reaps, fos, killed = x_free(), {}, [], [], {}
+    with x_spawns(spawns):
+        t0 = time.perf_counter()
+        fleet = x_fleet(f_models(cfg, torch.float32), sd, telemetry=tel,
+                        num_standby=1,
+                        fleet_config=FleetConfig(**X_POISON_CONFIG))
+        built_s = time.perf_counter() - t0
+        x_watch(fleet, spawns, fos, reaps, killed)
+        x_kill(fleet, trace, tick_s, ref, tel, fos, reaps, killed, card,
+               out)
+        x_poison(cfg, fleet, seeded, tick_s, ref, tel, fos, reaps, card,
+                 out)
+        mem = x_shutdown(fleet, free0, "X (b), (c)")
+    res = dict(fleet_built_s=built_s, workers=[
+        {k: w.get(k) for k in ("replica", "spawn_to_set_replica_s",
+                               "construct_s", "bytes")}
+        for w in spawns.values()],
+        **x_worker_launches(fleet, cfg, "X (b), (c)", decoded=False),
+        **mem, card=card)
+    print("phaseX (b), (c)", json.dumps(res), flush=True)
+    out["runs"]["f32"] = res
+    out["k1"] += res["k1_launches"]
+
+
+def x_kill(fleet, trace, tick_s, ref, tel, fos, reaps, killed, card, out):
+    """(b) ``inject("exit")`` into replica 0 once rows of both replicas
+    have flushed tokens (its process dies at once, a kill -9 from
+    inside): every token equal to the fault-free f32 single client's,
+    sampled rows included, verdict ``replica.dead``, the card's free
+    memory back after the reap; ms from the kill to the verdict and to
+    the re-admissions."""
+    tick, seen = fleet.tick, {}
+
+    def killing():
+        got = tick()
+        if "t" in killed:
+            return got
+        rows = {}
+        for t in fleet._inflight.values():
+            if t.tokens:
+                rows.setdefault(t.replica, []).append(
+                    (t.req.id, t.req.prompt_len, len(t.tokens)))
+        if len(rows) == X_REPLICAS:
+            victim = fleet._replicas[0]
+            seen.update(victim=victim.id, rows_with_tokens=rows)
+            killed.update(free=x_free(), t=time.perf_counter())
+            victim.actor.inject.remote("exit")
+        return got
+
+    fleet.tick = killing
+    done = fleet.serve_trace(x_wall(fleet, trace, tick_s))
+    fleet.tick = tick
+    got = {r: c.tokens for r, c in done.items()}
+    differ = [r for r in ref if got.get(r) != ref[r]]
+    check("t" in killed and not differ and got.keys() == ref.keys(),
+          f"X (b): tokens differ from the fault-free single client's at "
+          f"{differ} (kill sent: {'t' in killed})")
+    dead = [e.payload["replica"] for e in tel.events("replica.dead")]
+    check(fleet.failovers == 1 and dead == [seen["victim"]]
+          and not tel.events("replica.error"),
+          f"X (b): failovers {fos}, replica.dead {dead}")
+    check(len(reaps) == 1 and reaps[0]["freed"]
+          >= reaps[0]["took_at_spawn"] - X_MEM_SLACK,
+          f"X (b): reaps {reaps}")
+    res = dict(**seen, failover=fos[0], reap=reaps[0],
+               readmitted=fleet.readmitted,
+               replays=len(tel.events("recovery.replay")),
+               promoted=[e.payload for e in tel.events(
+                   "fleet.replica_promoted")],
+               tokens_equal_single_client=True, card=card)
+    print("phaseX (b)", json.dumps(res), flush=True)
+    out["runs"]["b"] = res
+
+
+def x_poison(cfg, fleet, seeded, tick_s, ref, tel, fos, reaps, card, out):
+    """(c) then, on the same fleet: phase 2's trace with explicit seeds
+    after one request at t = 0 whose prompt holds an id >= vocab_size.
+    Its embedding gather trips a device-side assert, a sticky CUDA
+    error, in every worker that seats it: the request retires
+    ``failed`` (``poison_failed == 1``), every other request's tokens
+    equal the fault-free single client's, every crash message names a
+    CUDA error and every crashed worker held the poison row, the card's
+    free memory comes back after each reap."""
+    first_fo, first_reap = len(fos), len(reaps)
+    failovers0 = fleet.failovers
+    errors0 = len(tel.events("replica.error"))
+    poison_kw = dict(prompt=[7, cfg.vocab_size + 11, 3, 5],
+                     max_new_tokens=8, seed=len(seeded))
+    # the poison comes first (the others keep their order and, by their
+    # explicit seeds, their streams): it crashes its replicas at their
+    # first prefills, while the rows beside it hold few tokens and the
+    # trace's 128-token prompt has not arrived (a crashed row re-feeds
+    # prompt and tokens through one 128-token prefill, or fails)
+    poison_id = fleet._next_id
+    index = {poison_id + 1 + i: i for i in range(len(seeded))}
+    t0 = time.perf_counter()
+    done = fleet.serve_trace(x_wall(fleet, [(0, poison_kw)] + seeded,
+                                    tick_s))
+    episode_s = time.perf_counter() - t0
+    fos, reaps = fos[first_fo:], reaps[first_reap:]
+    check(done[poison_id].finish_reason == "failed"
+          and fleet.poison_failed == 1,
+          f"X (c): the poison request finished "
+          f"{done[poison_id].finish_reason}, poison_failed "
+          f"{fleet.poison_failed}")
+    differ = [(i, done[fid].finish_reason) for fid, i in index.items()
+              if done[fid].tokens != ref[i]]
+    check(not differ, f"X (c): tokens differ from the fault-free single "
+          f"client's at trace rows (row, finish) {differ}")
+    errors = [(e.payload["replica"], e.payload["detail"])
+              for e in tel.events("replica.error")][errors0:]
+    check(fos and fleet.failovers - failovers0 == len(fos)
+          <= X_POISON_CONFIG["max_request_failovers"]
+          and len(errors) == len(fos) and len(tel.events("replica.dead")) == 1
+          and all("CUDA error" in d for _, d in errors)
+          and all(poison_id in (f["implicated"] or ()) for f in fos),
+          f"X (c): failovers {fos}, replica.error {errors}")
+    check(len(reaps) == len(fos) and all(
+        r["freed"] >= r["took_at_spawn"] - X_MEM_SLACK for r in reaps),
+        f"X (c): reaps {reaps}")
+    res = dict(
+        poison_id=poison_id, failovers=len(fos), failover_log=fos,
+        reaps=reaps, poison_failed=fleet.poison_failed,
+        probation=[e.payload for e in tel.events("fleet.probation")],
+        episode_s=episode_s, tokens_equal_single_client=True, card=card)
+    print("phaseX (c)", json.dumps(res), flush=True)
+    out["runs"]["c"] = res
+
+
+def phase_x_process_fleet(cfg, sd, trace, served, fleet_n, card, started):
+    """The process replica fleet at GPT-2-small width, phase N's layout,
+    one worker process per replica on this card: (a) bf16 spread over 2
+    workers; on one f32 fleet, (b) a kill -9, then (c) a sticky CUDA
+    error contained.
+    K1's launches come from the workers' own counters (``stop()``)."""
+    t_phase = time.perf_counter()
+    out = {"runs": {}, "k1": 0}
+    x_bf16(cfg, sd, trace, served, fleet_n, card, out)
+    x_f32(cfg, sd, trace, served, card, out)
+    out["left"] = x_left_over("phaseX")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phaseX took {time.perf_counter() - t_phase:.1f} s; the script "
+          f"{time.perf_counter() - started:.1f} s so far", flush=True)
+    return out
+
+
 # -------------------------------------------------------------- phase C
 C_STEPS = 3
 C_ARGS = ["fit", "--strategy", "ddp_sharded", "--strategy.num_workers", "1",
@@ -5613,6 +6127,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     started = time.perf_counter()
+
+    def ended(*phases):
+        print(f"phase{'/'.join(phases)} ended at "
+              f"{time.perf_counter() - started:.1f} s of the script",
+              flush=True)
+
     card = card_line()
     print(card, flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -5624,6 +6144,11 @@ def main() -> int:
     from ray_lightning_tpu_torch.models import paged_attention as pa
     from ray_lightning_tpu_torch.models import quantized_matmul as qmm
 
+    # the fork server phase X's workers fork from imports torch, the
+    # serving stack and this script while nvcc builds
+    from ray_lightning_tpu_torch.serve.process_fleet import \
+        start_fork_server
+    start_fork_server()
     t0 = time.perf_counter()
     logs = _build.build(_build.SOURCES)
     print(f"phase0 built {sorted(logs) or 'nothing (cached)'} in "
@@ -5648,6 +6173,7 @@ def main() -> int:
     qrows = phase_q1_matmul_vs_plain(flush)
     chunk_k2 = phase_l_k2_chunk_shapes(flush)
     del flush
+    ended("0", "1", "T1", "Q1", "L (K2)")
 
     cfg = gpt2_config("small")
     rng = np.random.default_rng(0)
@@ -5667,36 +6193,49 @@ def main() -> int:
     quantized = phase_q2_quantized_serving(cfg, sd, trace, card)
     phase3_kernel_vs_plain_path(cfg, sd, trace, tag="phaseQ3",
                                 paths=PATHS_QUANTIZED, weight_dtype="int8")
+    ended("2", "3", "Q2", "Q3")
     long_prompts = phase_l_long_prompts(cfg, sd, rng, card)
+    ended("L")
     speculative = phase_s_speculative(cfg, sd, trace, served, quantized, card)
+    ended("S")
     dense = phase_g_dense(cfg, sd, trace, served, card)
+    ended("G")
     pipelined = phase_p_async(cfg, sd, trace, card)
+    ended("P")
     adapted = phase_a_adapters(cfg, sd, trace, card)
+    ended("A")
     faulted = phase_f_faults(cfg, sd, trace, served, card)
+    ended("F")
     fleet = phase_n_fleet(cfg, sd, trace, served, long_prompts["trace"],
                           long_prompts, card)
-    print(f"phaseN ended at {time.perf_counter() - started:.1f} s of the "
-          "script", flush=True)
+    ended("N")
+    processes = phase_x_process_fleet(cfg, sd, trace, served, fleet, card,
+                                      started)
     del sd
 
     fpath = flash[("path", "bfloat16")]
     trained = phase_t2_training(card, fpath)
+    ended("T2")
     piped = phase_i_input_pipeline(card)
-    print(f"phaseI ended at {time.perf_counter() - started:.1f} s of the "
-          "script", flush=True)
+    ended("I")
     phase_t3_train_kernel_vs_plain()
     core = phase_m_model_core(card, trained, rng, trace)
+    ended("T3", "M")
     _resumed, state_r = phase_r_resume(card)
     presets = phase_o_optimizers(card)
+    ended("R", "O")
     release()
     ray, workers, spawn_s = spawn_card_worker()
     try:
         phase_d_data_parallel(card, trained, presets, ray, workers, spawn_s)
+        ended("D")
         phase_u_tune(card, ray, workers, spawn_s)
     finally:
         ray.shutdown()
     check(ray.live_actor_count() == 0, "D/U: a worker outlived the phases")
+    ended("U")
     phase_c_cli(card)
+    ended("C")
     t0 = time.perf_counter()
     health = phase_h_fit_health(card, trained, state_r)
     del state_r
@@ -5722,14 +6261,14 @@ def main() -> int:
     # chunked run), K5 by route
     fl = faulted["launches"]
     # phase N: K1 by T over its four fleets, K2's chunk launches (d), K5
-    # by route (c)
+    # by route (c); phase X: K1 as its workers counted it (T = 1)
     nl = fleet["launches"]
     kernels = []
     for name, row, n in (
             (pa.KERNEL, path,
              launches + long_prompts["runs"]["bf16"]["k1_launches"]
              + p_k1 + a_k1 + fl["k1_by_t"].get(1, 0)
-             + nl["k1_by_t"].get(1, 0)),
+             + nl["k1_by_t"].get(1, 0) + processes["k1"]),
             (pa.KERNEL + "_verify", verify,
              speculative["runs"]["bf16"]["k1_launches"]
              + pl["spec"]["k1_by_t"].get(S_K + 1, 0)
@@ -5824,6 +6363,7 @@ def main() -> int:
                                 "bound_ms", "bound_by", "library_ms")}))
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     check(not idle, f"kernels no main path launched: {idle}")
+    x_left_over("the script's end")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

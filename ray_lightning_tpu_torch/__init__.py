@@ -35,9 +35,11 @@ the in-memory checkpoint tier. Slice 17 is the multiprocess loader
 (``data/multiproc.py``: ``MultiprocessDataLoader`` over the native
 shared-memory ring, ``DevicePrefetcher``) and the in-process replica
 fleet (``serve/fleet.py``: ``ReplicaFleet`` with its router, failover,
-standbys, autoscaler and containment; ``obs/tracing.py``). Still raising
-``NotImplementedError``, naming its ``ROADMAP.md`` item: the process
-fleet, ``ReplicaFleet(backend="process")`` (S8b).
+standbys, autoscaler and containment; ``obs/tracing.py``). Slice 18 is
+the process replica fleet (``serve/process_fleet.py``:
+``ReplicaFleet(backend="process")``, one ``ServeReplicaWorker`` process
+per replica from ``launchers/serve_worker.py``, with kill -9 and
+sticky-CUDA-error failover and driver-death survival).
 
 Ground rules of the port:
 

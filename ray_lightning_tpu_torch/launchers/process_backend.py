@@ -30,9 +30,15 @@ launch hands its workers (``ray.util.queue.Queue``'s part the launcher
 uses): a ``multiprocessing`` manager's queue that pickles by reference,
 so a worker reused across launches gets each launch's queue as a task
 argument. Its items cross as calls do, a large one (a trial checkpoint)
-through a temporary file, never through the manager process. The JAX
-module's orphan guard belongs to the serving fleet (``ROADMAP.md`` S8)
-and is not copied: a worker exits when its pipe to the driver closes.
+through a temporary file, never through the manager process.
+
+**Driver death.** A worker exits when its pipe to the driver closes. A
+SIGKILLed driver closes no pipe a worker wedged in a long call would
+read, and its queue manager holds none, so a spawned process whose
+environment sets :data:`ORPHAN_GRACE_ENV` (the process replica fleet's
+workers) and the manager of ``ProcessRay(orphan_grace_s=)`` run the
+orphan guard: a watchdog thread that hard-exits the process once its
+parent has been gone for the grace window.
 """
 from __future__ import annotations
 
@@ -49,6 +55,72 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 #: pickled payloads larger than this cross through a temporary file
 INLINE_BYTES = 64 << 20
+
+#: set in a spawned process's env (by ProcessReplicaFleet) to arm the
+#: orphan guard: a watchdog thread that hard-exits the process once its
+#: parent (the driver) has been gone past this many seconds, so a
+#: SIGKILLed driver never leaks its worker fleet
+ORPHAN_GRACE_ENV = "TL_ORPHAN_GRACE_S"
+
+
+def _running(pid: int) -> bool:
+    """Whether process ``pid`` exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            # the state follows the parenthesized command name
+            return f.read().rsplit(")", 1)[1].split()[0] not in "ZX"
+    except FileNotFoundError:
+        return False
+    except OSError:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return False
+        return True
+
+
+def _install_orphan_guard(grace_s: float,
+                          driver_pid: Optional[int] = None) -> None:
+    """Start the orphan-reap watchdog in THIS process.
+
+    A SIGKILLed driver sends no exit message and closes no pipe handles
+    held by grandchildren, but the kernel reparents its children at
+    once, so a ppid change IS the death signal. The watchdog polls for
+    it; on detection it waits out ``grace_s`` (so a transient
+    ptrace/debugger reparenting can never kill a healthy worker) and
+    hard-exits: there is no driver left to unwind toward. Exit code 3
+    marks an orphan self-reap in postmortems. A process whose parent is
+    not the driver (an actor forked by a fork server) watches
+    ``driver_pid`` as well.
+    """
+    parent = os.getppid()
+    poll = max(0.02, min(0.25, grace_s / 4)) if grace_s > 0 else 0.05
+
+    def _watch() -> None:
+        while True:
+            time.sleep(poll)  # tl-lint: allow-sleep — wall-clock watchdog poll; the driver it watches is a real OS process
+            if os.getppid() != parent or (
+                    driver_pid is not None and not _running(driver_pid)):
+                if grace_s > 0:
+                    time.sleep(grace_s)  # tl-lint: allow-sleep — the orphan grace window is wall-clock by contract
+                os._exit(3)
+
+    threading.Thread(target=_watch, daemon=True,
+                     name="tl-orphan-guard").start()
+
+
+def install_orphan_guard_from_env(driver_pid: Optional[int] = None
+                                  ) -> Optional[float]:
+    """Arm the orphan guard iff :data:`ORPHAN_GRACE_ENV` is set; returns
+    the grace window (seconds) when armed. Called by every actor process
+    after applying its env, with the pid of the process that created
+    it."""
+    raw = os.environ.get(ORPHAN_GRACE_ENV)
+    if not raw:
+        return None
+    grace_s = float(raw)
+    _install_orphan_guard(grace_s, driver_pid)
+    return grace_s
 
 
 class _Spill:
@@ -117,7 +189,8 @@ def _discard(packed) -> None:
 
 
 def _worker_main(conn, env: Dict[str, str],
-                 num_threads: Optional[int] = None) -> None:
+                 num_threads: Optional[int] = None,
+                 driver_pid: Optional[int] = None) -> None:
     """Actor process body: apply the environment and torch's thread count
     before anything initialises a device, then serve construct/call
     messages over the pipe until exit/EOF."""
@@ -129,6 +202,10 @@ def _worker_main(conn, env: Dict[str, str],
     if num_threads is not None:
         import torch
         torch.set_num_threads(int(num_threads))
+    # a pipe EOF already ends this loop when the driver dies cleanly; the
+    # guard covers the SIGKILL shape, where a worker wedged inside a long
+    # call (or blocked on a manager queue) never reads the pipe
+    install_orphan_guard_from_env(driver_pid)
     actor = None
     while True:
         try:
@@ -228,12 +305,14 @@ class ProcessActorHandle:
 
     def __init__(self, cls: type, args: Tuple, kwargs: Dict,
                  env: Dict[str, str], construct_timeout: float = 60.0,
-                 num_threads: Optional[int] = None):
-        ctx = mp.get_context("spawn")  # fork is unsafe with CUDA and threads
+                 num_threads: Optional[int] = None,
+                 start_method: str = "spawn"):
+        # never fork: it is unsafe with CUDA and threads
+        ctx = mp.get_context(start_method)
         self._conn, child_conn = ctx.Pipe()
-        self._proc = ctx.Process(target=_worker_main,
-                                 args=(child_conn, env, num_threads),
-                                 daemon=True)
+        self._proc = ctx.Process(
+            target=_worker_main,
+            args=(child_conn, env, num_threads, os.getpid()), daemon=True)
         self._proc.start()
         child_conn.close()
         self._send_lock = threading.Lock()
@@ -364,13 +443,18 @@ class ProcessRemoteClass:
         return out
 
     def remote(self, *args: Any, **kwargs: Any) -> ProcessActorHandle:
-        # the one honored option (Ray ignores unknown ones, so do we):
-        # construct_timeout, the seconds the spawned process may take to
-        # build the actor
+        # honored options (Ray ignores unknown ones, so do we):
+        #   worker_env: per-actor env merged over the backend's (how the
+        #     process fleet stamps each replica's seat and device)
+        #   construct_timeout: the seconds the spawned process may take
+        #     to build the actor
+        env = dict(self._backend.worker_env)
+        env.update(self._options.get("worker_env") or {})
         handle = ProcessActorHandle(
-            self._cls, args, kwargs, dict(self._backend.worker_env),
+            self._cls, args, kwargs, env,
             construct_timeout=self._options.get("construct_timeout", 60.0),
-            num_threads=self._backend.num_threads)
+            num_threads=self._backend.num_threads,
+            start_method=self._backend._start_method)
         self._backend.created_actors.append(handle)
         return handle
 
@@ -390,8 +474,18 @@ class _ManagerQueue:
     def __reduce__(self):
         return (_ManagerQueue, (self._q,))
 
-    def put(self, item: Any) -> None:
-        self._q.put(_dump(item))
+    def put(self, item: Any, block: bool = True,
+            timeout: Optional[float] = None) -> None:
+        # the timeout matters worker-side: a put into a dead manager's
+        # proxy raises promptly, but a full queue under a dying manager
+        # could block forever (serve workers bound every put by their
+        # orphan grace window, launchers/serve_worker.py)
+        packed = _dump(item)
+        try:
+            self._q.put(packed, block, timeout)
+        except BaseException:
+            _discard(packed)
+            raise
 
     def get(self, block: bool = True, timeout: Optional[float] = None):
         return _load(self._q.get(block, timeout))
@@ -417,12 +511,23 @@ class ProcessRay:
 
     ObjectRef = ProcessObjectRef
     assigns_gpus = False
+    #: how actors and the queue manager start. A spawned process takes
+    #: the driver's environment as it is at the spawn (the launcher's and
+    #: Tune's spills land in the caller's current ``TMPDIR``); the process
+    #: fleet's backend forks from a fork server instead
+    #: (``serve/process_fleet.py:_ForkServerRay``)
+    _start_method = "spawn"
 
     def __init__(self, worker_env: Optional[Dict[str, str]] = None,
-                 num_threads: Optional[int] = None):
+                 num_threads: Optional[int] = None,
+                 orphan_grace_s: Optional[float] = None):
         self._initialized = False
         self.worker_env = dict(worker_env or {})
         self.num_threads = num_threads
+        # arms the manager process's own orphan guard: the manager
+        # outlives a SIGKILLed driver exactly as a worker does, and it
+        # holds no pipe to notice the death through
+        self.orphan_grace_s = orphan_grace_s
         self.created_actors: List[ProcessActorHandle] = []
         self.killed_actors: List[ProcessActorHandle] = []
         self._manager = None
@@ -502,5 +607,16 @@ class ProcessRay:
         manager process that holds the queues starts with the first and
         stops at :meth:`shutdown`."""
         if self._manager is None:
-            self._manager = mp.get_context("spawn").Manager()
+            ctx = mp.get_context(self._start_method)
+            if self.orphan_grace_s is not None:
+                # ctx.Manager() takes no initializer: start the manager
+                # by hand so its process installs the orphan guard
+                # before it serves any proxy
+                from multiprocessing.managers import SyncManager
+                self._manager = SyncManager(ctx=ctx)
+                self._manager.start(_install_orphan_guard,
+                                    (float(self.orphan_grace_s),
+                                     os.getpid()))
+            else:
+                self._manager = ctx.Manager()
         return _ManagerQueue(self._manager.Queue())

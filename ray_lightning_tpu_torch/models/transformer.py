@@ -385,8 +385,14 @@ class Embed(nn.Embedding):
 
     def __init__(self, rows: int, features: int, cfg: TransformerConfig,
                  device):
-        super().__init__(rows, features, device=device,
-                         dtype=cfg.param_dtype)
+        # the table comes uninitialized: TransformerLM.reset_parameters
+        # draws every row from its own generator. nn.Embedding's own
+        # init would draw from torch's global generator (which the port
+        # never uses) and, on a process's first call, import
+        # torch.distributed.tensor and torch._dynamo (seconds a spawned
+        # worker pays for nothing, on the meta device too)
+        super().__init__(rows, features, _weight=torch.empty(
+            (rows, features), device=device, dtype=cfg.param_dtype))
         self.dtype = cfg.dtype
         self.matmul_kernel = cfg.matmul_kernel
         self.qweight: Optional[QTensor] = None

@@ -2,8 +2,9 @@
 
 The port's own copy, unchanged but for this paragraph and the module
 paths: it reads events and span documents only, so the same event log
-assembles to the same traces in either package. The process backend
-(``MSG_SPAN``) named below comes to the port with ``ROADMAP.md`` S8b.
+assembles to the same traces in either package. The process backend's
+worker spans (``MSG_SPAN``, ``launchers/serve_worker.py``) reach the
+recorder seat-tagged, as in the JAX package.
 
 The obs primitives are three parallel streams — events (order), metrics
 (aggregates), spans (durations) — with no per-request spine. This module

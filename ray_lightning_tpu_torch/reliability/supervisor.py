@@ -25,7 +25,7 @@ site fires on the host before the dispatch launches anything) and an
 out-of-memory error. A sticky CUDA error (an illegal address, a device
 assert) poisons the process's CUDA context, and no engine rebuilt in
 that process can run; that case needs a fresh process (the process
-fleet, ``ROADMAP.md`` S8).
+fleet, ``ReplicaFleet(backend="process")``).
 
 A rebuild releases the dead engine's device state (its
 :meth:`~ray_lightning_tpu_torch.serve.engine.ServeEngine.shutdown`: the

@@ -13,6 +13,7 @@ from ray_lightning_tpu_torch.serve.journal import (Journal, JournalCorrupt,
                                                    read_journal)
 from ray_lightning_tpu_torch.serve.pages import (PagePool, PrefixCache,
                                                  SlotPoolFull)
+from ray_lightning_tpu_torch.serve.process_fleet import ProcessReplicaFleet
 from ray_lightning_tpu_torch.serve.request import (Completion, DEFAULT_TENANT,
                                                    FINISH_EOS, FINISH_FAILED,
                                                    FINISH_LENGTH,
@@ -35,4 +36,5 @@ __all__ = ["ServeClient", "ServeEngine", "KVSlotPool", "PendingDispatch",
            "JournalState", "read_journal", "FINISH_EOS", "FINISH_FAILED",
            "FINISH_LENGTH", "FINISH_REJECTED", "FINISH_TIMEOUT",
            "ReplicaFleet", "Router", "RouterConfig", "FleetConfig",
-           "FleetSaturated", "FleetDegraded", "SeatTable"]
+           "FleetSaturated", "FleetDegraded", "SeatTable",
+           "ProcessReplicaFleet"]

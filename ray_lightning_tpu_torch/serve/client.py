@@ -71,7 +71,9 @@ class and adapter, and a shed raises
 
 Only a host-side fault (an exception at a dispatch, an out-of-memory
 error) recovers in-process; a sticky CUDA error poisons the process's
-context and needs a new process (``ROADMAP.md`` S8b, the process fleet).
+context and needs a new process: ``ReplicaFleet(backend="process")``
+(:mod:`~ray_lightning_tpu_torch.serve.process_fleet`) kills the worker
+it happened in and replays its requests on the others.
 
 The fleet's seats (:class:`~ray_lightning_tpu_torch.serve.fleet.ReplicaFleet`):
 ``ops``, ``load_stats()``, ``gauge_prefix`` (a member client's

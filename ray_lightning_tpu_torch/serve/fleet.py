@@ -1,4 +1,4 @@
-"""Replica-fleet serving: supervised engine replicas behind a router (counterpart of ``ray_lightning_tpu/serve/fleet.py``, its ``inproc`` backend).
+"""Replica-fleet serving: supervised engine replicas behind a router (counterpart of ``ray_lightning_tpu/serve/fleet.py``).
 
 One :class:`~ray_lightning_tpu_torch.serve.client.ServeClient` caps
 throughput at one engine's KV slots, and a replica whose dispatch dies
@@ -52,8 +52,9 @@ fails over: an exception out of a replica's dispatch (an injected
 path) or a ``serve.replica`` fault. A sticky CUDA error (an illegal
 address, a device-side assert) poisons the context of every replica at
 once, and nothing in one process recovers from it: that needs replicas
-in processes of their own, ``backend="process"`` (``ROADMAP.md`` S8b),
-which raises ``NotImplementedError`` here.
+in processes of their own, ``backend="process"``
+(:class:`~ray_lightning_tpu_torch.serve.process_fleet.ProcessReplicaFleet`,
+one worker process and one CUDA context per replica).
 
 **Weights.** Every replica builds its own engine from the one state
 dict the fleet was given: its own copy of the weights on the device
@@ -519,9 +520,12 @@ class ReplicaFleet:
     surface. :meth:`shutdown` releases every replica's engine, the
     standby pool and the router.
 
-    ``backend="inproc"`` is the only backend here: ``backend="process"``
-    (a worker process per replica) raises ``NotImplementedError`` until
-    ``ROADMAP.md`` S8b.
+    ``backend="process"`` constructs the process-backed variant
+    (:class:`~ray_lightning_tpu_torch.serve.process_fleet.
+    ProcessReplicaFleet`, same contract and ``isinstance`` identity):
+    each replica dispatches in its own worker process, on its own host
+    thread and in its own CUDA context. The default ``"inproc"`` backend
+    stays the deterministic tick-clock harness.
 
     Failure semantics: a replica whose dispatch raises (or that a
     ``serve.replica`` fault kills) or that stops completing dispatch
@@ -536,6 +540,22 @@ class ReplicaFleet:
     docstring).
     """
 
+    def __new__(cls, *args: Any, **kwargs: Any) -> "ReplicaFleet":
+        # the backend switch: ``ReplicaFleet(..., backend="process")``
+        # constructs a ProcessReplicaFleet (same contract, replicas in
+        # worker processes of their own: serve/process_fleet.py), so
+        # callers hold ONE fleet type and ``isinstance(fleet,
+        # ReplicaFleet)`` holds either way
+        backend = kwargs.get("backend", "inproc")
+        if backend not in ("inproc", "process"):
+            raise ValueError(
+                f"backend must be 'inproc' or 'process', got {backend!r}")
+        if cls is ReplicaFleet and backend == "process":
+            from ray_lightning_tpu_torch.serve.process_fleet import \
+                ProcessReplicaFleet
+            return object.__new__(ProcessReplicaFleet)
+        return object.__new__(cls)
+
     def __init__(self, model, params, *, backend: str = "inproc",
                  num_replicas: int = 2,
                  num_standby: int = 0,
@@ -545,15 +565,7 @@ class ReplicaFleet:
                  clock: Optional[Callable[[], float]] = None,
                  journal=None,
                  **engine_kwargs: Any):
-        if backend == "process":
-            raise NotImplementedError(
-                "ReplicaFleet(backend='process') runs each replica in a "
-                "worker process of its own: ROADMAP.md S8b, not ported "
-                "yet; the in-process fleet is backend='inproc'")
-        if backend != "inproc":
-            raise ValueError(
-                f"backend must be 'inproc' or 'process', got {backend!r}")
-        self.backend = backend
+        self.backend = "inproc"
         if num_replicas < 1:
             raise ValueError(
                 f"num_replicas must be >= 1, got {num_replicas}")
@@ -800,8 +812,15 @@ class ReplicaFleet:
         every unretired request through the router's replay lane.
 
         ``build_kwargs`` are the constructor arguments the dead fleet was
-        built with. The journal is reopened with a bumped generation, so
-        the restarted fleet keeps journaling into the same file.
+        built with (``backend="process"`` included: the ``__new__``
+        switch applies here too, so a process fleet restores as a process
+        fleet). The journal is reopened with a bumped generation, so the
+        restarted fleet keeps journaling into the same file; on the
+        process backend that generation is stamped into every fresh
+        worker, and the driver's queue drains refuse messages still
+        carrying the dead driver's generation (the split-brain fence),
+        while the dead driver's orphaned workers self-reap within the
+        grace window.
         Re-admissions ride :meth:`_readmit` (fit-checked against the
         replay window, parked when every replica is transiently full,
         failover budget and probation honored) with ``replay_tokens`` set

@@ -99,8 +99,8 @@ class Journal:
     before the first admission.
 
     ``generation`` counts the writer's restarts: ``restore`` reopens
-    the journal with a bumped generation (the process fleet, S8, fences
-    a dead driver's messages by it).
+    the journal with a bumped generation (the process fleet fences a
+    dead driver's messages by it).
 
     Call :meth:`shutdown` (or :meth:`close`) when done; the owning
     ``ServeClient`` does this from its own

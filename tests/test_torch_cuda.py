@@ -61,8 +61,13 @@ once CUDA is live, with the in-process loader's batches, and
 stream, each batch equal on the host. The in-process replica fleet: a
 2-replica fleet's tokens equal one client's in f32 with the kernels on,
 and a replica killed mid-decode fails over with every token kept and the
-card's allocated bytes back where they were. ``chip_smoke.py`` repeats
-this at the serving and training paths' full shapes.
+card's allocated bytes back where they were. The process replica fleet
+(one worker process per replica on the card): its f32 tokens equal one
+client's, K1 launched inside the workers n_layers times a decode step;
+and a device-side assert (a prompt id outside the vocab) in one worker
+fails that request while the other worker, never stopped, serves its own
+requests to the single client's tokens. ``chip_smoke.py`` repeats this
+at the serving and training paths' full shapes.
 """
 import dataclasses
 
@@ -2085,3 +2090,86 @@ def test_fleet_failover_keeps_tokens_and_frees_the_dead_replica(cuda):
     assert abs(after["allocated"] - crash["allocated"]) < \
         chip_smoke.N_ALLOCATOR_SLACK, seen
     fleet.shutdown()
+
+
+def _worker_k1(fleet, n_layers):
+    """K1's launches the fleet's gracefully stopped workers report, each
+    n_layers per decode step (one engine a process)."""
+    total = 0
+    for st in fleet.final_stats.values():
+        n = {t: c for t, c in st["kernel_launches"]["paged_attention"]
+             .items() if c}
+        assert set(n) <= {1} and n.get(1, 0) == n_layers \
+            * st["decode_steps"], st
+        total += n.get(1, 0)
+    return total
+
+
+def test_process_fleet_on_the_card_tokens_equal_one_clients(cuda):
+    """Two worker processes on the card, each with its own CUDA context:
+    f32 tokens (greedy and sampled) equal one in-process client's, K1
+    launched inside the workers, no worker left."""
+    from ray_lightning_tpu_torch.serve import ReplicaFleet
+    proto, sd = _fleet_models()
+    client = ServeClient(proto, sd, device=cuda, **dict(FLEET_LAYOUT,
+                                                        num_slots=8))
+    want = client.serve_trace(list(ASYNC_TRACE))
+    client.shutdown()
+    fleet = ReplicaFleet(proto, sd, backend="process", num_replicas=2,
+                         device=cuda, **FLEET_LAYOUT)
+    try:
+        # ticks as hundredths of a second: the process fleet's clock
+        got = fleet.serve_trace([(t * 0.01, kw) for t, kw in ASYNC_TRACE])
+    finally:
+        backend = fleet.process_backend
+        fleet.shutdown()
+    assert backend.live_actor_count() == 0
+    assert {r: c.tokens for r, c in got.items()} == {
+        r: c.tokens for r, c in want.items()}
+    assert sorted(fleet.final_stats) == [0, 1]
+    assert _worker_k1(fleet, proto.cfg.n_layers) > 0
+
+
+def test_process_fleet_contains_a_sticky_cuda_error(cuda):
+    """A prompt id outside the vocab trips a device-side assert in the
+    worker that seats it, a sticky error of that process's context: the
+    worker reports the CUDA error, is killed and replaced, its request
+    retires ``failed`` (one failover allowed); the other worker, decoding
+    meanwhile, survives and serves its requests to one client's tokens."""
+    from ray_lightning_tpu_torch.obs import Telemetry
+    from ray_lightning_tpu_torch.serve import FleetConfig, ReplicaFleet
+    proto, sd = _fleet_models()
+    good = [dict(prompt=[5, 17, 3, 9], max_new_tokens=40),
+            dict(prompt=[9, 2, 44], max_new_tokens=40)]
+    client = ServeClient(proto, sd, device=cuda, **dict(FLEET_LAYOUT,
+                                                        num_slots=8))
+    want = client.serve_trace([(0, kw) for kw in good])
+    client.shutdown()
+    tel = Telemetry()
+    fleet = ReplicaFleet(proto, sd, backend="process", num_replicas=2,
+                         device=cuda, telemetry=tel,
+                         fleet_config=FleetConfig(max_request_failovers=1),
+                         **FLEET_LAYOUT)
+    try:
+        survivor = fleet._replicas[0]
+        pid = survivor.actor._proc.pid
+        ids = [fleet.submit(**good[0]),             # replica 0
+               fleet.submit(prompt=[3, proto.cfg.vocab_size + 5, 1],
+                            max_new_tokens=4),      # replica 1, alone
+               fleet.submit(**good[1])]             # replica 0 (id tie)
+        out = fleet.run_until_idle()
+        assert survivor in fleet._replicas and \
+            survivor.actor._proc.pid == pid and survivor.actor._proc.is_alive()
+    finally:
+        backend = fleet.process_backend
+        fleet.shutdown()
+    assert backend.live_actor_count() == 0
+    assert out[ids[1]].finish_reason == "failed" and fleet.poison_failed == 1
+    assert fleet.failovers == 1 and not tel.events("replica.dead")
+    (err,) = tel.events("replica.error")
+    assert err.payload["replica"] == 1
+    assert "CUDA error" in err.payload["detail"], err.payload
+    assert [out[ids[0]].tokens, out[ids[2]].tokens] == [
+        want[0].tokens, want[1].tokens]
+    assert survivor.id in fleet.final_stats
+    assert _worker_k1(fleet, proto.cfg.n_layers) > 0

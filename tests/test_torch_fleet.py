@@ -708,8 +708,17 @@ def test_fleet_rejects_bad_shapes_and_the_process_backend(sides):
     port = sides[1]
     with pytest.raises(ValueError):
         port.fleet(num_replicas=0)
-    with pytest.raises(NotImplementedError, match="S8b"):
-        port.fleet(backend="process", num_replicas=1, **DENSE)
+    # backend="process" builds the process fleet (one worker process per
+    # replica), a ReplicaFleet all the same, that leaves no live worker
+    fleet = port.fleet(backend="process", num_replicas=1, **DENSE)
+    try:
+        assert isinstance(fleet, serve.ProcessReplicaFleet)
+        assert isinstance(fleet, serve.ReplicaFleet)
+        assert fleet.backend == "process" and fleet.replicas_live == 1
+    finally:
+        backend = fleet.process_backend
+        fleet.shutdown()
+    assert backend.live_actor_count() == 0
     with pytest.raises(ValueError, match="backend"):
         port.fleet(backend="threads", num_replicas=1, **DENSE)
     fleet = port.fleet(num_replicas=2, num_slots=1, prefill_len=8)

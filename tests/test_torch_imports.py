@@ -1,7 +1,8 @@
 """The port stays free of JAX: no module of ``ray_lightning_tpu_torch/``
 (nor ``chip_smoke.py``, nor the port's report tools) imports jax, flax,
 optax or the JAX package, and importing the port -- the native ring, the
-multiprocess loader and the fleet included -- loads none of them."""
+multiprocess loader, the fleet and the process fleet's driver and worker
+included -- loads none of them."""
 import ast
 import pathlib
 import subprocess
@@ -66,6 +67,8 @@ def test_import_loads_no_jax():
             "import ray_lightning_tpu_torch._native\n"
             "import ray_lightning_tpu_torch.data.multiproc\n"
             "import ray_lightning_tpu_torch.serve.fleet\n"
+            "import ray_lightning_tpu_torch.serve.process_fleet\n"
+            "import ray_lightning_tpu_torch.launchers.serve_worker\n"
             "import ray_lightning_tpu_torch.obs.tracing\n"
             "new = sorted(m for m in set(sys.modules) - before\n"
             "             if m.split('.')[0] in %r)\n"
