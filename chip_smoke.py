@@ -155,7 +155,8 @@ G. The dense KV layouts and decode outside the engine, phase 2's weights,
 P. Async dispatch, phase 2's weights and trace (greedy and sampled rows),
    8 slots, on four engines: page-native (K1), int8 weights (K5),
    chunked with the prefix cache (phase L's layout, K2) and spec at k = 4
-   (phase S's draft). (a) Each in bf16 and in f32 through
+   (phase S's draft). (a) Each in bf16 and in f32 (the f32 runs cut to
+   the first ``F32_LAYERS`` = 6 blocks, ``f32_depth``) through
    ``ServeClient(async_dispatch=True)`` and the sync client: tokens and
    finish reasons bitwise equal. (b) Every steady-state ``step_enqueue``
    (one chaining on an outstanding carry) of the bf16 runs, and of a
@@ -191,7 +192,9 @@ A. Multi-LoRA and tenancy, phase 2's weights, a page-native engine with
 F. Faults and telemetry, phase 2's weights (each run through a fresh
    ``ServeClient(retry_policy=RetryPolicy(max_attempts=3, base_delay=0))``,
    its recoveries, host ms and the card's allocated bytes after every
-   rebuild recorded). (a) Phase 2's page-native engine and trace, f32:
+   rebuild recorded; every f32 run but (b)'s at the first
+   ``F32_LAYERS`` = 6 blocks, ``f32_depth``). (a) Phase 2's page-native
+   engine and trace, f32:
    ``serve.dispatch`` crashes at the first prefill, the first decode
    dispatch (8 rows in flight) and the first later decode dispatch where
    some row's prompt + emitted tokens exceed ``max_replay_len`` (128),
@@ -241,6 +244,30 @@ T3. Training, kernel path against plain path end to end, in f32: one
    plain PyTorch attention differentiated by autograd
    (``attention_impl="dot"``); loss to 1e-5 relative, every gradient to
    its stated bound.
+Z. The encoder family and MNIST. (a) K2-K4 against their plain versions
+   at the encoders' bidirectional shapes, non-causal: BERT-base's (B=32,
+   T=S=128) and ViT-B/16's (B=32, T=S=197: a partial last tile), H=12,
+   D=64, q/k/v views of a fused projection, bf16 (``tc``) and f32
+   (``simt``), every call's route checked, the errors held by T1's
+   bounds; each bf16 kernel's cold-L2 time, its bound, its plain
+   version's time and SDPA's fastest forward and backward. (b)
+   ``BertModule(config=bert_config("base", vocab_size=30522,
+   max_seq_len=128, attention_impl="flash"), batch_size=32,
+   seq_len=128)`` for ``Z_STEPS`` steps and ``Z_VAL_BATCHES`` validation
+   batches through ``Trainer(strategy=RayStrategy(num_workers=1))``:
+   every loss finite, K2 n_layers times a forward and K3, K4 n_layers a
+   step, all on ``tc``; then one f32 step from the same weights,
+   ``"flash"`` against ``"dot"``, held by T3's bounds. (c) ViT-B/16
+   (``vit_config("base", image_size=224, patch_size=16,
+   attention_impl="flash")``, its default ``remat_policy=
+   "dots_with_no_batch_dims_save_attn"``), batch 32, the same fit: K2
+   twice a layer a step (the forward and backward's replay) and once a
+   layer a validation batch, K3 and K4 once a layer a step, all ``tc``.
+   (b) and (c) print step ms (median after the warm-up), samples/s and
+   peak memory. (d) ``LightningMNISTClassifier`` on the card: the
+   validation accuracy after 20 training batches at least 0.5 (the
+   reference's gate), then ``assert_deterministic`` (exact) over two
+   seeded fits. Prints its seconds.
 M. The model core's training options at GPT-2-small width (bf16 compute
    over f32 weights, batch 8 x 1024, ``Trainer(strategy=RayStrategy(
    num_workers=1), seed=0)``). (a) ``dropout=0.1`` on the flash config,
@@ -400,7 +427,8 @@ N. The in-process replica fleet, run after phase F on phase 2's weights
    prefill_len=128, attention_kernel="cuda"``). (a) bf16, 2 replicas and
    a warm standby: the requests per replica, the fleet's tokens/s and ms
    a fleet tick beside a single client of the layout (and phase 2's
-   figures), the card's bytes per client. (b) f32, a ``serve.replica``
+   figures), the card's bytes per client. (b) f32 (at ``F32_LAYERS``, as
+   phase F's f32 runs), a ``serve.replica``
    raise while 8 rows decode (4 on the victim): every token equal to the
    fault-free single client's, ``fleet.failover`` -> 4
    ``recovery.replay`` -> ``fleet.replica_promoted``, the bytes of the
@@ -425,7 +453,11 @@ X. The process replica fleet, run after phase N on phase 2's weights,
    in-process fleet. Then one f32 fleet of 2 workers and a warm standby
    (refilled on the driver's thread, so no spawn lands inside another
    measurement) under ``FleetConfig(max_request_failovers=3,
-   probation_after=2)``: (b) ``inject("exit")`` into replica 0 once rows
+   probation_after=2)``, its engines with ``prefill_chunk=128`` (as
+   phase F (e)'s: the trace's prompts still take the batched prefill,
+   and a displaced row's prompt + tokens, which can exceed
+   ``prefill_len`` however late its replica crashes, streams back in
+   through chunks): (b) ``inject("exit")`` into replica 0 once rows
    of both have flushed tokens: every token, sampled rows included,
    equal to the fault-free f32 single client's, the verdict
    ``replica.dead``, the card's free memory back (within
@@ -454,7 +486,11 @@ X. The process replica fleet, run after phase N on phase 2's weights,
    phase P's chunked, phase A's chunked, phase F (b)'s bf16 and phase N
    (d)'s ``tc`` launches. K2-K4's
    training entries count T2's launches, phase I's two fits', phase M's
-   (a), (b) and (e) fits' and phase H (a)'s and (b)'s. K5 has five entries, each one forward's 49 calls, bf16 x,
+   (a), (b) and (e) fits' and phase H (a)'s and (b)'s; ``flash_fwd_bert``,
+   ``flash_bwd_dkv_bert``, ``flash_bwd_dq_bert`` (T=S=128) and the
+   three ``_vit`` entries (T=S=197) count phase Z's BERT-base and
+   ViT-B/16 fits, their times and errors phase Z (a)'s bf16 rows. K5 has
+   five entries, each one forward's 49 calls, bf16 x,
    int8 codes (times and bound their sums, the error the largest of
    them): ``quantized_matmul`` at
    M=8 (a decode step, the GEMVs; Q2's, phase L's, phase S (d)'s, phase
@@ -1392,6 +1428,7 @@ def phase_l_k2_chunk_shapes(flush):
 S_K = 4                          # draft tokens a round: the verify's T = 5
 S_VERIFY_M = SERVE["num_slots"] * (S_K + 1)   # the verify's K5 rows: 40
 S_DRAFT_LAYERS = 2
+F32_LAYERS = 6             # P's and F's f32 runs, N (b) (f32_depth)
 # the identical draft (the target itself, f32): the share of judged
 # drafts it must have accepted
 S_ACCEPT_IDENTICAL = 0.99
@@ -1404,6 +1441,17 @@ def draft_state(sd, n_layers):
     keep = tuple(f"stack.blocks.{i}." for i in range(n_layers))
     return {k: v for k, v in sd.items()
             if not k.startswith("stack.blocks.") or k.startswith(keep)}
+
+
+def f32_depth(cfg, sd):
+    """``cfg`` and ``sd`` cut to their first ``F32_LAYERS`` blocks (as
+    :func:`draft_state` cuts them): the depth of phases P's and F's f32
+    runs and of N (b)'s failover, which hold tokens against tokens of the
+    same model -- replay, journal restore, async and failover identity
+    ask for every serving path at full width, not for every layer, and
+    the script's time limit asks for the seconds."""
+    return (dataclasses.replace(cfg, n_layers=F32_LAYERS),
+            draft_state(sd, F32_LAYERS))
 
 
 def spec_kw(dcfg, dsd):
@@ -2206,13 +2254,17 @@ def phase_p_async(cfg, sd, trace, card):
     prompts = [kw["prompt"] for _, kw in trace[:8]]
     for engine, layout in P_ENGINES.items():
         for dtype in P_DTYPES:
-            proto, kw = p_models(cfg, sd, dtype, engine)
+            # the bf16 runs at full depth (launches, host ms); the f32
+            # identity runs at F32_LAYERS
+            c, s = ((cfg, sd) if dtype == torch.bfloat16
+                    else f32_depth(cfg, sd))
+            proto, kw = p_models(c, s, dtype, engine)
             tag = f"{engine} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
-            serve(proto, sd, WARM, layout=layout, **kw)
+            serve(proto, s, WARM, layout=layout, **kw)
             res, tokens = {}, {}
             for mode in ("sync", "async"):
                 p_reset()
-                done, eng, st = p_serve(proto, sd, trace, layout,
+                done, eng, st = p_serve(proto, s, trace, layout,
                                         async_dispatch=mode == "async",
                                         debug=dtype == torch.bfloat16, **kw)
                 if dtype == torch.bfloat16:
@@ -2223,7 +2275,7 @@ def phase_p_async(cfg, sd, trace, card):
                 tokens[mode] = {r: (c.tokens, c.finish_reason)
                                 for r, c in done.items()}
                 res[mode] = dict(p_figures(done, st),
-                                 dispatches=eng.steps,
+                                 dispatches=eng.steps, n_layers=c.n_layers,
                                  enqueues_checked=st["checked"])
             differ = [r for r in tokens["sync"]
                       if tokens["sync"][r] != tokens["async"].get(r)]
@@ -2714,11 +2766,13 @@ def f_page_native(cfg, sd, trace, served, card, out):
     crashes: a prefill, a decode dispatch with at least 4 rows in flight,
     and a dispatch where some rows' prompt + emitted tokens exceed
     ``max_replay_len`` (the ticks chosen from the fault-free run's
-    dispatches). f32 checked; bf16 reported against phase 2's tokens."""
+    dispatches). f32 checked, at ``F32_LAYERS`` (``f32_depth``); bf16 at
+    full depth, reported against phase 2's tokens."""
     from ray_lightning_tpu_torch.reliability import FaultPlan
     layout = dict(SERVE, attention_kernel="cuda")
-    p32 = f_models(cfg, torch.float32)
-    base, _, brec = f_serve(p32, sd, trace, layout, record_steps=True)
+    c32, s32 = f32_depth(cfg, sd)
+    p32 = f_models(c32, torch.float32)
+    base, _, brec = f_serve(p32, s32, trace, layout, record_steps=True)
     ref = f_tokens(base)
     limit = SERVE["prefill_len"]           # max_replay_len, unchunked
     steps = [(i, rows) for i, (op, rows) in enumerate(brec["dispatches"])
@@ -2733,7 +2787,7 @@ def f_page_native(cfg, sd, trace, served, card, out):
     # wave, one extra serve.dispatch tick
     ticks = [0, d2 + 1, d3 + 2]
     plan = FaultPlan.at("serve.dispatch", ticks)
-    done, counters, rec = f_serve(p32, sd, trace, layout, plan)
+    done, counters, rec = f_serve(p32, s32, trace, layout, plan)
     check(rec["entries"][2] and sorted(rid for rid, n in rec["entries"][2]
                                        if n > limit) == over
           and len(rec["entries"][1]) >= 4,
@@ -2746,8 +2800,8 @@ def f_page_native(cfg, sd, trace, served, card, out):
     k1 = f_after_rebuild(rec)["k1_by_t"].get(1, 0)
     check(k1 > 0, "phaseF (a): no K1 launch after the first rebuild")
     res = {"f32": f_summary(counters, rec, dict(
-        ticks=ticks, failed=over, sampled_replay_exact=sampled,
-        k1_t1_after_rebuild=k1))}
+        n_layers=c32.n_layers, ticks=ticks, failed=over,
+        sampled_replay_exact=sampled, k1_t1_after_rebuild=k1))}
     add_launches(out["launches"], rec["launches"])
     # bf16: reported (greedy margins on random weights sit below rounding)
     pbf = f_models(cfg, torch.bfloat16)
@@ -3074,9 +3128,11 @@ def phase_f_faults(cfg, sd, trace, served, card):
     try:
         ref = f_page_native(cfg, sd, trace, served, card, out)
         f_chunked(cfg, sd, card, out)
-        f_spec(cfg, sd, trace, card, out)
-        f_async_int8(cfg, sd, trace, card, out)
-        f_journal(cfg, sd, trace, ref, card, out, root)
+        # the f32-only runs at F32_LAYERS, (e) against (a)'s f32 tokens
+        c32, s32 = f32_depth(cfg, sd)
+        f_spec(c32, s32, trace, card, out)
+        f_async_int8(c32, s32, trace, card, out)
+        f_journal(c32, s32, trace, ref, card, out, root)
         f_telemetry(cfg, sd, trace, card, out, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3191,7 +3247,7 @@ def flash_bound(kind: str, q, k, causal: bool):
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
-def sdpa_times(q, k, v, do, causal, flush):
+def sdpa_times(q, k, v, do, causal, flush, tag="phaseT1"):
     """``F.scaled_dot_product_attention`` on (B, H, T, D) views of the same
     inputs, once under each backend of ``SDPA_BACKENDS`` that
     ``torch.nn.attention.sdpa_kernel`` lets run them: its forward, and its
@@ -3220,105 +3276,111 @@ def sdpa_times(q, k, v, do, causal, flush):
                 fwd_bwd()
                 torch.cuda.synchronize()
             except RuntimeError as err:
-                print(f"phaseT1 sdpa {name} does not run these inputs: "
+                print(f"{tag} sdpa {name} does not run these inputs: "
                       f"{str(err).splitlines()[0]}", flush=True)
                 continue
             fwd_ms = time_ms(fwd, flush)
             times[name] = (fwd_ms, time_ms(fwd_bwd, flush) - fwd_ms)
-        print(f"phaseT1 sdpa {name}: forward {times[name][0]:.4f} ms, "
+        print(f"{tag} sdpa {name}: forward {times[name][0]:.4f} ms, "
               f"backward {times[name][1]:.4f} ms", flush=True)
     check(bool(times), "no SDPA backend runs the path's inputs")
     return times
 
 
-def phase_t1_flash_vs_plain(flush):
+def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False):
+    """K2-K4 once each on ``flash_inputs(dtype, B, T, S)`` against their
+    plain versions: every call's route (bf16 ``tc``, f32 ``simt``), each
+    output's error within its bound (``flash_tol``), rows that admit no
+    key at 0 / 1e30. ``timed``: each kernel's cold-L2 time, its plain
+    version's, its bound, and SDPA's under each backend. Returns the
+    printed row."""
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    q, k, v, do = flash_inputs(dtype, B, T, S)
+    cf.reset_kernel_launches()
+    out, lse = cf.flash_fwd(q, k, v, causal)
+    delta = cf.flash_delta(out, do)
+    dk, dv = cf.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq = cf.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    # views of fused projections: bf16 on the tensor cores, f32 on the
+    # CUDA cores, every kernel
+    route = "tc" if dtype == torch.bfloat16 else "simt"
+    routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+    check(all(r == {"simt": 0, "tc": 0, route: 1}
+              for r in routes.values()),
+          f"flash {label} {dtype}: routes {routes}, want {route}")
+    # the same inputs for both: the kernels' lse and delta
+    ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
+    ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                causal)
+    ref_dq = cf.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    grad_bounds = None
+    if dtype == torch.bfloat16:
+        grad_bounds = dict(zip(("dq", "dk", "dv"), cf.flash_grad_bound(
+            q, k, v, do, lse, delta, causal, ref_dq, ref_dk, ref_dv)))
+    row = dict(case=label, dtype=str(dtype).split(".")[-1], B=B, T=T, S=S,
+               causal=causal, route=route)
+    for name, got, ref, grad in (("out", out, ref_out, False),
+                                 ("lse", lse, ref_lse, False),
+                                 ("dq", dq, ref_dq, True),
+                                 ("dk", dk, ref_dk, True),
+                                 ("dv", dv, ref_dv, True)):
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"flash {label} {name}: {got.shape} {got.dtype}")
+        check(bool(torch.isfinite(got).all()),
+              f"flash {label} {dtype} {name} not finite")
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = flash_tol(dtype, name, ref, grad, q, k, v, causal,
+                        grad_bounds)
+        used = bound_used(got, ref, tol)
+        row[f"{name}_err"], row[f"{name}_used"] = err, used
+        row[f"{name}_tol"] = (None if torch.is_tensor(tol)
+                              else tol)          # None: per element
+        check(used <= 1.0, f"flash {label} {dtype} {name}: kernel vs "
+              f"plain {err}, {used} of the bound")
+    if causal and T > S:
+        check(float(out[:, :T - S].abs().max()) == 0.0
+              and bool((lse[:, :, :T - S] == 1e30).all())
+              and float(dq[:, :T - S].abs().max()) == 0.0,
+              "rows that admit no key must give out 0, lse 1e30, dq 0")
+    del grad_bounds, ref_out, ref_lse, ref_dk, ref_dv, ref_dq
+    if timed:
+        lib = sdpa_times(q, k, v, do, causal, flush, tag)
+        fwd_backend = min(lib, key=lambda n: lib[n][0])
+        bwd_backend = min(lib, key=lambda n: lib[n][1])
+        for kind, fn, plain in (
+                ("fwd", lambda: cf.flash_fwd(q, k, v, causal),
+                 lambda: cf.flash_fwd_reference(q, k, v, causal)),
+                ("dkv", lambda: cf.flash_bwd_dkv(
+                    q, k, v, do, lse, delta, causal),
+                 lambda: cf.flash_bwd_dkv_reference(
+                     q, k, v, do, lse, delta, causal)),
+                ("dq", lambda: cf.flash_bwd_dq(
+                    q, k, v, do, lse, delta, causal),
+                 lambda: cf.flash_bwd_dq_reference(
+                     q, k, v, do, lse, delta, causal))):
+            bound_ms, bound_by = flash_bound(kind, q, k, causal)
+            row[f"{kind}_ms"] = time_ms(fn, flush)
+            row[f"{kind}_plain_ms"] = time_ms(plain, flush)
+            row[f"{kind}_bound_ms"] = bound_ms
+            row[f"{kind}_bound_by"] = bound_by
+        row["library_ms_by_backend"] = {
+            n: dict(fwd=f, bwd=b) for n, (f, b) in lib.items()}
+        row["library_fwd_ms"] = lib[fwd_backend][0]
+        row["library_fwd_backend"] = fwd_backend
+        row["library_bwd_ms"] = lib[bwd_backend][1]
+        row["library_bwd_backend"] = bwd_backend
+    print(f"{tag} flash", json.dumps(row), flush=True)
+    return row
+
+
+def phase_t1_flash_vs_plain(flush):
     rows = {}
     for label, B, T, S, causal in FLASH_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = flash_inputs(dtype, B, T, S)
-            cf.reset_kernel_launches()
-            out, lse = cf.flash_fwd(q, k, v, causal)
-            delta = cf.flash_delta(out, do)
-            dk, dv = cf.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-            dq = cf.flash_bwd_dq(q, k, v, do, lse, delta, causal)
-            torch.cuda.synchronize()
-            # views of fused projections: bf16 on the tensor cores, f32
-            # on the CUDA cores, every kernel
-            route = "tc" if dtype == torch.bfloat16 else "simt"
-            routes = {n: cf.route_launches(n) for n in cf.KERNELS}
-            check(all(r == {"simt": 0, "tc": 0, route: 1}
-                      for r in routes.values()),
-                  f"flash {label} {dtype}: routes {routes}, want {route}")
-            # the same inputs for both: the kernels' lse and delta
-            ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
-            ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse,
-                                                        delta, causal)
-            ref_dq = cf.flash_bwd_dq_reference(q, k, v, do, lse, delta,
-                                               causal)
-            grad_bounds = None
-            if dtype == torch.bfloat16:
-                grad_bounds = dict(zip(("dq", "dk", "dv"),
-                                       cf.flash_grad_bound(
-                                           q, k, v, do, lse, delta, causal,
-                                           ref_dq, ref_dk, ref_dv)))
-            row = dict(case=label, dtype=str(dtype).split(".")[-1], B=B,
-                       T=T, S=S, causal=causal, route=route)
-            for name, got, ref, grad in (("out", out, ref_out, False),
-                                         ("lse", lse, ref_lse, False),
-                                         ("dq", dq, ref_dq, True),
-                                         ("dk", dk, ref_dk, True),
-                                         ("dv", dv, ref_dv, True)):
-                check(got.shape == ref.shape and got.dtype == ref.dtype,
-                      f"flash {label} {name}: {got.shape} {got.dtype}")
-                check(bool(torch.isfinite(got).all()),
-                      f"flash {label} {dtype} {name} not finite")
-                err = (got.float() - ref.float()).abs().max().item()
-                tol = flash_tol(dtype, name, ref, grad, q, k, v, causal,
-                                grad_bounds)
-                used = bound_used(got, ref, tol)
-                row[f"{name}_err"], row[f"{name}_used"] = err, used
-                row[f"{name}_tol"] = (None if torch.is_tensor(tol)
-                                      else tol)          # None: per element
-                check(used <= 1.0, f"flash {label} {dtype} {name}: kernel "
-                      f"vs plain {err}, {used} of the bound")
-            if causal and T > S:
-                check(float(out[:, :T - S].abs().max()) == 0.0
-                      and bool((lse[:, :, :T - S] == 1e30).all())
-                      and float(dq[:, :T - S].abs().max()) == 0.0,
-                      "rows that admit no key must give out 0, lse 1e30, "
-                      "dq 0")
-            del grad_bounds
-            if label == "path":
-                lib = sdpa_times(q, k, v, do, causal, flush)
-                fwd_backend = min(lib, key=lambda n: lib[n][0])
-                bwd_backend = min(lib, key=lambda n: lib[n][1])
-                for kind, fn, plain in (
-                        ("fwd", lambda: cf.flash_fwd(q, k, v, causal),
-                         lambda: cf.flash_fwd_reference(q, k, v, causal)),
-                        ("dkv", lambda: cf.flash_bwd_dkv(
-                            q, k, v, do, lse, delta, causal),
-                         lambda: cf.flash_bwd_dkv_reference(
-                             q, k, v, do, lse, delta, causal)),
-                        ("dq", lambda: cf.flash_bwd_dq(
-                            q, k, v, do, lse, delta, causal),
-                         lambda: cf.flash_bwd_dq_reference(
-                             q, k, v, do, lse, delta, causal))):
-                    bound_ms, bound_by = flash_bound(kind, q, k, causal)
-                    row[f"{kind}_ms"] = time_ms(fn, flush)
-                    row[f"{kind}_plain_ms"] = time_ms(plain, flush)
-                    row[f"{kind}_bound_ms"] = bound_ms
-                    row[f"{kind}_bound_by"] = bound_by
-                row["library_ms_by_backend"] = {
-                    n: dict(fwd=f, bwd=b) for n, (f, b) in lib.items()}
-                row["library_fwd_ms"] = lib[fwd_backend][0]
-                row["library_fwd_backend"] = fwd_backend
-                row["library_bwd_ms"] = lib[bwd_backend][1]
-                row["library_bwd_backend"] = bwd_backend
+            row = flash_case("phaseT1", label, B, T, S, causal, dtype,
+                             flush, timed=label == "path")
             rows[(label, row["dtype"])] = row
-            print("phaseT1 flash", json.dumps(row), flush=True)
-            del q, k, v, do, out, lse, delta, dk, dv, dq
-            del ref_out, ref_lse, ref_dk, ref_dv, ref_dq
     return rows
 
 
@@ -5387,14 +5449,16 @@ def n_failover(cfg, sd, trace, card, out, root):
     from ray_lightning_tpu_torch.obs import Telemetry
     from ray_lightning_tpu_torch.reliability import FaultPlan
     from ray_lightning_tpu_torch.serve import ServeClient
-    p32 = f_models(cfg, torch.float32)
-    client = ServeClient(p32, sd, device=DEVICE, **N_LAYOUT)
+    # token identity through a failover: at F32_LAYERS, as phase F's
+    c32, s32 = f32_depth(cfg, sd)
+    p32 = f_models(c32, torch.float32)
+    client = ServeClient(p32, s32, device=DEVICE, **N_LAYOUT)
     ref = {r: c.tokens for r, c in client.serve_trace(list(trace)).items()}
     client.shutdown()
     del client
     gc.collect()
     tel = Telemetry()
-    fleet = n_fleet(p32, sd, telemetry=tel)
+    fleet = n_fleet(p32, s32, telemetry=tel)
     rec = {}
     fail = fleet._fail_replica
 
@@ -5478,7 +5542,8 @@ def n_failover(cfg, sd, trace, card, out, root):
     check({e["pid"] for e in doc["traceEvents"]} >= {0, 1},
           "N (b): the Chrome trace has no replica tracks")
     res = dict(
-        kill_tick=rec["tick"], rows_in_flight=rec["rows"],
+        n_layers=c32.n_layers, kill_tick=rec["tick"],
+        rows_in_flight=rec["rows"],
         victim_rows=rec["victim_rows"], tokens_equal_single_client=True,
         replays=replays, failover_ms=1e3 * fleet.failover_s_total,
         bytes_at_crash=rec["at_crash"],
@@ -5612,6 +5677,11 @@ X_MEM_SLACK = 256 << 20
 # (c)'s containment settings, as tests/test_fleet_process.py's
 # test_process_poison_contained_exact_implication configures them
 X_POISON_CONFIG = dict(max_request_failovers=3, probation_after=2)
+# (b)'s and (c)'s engines, and their fault-free single client's: how
+# many tokens a row holds when its replica dies depends on the host's
+# timing, so a replay must fit whatever its length (without chunks, a
+# 107-token prompt replayed after 22 tokens retires "failed")
+X_F32_LAYOUT = dict(N_LAYOUT, prefill_chunk=L_CHUNK)
 
 
 def x_free() -> int:
@@ -5854,10 +5924,11 @@ def x_shutdown(fleet, free_before, what):
 
 
 def x_single_f32(cfg, sd, trace):
-    """The fault-free f32 single client's tokens on ``trace``."""
+    """The fault-free f32 single client's tokens on ``trace``, on (b)'s
+    and (c)'s layout."""
     from ray_lightning_tpu_torch.serve import ServeClient
     client = ServeClient(f_models(cfg, torch.float32), sd, device=DEVICE,
-                         **N_LAYOUT)
+                         **X_F32_LAYOUT)
     done = client.serve_trace(list(trace))
     client.shutdown()
     return {r: c.tokens for r, c in done.items()}
@@ -5915,9 +5986,11 @@ def x_bf16(cfg, sd, trace, served, fleet_n, card, out):
 
 def x_f32(cfg, sd, trace, served, card, out):
     """(b) and (c) on one f32 fleet of 2 workers and a warm standby under
-    ``FleetConfig(max_request_failovers=3, probation_after=2)``: the
-    kill -9 first, then the poison request once it has been served. No
-    worker is alive after its shutdown and the free memory is back."""
+    ``FleetConfig(max_request_failovers=3, probation_after=2)`` on
+    ``X_F32_LAYOUT``: the kill -9 first, then the poison request once it
+    has been served. No worker is alive after its shutdown and the free
+    memory is back. K2's chunk launches in the workers that stopped
+    gracefully are reported (the replays longer than ``prefill_len``)."""
     from ray_lightning_tpu_torch.obs import Telemetry
     from ray_lightning_tpu_torch.serve import FleetConfig
     tick_s = served["bf16"]["step_ms_median"] / 1e3
@@ -5931,7 +6004,8 @@ def x_f32(cfg, sd, trace, served, card, out):
         t0 = time.perf_counter()
         fleet = x_fleet(f_models(cfg, torch.float32), sd, telemetry=tel,
                         num_standby=1,
-                        fleet_config=FleetConfig(**X_POISON_CONFIG))
+                        fleet_config=FleetConfig(**X_POISON_CONFIG),
+                        prefill_chunk=X_F32_LAYOUT["prefill_chunk"])
         built_s = time.perf_counter() - t0
         x_watch(fleet, spawns, fos, reaps, killed)
         x_kill(fleet, trace, tick_s, ref, tel, fos, reaps, killed, card,
@@ -5944,6 +6018,8 @@ def x_f32(cfg, sd, trace, served, card, out):
                                "construct_s", "bytes")}
         for w in spawns.values()],
         **x_worker_launches(fleet, cfg, "X (b), (c)", decoded=False),
+        k2_chunk_launches={rid: st["kernel_launches"]["flash_fwd"]
+                           for rid, st in sorted(fleet.final_stats.items())},
         **mem, card=card)
     print("phaseX (b), (c)", json.dumps(res), flush=True)
     out["runs"]["f32"] = res
@@ -6016,9 +6092,9 @@ def x_poison(cfg, fleet, seeded, tick_s, ref, tel, fos, reaps, card, out):
                      max_new_tokens=8, seed=len(seeded))
     # the poison comes first (the others keep their order and, by their
     # explicit seeds, their streams): it crashes its replicas at their
-    # first prefills, while the rows beside it hold few tokens and the
-    # trace's 128-token prompt has not arrived (a crashed row re-feeds
-    # prompt and tokens through one 128-token prefill, or fails)
+    # first prefills; a row displaced by a crash re-feeds its prompt and
+    # tokens through one batched prefill, or through chunks once they
+    # are longer than prefill_len (X_F32_LAYOUT)
     poison_id = fleet._next_id
     index = {poison_id + 1 + i: i for i in range(len(seeded))}
     t0 = time.perf_counter()
@@ -6122,6 +6198,189 @@ def phase_c_cli(card):
     return res
 
 
+# -------------------------------------------------------------- phase Z
+Z_SHAPES = (("bert", 32, 128), ("vit", 32, 197))  # (model, B, T=S)
+Z_BERT = dict(batch_size=32, seq_len=128)
+Z_VIT = dict(size="base", image_size=224, patch_size=16, batch_size=32)
+Z_STEPS, Z_VAL_BATCHES, Z_WARMUP = 6, 2, 2
+Z_MNIST_STEPS, Z_MNIST_VAL_BATCHES = 20, 16
+Z_MNIST_GATE = 0.5     # the reference's: accuracy >= 0.5 after 20 batches
+
+
+def z_kernels(flush):
+    """(a) K2-K4 against their plain versions at the encoders' shapes,
+    non-causal, bf16 (``tc``) and f32 (``simt``); the bf16 calls timed."""
+    rows = {}
+    for label, B, T in Z_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows[(label, str(dtype).split(".")[-1])] = flash_case(
+                "phaseZ (a)", label, B, T, T, False, dtype, flush,
+                timed=dtype == torch.bfloat16)
+    return rows
+
+
+def z_fit(what, module, remat_replays=0):
+    """A fit of ``Z_STEPS`` steps and ``Z_VAL_BATCHES`` validation batches
+    through ``Trainer(strategy=RayStrategy(num_workers=1))``: every loss
+    finite, K2-K4 ``n_layers`` times a step on ``tc`` (K2 once more a
+    step under remat, whose backward replays the forward, and once a
+    validation batch). Returns the step ms (median after the warm-up),
+    samples/s, peak memory, losses and launches."""
+    from ray_lightning_tpu_torch import RayStrategy, Trainer
+    from ray_lightning_tpu_torch.core import LambdaCallback
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    ends, losses = [], []
+
+    def on_batch_end(trainer, pl_module, outputs, batch, batch_idx):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        losses.append(float(outputs["loss"]))
+
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=Z_STEPS,
+                      limit_val_batches=Z_VAL_BATCHES, seed=0,
+                      callbacks=[LambdaCallback(
+                          on_train_batch_end=on_batch_end)])
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer.fit(module)
+    fit_s = time.perf_counter() - t0
+    check(trainer.global_step == Z_STEPS and len(losses) == Z_STEPS
+          and all(np.isfinite(losses)),
+          f"Z {what}: steps {trainer.global_step}, losses {losses}")
+    metrics = {k: float(v) for k, v in trainer.callback_metrics.items()}
+    check(all(np.isfinite(list(metrics.values()))),
+          f"Z {what}: metrics {metrics}")
+    launches = check_flash_launches(
+        f"Z {what}", Z_STEPS, Z_STEPS * remat_replays + Z_VAL_BATCHES,
+        module.cfg.n_layers)
+    step_s = float(np.median(np.diff(ends)[Z_WARMUP - 1:]))
+    res = dict(steps=Z_STEPS, val_batches=Z_VAL_BATCHES, losses=losses,
+               metrics=metrics, launches=launches, fit_s=fit_s,
+               step_ms_median=1e3 * step_s,
+               samples_per_s=module.batch_size / step_s,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+               params=sum(p.numel() for p in trainer.model.parameters()))
+    del trainer
+    release()
+    return res
+
+
+def z_bert_kernel_vs_plain(cfg, batch_size):
+    """One f32 BERT-base step from the same weights, ``"flash"`` (K2-K4
+    n_layers times each, on ``simt``) against ``"dot"`` (plain attention
+    differentiated by autograd, no launch): the loss within
+    ``E2E_LOSS_RTOL``, every gradient within ``E2E_GRAD_RTOL`` of its
+    largest magnitude (T3's bounds)."""
+    from ray_lightning_tpu_torch.models import BertClassifier, bert
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    x, y = bert._synthetic_classification_tokens(
+        batch_size, cfg.max_seq_len, cfg.vocab_size, 2, seed=3)
+    toks, labels = (torch.from_numpy(a).to(DEVICE) for a in (x, y))
+    sd, result = None, {}
+    for impl in ("flash", "dot"):
+        model = BertClassifier(dataclasses.replace(cfg, attention_impl=impl),
+                               device="meta").to_empty(device=DEVICE)
+        if sd is None:
+            model.reset_parameters(torch.Generator().manual_seed(0))
+            sd = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(sd)
+        cf.reset_kernel_launches()
+        loss, _acc = bert.classification_metrics(model(toks), labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        want = cfg.n_layers if impl == "flash" else 0
+        routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+        check(all(r == {"simt": want, "tc": 0} for r in routes.values()),
+              f"Z (b) f32 {impl}: flash routes {routes}")
+        result[impl] = (loss.item(), {
+            n: p.grad for n, p in model.named_parameters()})
+        del model
+    (lk, gk), (lp, gp) = result["flash"], result["dot"]
+    check(np.isfinite(lk), f"Z (b) f32 loss {lk}")
+    rel = abs(lk - lp) / abs(lp)
+    worst = max(((gk[n] - gp[n]).abs().max().item()
+                 / max(gp[n].abs().max().item(), 1e-30), n) for n in gp)
+    print(f"phaseZ (b) f32 BERT-base step, kernel vs plain path: loss "
+          f"{lk:.7f} vs {lp:.7f} (rel {rel:.3e}, bound {E2E_LOSS_RTOL}); "
+          f"worst gradient |diff|/max|grad| {worst[0]:.3e} in {worst[1]} "
+          f"(bound {E2E_GRAD_RTOL})", flush=True)
+    check(rel <= E2E_LOSS_RTOL, f"Z (b) loss differs by {rel}")
+    check(worst[0] <= E2E_GRAD_RTOL, f"Z (b) gradient {worst[1]} differs "
+          f"by {worst[0]} of its largest magnitude")
+    del result
+    release()
+    return dict(loss_rel=rel, worst_grad=worst[0], worst_grad_at=worst[1])
+
+
+def z_mnist(card):
+    """(d) The MLP on the card: validation accuracy >= Z_MNIST_GATE after
+    Z_MNIST_STEPS batches, then ``assert_deterministic`` (exact) over two
+    seeded fits."""
+    from ray_lightning_tpu_torch import (LightningMNISTClassifier,
+                                         RayStrategy, Trainer,
+                                         assert_deterministic)
+
+    def trainer(val_batches=0):
+        return Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                       limit_train_batches=Z_MNIST_STEPS,
+                       limit_val_batches=val_batches, seed=0)
+
+    t = trainer(Z_MNIST_VAL_BATCHES)
+    t.fit(LightningMNISTClassifier())
+    acc = float(t.callback_metrics["ptl/val_accuracy"])
+    check(t.global_step == Z_MNIST_STEPS and acc >= Z_MNIST_GATE,
+          f"Z (d): validation accuracy {acc} after {t.global_step} "
+          f"batches, gate {Z_MNIST_GATE}")
+    check(next(t.model.parameters()).is_cuda, "Z (d): not on the card")
+    fp = assert_deterministic(LightningMNISTClassifier, trainer)
+    res = dict(steps=Z_MNIST_STEPS, val_accuracy=acc,
+               val_loss=float(t.callback_metrics["ptl/val_loss"]),
+               deterministic=True, fingerprint_elements=int(fp.size),
+               card=card)
+    print("phaseZ (d) MNIST", json.dumps(res), flush=True)
+    return res
+
+
+def phase_z_zoo(card):
+    """The encoder family and MNIST: (a) K2-K4 at the encoders' shapes,
+    (b) BERT-base fine-tuning and its f32 kernel-vs-plain step, (c)
+    ViT-B/16 under its default remat policy, (d) MNIST's gate and the
+    determinism check."""
+    from ray_lightning_tpu_torch.models import (BertModule, ViTModule,
+                                                bert_config, vit_config)
+    t_phase = time.perf_counter()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    kernels = z_kernels(flush)
+    del flush
+    cfg = bert_config("base", vocab_size=30522, max_seq_len=128,
+                      attention_impl="flash")
+    bert = z_fit("(b) BERT-base", BertModule(config=cfg, **Z_BERT))
+    bert["kernel_vs_plain"] = z_bert_kernel_vs_plain(
+        cfg, Z_BERT["batch_size"])
+    print("phaseZ (b) BERT-base", json.dumps(dict(bert, card=card)),
+          flush=True)
+    vcfg = vit_config(Z_VIT["size"], Z_VIT["image_size"],
+                      Z_VIT["patch_size"], attention_impl="flash")
+    vmod = ViTModule(config=vcfg, num_samples=Z_VIT["batch_size"] * Z_STEPS,
+                     **Z_VIT)
+    check(vmod.cfg.remat and vmod.cfg.remat_policy
+          == "dots_with_no_batch_dims_save_attn",
+          f"Z (c): remat {vmod.cfg.remat}, policy {vmod.cfg.remat_policy}")
+    vit = z_fit("(c) ViT-B/16", vmod, remat_replays=1)
+    print("phaseZ (c) ViT-B/16", json.dumps(dict(vit, card=card)),
+          flush=True)
+    mnist = z_mnist(card)
+    seconds = time.perf_counter() - t_phase
+    print(f"phaseZ took {seconds:.1f} s", flush=True)
+    return dict(kernels=kernels, bert=bert, vit=vit, mnist=mnist,
+                seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6219,8 +6478,10 @@ def main() -> int:
     piped = phase_i_input_pipeline(card)
     ended("I")
     phase_t3_train_kernel_vs_plain()
+    zoo = phase_z_zoo(card)
+    ended("T3", "Z")
     core = phase_m_model_core(card, trained, rng, trace)
-    ended("T3", "M")
+    ended("M")
     _resumed, state_r = phase_r_resume(card)
     presets = phase_o_optimizers(card)
     ended("R", "O")
@@ -6301,6 +6562,23 @@ def main() -> int:
             ms=fpath[f"{kind}_ms"], plain_ms=fpath[f"{kind}_plain_ms"],
             bound_ms=fpath[f"{kind}_bound_ms"],
             bound_by=fpath[f"{kind}_bound_by"], library_ms=lib))
+    # K2-K4 at the encoders' bidirectional shapes, launches from phase
+    # Z's BERT-base (T=S=128) and ViT-B/16 (T=S=197) fits
+    for model, _B, T in Z_SHAPES:
+        zrow = zoo["kernels"][(model, "bfloat16")]
+        for name, kind, line, errs, lib in (
+                ("flash_fwd", "fwd", 41, ("out",), zrow["library_fwd_ms"]),
+                ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
+                 zrow["library_bwd_ms"]),
+                ("flash_bwd_dq", "dq", 173, ("dq",), None)):
+            kernels.append(dict(
+                name=f"{name}_{model}", route="cuda", source=flash_source,
+                replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
+                launches=zoo[model]["launches"][name],
+                max_abs_err=max(zrow[f"{e}_err"] for e in errs),
+                ms=zrow[f"{kind}_ms"], plain_ms=zrow[f"{kind}_plain_ms"],
+                bound_ms=zrow[f"{kind}_bound_ms"],
+                bound_by=zrow[f"{kind}_bound_by"], library_ms=lib))
     # K2 as phase L's chunk dispatches call it: B=1, T=128, S=1024 keys
     # (the longest row), launches from phase L's bf16 run
     chunk = next(r for r in chunk_k2 if r["S"] == 1024)

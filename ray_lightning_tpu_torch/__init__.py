@@ -39,7 +39,12 @@ standbys, autoscaler and containment; ``obs/tracing.py``). Slice 18 is
 the process replica fleet (``serve/process_fleet.py``:
 ``ReplicaFleet(backend="process")``, one ``ServeReplicaWorker`` process
 per replica from ``launchers/serve_worker.py``, with kill -9 and
-sticky-CUDA-error failover and driver-death survival).
+sticky-CUDA-error failover and driver-death survival). Slice 20 is the
+encoder family and MNIST: ``TransformerEncoder`` with segments and
+padding masks, ``BertModule`` and ``ViTModule`` fine-tuning through the
+Trainer (the flash kernels at their bidirectional shapes),
+``LightningMNISTClassifier`` and the determinism check
+(``testing/determinism.py``).
 
 Ground rules of the port:
 
@@ -71,13 +76,20 @@ from ray_lightning_tpu_torch.core import (Callback, CSVLogger,
                                           TpuDataModule, TpuModule, Trainer,
                                           make_optimizer)
 from ray_lightning_tpu_torch.data import (DevicePrefetcher,
-                                          MultiprocessDataLoader)
+                                          MultiprocessDataLoader,
+                                          synthetic_images, synthetic_mnist)
 from ray_lightning_tpu_torch.device import resolve_device
 from ray_lightning_tpu_torch.interop import (load_flax_params,
                                              load_flax_quantized)
-from ray_lightning_tpu_torch.models import (BoringModel, GPTModule,
-                                            TransformerConfig, TransformerLM,
-                                            gpt2_config)
+from ray_lightning_tpu_torch.models import (BertClassifier, BertModule,
+                                            BoringModel, GPTModule,
+                                            LightningMNISTClassifier,
+                                            MNISTClassifier, MNISTNet,
+                                            TransformerConfig,
+                                            TransformerEncoder, TransformerLM,
+                                            ViTClassifier, ViTModule,
+                                            bert_config, gpt2_config,
+                                            vit_config)
 from ray_lightning_tpu_torch.obs import StepStatsCallback, Telemetry
 from ray_lightning_tpu_torch.reliability import (FaultPlan, FitSupervisor,
                                                  GangConfig, GangSupervisor,
@@ -88,6 +100,8 @@ from ray_lightning_tpu_torch.reliability import (FaultPlan, FitSupervisor,
 from ray_lightning_tpu_torch.serve import (FleetConfig, ReplicaFleet,
                                            RouterConfig, ServeClient,
                                            ServeEngine)
+from ray_lightning_tpu_torch.testing import (assert_deterministic,
+                                             fit_fingerprint)
 from ray_lightning_tpu_torch.strategies import (FSDPStrategy,
                                                 HorovodRayStrategy,
                                                 RayShardedStrategy,
@@ -104,4 +118,8 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "ServeClient", "ServeEngine", "ReplicaFleet", "FleetConfig",
            "RouterConfig", "MultiprocessDataLoader", "DevicePrefetcher",
            "RayStrategy", "HorovodRayStrategy", "RayShardedStrategy",
-           "FSDPStrategy"]
+           "FSDPStrategy", "BertClassifier", "BertModule", "bert_config",
+           "LightningMNISTClassifier", "MNISTClassifier", "MNISTNet",
+           "TransformerEncoder", "ViTClassifier", "ViTModule", "vit_config",
+           "synthetic_images", "synthetic_mnist", "assert_deterministic",
+           "fit_fingerprint"]

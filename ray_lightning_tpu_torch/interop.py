@@ -4,7 +4,13 @@
 package as nested dicts of numpy arrays (anything ``np.asarray`` reads),
 in either layer layout -- scanned (``stack/layers/block`` with a leading
 layer axis) or unrolled (``stack/block_i``) -- and fills the port's
-module in place. The layouts differ in these places:
+module in place; so it does for the encoder family and the MLP
+(``TransformerEncoder``, ``BertClassifier``, ``ViTClassifier``,
+``MNISTNet``). A flax path is the port's attribute path
+(``encoder/stack/block_3/attn/qkv/kernel`` is
+``encoder.stack.blocks.3.attn.qkv.weight``), every leaf is taken by it,
+and a JAX leaf the port lacks, or a port parameter the tree lacks,
+raises. The layouts differ in these places:
 
 - flax ``Dense`` kernels are (in, out); torch ``Linear`` weights are
   (out, in), so every kernel is transposed;
@@ -18,6 +24,9 @@ module in place. The layouts differ in these places:
   (``tie_embeddings=False``), a bias-free Dense kernel ``lm_head/kernel``
   (d, vocab), the port's ``lm_head.weight`` transposed;
 - embeddings are ``embedding`` (rows, d), the same layout as torch;
+- ViT's patch embedding is a flax ``Conv`` kernel (p, p, C, D): the
+  port's ``patch_embed.weight`` is torch's convolution layout (D, C, p,
+  p); ``cls_token`` and ``pos_embed`` are raw leaves of the same shape;
 - a LoRA model's adapter banks (``lora_A`` (N, in, r) and ``lora_B``
   (N, r, out) beside a targeted projection's kernel) keep their layout:
   the port's banks are the flax ones (``models/lora.py``). An adapter
@@ -143,11 +152,40 @@ def _to_port_layout(name: str, leaf: np.ndarray) -> np.ndarray:
     return leaf
 
 
+#: flax leaf names -> the port's parameter names
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def _tree_leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
+                 ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _tree_leaves(val, path + (key,))
+        else:
+            yield path + (key,), val
+
+
 def flax_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """The port's state-dict entries (as numpy) for a flax
-    ``TransformerLM`` param tree, scanned or unrolled."""
-    return {name: _to_port_layout(name, np.asarray(leaf))
-            for name, leaf in _flax_leaves(params)}
+    """The port's state-dict entries (as numpy) for a flax param tree --
+    a ``TransformerLM``'s, scanned or unrolled, or one of the encoder
+    family's or the MLP's -- every leaf by its path: ``block_i`` is
+    ``blocks.i``; a Dense kernel is transposed, the qkv kernel and bias
+    flattened, a conv kernel (p, p, C, D) becomes (D, C, p, p)."""
+    out = {}
+    for path, leaf in _tree_leaves(unstack_scan_params(params)):
+        parts = []
+        for key in path[:-1]:
+            idx = key[len("block_"):]
+            parts += (["blocks", idx] if key.startswith("block_")
+                      and idx.isdigit() else [key])
+        name = ".".join(parts + [_LEAF_NAMES.get(path[-1], path[-1])])
+        x = np.asarray(leaf)
+        if name.endswith((_QKV_SUFFIX, ".attn.qkv.bias")):
+            x = _to_port_layout(name, x)
+        elif path[-1] == "kernel":
+            x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
+        out[name] = x
+    return out
 
 
 def flax_layout(name: str, weight: torch.Tensor,
@@ -176,11 +214,12 @@ def flax_weights(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 def load_flax_params(model: torch.nn.Module,
                      params: Mapping[str, Any]) -> torch.nn.Module:
-    """Fill ``model`` (a port ``TransformerLM``) from a flax param tree,
-    in place; every parameter must be covered (strict). Returns the
-    model."""
-    dtype = model.cfg.param_dtype
-    sd = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dtype)
+    """Fill ``model`` (a port ``TransformerLM``, ``TransformerEncoder``,
+    ``BertClassifier``, ``ViTClassifier`` or ``MNISTNet``) from a flax
+    param tree, in place, each value cast to its parameter's dtype;
+    every parameter must be covered and every leaf used (strict).
+    Returns the model."""
+    sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
           for k, v in flax_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)
     return model

@@ -1,3 +1,5 @@
+from ray_lightning_tpu_torch.models.bert import (BertClassifier, BertModule,
+                                                 bert_config)
 from ray_lightning_tpu_torch.models.boring import BoringModel
 from ray_lightning_tpu_torch.models.generate import (decode_step,
                                                     decode_step_paged,
@@ -11,15 +13,20 @@ from ray_lightning_tpu_torch.models.generate import (decode_step,
 from ray_lightning_tpu_torch.models.lora import LoraConfig
 from ray_lightning_tpu_torch.models.gpt import (GPT2_SIZES, GPTModule,
                                                gpt2_config)
+from ray_lightning_tpu_torch.models.mnist import (LightningMNISTClassifier,
+                                                  MNISTClassifier, MNISTNet)
 from ray_lightning_tpu_torch.models.quant import (QTensor, dequantize_params,
                                                   is_quantized, param_bytes,
                                                   quantize_params)
 from ray_lightning_tpu_torch.models.transformer import (DenseKV, PagedKV,
                                                         TransformerConfig,
+                                                        TransformerEncoder,
                                                         TransformerLM,
                                                         latch_eos,
                                                         new_arena,
                                                         new_cache)
+from ray_lightning_tpu_torch.models.vit import (ViTClassifier, ViTModule,
+                                                vit_config)
 
 __all__ = [
     "BoringModel",
@@ -29,5 +36,7 @@ __all__ = [
     "GPTModule", "gpt2_config", "DenseKV", "PagedKV", "TransformerConfig",
     "TransformerLM", "latch_eos", "new_arena", "new_cache", "QTensor",
     "dequantize_params", "is_quantized", "param_bytes", "quantize_params",
-    "LoraConfig",
+    "LoraConfig", "BertClassifier", "BertModule", "bert_config",
+    "LightningMNISTClassifier", "MNISTClassifier", "MNISTNet",
+    "TransformerEncoder", "ViTClassifier", "ViTModule", "vit_config",
 ]

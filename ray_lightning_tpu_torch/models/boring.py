@@ -24,6 +24,8 @@ class Linear(nn.Linear):
 
     def reset_parameters(self,
                          generator: Optional[torch.Generator] = None) -> None:
+        if self.weight.is_meta:
+            return      # nothing to fill yet: the trainer places it first
         with torch.no_grad():
             # flax's lecun_normal: variance 1/fan_in, truncated at 2
             # sigma, rescaled by the truncation's std (0.8796)

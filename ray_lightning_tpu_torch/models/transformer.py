@@ -66,13 +66,22 @@ bias; ``return_hidden=True`` returns ``ln_f``'s output instead, for
 Python loop: the JAX package's ``scan_layers`` has no counterpart, and
 :mod:`..interop` takes either weight layout.
 
+**The encoder** (:class:`TransformerEncoder`, BERT's and the stack
+ViT's models run on): token, position and optional segment embeddings,
+a LayerNorm, then the stack under ``cfg.causal`` (False for the
+encoder family) with a caller's padding mask. An additive ``mask``
+(B, 1, 1|T, S) reaches every block's attention as the JAX package's
+``mask=`` does: it sends ``attention_impl="flash"`` to the dense
+attention (the kernels take no mask), and a row whose every key is
+masked outputs exactly 0.
+
 Caches and arenas are updated IN PLACE (JAX returns new ones): a
 serving arena is the one large allocation of the engine and is never
 copied. :class:`TransformerConfig` takes every field of the JAX config.
 ``scan_layers``, ``scan_unroll`` and ``decode`` have no counterpart and
 change nothing (every module carries its caches). Not yet ported (they
 raise ``NotImplementedError`` naming their ``ROADMAP.md`` item): the
-ring/ulysses attention impls, segment embeddings.
+ring/ulysses attention impls.
 """
 from __future__ import annotations
 
@@ -158,7 +167,8 @@ class TransformerConfig:
     remat_policy: Optional[str] = None
     attention_softmax_dtype: object = torch.float32
     tie_embeddings: bool = True
-    # refused unless at the default (NotImplementedError naming the item)
+    # rows of the encoder's segment table, built when the encoder is
+    # asked for one (TransformerEncoder(segments=True))
     num_segments: int = 0
     lora: object = None
 
@@ -187,17 +197,13 @@ class TransformerConfig:
         for name in ("dtype", "param_dtype", "attention_softmax_dtype"):
             object.__setattr__(self, name,
                                _as_torch_dtype(getattr(self, name)))
-        if self.num_segments > 0:
-            raise NotImplementedError(
-                "num_segments > 0 (segment embeddings, BERT) is not ported "
-                "yet (ROADMAP.md A, item 8: the zoo)")
         # a JAX LoraConfig comes across by its fields
         object.__setattr__(self, "lora", as_lora_config(self.lora))
         if self.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r} (sequence "
-                "parallelism) is not ported yet (ROADMAP.md A, after the "
-                "slices: ring_attention, ulysses)")
+                "parallelism) is not ported yet (ROADMAP.md A, item 9: "
+                "multi-axis meshes)")
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"attention_impl must be one of {ATTENTION_IMPLS}, got "
@@ -451,13 +457,21 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, kv_positions=None, page_table=None,
                 kv: Union[DenseKV, PagedKV, None] = None,
                 dropout_rng: Optional[int] = None, seats: bool = False,
-                adapter_ids: Optional[torch.Tensor] = None):
+                adapter_ids: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None):
         """``dropout_rng``: the integer seed of this layer's attention
         dropout (None: deterministic); ``seats``: inside a rematerialized
         block, the output goes through the ``attn_out`` seat;
-        ``adapter_ids``: each row's LoRA bank slot."""
+        ``adapter_ids``: each row's LoRA bank slot; ``mask``: an additive
+        f32 mask broadcast over (B, H, T, S) (the plain forward and the
+        dense cache, as in the JAX package; the paged modes refuse
+        one)."""
         cfg = self.cfg
         B, T, _ = x.shape
+        if mask is not None and (page_table is not None
+                                 or isinstance(kv, ChunkKV)):
+            raise ValueError("the paged attention modes take no caller "
+                             "mask")
         qkv = self.qkv(x, adapter_ids).view(B, T, 3, cfg.n_heads,
                                             cfg.head_dim)
         q, k, v = qkv.unbind(dim=2)
@@ -470,18 +484,21 @@ class MultiHeadAttention(nn.Module):
             out = self._page_native_attention(q, k, v, kv_positions,
                                               page_table, kv)
         elif kv is not None:
-            k, v, mask = self._decode_cache(k, v, kv, kv_positions)
+            k, v, cache_mask = self._decode_cache(k, v, kv, kv_positions)
+            # both are additive 0 / finfo.min biases
+            mask = cache_mask if mask is None else mask + cache_mask
             out = dot_product_attention(q, k, v, mask=mask,
                                         softmax_dtype=softmax_dtype)
         else:
             rate = cfg.dropout if dropout_rng is not None else 0.0
+            # a mask sends flash to the dense attention, as in JAX
             if cfg.attention_impl == "flash":
-                out = flash_attention(q, k, v, causal=cfg.causal,
+                out = flash_attention(q, k, v, causal=cfg.causal, mask=mask,
                                       dropout_rate=rate,
                                       dropout_rng=dropout_rng)
             else:
                 out = dot_product_attention(q, k, v, causal=cfg.causal,
-                                            dropout_rate=rate,
+                                            mask=mask, dropout_rate=rate,
                                             dropout_rng=dropout_rng,
                                             softmax_dtype=softmax_dtype)
             out = _remat.checkpoint_name(out, "attn_out", seats)
@@ -658,22 +675,26 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x, kv_positions=None, page_table=None, kv=None,
                 deterministic: bool = True,
-                dropout_seed: Optional[int] = None, adapter_ids=None):
+                dropout_seed: Optional[int] = None, adapter_ids=None,
+                mask: Optional[torch.Tensor] = None):
         if (self.cfg.remat and kv is None and page_table is None
                 and torch.is_grad_enabled()):
             return _remat.checkpoint_block(
                 self._remat_forward, x, deterministic, dropout_seed,
-                adapter_ids, policy=self.cfg.remat_policy)
+                adapter_ids, mask, policy=self.cfg.remat_policy)
         return self._forward(x, kv_positions, page_table, kv, deterministic,
-                             dropout_seed, adapter_ids=adapter_ids)
+                             dropout_seed, adapter_ids=adapter_ids,
+                             mask=mask)
 
-    def _remat_forward(self, x, deterministic, dropout_seed, adapter_ids):
+    def _remat_forward(self, x, deterministic, dropout_seed, adapter_ids,
+                       mask):
         return self._forward(x, None, None, None, deterministic,
                              dropout_seed, seats=True,
-                             adapter_ids=adapter_ids)
+                             adapter_ids=adapter_ids, mask=mask)
 
     def _forward(self, x, kv_positions, page_table, kv, deterministic,
-                 dropout_seed, seats: bool = False, adapter_ids=None):
+                 dropout_seed, seats: bool = False, adapter_ids=None,
+                 mask=None):
         attn_rng = mlp_rng = None
         if self.cfg.dropout > 0.0 and not deterministic:
             # derived here, inside a rematerialized region: the replay
@@ -684,7 +705,7 @@ class TransformerBlock(nn.Module):
                                          _dropout.MLP)
         x = x + self.attn(self.ln1(x), kv_positions=kv_positions,
                           page_table=page_table, kv=kv, dropout_rng=attn_rng,
-                          seats=seats, adapter_ids=adapter_ids)
+                          seats=seats, adapter_ids=adapter_ids, mask=mask)
         return x + self.mlp(self.ln2(x), dropout_rng=mlp_rng, seats=seats,
                             adapter_ids=adapter_ids)
 
@@ -702,12 +723,13 @@ class TransformerStack(nn.Module):
     def forward(self, x, kv_positions=None, page_table=None,
                 cache: Optional[Sequence] = None,
                 deterministic: bool = True,
-                dropout_seed: Optional[int] = None, adapter_ids=None):
+                dropout_seed: Optional[int] = None, adapter_ids=None,
+                mask: Optional[torch.Tensor] = None):
         for i, block in enumerate(self.blocks):
             x = block(x, kv_positions=kv_positions, page_table=page_table,
                       kv=None if cache is None else cache[i],
                       deterministic=deterministic, dropout_seed=dropout_seed,
-                      adapter_ids=adapter_ids)
+                      adapter_ids=adapter_ids, mask=mask)
         return x
 
 
@@ -756,6 +778,44 @@ def check_seq_len(cfg: TransformerConfig, length: int,
             f"{what} length {length} exceeds max_seq_len={cfg.max_seq_len}")
 
 
+@torch.no_grad()
+def init_params(module: nn.Module,
+                generator: Optional[torch.Generator] = None,
+                zeros: Sequence[str] = ()) -> None:
+    """GPT-2- and BERT-style init in place: N(0, 0.02) for every matrix,
+    embedding and learned position table, zero biases, adapter banks (a
+    fresh slot is the null adapter, as the JAX ``LoraDense`` inits it)
+    and parameters named in ``zeros``, unit LayerNorm scales. Every draw
+    comes from ``generator`` (a CPU ``torch.Generator``; None = a fresh
+    one seeded 0), in ``named_parameters()`` order, made on the CPU and
+    copied to the parameter's device; meta parameters are skipped.
+    torch's global generator is never used."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    scales = {id(m.weight) for m in module.modules()
+              if isinstance(m, LayerNorm)}
+    for name, p in module.named_parameters():
+        if p.device.type == "meta":
+            continue
+        if id(p) in scales:
+            p.fill_(1.0)
+        elif name.endswith("bias") or ".lora_" in name or name in zeros:
+            p.zero_()
+        else:
+            p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(
+                0.0, 0.02, generator=generator))
+
+
+def check_dropout_seed(cfg: TransformerConfig, deterministic: bool,
+                       dropout_seed: Optional[int]) -> None:
+    """A training forward with dropout needs the integer its masks
+    derive from."""
+    if cfg.dropout > 0.0 and not deterministic and dropout_seed is None:
+        raise ValueError("deterministic=False with dropout > 0 needs "
+                         "dropout_seed (the integer the masks derive "
+                         "from)")
+
+
 class TransformerLM(nn.Module):
     """GPT-style causal LM: token + learned position embeddings, the
     layer stack, final LayerNorm, and the LM head: tied to the token
@@ -794,20 +854,7 @@ class TransformerLM(nn.Module):
         the CPU and copied to the parameter's device, so a seed gives the
         same weights on any device; torch's global generator is never
         used."""
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        for name, p in self.named_parameters():
-            if p.device.type == "meta":
-                continue
-            if name.endswith("bias") or ".lora_" in name:
-                # biases, and adapter banks (a fresh slot is the null
-                # adapter, as the JAX LoraDense inits it)
-                p.zero_()
-            elif ".ln" in name or name.startswith("ln_f"):
-                p.fill_(1.0)
-            else:
-                p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(
-                    0.0, 0.02, generator=generator))
+        init_params(self, generator)
 
     @property
     def device(self) -> torch.device:
@@ -871,10 +918,7 @@ class TransformerLM(nn.Module):
             positions = torch.arange(T, device=tokens.device)[None]
         if page_table is not None and kv_positions is None:
             raise ValueError("page_table needs kv_positions")
-        if cfg.dropout > 0.0 and not deterministic and dropout_seed is None:
-            raise ValueError("deterministic=False with dropout > 0 needs "
-                             "dropout_seed (the integer the masks derive "
-                             "from)")
+        check_dropout_seed(cfg, deterministic, dropout_seed)
         x = self.wte(tokens) + self.wpe(positions)
         x = self.stack(x, kv_positions=kv_positions, page_table=page_table,
                        cache=cache, deterministic=deterministic,
@@ -887,3 +931,68 @@ class TransformerLM(nn.Module):
         logits = (self.wte.attend(x) if self.lm_head is None
                   else self.lm_head(x))
         return logits.float()
+
+
+def padding_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """The additive (B, 1, 1, S) f32 mask of a (B, S) padding mask: 0
+    where ``attention_mask > 0``, ``finfo(f32).min`` elsewhere."""
+    return torch.where(attention_mask[:, None, None, :] > 0, 0.0, _BIG_NEG)
+
+
+class TransformerEncoder(nn.Module):
+    """BERT-style encoder (counterpart of the JAX ``TransformerEncoder``):
+    token and learned position embeddings, a segment embedding when
+    built with ``segments=True``, ``embed_ln``, then the stack (causal as
+    ``cfg.causal`` says: False in ``bert_config``).
+
+    ``segments``: flax creates ``seg_embed`` only in a call that passes
+    ``segment_ids`` (and ``cfg.num_segments > 0``), so a model that never
+    passes them -- ``BertClassifier`` -- has no such table; here the
+    table is built when asked for, and ``segment_ids`` without it raise.
+    ``forward(tokens, attention_mask=None, segment_ids=None)`` returns
+    the stack's output (B, T, d_model) in the compute dtype;
+    ``attention_mask`` (B, T), nonzero where a key is real, masks the
+    padding keys of every query. ``device=None`` builds on the card.
+    """
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 segments: bool = False):
+        super().__init__()
+        if segments and cfg.num_segments <= 0:
+            raise ValueError("segments=True needs cfg.num_segments > 0")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.tok_embed = Embed(cfg.vocab_size, cfg.d_model, cfg, dev)
+        self.pos_embed = Embed(cfg.max_seq_len, cfg.d_model, cfg, dev)
+        self.seg_embed = (Embed(cfg.num_segments, cfg.d_model, cfg, dev)
+                          if segments else None)
+        self.embed_ln = LayerNorm(cfg.d_model, cfg, dev)
+        self.stack = TransformerStack(cfg, dev)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """:func:`init_params` from ``generator``."""
+        init_params(self, generator)
+
+    def forward(self, tokens: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        cfg = self.cfg
+        T = tokens.shape[1]
+        check_seq_len(cfg, T)
+        check_dropout_seed(cfg, deterministic, dropout_seed)
+        x = self.tok_embed(tokens) + self.pos_embed(
+            torch.arange(T, device=tokens.device)[None])
+        if segment_ids is not None:
+            if self.seg_embed is None:
+                raise ValueError(
+                    "segment_ids given to an encoder built without a "
+                    "segment table (TransformerEncoder(segments=True))")
+            x = x + self.seg_embed(segment_ids)
+        x = self.embed_ln(x)
+        mask = None if attention_mask is None else padding_mask(
+            attention_mask)
+        return self.stack(x, deterministic=deterministic,
+                          dropout_seed=dropout_seed, mask=mask)

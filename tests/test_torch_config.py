@@ -73,8 +73,9 @@ def test_softmax_dtype_spellings(spelling):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(num_segments=2), "item 8: the zoo"),
-], ids=["segments"])
+    (dict(attention_impl="ring"), "item 9: multi-axis meshes"),
+    (dict(attention_impl="ulysses"), "item 9: multi-axis meshes"),
+], ids=["ring", "ulysses"])
 def test_values_the_port_cannot_honour_name_their_item(kw, item):
     JaxTransformerConfig(**kw)      # the reference takes them
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md A, {item}"):
@@ -91,14 +92,17 @@ NANO = dict(vocab_size=128, max_seq_len=32, d_model=128, n_heads=4,
     dict(attention_softmax_dtype=jnp.bfloat16),
     dict(attention_softmax_dtype=torch.bfloat16),
     dict(lora=LoraConfig(rank=4, num_adapters=2)),
+    dict(num_segments=2),
 ], ids=["remat_policy", "untied", "softmax-bf16-jnp", "softmax-bf16-torch",
-        "lora"])
+        "lora", "segments"])
 def test_values_earlier_slices_refused_now_build_and_run_as_jax(kw):
     """The values the port refused before T3, item 8 and S4 build, and the
     model's forward equals JAX's: to 1e-5, or with a bf16 softmax no
     farther from JAX's than JAX's bf16-softmax logits are from its
     f32-softmax ones. A LoRA model's banks are filled with noise first,
-    so the forward (every row on bank slot 0) runs through them."""
+    so the forward (every row on bank slot 0) runs through them.
+    ``num_segments`` sizes the encoder's segment table and leaves the LM
+    as it is, in both packages."""
     from ray_lightning_tpu.models.transformer import \
         TransformerLM as JaxTransformerLM
     from ray_lightning_tpu_torch.interop import load_flax_params

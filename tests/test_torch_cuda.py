@@ -66,8 +66,12 @@ card's allocated bytes back where they were. The process replica fleet
 client's, K1 launched inside the workers n_layers times a decode step;
 and a device-side assert (a prompt id outside the vocab) in one worker
 fails that request while the other worker, never stopped, serves its own
-requests to the single client's tokens. ``chip_smoke.py`` repeats this
-at the serving and training paths' full shapes.
+requests to the single client's tokens. The encoder family: K2-K4 at
+BERT's and ViT-B/16's sequence lengths, BERT-tiny's f32 logits and
+gradients through the kernels equal to the dense attention's, and a
+ViT fit under its remat policy launching K2 twice a layer a step.
+``chip_smoke.py`` repeats this at the serving and training paths' full
+shapes.
 """
 import dataclasses
 
@@ -364,13 +368,16 @@ def _flash_inputs(B, T, S, H, D, dtype, device, seed=0):
 
 # (T, S, D): square, ragged tails (T not a multiple of the 128-row or
 # 64-key tiles), end-aligned T < S, and T > S, whose first causal rows
-# admit no key; each head_dim the kernels take
+# admit no key; each head_dim the kernels take; and the encoders'
+# sequences (BERT's 128, ViT-B/16's 197 = 196 patches + CLS, whose last
+# tile is partial), run bidirectional ("full") on their main paths
 FLASH_CASES = {"square": (64, 64, 64), "ragged": (100, 100, 32),
                "t<s": (96, 160, 128), "empty-rows": (80, 48, 64),
                "ragged-d64": (200, 200, 64), "ragged-d128": (130, 130, 128),
                "t<s-d32": (96, 160, 32), "t<s-d64": (100, 300, 64),
                "empty-rows-d128": (150, 64, 128),
-               "empty-rows-d32": (200, 72, 32)}
+               "empty-rows-d32": (200, 72, 32),
+               "bert": (128, 128, 64), "vit": (197, 197, 64)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -560,6 +567,69 @@ def test_training_runs_through_the_flash_kernels(cuda):
     assert cf.route_launches() == {"simt": 0, "tc": n * 8}
     for name in ("flash_bwd_dkv", "flash_bwd_dq"):
         assert cf.route_launches(name) == {"simt": 0, "tc": n * 6}
+    assert np.isfinite(trainer.callback_metrics["val_loss"])
+
+
+def test_bert_tiny_flash_matches_dot(cuda):
+    """BERT-tiny in f32 on the card: logits and every gradient through
+    K2-K4 (``simt``, bidirectional) equal the dense attention's
+    differentiated by autograd, K2-K4 n_layers times each; in bf16 the
+    same step launches each on ``tc``."""
+    from ray_lightning_tpu_torch.models import BertClassifier, bert_config
+    cfg = bert_config("tiny", vocab_size=512, max_seq_len=64,
+                      attention_impl="flash", dtype=torch.float32)
+    toks = torch.randint(0, 512, (4, 64),
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+    out = {}
+    for impl in ("flash", "dot"):
+        model = BertClassifier(dataclasses.replace(cfg, attention_impl=impl),
+                               device=cuda)
+        before = cf.kernel_launches()
+        logits = model(toks)
+        logits.square().sum().backward()
+        torch.cuda.synchronize()
+        after = cf.kernel_launches()
+        out[impl] = (logits.detach(), {n: p.grad for n, p
+                                       in model.named_parameters()},
+                     {n: after[n] - before[n] for n in cf.KERNELS})
+    (lk, gk, nk), (lp, gp, np_) = out["flash"], out["dot"]
+    assert nk == dict.fromkeys(cf.KERNELS, cfg.n_layers)
+    assert np_ == dict.fromkeys(cf.KERNELS, 0)
+    assert float((lk - lp).abs().max()) <= 1e-5
+    for name, g in gp.items():
+        assert float((gk[name] - g).abs().max()) <= 1e-4 * max(
+            float(g.abs().max()), 1e-30), name
+    bf16 = BertClassifier(dataclasses.replace(cfg, dtype=torch.bfloat16),
+                          device=cuda)
+    routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+    bf16(toks).float().square().sum().backward()
+    torch.cuda.synchronize()
+    for n in cf.KERNELS:
+        routes[n]["tc"] += cfg.n_layers
+        assert cf.route_launches(n) == routes[n], n
+
+
+def test_vit_fit_under_its_remat_policy_launches_the_kernels(cuda):
+    """A ViT-tiny fit with the default policy
+    (``dots_with_no_batch_dims_save_attn``) on the card: K2 twice a layer
+    a training step (the forward and the backward's replay) and once a
+    layer a validation batch, K3 and K4 once a layer a step, all on
+    ``tc``; the losses finite."""
+    from ray_lightning_tpu_torch.models import ViTModule, vit_config
+    cfg = vit_config("tiny", 32, 4, attention_impl="flash")
+    module = ViTModule(config=cfg, image_size=32, patch_size=4, batch_size=8,
+                       num_samples=32)
+    cf.reset_kernel_launches()
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=3, limit_val_batches=2, seed=0)
+    trainer.fit(module)
+    n = cfg.n_layers
+    assert trainer.global_step == 3
+    want = {"flash_fwd": n * (2 * 3 + 2), "flash_bwd_dkv": n * 3,
+            "flash_bwd_dq": n * 3}
+    assert cf.kernel_launches() == want
+    for name in cf.KERNELS:
+        assert cf.route_launches(name) == {"simt": 0, "tc": want[name]}
     assert np.isfinite(trainer.callback_metrics["val_loss"])
 
 
