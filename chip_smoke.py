@@ -267,7 +267,22 @@ Z. The encoder family and MNIST. (a) K2-K4 against their plain versions
    peak memory. (d) ``LightningMNISTClassifier`` on the card: the
    validation accuracy after 20 training batches at least 0.5 (the
    reference's gate), then ``assert_deterministic`` (exact) over two
-   seeded fits. Prints its seconds.
+   seeded fits. (e) ResNet with BatchNorm state, no kernel of the port
+   (cuDNN's convolutions; K2-K4 launch 0 times): ``ResNetModule(depth=18,
+   batch_size=128, image_size=32, num_classes=10)``, the BASELINE
+   ResNet-18/CIFAR-10 configuration at ``examples/resnet_example.py``'s
+   batch, in f32 (TF32 off) and bf16, and ``depth=50`` in bf16, each the
+   same fit as (b) under SGD-Nesterov at lr 0.1: step ms, samples/s,
+   peak memory, and every running statistic finite and moved off (0, 1);
+   one f32 ResNet-10 step on the card against the same step on the CPU
+   (loss, gradients, running statistics; the stand-in for
+   kernel-vs-plain on a path with no kernel); a stream checkpoint of the
+   f32 ResNet-18 fit after step 3 resumed to step 6 bitwise the
+   uninterrupted fit, params and buffers (under
+   ``cudnn.deterministic``), and whether two seeded fits under the
+   default flags are bitwise equal (reported, not checked); one
+   ResNet-18 step in each dtype profiled (launches, device busy ms, the
+   idle share, the top kernels). Prints its seconds.
 M. The model core's training options at GPT-2-small width (bf16 compute
    over f32 weights, batch 8 x 1024, ``Trainer(strategy=RayStrategy(
    num_workers=1), seed=0)``). (a) ``dropout=0.1`` on the flash config,
@@ -6219,13 +6234,15 @@ def z_kernels(flush):
     return rows
 
 
-def z_fit(what, module, remat_replays=0):
+def z_fit(what, module, remat_replays=0, after=None):
     """A fit of ``Z_STEPS`` steps and ``Z_VAL_BATCHES`` validation batches
     through ``Trainer(strategy=RayStrategy(num_workers=1))``: every loss
     finite, K2-K4 ``n_layers`` times a step on ``tc`` (K2 once more a
     step under remat, whose backward replays the forward, and once a
-    validation batch). Returns the step ms (median after the warm-up),
-    samples/s, peak memory, losses and launches."""
+    validation batch), or none of them for a module without a
+    transformer config. Returns the step ms (median after the warm-up),
+    samples/s, peak memory, losses, launches and what ``after(trainer)``
+    returns."""
     from ray_lightning_tpu_torch import RayStrategy, Trainer
     from ray_lightning_tpu_torch.core import LambdaCallback
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
@@ -6253,9 +6270,14 @@ def z_fit(what, module, remat_replays=0):
     metrics = {k: float(v) for k, v in trainer.callback_metrics.items()}
     check(all(np.isfinite(list(metrics.values()))),
           f"Z {what}: metrics {metrics}")
-    launches = check_flash_launches(
-        f"Z {what}", Z_STEPS, Z_STEPS * remat_replays + Z_VAL_BATCHES,
-        module.cfg.n_layers)
+    if hasattr(module, "cfg"):
+        launches = check_flash_launches(
+            f"Z {what}", Z_STEPS, Z_STEPS * remat_replays + Z_VAL_BATCHES,
+            module.cfg.n_layers)
+    else:
+        launches = cf.kernel_launches()
+        check(not any(launches.values()),
+              f"Z {what}: flash launches {launches} on a path without them")
     step_s = float(np.median(np.diff(ends)[Z_WARMUP - 1:]))
     res = dict(steps=Z_STEPS, val_batches=Z_VAL_BATCHES, losses=losses,
                metrics=metrics, launches=launches, fit_s=fit_s,
@@ -6263,6 +6285,8 @@ def z_fit(what, module, remat_replays=0):
                samples_per_s=module.batch_size / step_s,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
                params=sum(p.numel() for p in trainer.model.parameters()))
+    if after is not None:
+        res.update(after(trainer))
     del trainer
     release()
     return res
@@ -6346,11 +6370,224 @@ def z_mnist(card):
     return res
 
 
+# (e) ResNet: the BASELINE ResNet-18/CIFAR-10 configuration at
+# examples/resnet_example.py's batch, Z_STEPS batches an epoch
+Z_RESNET = dict(batch_size=128, image_size=32, num_classes=10,
+                num_samples=128 * Z_STEPS)
+Z_RESNET_SAVE_AT = 3
+# one f32 ResNet-10 step, card (TF32 off) against the CPU, batch 16: the
+# loss to 1e-5 of itself, each gradient and running statistic to 1e-4 of
+# its largest magnitude (tests/test_torch_cuda.py's bounds)
+Z_RESNET_CHECK_BATCH = 16
+Z_RESNET_LOSS_RTOL, Z_RESNET_RTOL = 1e-5, 1e-4
+
+
+def z_resnet_state(trainer):
+    """``z_fit``'s ``after`` for ResNet: every running statistic finite
+    and moved off its start (mean 0, variance 1); the fit's state dict on
+    the host."""
+    moved = []
+    for n, b in trainer.model.named_buffers():
+        start = 0.0 if n.endswith("running_mean") else 1.0
+        check(bool(torch.isfinite(b).all()), f"Z (e): {n} not finite")
+        moved.append(float((b - start).abs().max()))
+    check(min(moved) > 0, "Z (e): a running statistic never moved")
+    return dict(buffers=len(moved), least_buffer_move=min(moved),
+                state={k: v.detach().cpu().clone()
+                       for k, v in trainer.model.state_dict().items()})
+
+
+def z_resnet_step_vs_cpu():
+    """One f32 ResNet-10 training step (forward in training mode, the
+    loss's backward) from the same weights and batch on the card and on
+    the CPU: the loss, every gradient and every updated running
+    statistic held at ``Z_RESNET_LOSS_RTOL`` / ``Z_RESNET_RTOL``."""
+    import torch.nn.functional as F
+    from ray_lightning_tpu_torch.data import synthetic_images
+    from ray_lightning_tpu_torch.models import resnet10
+    x, y = synthetic_images(Z_RESNET_CHECK_BATCH, 10, 32, seed=0)
+    x, y = torch.from_numpy(x), torch.from_numpy(y).long()
+    cpu = resnet10(device="cpu")
+    sd = {k: v.clone() for k, v in cpu.state_dict().items()}
+    out = {}
+    for where in ("cpu", DEVICE):
+        model = cpu if where == "cpu" else resnet10(device=where)
+        model.load_state_dict(sd)
+        model.train()
+        loss = F.cross_entropy(model(x.to(where)), y.to(where))
+        loss.backward()
+        out[where] = (loss.item(),
+                      {n: p.grad.cpu() for n, p in model.named_parameters()},
+                      {n: b.cpu() for n, b in model.named_buffers()})
+    (lc, gc, bc), (lg, gg, bg) = out["cpu"], out[DEVICE]
+    rel = abs(lg - lc) / abs(lc)
+
+    def worst(got, want):
+        return max(((got[n] - w).abs().max().item()
+                    / max(w.abs().max().item(), 1e-30), n)
+                   for n, w in want.items())
+
+    wg, wb = worst(gg, gc), worst(bg, bc)
+    print(f"phaseZ (e) f32 ResNet-10 step, card vs CPU: loss {lg:.7f} vs "
+          f"{lc:.7f} (rel {rel:.3e}, bound {Z_RESNET_LOSS_RTOL}); worst "
+          f"gradient |diff|/max|grad| {wg[0]:.3e} in {wg[1]}, worst running "
+          f"statistic {wb[0]:.3e} in {wb[1]} (bound {Z_RESNET_RTOL})",
+          flush=True)
+    check(rel <= Z_RESNET_LOSS_RTOL, f"Z (e) loss differs by {rel}")
+    check(wg[0] <= Z_RESNET_RTOL, f"Z (e) gradient {wg[1]} differs by "
+          f"{wg[0]} of its largest magnitude")
+    check(wb[0] <= Z_RESNET_RTOL, f"Z (e) running statistic {wb[1]} "
+          f"differs by {wb[0]} of its largest magnitude")
+    release()
+    return dict(loss_rel=rel, worst_grad=wg[0], worst_grad_at=wg[1],
+                worst_buffer=wb[0], worst_buffer_at=wb[1])
+
+
+class ZSaveAt(Callback):
+    """A stream checkpoint after global step ``step``."""
+
+    def __init__(self, step, path):
+        self.step, self.path = step, path
+
+    def on_train_batch_end(self, trainer, module, outputs, batch,
+                           batch_idx):
+        if trainer.global_step == self.step:
+            trainer.save_checkpoint(self.path)
+
+
+def z_resnet_resume(f32_state):
+    """The f32 ResNet-18 fit again, twice under ``cudnn.deterministic``:
+    uninterrupted with a stream checkpoint after step
+    ``Z_RESNET_SAVE_AT``, then a fresh trainer resumed from it to step
+    ``Z_STEPS``: params and running statistics bitwise equal. Also
+    whether the deterministic fit equals the timed fit under the default
+    flags bitwise (reported)."""
+    import tempfile
+    from ray_lightning_tpu_torch import RayStrategy, ResNetModule, Trainer
+    root = tempfile.mkdtemp(prefix="chip_smoke_resnet-")
+    path = os.path.join(root, "step3.ckpt")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = []
+        for cb, ckpt in (([ZSaveAt(Z_RESNET_SAVE_AT, path)], None),
+                         ([], path)):
+            t = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                        limit_train_batches=Z_STEPS, limit_val_batches=0,
+                        seed=0, callbacks=cb, default_root_dir=root)
+            t.fit(ResNetModule(depth=18, **Z_RESNET), ckpt_path=ckpt)
+            check(t.global_step == Z_STEPS, f"Z (e) resume: step "
+                  f"{t.global_step}")
+            states.append({k: v.detach().cpu().clone()
+                           for k, v in t.model.state_dict().items()})
+            del t
+            release()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(root, ignore_errors=True)
+    ref, resumed = states
+    differ = [k for k in ref if not torch.equal(ref[k], resumed[k])]
+    check(not differ, f"Z (e): the resumed ResNet-18 differs from the "
+          f"uninterrupted fit in {differ[:5]}")
+    default_flags = [k for k in ref if not torch.equal(ref[k], f32_state[k])]
+    return dict(resumed_bitwise=True, tensors=len(ref),
+                buffers=sum(k.endswith(("running_mean", "running_var"))
+                            for k in ref),
+                default_flags_bitwise=not default_flags,
+                default_flags_differ=len(default_flags))
+
+
+Z_PROFILE_WARM, Z_PROFILE_HOST = 2, 5
+
+
+def z_resnet_profile(dtype):
+    """One ResNet-18 training step at (e)'s batch (forward, loss,
+    backward, the SGD-Nesterov update) outside the trainer: the median
+    host ms of Z_PROFILE_HOST synchronized steps after Z_PROFILE_WARM,
+    then one step under ``torch.profiler``: its launches, device busy
+    ms, the idle share against the host median and the four kernels
+    that take the most device time."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from ray_lightning_tpu_torch import ResNetModule
+    from ray_lightning_tpu_torch.data import synthetic_images
+    module = ResNetModule(depth=18, dtype=dtype, **Z_RESNET)
+    model = module.configure_model().to_empty(device=DEVICE)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    opt = module.configure_optimizers()(model.parameters())
+    x, y = synthetic_images(Z_RESNET["batch_size"], 10, 32, seed=0)
+    x, y = torch.from_numpy(x).to(DEVICE), torch.from_numpy(y).to(DEVICE)
+    model.train()
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        F.cross_entropy(model(x), y.long()).backward()
+        opt.step()
+
+    for _ in range(Z_PROFILE_WARM):
+        step()
+    host = []
+    for _ in range(Z_PROFILE_HOST):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    events, tries = profiled(step)
+    kernels = [a for a in events if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
+    host_ms = 1e3 * statistics.median(host)
+    top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:4]
+    del model, opt
+    release()
+    return dict(launches=sum(a.count for a in kernels),
+                host_launch_calls=sum(a.count for a in events
+                                      if a.key in G_HOST_LAUNCH_CALLS),
+                profile_tries=tries,
+                device_busy_ms=busy_ms if kernels else "not measured",
+                host_ms_median=host_ms,
+                idle_share=1 - busy_ms / host_ms if kernels
+                else "not measured",
+                top_kernels=[(a.key[:60], a.self_device_time_total / 1e3,
+                              a.count) for a in top])
+
+
+def z_resnet(card):
+    """(e) ResNet-18 f32 and bf16, ResNet-50 bf16, the f32 step against
+    the CPU, the resume, one profiled ResNet-18 step in each dtype."""
+    from ray_lightning_tpu_torch import ResNetModule
+    t_part = time.perf_counter()
+    runs = {}
+    for label, depth, dtype in (("resnet18-f32", 18, torch.float32),
+                                ("resnet18-bf16", 18, torch.bfloat16),
+                                ("resnet50-bf16", 50, torch.bfloat16)):
+        res = z_fit(f"(e) {label}", ResNetModule(depth=depth, dtype=dtype,
+                                                 **Z_RESNET),
+                    after=z_resnet_state)
+        runs[label] = res
+        print(f"phaseZ (e) {label}", json.dumps(dict(
+            {k: v for k, v in res.items() if k != "state"}, card=card)),
+            flush=True)
+    step = z_resnet_step_vs_cpu()
+    resume = z_resnet_resume(runs["resnet18-f32"]["state"])
+    for res in runs.values():
+        del res["state"]
+    prof = {label: z_resnet_profile(dtype) for label, dtype in (
+        ("resnet18-f32", torch.float32), ("resnet18-bf16", torch.bfloat16))}
+    seconds = time.perf_counter() - t_part
+    out = dict(runs=runs, step_vs_cpu=step, resume=resume, profile=prof,
+               seconds=seconds, card=card)
+    print("phaseZ (e) ResNet", json.dumps(
+        dict(step_vs_cpu=step, resume=resume, profile=prof, seconds=seconds,
+             card=card)), flush=True)
+    return out
+
+
 def phase_z_zoo(card):
-    """The encoder family and MNIST: (a) K2-K4 at the encoders' shapes,
-    (b) BERT-base fine-tuning and its f32 kernel-vs-plain step, (c)
-    ViT-B/16 under its default remat policy, (d) MNIST's gate and the
-    determinism check."""
+    """The encoder family, MNIST and ResNet: (a) K2-K4 at the encoders'
+    shapes, (b) BERT-base fine-tuning and its f32 kernel-vs-plain step,
+    (c) ViT-B/16 under its default remat policy, (d) MNIST's gate and
+    the determinism check, (e) ResNet-18/50 with BatchNorm state."""
     from ray_lightning_tpu_torch.models import (BertModule, ViTModule,
                                                 bert_config, vit_config)
     t_phase = time.perf_counter()
@@ -6375,10 +6612,11 @@ def phase_z_zoo(card):
     print("phaseZ (c) ViT-B/16", json.dumps(dict(vit, card=card)),
           flush=True)
     mnist = z_mnist(card)
+    resnet = z_resnet(card)
     seconds = time.perf_counter() - t_phase
     print(f"phaseZ took {seconds:.1f} s", flush=True)
     return dict(kernels=kernels, bert=bert, vit=vit, mnist=mnist,
-                seconds=seconds)
+                resnet=resnet, seconds=seconds)
 
 
 def main() -> int:

@@ -44,7 +44,10 @@ encoder family and MNIST: ``TransformerEncoder`` with segments and
 padding masks, ``BertModule`` and ``ViTModule`` fine-tuning through the
 Trainer (the flash kernels at their bidirectional shapes),
 ``LightningMNISTClassifier`` and the determinism check
-(``testing/determinism.py``).
+(``testing/determinism.py``). Slice 21 is ResNet with BatchNorm state
+(``models/resnet.py``: ``ResNetModule`` at depths 10, 18 and 50): a
+module's buffers are its state through every strategy and checkpoint
+tier, with ``XORModel`` and ``count_params``.
 
 Ground rules of the port:
 
@@ -85,11 +88,13 @@ from ray_lightning_tpu_torch.models import (BertClassifier, BertModule,
                                             BoringModel, GPTModule,
                                             LightningMNISTClassifier,
                                             MNISTClassifier, MNISTNet,
-                                            TransformerConfig,
+                                            ResNetModule, TransformerConfig,
                                             TransformerEncoder, TransformerLM,
                                             ViTClassifier, ViTModule,
-                                            bert_config, gpt2_config,
-                                            vit_config)
+                                            XORDataModule, XORModel,
+                                            bert_config, count_params,
+                                            gpt2_config, resnet10, resnet18,
+                                            resnet50, vit_config)
 from ray_lightning_tpu_torch.obs import StepStatsCallback, Telemetry
 from ray_lightning_tpu_torch.reliability import (FaultPlan, FitSupervisor,
                                                  GangConfig, GangSupervisor,
@@ -122,4 +127,5 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "LightningMNISTClassifier", "MNISTClassifier", "MNISTNet",
            "TransformerEncoder", "ViTClassifier", "ViTModule", "vit_config",
            "synthetic_images", "synthetic_mnist", "assert_deterministic",
-           "fit_fingerprint"]
+           "fit_fingerprint", "ResNetModule", "resnet10", "resnet18",
+           "resnet50", "XORModel", "XORDataModule", "count_params"]

@@ -10,6 +10,12 @@ optax's ``MultiSteps`` keeps inside its state). Under data parallelism
 ``model`` is what the step calls (e.g. the ``DistributedDataParallel``
 wrapper); the state dict keeps the bare module's names, so checkpoints
 move between world sizes.
+
+JAX's ``TrainState.model_state`` (flax's mutable collections, e.g.
+BatchNorm's ``batch_stats``) is the module's buffers here: the forward
+moves them in place, and the module's ``state_dict`` -- the state's
+``params`` entry -- holds them beside the parameters, so every
+checkpoint format, the in-memory tier and a reshard carry them.
 """
 from __future__ import annotations
 
@@ -44,9 +50,11 @@ class TrainState:
 
     def state_dict(self, optimizer: bool = True) -> Dict[str, Any]:
         """The checkpoint's ``state``, under the JAX TrainState's field
-        names where one exists. Tensors alias the live ones: a writer
-        copies them out before training goes on. ``optimizer=False``
-        leaves ``opt_state`` None (a rank that does not hold it)."""
+        names where one exists; ``params`` is the module's state dict,
+        buffers (JAX's ``model_state``) included. Tensors alias the live
+        ones: a writer copies them out before training goes on.
+        ``optimizer=False`` leaves ``opt_state`` None (a rank that does
+        not hold it)."""
         return {"step": self.step,
                 "params": bare_model(self.model).state_dict(),
                 "opt_state": (self.optimizer.state_dict() if optimizer
@@ -57,8 +65,8 @@ class TrainState:
                 "acc": self.acc}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Copy a checkpoint's ``state`` in: params into the live
-        parameters (their device and dtype), optimizer state onto each
+        """Copy a checkpoint's ``state`` in: params and buffers into the
+        live ones (their device and dtype), optimizer state onto each
         param's device, the generator's state, and the counters."""
         bare_model(self.model).load_state_dict(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])

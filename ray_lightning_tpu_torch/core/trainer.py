@@ -72,13 +72,18 @@ from ray_lightning_tpu_torch.reliability.guard import (NonFiniteError,
 
 
 def _normalize_step_output(out: Any):
-    """training_step may return loss | (loss, logs)."""
+    """training_step may return loss | (loss, logs). JAX's third value,
+    the mutated ``model_state``, has no counterpart: a module's state is
+    its buffers (BatchNorm's running statistics), which the forward
+    moves in place."""
     if isinstance(out, tuple):
         if len(out) == 2:
             return out[0], dict(out[1])
         raise ValueError(
             f"training_step returned a {len(out)}-tuple; expected loss or "
-            "(loss, logs) (the module holds its own state)")
+            "(loss, logs): the module's state (the JAX step's third value, "
+            "model_state) is its buffers, which the forward updates in "
+            "place")
     return out, {}
 
 
@@ -388,6 +393,7 @@ class Trainer:
         init_gen, step_gen, self._eval_seed = self._seeds()
         module.init_variables(model, init_gen, self._to_device(sample_batch))
         strategy = self.strategy
+        strategy.bind_batch_stats(model)
         model = strategy.wrap_model(model)
         factory, lr_schedule = self._optimizer()
         self._lr_schedule = lr_schedule

@@ -27,6 +27,13 @@ raises. The layouts differ in these places:
 - ViT's patch embedding is a flax ``Conv`` kernel (p, p, C, D): the
   port's ``patch_embed.weight`` is torch's convolution layout (D, C, p,
   p); ``cls_token`` and ``pos_embed`` are raw leaves of the same shape;
+- a ResNet comes as flax *variables*, ``{"params": ..., "batch_stats":
+  ...}``: every conv kernel (kh, kw, C, D) becomes (D, C, kh, kw), a
+  BatchNorm's ``scale``/``bias`` its ``weight``/``bias``, and its
+  ``batch_stats`` ``mean``/``var`` the buffers ``running_mean``/
+  ``running_var``; the blocks ``ResNetBlock_i`` / ``BottleneckBlock_i``
+  are ``blocks.i``. A ResNet's bare param tree lacks the running
+  statistics and raises;
 - a LoRA model's adapter banks (``lora_A`` (N, in, r) and ``lora_B``
   (N, r, out) beside a targeted projection's kernel) keep their layout:
   the port's banks are the flax ones (``models/lora.py``). An adapter
@@ -154,6 +161,19 @@ def _to_port_layout(name: str, leaf: np.ndarray) -> np.ndarray:
 
 #: flax leaf names -> the port's parameter names
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+#: flax ``batch_stats`` leaf names -> the port's buffer names
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+#: flax's names of repeated layers, each ``<prefix>i`` the port's
+#: ``blocks.i``
+_BLOCK_PREFIXES = ("block_", "ResNetBlock_", "BottleneckBlock_")
+
+
+def _port_key(key: str) -> list:
+    for prefix in _BLOCK_PREFIXES:
+        idx = key[len(prefix):]
+        if key.startswith(prefix) and idx.isdigit():
+            return ["blocks", idx]
+    return [key]
 
 
 def _tree_leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
@@ -168,16 +188,24 @@ def _tree_leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
 def flax_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """The port's state-dict entries (as numpy) for a flax param tree --
     a ``TransformerLM``'s, scanned or unrolled, or one of the encoder
-    family's or the MLP's -- every leaf by its path: ``block_i`` is
+    family's or the MLP's -- or for flax variables ``{"params": ...,
+    "batch_stats": ...}`` (a ResNet's), every leaf by its path:
+    ``block_i``, ``ResNetBlock_i`` and ``BottleneckBlock_i`` are
     ``blocks.i``; a Dense kernel is transposed, the qkv kernel and bias
-    flattened, a conv kernel (p, p, C, D) becomes (D, C, p, p)."""
+    flattened, a conv kernel (kh, kw, C, D) becomes (D, C, kh, kw);
+    ``batch_stats`` ``mean``/``var`` become ``running_mean``/
+    ``running_var``."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        stats = params.get("batch_stats", {})
+        extra = sorted(set(params) - {"params", "batch_stats"})
+        if extra:
+            raise ValueError(f"flax variables with collections {extra}: "
+                             "only params and batch_stats map to the port")
+        return {**flax_state_dict(params["params"]),
+                **_stat_entries(stats)}
     out = {}
     for path, leaf in _tree_leaves(unstack_scan_params(params)):
-        parts = []
-        for key in path[:-1]:
-            idx = key[len("block_"):]
-            parts += (["blocks", idx] if key.startswith("block_")
-                      and idx.isdigit() else [key])
+        parts = [p for key in path[:-1] for p in _port_key(key)]
         name = ".".join(parts + [_LEAF_NAMES.get(path[-1], path[-1])])
         x = np.asarray(leaf)
         if name.endswith((_QKV_SUFFIX, ".attn.qkv.bias")):
@@ -186,6 +214,13 @@ def flax_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
         out[name] = x
     return out
+
+
+def _stat_entries(stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's buffer entries for a flax ``batch_stats`` tree."""
+    return {".".join([p for key in path[:-1] for p in _port_key(key)]
+                     + [_STAT_NAMES[path[-1]]]): np.asarray(leaf)
+            for path, leaf in _tree_leaves(stats)}
 
 
 def flax_layout(name: str, weight: torch.Tensor,
@@ -215,10 +250,12 @@ def flax_weights(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 def load_flax_params(model: torch.nn.Module,
                      params: Mapping[str, Any]) -> torch.nn.Module:
     """Fill ``model`` (a port ``TransformerLM``, ``TransformerEncoder``,
-    ``BertClassifier``, ``ViTClassifier`` or ``MNISTNet``) from a flax
-    param tree, in place, each value cast to its parameter's dtype;
-    every parameter must be covered and every leaf used (strict).
-    Returns the model."""
+    ``BertClassifier``, ``ViTClassifier``, ``MNISTNet`` or ``ResNet``)
+    from a flax param tree or flax variables, in place, each value cast
+    to its parameter's or buffer's dtype; every parameter and buffer
+    must be covered and every leaf used (strict): a model with running
+    statistics needs the variables' ``batch_stats``. Returns the
+    model."""
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
           for k, v in flax_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)

@@ -1,6 +1,7 @@
 from ray_lightning_tpu_torch.models.bert import (BertClassifier, BertModule,
                                                  bert_config)
-from ray_lightning_tpu_torch.models.boring import BoringModel
+from ray_lightning_tpu_torch.models.boring import (BoringModel,
+                                                   XORDataModule, XORModel)
 from ray_lightning_tpu_torch.models.generate import (decode_step,
                                                     decode_step_paged,
                                                     generate,
@@ -12,12 +13,16 @@ from ray_lightning_tpu_torch.models.generate import (decode_step,
                                                     verify_step_paged)
 from ray_lightning_tpu_torch.models.lora import LoraConfig
 from ray_lightning_tpu_torch.models.gpt import (GPT2_SIZES, GPTModule,
-                                               gpt2_config)
+                                               count_params, gpt2_config)
 from ray_lightning_tpu_torch.models.mnist import (LightningMNISTClassifier,
                                                   MNISTClassifier, MNISTNet)
 from ray_lightning_tpu_torch.models.quant import (QTensor, dequantize_params,
                                                   is_quantized, param_bytes,
                                                   quantize_params)
+from ray_lightning_tpu_torch.models.resnet import (BottleneckBlock, ResNet,
+                                                   ResNetBlock, ResNetModule,
+                                                   resnet10, resnet18,
+                                                   resnet50)
 from ray_lightning_tpu_torch.models.transformer import (DenseKV, PagedKV,
                                                         TransformerConfig,
                                                         TransformerEncoder,
@@ -39,4 +44,6 @@ __all__ = [
     "LoraConfig", "BertClassifier", "BertModule", "bert_config",
     "LightningMNISTClassifier", "MNISTClassifier", "MNISTNet",
     "TransformerEncoder", "ViTClassifier", "ViTModule", "vit_config",
+    "XORModel", "XORDataModule", "count_params", "ResNet", "ResNetBlock",
+    "BottleneckBlock", "ResNetModule", "resnet10", "resnet18", "resnet50",
 ]

@@ -1,9 +1,11 @@
-"""A tiny fixture model (counterpart of ``ray_lightning_tpu/models/boring.py``).
+"""Tiny fixture models (counterpart of ``ray_lightning_tpu/models/boring.py``).
 
 :class:`BoringModel` is the JAX package's: one ``Linear(32 -> 2)``, loss
 ``mean(out**2)``, SGD at 0.1, the same deterministic numpy data for
 every loader, a hook ledger and checkpointable extra state -- so the
 port's trainer tests mirror the JAX package's case for case.
+:class:`XORModel` (with :class:`XORDataModule`) logs constant metrics,
+which pin a metric's exact round trip through the trainer and launcher.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ray_lightning_tpu_torch.core.module import TpuModule
+from ray_lightning_tpu_torch.core.module import TpuDataModule, TpuModule
 from ray_lightning_tpu_torch.data.loader import ArrayDataset, DataLoader
 
 
@@ -102,3 +104,65 @@ class BoringModel(TpuModule):
     def on_load_checkpoint(self, checkpoint: Dict[str, Any]) -> None:
         if "my_counter" in checkpoint:
             self.extra_state["my_counter"] = int(checkpoint["my_counter"])
+
+
+class _XORNet(nn.Module):
+    """flax's ``Dense(4)``, tanh, ``Dense(2)``, under flax's names."""
+
+    def __init__(self):
+        super().__init__()
+        self.Dense_0 = Linear(2, 4, device="meta")
+        self.Dense_1 = Linear(4, 2, device="meta")
+
+    def reset_parameters(self,
+                         generator: Optional[torch.Generator] = None) -> None:
+        for layer in (self.Dense_0, self.Dense_1):
+            layer.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_1(torch.tanh(self.Dense_0(x)))
+
+
+class XORModel(TpuModule):
+    """Logs constant metrics to pin exact metric round-trip values.
+    ``optax.adam(0.02)`` is the port's AdamW without weight decay."""
+
+    TRAIN_CONSTANT = 1.234
+    VAL_CONSTANT = 5.678
+
+    def configure_model(self):
+        return _XORNet()
+
+    def configure_optimizers(self):
+        from ray_lightning_tpu_torch.core.optim import make_optimizer
+        return make_optimizer("adamw", 0.02, weight_decay=0.0)
+
+    def training_step(self, model, batch, generator):
+        x, y = batch
+        loss = torch.nn.functional.cross_entropy(model(x), y.long())
+        self.log("avg_train_loss", torch.tensor(self.TRAIN_CONSTANT))
+        return loss
+
+    def validation_step(self, model, batch, generator):
+        return {"avg_val_loss": torch.tensor(self.VAL_CONSTANT)}
+
+
+def _xor_arrays():
+    # the 4-point XOR truth table replicated to a shardable size
+    x = np.array([[0, 0], [0, 1], [1, 0], [1, 1]], dtype=np.float32)
+    y = np.array([0, 1, 1, 0], dtype=np.int32)
+    reps = 8
+    return np.tile(x, (reps, 1)), np.tile(y, reps)
+
+
+class XORDataModule(TpuDataModule):
+    def __init__(self, batch_size: int = 8):
+        self.batch_size = batch_size
+
+    def train_dataloader(self):
+        x, y = _xor_arrays()
+        return DataLoader(ArrayDataset((x, y)), batch_size=self.batch_size)
+
+    def val_dataloader(self):
+        x, y = _xor_arrays()
+        return DataLoader(ArrayDataset((x, y)), batch_size=self.batch_size)

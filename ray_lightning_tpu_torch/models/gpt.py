@@ -5,7 +5,8 @@ token stream (the same numpy tokens the JAX package trains on).
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Any, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -126,3 +127,16 @@ class GPTModule(TpuModule):
     def validation_step(self, model, batch, generator):
         loss, _ = self._loss(model, batch)
         return {"val_loss": loss, "val_ppl": torch.exp(loss)}
+
+
+def count_params(params: Any) -> int:
+    """Elements of a model's parameters (an ``nn.Module``: each shared
+    tensor once, buffers not counted, as JAX counts its ``params``
+    collection) or of every tensor or array in a state dict or nest."""
+    if isinstance(params, torch.nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, Mapping):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(math.prod(params.shape))

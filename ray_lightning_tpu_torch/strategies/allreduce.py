@@ -10,7 +10,10 @@ summed with one ``all_reduce`` and divided by the world size (gloo has
 no average), and copied back. The same updates as :class:`RayStrategy`.
 Each rank's step generator is drawn from the shared one with the rank
 folded in (the JAX step's ``fold_in(rng, rank)``), so e.g. dropout masks
-differ across ranks.
+differ across ranks. Batch statistics are each rank's own (the JAX
+step's per-rank ``model.apply``), and after every step the floating
+buffers are averaged over ranks the same way, in one all-reduce (the
+JAX step's ``pmean`` of ``model_state``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ray_lightning_tpu_torch.strategies.base import Strategy
 class HorovodRayStrategy(Strategy):
     """Data parallelism with an explicit, coalesced gradient all-reduce."""
     strategy_name = "horovod_ray"
+    global_batch_stats = False
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -38,17 +42,28 @@ class HorovodRayStrategy(Strategy):
     def sync_gradients(self, params: List[torch.Tensor]) -> None:
         if not self.in_world:
             return
-        groups = defaultdict(list)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            groups[(p.grad.dtype, p.grad.device)].append(p.grad)
-        for grads in groups.values():
-            flat = _flatten_dense_tensors(grads)
-            dist.all_reduce(flat)
-            flat /= self.world_size
-            for g, avg in zip(grads, _unflatten_dense_tensors(flat, grads)):
-                g.copy_(avg)
+        self._average([p.grad for p in params])
+
+    def sync_buffers(self, buffers: List[torch.Tensor]) -> None:
+        if self.in_world and buffers:
+            self._average(buffers)
+
+    def _average(self, tensors: List[torch.Tensor]) -> None:
+        """Each tensor replaced by its mean over ranks: those of one
+        dtype and device flattened into one buffer, one all-reduce."""
+        groups = defaultdict(list)
+        for t in tensors:
+            groups[(t.dtype, t.device)].append(t)
+        with torch.no_grad():
+            for ts in groups.values():
+                flat = _flatten_dense_tensors(ts)
+                dist.all_reduce(flat)
+                flat /= self.world_size
+                for t, avg in zip(ts, _unflatten_dense_tensors(flat, ts)):
+                    t.copy_(avg)
 
     def step_generator(self, generator: torch.Generator) -> torch.Generator:
         """One draw from the shared generator (the same on every rank, and

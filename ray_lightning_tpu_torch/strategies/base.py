@@ -35,8 +35,18 @@ batch (:meth:`shard_batch`), the gradients are the global batch's mean
 averaged over ranks, and the non-finite guard's verdict is one flag
 reduced over ranks, so every rank keeps or skips together. Subclasses
 say how gradients are averaged and state is held: :meth:`wrap_model`,
-:meth:`make_optimizer`, :meth:`sync_gradients`, :meth:`state_dict` and
-:meth:`load_state_dict`.
+:meth:`make_optimizer`, :meth:`sync_gradients`, :meth:`sync_buffers`,
+:meth:`state_dict` and :meth:`load_state_dict`.
+
+A module's buffers are its state (the JAX trainer's ``model_state``,
+e.g. BatchNorm's running statistics, ``models/resnet.py``): the forward
+moves them in place, and the step keeps the JAX rules for them. Under
+the SPMD strategies (DDP, ZeRO, FSDP2: ``global_batch_stats``) a
+module's batch statistics are the global batch's (:meth:`bind_batch_stats`),
+so every rank moves its buffers alike; :class:`HorovodRayStrategy`
+computes them on the rank's rows and averages the floating buffers over
+ranks after every step (:meth:`sync_buffers`), as its JAX twin
+``pmean``\\ s ``model_state``.
 
 ``gang=`` (a :class:`~ray_lightning_tpu_torch.reliability.gang.GangConfig`)
 and ``standby=`` (a :class:`~ray_lightning_tpu_torch.reliability.elastic.
@@ -111,6 +121,9 @@ def worker_resources(num_cpus_per_worker: int, use_gpu: bool,
 
 class Strategy:
     strategy_name = "base"
+    # batch statistics over the global batch (the SPMD strategies), not
+    # each rank's rows (bind_batch_stats)
+    global_batch_stats = True
 
     def __init__(self,
                  num_workers: int = 1,
@@ -495,6 +508,24 @@ class Strategy:
         """Average the gradients over ranks after ``backward``, where no
         wrapper did it during backward."""
 
+    def sync_buffers(self, buffers: List[torch.Tensor]) -> None:
+        """Make the model's floating buffers agree over ranks after a
+        step, where the step's statistics did not already (per-rank
+        statistics)."""
+
+    def bind_batch_stats(self, model: torch.nn.Module) -> None:
+        """Tell every module that computes batch statistics (one with a
+        ``sync_stats`` attribute: the port's ``BatchNorm``) whether they
+        are the global batch's: true inside a process group under a
+        strategy with ``global_batch_stats``, where the module averages
+        its per-channel means over ranks with an autograd-aware
+        all-reduce, as the JAX strategies' one-program step computes
+        them over the sharded batch."""
+        synced = self.in_world and self.global_batch_stats
+        for m in model.modules():
+            if hasattr(m, "sync_stats"):
+                m.sync_stats = synced
+
     def step_generator(self, generator: torch.Generator) -> torch.Generator:
         """The generator a step hands ``training_step``."""
         return generator
@@ -538,11 +569,17 @@ class Strategy:
         Returns ``{"loss": ..., **logs}`` as device tensors, floats
         averaged over ranks.
 
+        The forward moves the model's buffers (BatchNorm's running
+        statistics) on every batch, inside an accumulation too, as JAX's
+        ``model_state`` moves on every mini-batch; :meth:`sync_buffers`
+        then makes them agree over ranks.
+
         ``guard_nonfinite`` (the trainer's ``nonfinite_action`` seat)
         tests the loss and every gradient element (this rank's shard) for
         NaN/Inf, reduces the verdict over ranks into one host flag, and
-        on a bad step leaves params, optimizer state and the accumulation
-        untouched on every rank (what the JAX step's device-side select
+        on a bad step leaves params, optimizer state, the accumulation
+        and the floating buffers (copied before the forward) as they
+        were on every rank (what the JAX step's device-side select
         keeps), reporting ``logs["nonfinite"] = 1.0`` as a host tensor.
         ``state.step`` still advances: the batch was attempted.
         """
@@ -556,10 +593,14 @@ class Strategy:
             model.train()
             for p in params:
                 p.grad = None
+            buffers = [b for b in model.buffers() if b.is_floating_point()]
+            kept = ([b.detach().clone() for b in buffers]
+                    if guard_nonfinite else None)
             loss, logs = loss_fn(model, batch,
                                  self.step_generator(state.generator))
             loss.backward()
             self.sync_gradients(params)
+            self.sync_buffers(buffers)
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
             if log_grad_norm:
@@ -573,6 +614,9 @@ class Strategy:
                 if bad:
                     for p in params:
                         p.grad = None
+                    with torch.no_grad():
+                        for b, old in zip(buffers, kept):
+                            b.copy_(old)
                     return state, logs
             if k > 1:
                 if state.acc is None:

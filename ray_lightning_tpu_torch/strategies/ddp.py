@@ -7,6 +7,17 @@ average the gradients over ranks (NCCL on the cards, gloo on the CPU).
 The JAX package reaches the same step with a replicated ``dp`` mesh in
 one process. ``RayStrategy(num_workers=1)`` (with ``use_ray`` unset)
 trains in this process with no wrapper.
+
+Buffers: the port's BatchNorm computes the global batch's statistics
+under this strategy (``Strategy.bind_batch_stats``), so every rank moves
+its running statistics alike, as the JAX step does. DDP's default
+``broadcast_buffers=True`` would overwrite every rank's buffers with rank
+0's before each forward: with equal buffers a collective for nothing,
+and under per-rank statistics a silent change of the result. The
+wrapper is therefore built without that forward sync
+(``broadcast_buffers=False``, or ``forward_sync_buffers=False`` where
+the installed PyTorch has deprecated the first) unless the caller
+passes either.
 """
 from __future__ import annotations
 
@@ -34,6 +45,12 @@ class RayStrategy(Strategy):
             raise TypeError(
                 f"{type(self).__name__} got keyword arguments that "
                 f"DistributedDataParallel does not take: {bad}")
+        self._ddp_kwargs = dict(self.extra_kwargs)
+        if not {"broadcast_buffers",
+                "forward_sync_buffers"} & set(self._ddp_kwargs):
+            self._ddp_kwargs["forward_sync_buffers"
+                             if "forward_sync_buffers" in allowed
+                             else "broadcast_buffers"] = False
 
     def wrap_model(self, model: torch.nn.Module) -> torch.nn.Module:
         if not self.in_world:
@@ -41,7 +58,7 @@ class RayStrategy(Strategy):
         device = self.root_device
         return torch.nn.parallel.DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda"
-            else None, **self.extra_kwargs)
+            else None, **self._ddp_kwargs)
 
     def unwrap(self, model: torch.nn.Module) -> torch.nn.Module:
         return bare_model(model)

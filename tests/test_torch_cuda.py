@@ -633,6 +633,97 @@ def test_vit_fit_under_its_remat_policy_launches_the_kernels(cuda):
     assert np.isfinite(trainer.callback_metrics["val_loss"])
 
 
+# ------------------------------------------------------------- ResNet
+# one f32 ResNet-10 training step, card (TF32 off) against the CPU: the
+# loss to 1e-5 of itself, each gradient and running statistic to 1e-4 of
+# its largest magnitude (cuDNN's convolution algorithms sum in other
+# orders than the CPU's)
+RESNET_LOSS_RTOL, RESNET_RTOL = 1e-5, 1e-4
+
+
+def _resnet_step(model, x, y):
+    """One training-mode forward and backward: (loss, gradients, the
+    running statistics after it), all on the host."""
+    import torch.nn.functional as F
+    model.train()
+    loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    return (loss.item(),
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers()})
+
+
+def _resnet_batch(batch_size=16):
+    from ray_lightning_tpu_torch.data import synthetic_images
+    x, y = synthetic_images(batch_size, 10, 32, seed=0)
+    return torch.from_numpy(x), torch.from_numpy(y).long()
+
+
+def test_resnet10_f32_step_on_the_card_matches_the_cpu(cuda):
+    """ResNet-10 at full width from the same weights and batch: the card's
+    loss, gradients and updated running statistics against the CPU's."""
+    from ray_lightning_tpu_torch.models import resnet10
+    x, y = _resnet_batch()
+    cpu = resnet10(device="cpu")
+    card = resnet10(device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    lc, gc, bc = _resnet_step(cpu, x, y)
+    lg, gg, bg = _resnet_step(card, x.to(cuda), y.to(cuda))
+    assert abs(lg - lc) <= RESNET_LOSS_RTOL * abs(lc)
+    for want, got in ((gc, gg), (bc, bg)):
+        for n, w in want.items():
+            assert float((got[n] - w).abs().max()) <= RESNET_RTOL * max(
+                float(w.abs().max()), 1e-30), n
+
+
+def test_resnet18_bf16_fit_moves_finite_buffers(cuda):
+    """ResNet-18 in bf16 through the trainer on the card: the losses
+    finite, params and running statistics f32 on the card, every running
+    statistic finite and moved off its start (mean 0, variance 1)."""
+    from ray_lightning_tpu_torch.core import LambdaCallback
+    from ray_lightning_tpu_torch.models import ResNetModule
+    losses = []
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=2, limit_val_batches=1, seed=0,
+                      callbacks=[LambdaCallback(
+                          on_train_batch_end=lambda tr, m, out, b, i:
+                          losses.append(float(out["loss"])))])
+    trainer.fit(ResNetModule(depth=18, batch_size=16, num_samples=32,
+                             dtype=torch.bfloat16))
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    for n, t in trainer.model.state_dict().items():
+        assert t.is_cuda and t.dtype == torch.float32, n
+    for n, b in trainer.model.named_buffers():
+        start = 0.0 if n.endswith("running_mean") else 1.0
+        assert torch.isfinite(b).all(), n
+        assert float((b - start).abs().max()) > 0, n
+    assert np.isfinite(trainer.callback_metrics["val_loss"])
+
+
+@pytest.mark.parametrize("fmt", ["stream", "orbax"])
+def test_resnet_buffers_round_trip_a_checkpoint_on_the_card(cuda, tmp_path,
+                                                            fmt):
+    """A ResNet-10 card run's checkpoint, both formats, restored by a
+    fresh trainer: params and running statistics bitwise, on the card."""
+    from ray_lightning_tpu_torch import ModelCheckpoint
+    from ray_lightning_tpu_torch.models import ResNetModule
+
+    def module():
+        return ResNetModule(depth=10, batch_size=16, num_samples=64)
+
+    t = _card_fit(tmp_path, module(),
+                  callbacks=[ModelCheckpoint(save_format=fmt)])
+    best = t.checkpoint_callback.best_model_path
+    t2 = _card_fit(tmp_path, module(), ckpt_path=best, max_epochs=0)
+    bufs = dict(t.model.named_buffers())
+    assert bufs
+    sd2 = t2.model.state_dict()
+    for n, a in t.model.state_dict().items():
+        assert sd2[n].device.type == "cuda" and torch.equal(a, sd2[n]), n
+    assert not torch.equal(bufs["bn_init.running_var"],
+                           torch.ones_like(bufs["bn_init.running_var"]))
+
+
 # ------------------------------------------------ fused dequant-matmul
 # (bits, leaf shape, transpose, int4 group): K = 200 leaves a ragged
 # contraction tile, the (200, 3, 2, 16) leaf repeats its 16 int8 scales

@@ -166,7 +166,16 @@ def test_blocking_failover_does_not_fail_a_beating_survivor(nano):
     past the 1.5 s timeout, while the survivor keeps beating. Its
     silence is judged on the beats drained after that failover, so it
     is not failed over as hung (the JAX fleet checks the rebuilt
-    monitor's carried beats first). Every token is the JAX engine's."""
+    monitor's carried beats first). Every token is the JAX engine's.
+
+    The two starting conditions are met one after the other: the victim
+    is wedged as soon as its flushed progress shows, which keeps its
+    rows in flight, and the kill waits for the survivor's first beat
+    with a dispatch step. Beats are throttled to one per
+    ``heartbeat_timeout / 8`` (0.1875 s here), longer than a replica's
+    whole share of ``MANY_REQS`` takes on a CPU (~0.15 s), so the
+    survivor's progress beat can arrive after the victim has retired
+    every request, and a wait for both at once then never ends."""
     tel = Telemetry()
     fleet = port_fleet(nano, num_replicas=2, telemetry=tel,
                        fleet_config=FleetConfig(min_replicas=2,
@@ -185,10 +194,13 @@ def test_blocking_failover_does_not_fail_a_beating_survivor(nano):
             fleet.submit(**kw)
         victim, survivor = fleet._replicas
         deadline = time.time() + 90.0
-        while not (survivor.last_step >= 1 and _flushed(fleet, victim)()):
-            assert time.time() < deadline, "no progress on both replicas"
+        while not _flushed(fleet, victim)():
+            assert time.time() < deadline, "the victim flushed no progress"
             fleet.tick()
         fleet._ray.get(victim.actor.inject.remote("stall"), timeout=30)
+        while survivor.last_step < 1:
+            assert time.time() < deadline, "the survivor beat no step"
+            fleet.tick()
         os.kill(victim.actor._proc.pid, signal.SIGKILL)
         out = fleet.run_until_idle()
         alive = survivor in fleet._replicas

@@ -9,7 +9,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_lightning_tpu_torch import BoringModel, GPTModule, gpt2_config
+from ray_lightning_tpu_torch import (BoringModel, GPTModule, ResNetModule,
+                                     gpt2_config, resnet10)
 from ray_lightning_tpu_torch.core import Callback
 from ray_lightning_tpu_torch.interop import load_flax_params
 from ray_lightning_tpu_torch.launchers import (ExecutorBase, ProcessRay,
@@ -61,6 +62,28 @@ class Nano(GPTModule):
 
     def predict_step(self, model, batch, generator):
         return model(batch[0])
+
+
+class NarrowResNet(ResNetModule):
+    """``ResNetModule(depth=10)`` at ``num_filters=8`` (the JAX tests'
+    narrowing: ``ResNet`` takes it, ``ResNetModule`` does not), started
+    from flax variables ``{"params", "batch_stats"}`` of numpy arrays
+    (the JAX trainer's initial state) when ``init`` is given."""
+
+    def __init__(self, init=None, **kw):
+        kw = {"depth": 10, "batch_size": 8, "image_size": 16,
+              "num_samples": 32, **kw}
+        super().__init__(**kw)
+        self.init = init
+
+    def configure_model(self):
+        return resnet10(self.num_classes, dtype=self.dtype, num_filters=8,
+                        device="meta")
+
+    def init_variables(self, model, generator, batch):
+        if self.init is None:
+            return super().init_variables(model, generator, batch)
+        load_flax_params(model, self.init)
 
 
 def lr_schedule(n):
