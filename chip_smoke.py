@@ -282,7 +282,20 @@ Z. The encoder family and MNIST. (a) K2-K4 against their plain versions
    ``cudnn.deterministic``), and whether two seeded fits under the
    default flags are bitwise equal (reported, not checked); one
    ResNet-18 step in each dtype profiled (launches, device busy ms, the
-   idle share, the top kernels). Prints its seconds.
+   idle share, the top kernels). (f) The MoE LM: K2-K4 against their
+   plain versions at its attention shape (B=8, H=4, D=64, T=S=128,
+   causal), bf16 timed beside SDPA and f32; ``MoeModule(config=
+   moe_config("small", vocab_size=256, max_seq_len=128,
+   attention_impl="flash", n_experts=8), batch_size=8, seq_len=128,
+   optimizer="adafactor")`` at ``expert_top_k`` 1 and 2, each the same
+   fit as (b): step ms, tokens/s, peak memory, ``train_aux`` and each
+   layer's dropped share a step (1 - dispatched / (k * N)), K2-K4 as in
+   (b); one f32 step on the card against the CPU (TF32 off), routing
+   compared layer by layer on the CPU's inputs (a token may choose
+   other experts only at a near tie of the CPU's probabilities, every
+   other token's output within 1e-4), and without a flip the loss, aux
+   and every gradient; greedy ``generate()`` of the f32 model at
+   capacity factor 16, token-identical to the CPU's. Prints its seconds.
 M. The model core's training options at GPT-2-small width (bf16 compute
    over f32 weights, batch 8 x 1024, ``Trainer(strategy=RayStrategy(
    num_workers=1), seed=0)``). (a) ``dropout=0.1`` on the flash config,
@@ -504,7 +517,9 @@ X. The process replica fleet, run after phase N on phase 2's weights,
    (a), (b) and (e) fits' and phase H (a)'s and (b)'s; ``flash_fwd_bert``,
    ``flash_bwd_dkv_bert``, ``flash_bwd_dq_bert`` (T=S=128) and the
    three ``_vit`` entries (T=S=197) count phase Z's BERT-base and
-   ViT-B/16 fits, their times and errors phase Z (a)'s bf16 rows. K5 has
+   ViT-B/16 fits, their times and errors phase Z (a)'s bf16 rows; the
+   three ``_moe`` entries (causal, H=4, T=S=128) phase Z (f)'s two
+   MoE-small fits, their times and errors (f)'s bf16 row. K5 has
    five entries, each one forward's 49 calls, bf16 x,
    int8 codes (times and bound their sums, the error the largest of
    them): ``quantized_matmul`` at
@@ -3302,15 +3317,16 @@ def sdpa_times(q, k, v, do, causal, flush, tag="phaseT1"):
     return times
 
 
-def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False):
-    """K2-K4 once each on ``flash_inputs(dtype, B, T, S)`` against their
+def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
+               H=12):
+    """K2-K4 once each on ``flash_inputs(dtype, B, T, S, H)`` against their
     plain versions: every call's route (bf16 ``tc``, f32 ``simt``), each
     output's error within its bound (``flash_tol``), rows that admit no
     key at 0 / 1e30. ``timed``: each kernel's cold-L2 time, its plain
     version's, its bound, and SDPA's under each backend. Returns the
     printed row."""
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
-    q, k, v, do = flash_inputs(dtype, B, T, S)
+    q, k, v, do = flash_inputs(dtype, B, T, S, H)
     cf.reset_kernel_launches()
     out, lse = cf.flash_fwd(q, k, v, causal)
     delta = cf.flash_delta(out, do)
@@ -3334,7 +3350,7 @@ def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False):
         grad_bounds = dict(zip(("dq", "dk", "dv"), cf.flash_grad_bound(
             q, k, v, do, lse, delta, causal, ref_dq, ref_dk, ref_dv)))
     row = dict(case=label, dtype=str(dtype).split(".")[-1], B=B, T=T, S=S,
-               causal=causal, route=route)
+               H=H, causal=causal, route=route)
     for name, got, ref, grad in (("out", out, ref_out, False),
                                  ("lse", lse, ref_lse, False),
                                  ("dq", dq, ref_dq, True),
@@ -6234,7 +6250,7 @@ def z_kernels(flush):
     return rows
 
 
-def z_fit(what, module, remat_replays=0, after=None):
+def z_fit(what, module, remat_replays=0, after=None, on_step=None):
     """A fit of ``Z_STEPS`` steps and ``Z_VAL_BATCHES`` validation batches
     through ``Trainer(strategy=RayStrategy(num_workers=1))``: every loss
     finite, K2-K4 ``n_layers`` times a step on ``tc`` (K2 once more a
@@ -6242,7 +6258,7 @@ def z_fit(what, module, remat_replays=0, after=None):
     validation batch), or none of them for a module without a
     transformer config. Returns the step ms (median after the warm-up),
     samples/s, peak memory, losses, launches and what ``after(trainer)``
-    returns."""
+    returns; ``on_step(trainer, outputs)`` runs after each step."""
     from ray_lightning_tpu_torch import RayStrategy, Trainer
     from ray_lightning_tpu_torch.core import LambdaCallback
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
@@ -6252,6 +6268,8 @@ def z_fit(what, module, remat_replays=0, after=None):
         torch.cuda.synchronize()
         ends.append(time.perf_counter())
         losses.append(float(outputs["loss"]))
+        if on_step is not None:
+            on_step(trainer, outputs)
 
     trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
                       limit_train_batches=Z_STEPS,
@@ -6583,11 +6601,227 @@ def z_resnet(card):
     return out
 
 
+# (f) the MoE LM: the largest MoE the repo defines (moe_config("small"):
+# 4 layers, d_model 256, 4 heads of 64, d_ff 1024, 8 experts) at
+# examples/moe_example.py's settings, top-1 and top-2
+Z_MOE_CFG = dict(vocab_size=256, max_seq_len=128, attention_impl="flash",
+                 n_experts=8)
+Z_MOE = dict(batch_size=8, seq_len=128, optimizer="adafactor")
+Z_MOE_SHAPE = ("moe", 8, 128, 4)      # (model, B, T=S, H), causal
+# (c) one f32 step, card (TF32 off) against the CPU, per layer on the
+# CPU's layer inputs: a token may choose another expert on the card only
+# where the CPU's probabilities of its k-th and (k+1)-th choices (or of
+# two of its k choices) lie within Z_MOE_NEAR_TIE; every token whose
+# dispatch is unchanged keeps its output within Z_MOE_RTOL of the
+# layer's largest magnitude; without a flip the loss to Z_MOE_LOSS_RTOL
+# of itself, the aux to Z_MOE_LOSS_RTOL, every gradient to Z_MOE_RTOL
+# of its largest magnitude (T3's and the ResNet step's bounds)
+Z_MOE_NEAR_TIE = 1e-5
+Z_MOE_LOSS_RTOL, Z_MOE_RTOL = 1e-5, 1e-4
+# (d) greedy decode at tests/test_moe.py's overflow-free capacity factor
+Z_MOE_DECODE = dict(capacity_factor=16.0, prompts=2, prompt_len=16,
+                    new_tokens=16)
+
+
+def moe_choices(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's k experts in slot order (N, k): the argmax over the
+    experts not yet taken, the first index on ties (``route_top_k``'s
+    rule)."""
+    rem, out = probs.clone(), []
+    for _ in range(k):
+        idx = rem.argmax(-1)
+        out.append(idx)
+        rem.scatter_(1, idx[:, None], 0.0)
+    return torch.stack(out, 1)
+
+
+def moe_step_vs_cpu(cfg, batch_size: int, near_tie=Z_MOE_NEAR_TIE,
+                    rtol=Z_MOE_RTOL, loss_rtol=Z_MOE_LOSS_RTOL,
+                    device=DEVICE, seed=0):
+    """One f32 training-mode step of ``MoeTransformerLM(cfg)`` (cfg in
+    f32) from the same weights and batch on ``device`` and the CPU.
+
+    Routing, layer by layer on the CPU's layer input: the tokens whose
+    experts differ, each allowed only within ``near_tie`` (the CPU's
+    top-(k+1) gap), the tokens whose dispatch differs, and every other
+    token's output held to ``rtol`` of the layer's largest magnitude.
+    Without a flip: the loss to ``loss_rtol`` of itself, the aux to
+    ``loss_rtol``, every gradient to ``rtol`` of its largest magnitude.
+    Returns the numbers; raises on a miss."""
+    import torch.nn.functional as F
+    from ray_lightning_tpu_torch.models import moe
+    x, y = moe._synthetic_lm_tokens(batch_size, cfg.max_seq_len,
+                                    cfg.vocab_size, seed)
+    x, y = torch.from_numpy(x), torch.from_numpy(y).long()
+    cpu = moe.MoeTransformerLM(cfg, device="cpu")
+    card = moe.MoeTransformerLM(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    inputs = []
+    hooks = [b.moe.register_forward_pre_hook(
+        lambda m, args: inputs.append(args[0].detach().clone()))
+        for b in cpu.blocks]
+    out = {}
+    for where, model in (("cpu", cpu), ("card", card)):
+        logits, aux = model(x.to(model.device))
+        ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                             y.to(logits.device).reshape(-1))
+        (ce + cfg.aux_loss_weight * aux).backward()
+        out[where] = (ce.item(), aux.item(),
+                      {n: p.grad.cpu() for n, p in model.named_parameters()})
+        if where == "cpu":
+            for h in hooks:
+                h.remove()
+    k, flips, moved, worst_out, worst_gap = cfg.expert_top_k, 0, 0, 0.0, 0.0
+    with torch.no_grad():
+        for i, xin in enumerate(inputs):
+            layers = (cpu.blocks[i].moe, card.blocks[i].moe)
+            tokens = xin.reshape(-1, cfg.d_model)
+            pc = torch.softmax(layers[0].router(tokens), -1)
+            pg = torch.softmax(layers[1].router(tokens.to(device)), -1).cpu()
+            flipped = (moe_choices(pc, k) != moe_choices(pg, k)).any(1)
+            top = pc.sort(-1, descending=True).values[:, :k + 1]
+            gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+            for t in flipped.nonzero()[:, 0].tolist():
+                check(gap[t] <= near_tie, f"Z (f) layer {i}: token {t} "
+                      f"chose other experts on the card with a top-"
+                      f"{k + 1} gap of {float(gap[t])} > {near_tie}")
+                worst_gap = max(worst_gap, float(gap[t]))
+            flips += int(flipped.sum())
+            cap = moe.expert_capacity(tokens.shape[0], cfg.n_experts, k,
+                                      cfg.capacity_factor)
+            dc = moe.route_top_k(pc, cap, k)[0]
+            dg = moe.route_top_k(pg, cap, k)[0]
+            same = (dc == dg).flatten(1).all(1)
+            # without a flip the positions, and so the drops, are equal
+            check(bool(flipped.any()) or bool(same.all()), f"Z (f) layer "
+                  f"{i}: dispatch differs with no token choosing otherwise")
+            moved += int((~same & ~flipped).sum())
+            oc = layers[0](xin)[0].reshape(-1, cfg.d_model)
+            og = layers[1](xin.to(device))[0].reshape(-1, cfg.d_model).cpu()
+            scale = max(float(oc.abs().max()), 1e-30)
+            err = float((og - oc)[same].abs().max()) / scale \
+                if bool(same.any()) else 0.0
+            check(err <= rtol, f"Z (f) layer {i}: an unflipped token's "
+                  f"output differs by {err} of the largest magnitude")
+            worst_out = max(worst_out, err)
+    (lc, ac, gc), (lg, ag, gg) = out["cpu"], out["card"]
+    res = dict(batch=batch_size, near_tie_flips=flips,
+               dispatch_moved_without_flip=moved, worst_flip_gap=worst_gap,
+               worst_unflipped_out=worst_out, loss_cpu=lc, loss_card=lg,
+               aux_cpu=ac, aux_card=ag)
+    if flips:
+        # a flip reroutes a token: the step's values part where it
+        # reaches, and only the layer-wise checks above hold
+        res["end_to_end"] = "not held: a near-tie flip"
+        return res
+    rel = abs(lg - lc) / abs(lc)
+    worst = max(((gg[n] - w).abs().max().item()
+                 / max(w.abs().max().item(), 1e-30), n)
+                for n, w in gc.items())
+    check(rel <= loss_rtol, f"Z (f) loss differs by {rel}")
+    check(abs(ag - ac) <= loss_rtol, f"Z (f) aux {ag} vs {ac}")
+    check(worst[0] <= rtol, f"Z (f) gradient {worst[1]} differs by "
+          f"{worst[0]} of its largest magnitude")
+    res.update(loss_rel=rel, worst_grad=worst[0], worst_grad_at=worst[1],
+               end_to_end="held")
+    return res
+
+
+def z_moe_fit(k: int):
+    """(b) MoE-small at top-``k`` through ``z_fit``: the step's loss,
+    ``train_aux`` and each layer's dropped share ``1 - dispatched / (k·N)``
+    a step."""
+    from ray_lightning_tpu_torch.models import MoeModule, moe_config
+    cfg = moe_config("small", expert_top_k=k, **Z_MOE_CFG)
+    module = MoeModule(config=cfg, **Z_MOE)
+    n_tok = Z_MOE["batch_size"] * Z_MOE["seq_len"]
+    steps = []
+
+    def on_step(trainer, outputs):
+        # device scalars, read after the fit (the step is already synced)
+        steps.append((float(outputs["train_aux"]),
+                      [b.moe.last_dispatched for b in trainer.model.blocks]))
+
+    res = z_fit(f"(f) MoE-small top-{k}", module, on_step=on_step)
+    dropped = [[1.0 - float(d) / (k * n_tok) for d in ds] for _, ds in steps]
+    res.update(top_k=k, tokens_per_s=res["samples_per_s"] * Z_MOE["seq_len"],
+               train_aux=[a for a, _ in steps],
+               dropped_share_by_step=dropped,
+               dropped_share_mean_by_layer=np.mean(dropped, 0).tolist())
+    check(all(np.isfinite(res["train_aux"])), f"Z (f) aux {res['train_aux']}")
+    check(all(0.0 <= d < 1.0 for ds in dropped for d in ds),
+          f"Z (f) dropped shares {dropped}")
+    return res
+
+
+def z_moe_generate(card):
+    """(d) Greedy ``generate()`` of the f32 MoE-small with ``decode=True``
+    at Z_MOE_DECODE's capacity factor, the card against the CPU:
+    token-identical."""
+    from ray_lightning_tpu_torch.models import (MoeTransformerLM, generate,
+                                                moe_config)
+    d = Z_MOE_DECODE
+    cfg = moe_config("small", dtype=torch.float32, decode=True,
+                     capacity_factor=d["capacity_factor"], **Z_MOE_CFG)
+    cpu = MoeTransformerLM(cfg, device="cpu")
+    card_model = MoeTransformerLM(cfg, device=DEVICE)
+    card_model.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (d["prompts"], d["prompt_len"]))
+    toks = {}
+    for where, model in (("cpu", cpu), ("card", card_model)):
+        t0 = time.perf_counter()
+        toks[where] = generate(model, None, prompts, d["new_tokens"], rng=0,
+                               temperature=0.0).cpu()
+        toks[where + "_s"] = time.perf_counter() - t0
+    check(torch.equal(toks["cpu"], toks["card"]),
+          f"Z (f) greedy decode differs: card {toks['card'].tolist()} vs "
+          f"CPU {toks['cpu'].tolist()}")
+    del cpu, card_model
+    release()
+    return dict(prompts=d["prompts"], prompt_len=d["prompt_len"],
+                new_tokens=d["new_tokens"], identical=True,
+                card_s=toks["card_s"], cpu_s=toks["cpu_s"], card=card)
+
+
+def z_moe(card, flush):
+    """(f) The MoE LM: (a) K2-K4 against their plain versions at its
+    attention shape (causal, H = 4, T = S = 128), (b) MoE-small fits at
+    top-1 and top-2, (c) the f32 step against the CPU, (d) greedy decode
+    against the CPU."""
+    from ray_lightning_tpu_torch.models import moe_config
+    t_part = time.perf_counter()
+    label, B, T, H = Z_MOE_SHAPE
+    kernels = {str(dtype).split(".")[-1]: flash_case(
+        "phaseZ (f)", label, B, T, T, True, dtype, flush,
+        timed=dtype == torch.bfloat16, H=H)
+        for dtype in (torch.bfloat16, torch.float32)}
+    fits = {}
+    for k in (1, 2):
+        res = z_moe_fit(k)
+        fits[f"top{k}"] = res
+        print(f"phaseZ (f) MoE-small top-{k}", json.dumps(dict(res,
+                                                              card=card)),
+              flush=True)
+    cfg = moe_config("small", dtype=torch.float32, **Z_MOE_CFG)
+    step = moe_step_vs_cpu(cfg, Z_MOE["batch_size"])
+    release()
+    print("phaseZ (f) f32 MoE-small step, card vs CPU", json.dumps(
+        dict(step, card=card)), flush=True)
+    decode = z_moe_generate(card)
+    seconds = time.perf_counter() - t_part
+    print("phaseZ (f) MoE decode", json.dumps(dict(decode, seconds=seconds)),
+          flush=True)
+    return dict(kernels=kernels, fits=fits, step_vs_cpu=step,
+                decode=decode, seconds=seconds, card=card)
+
+
 def phase_z_zoo(card):
-    """The encoder family, MNIST and ResNet: (a) K2-K4 at the encoders'
-    shapes, (b) BERT-base fine-tuning and its f32 kernel-vs-plain step,
-    (c) ViT-B/16 under its default remat policy, (d) MNIST's gate and
-    the determinism check, (e) ResNet-18/50 with BatchNorm state."""
+    """The encoder family, MNIST, ResNet and the MoE LM: (a) K2-K4 at the
+    encoders' shapes, (b) BERT-base fine-tuning and its f32
+    kernel-vs-plain step, (c) ViT-B/16 under its default remat policy,
+    (d) MNIST's gate and the determinism check, (e) ResNet-18/50 with
+    BatchNorm state, (f) MoE-small (``z_moe``)."""
     from ray_lightning_tpu_torch.models import (BertModule, ViTModule,
                                                 bert_config, vit_config)
     t_phase = time.perf_counter()
@@ -6613,10 +6847,14 @@ def phase_z_zoo(card):
           flush=True)
     mnist = z_mnist(card)
     resnet = z_resnet(card)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    moe = z_moe(card, flush)
+    del flush
     seconds = time.perf_counter() - t_phase
-    print(f"phaseZ took {seconds:.1f} s", flush=True)
+    print(f"phaseZ took {seconds:.1f} s (f: {moe['seconds']:.1f} s)",
+          flush=True)
     return dict(kernels=kernels, bert=bert, vit=vit, mnist=mnist,
-                resnet=resnet, seconds=seconds)
+                resnet=resnet, moe=moe, seconds=seconds)
 
 
 def main() -> int:
@@ -6817,6 +7055,24 @@ def main() -> int:
                 ms=zrow[f"{kind}_ms"], plain_ms=zrow[f"{kind}_plain_ms"],
                 bound_ms=zrow[f"{kind}_bound_ms"],
                 bound_by=zrow[f"{kind}_bound_by"], library_ms=lib))
+    # K2-K4 at the MoE's causal shape (B=8, H=4, T=S=128), launches from
+    # phase Z (f)'s MoE-small fits at top-1 and top-2
+    zmoe = zoo["moe"]
+    mrow = zmoe["kernels"]["bfloat16"]
+    for name, kind, line, errs, lib in (
+            ("flash_fwd", "fwd", 41, ("out",), mrow["library_fwd_ms"]),
+            ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
+             mrow["library_bwd_ms"]),
+            ("flash_bwd_dq", "dq", 173, ("dq",), None)):
+        kernels.append(dict(
+            name=f"{name}_moe", route="cuda", source=flash_source,
+            replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
+            launches=sum(f["launches"][name]
+                         for f in zmoe["fits"].values()),
+            max_abs_err=max(mrow[f"{e}_err"] for e in errs),
+            ms=mrow[f"{kind}_ms"], plain_ms=mrow[f"{kind}_plain_ms"],
+            bound_ms=mrow[f"{kind}_bound_ms"],
+            bound_by=mrow[f"{kind}_bound_by"], library_ms=lib))
     # K2 as phase L's chunk dispatches call it: B=1, T=128, S=1024 keys
     # (the longest row), launches from phase L's bf16 run
     chunk = next(r for r in chunk_k2 if r["S"] == 1024)

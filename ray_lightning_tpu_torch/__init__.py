@@ -47,7 +47,12 @@ Trainer (the flash kernels at their bidirectional shapes),
 (``testing/determinism.py``). Slice 21 is ResNet with BatchNorm state
 (``models/resnet.py``: ``ResNetModule`` at depths 10, 18 and 50): a
 module's buffers are its state through every strategy and checkpoint
-tier, with ``XORModel`` and ``count_params``.
+tier, with ``XORModel`` and ``count_params``. Slice 22 is the
+Mixture-of-Experts LM (``models/moe.py``: ``MoeModule``,
+``MoeTransformerLM``): top-k capacity routing with the JAX package's
+drops, over the global batch under the SPMD strategies and each rank's
+rows under ``HorovodRayStrategy``, and the Switch aux loss in the
+training loss.
 
 Ground rules of the port:
 
@@ -88,13 +93,17 @@ from ray_lightning_tpu_torch.models import (BertClassifier, BertModule,
                                             BoringModel, GPTModule,
                                             LightningMNISTClassifier,
                                             MNISTClassifier, MNISTNet,
+                                            MoeConfig, MoeModule,
+                                            MoeTransformerLM,
                                             ResNetModule, TransformerConfig,
                                             TransformerEncoder, TransformerLM,
                                             ViTClassifier, ViTModule,
                                             XORDataModule, XORModel,
                                             bert_config, count_params,
-                                            gpt2_config, resnet10, resnet18,
-                                            resnet50, vit_config)
+                                            expert_parallel_rule,
+                                            gpt2_config, moe_config,
+                                            resnet10, resnet18, resnet50,
+                                            vit_config)
 from ray_lightning_tpu_torch.obs import StepStatsCallback, Telemetry
 from ray_lightning_tpu_torch.reliability import (FaultPlan, FitSupervisor,
                                                  GangConfig, GangSupervisor,
@@ -128,4 +137,6 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "TransformerEncoder", "ViTClassifier", "ViTModule", "vit_config",
            "synthetic_images", "synthetic_mnist", "assert_deterministic",
            "fit_fingerprint", "ResNetModule", "resnet10", "resnet18",
-           "resnet50", "XORModel", "XORDataModule", "count_params"]
+           "resnet50", "XORModel", "XORDataModule", "count_params",
+           "MoeConfig", "MoeModule", "MoeTransformerLM", "moe_config",
+           "expert_parallel_rule"]

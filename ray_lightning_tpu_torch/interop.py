@@ -34,6 +34,12 @@ raises. The layouts differ in these places:
   ``running_var``; the blocks ``ResNetBlock_i`` / ``BottleneckBlock_i``
   are ``blocks.i``. A ResNet's bare param tree lacks the running
   statistics and raises;
+- a Mixture-of-Experts LM (``MoeTransformerLM``) has its blocks
+  ``block_i`` straight under the root (no ``stack``) and no untied head:
+  ``block_i/moe/router/kernel`` (d, E) is transposed like every Dense
+  kernel, and the expert banks ``experts_up`` (E, d, d_ff),
+  ``experts_down`` (E, d_ff, d) and their biases (E, 1, ·) keep their
+  layout (the port's banks are the flax ones);
 - a LoRA model's adapter banks (``lora_A`` (N, in, r) and ``lora_B``
   (N, r, out) beside a targeted projection's kernel) keep their layout:
   the port's banks are the flax ones (``models/lora.py``). An adapter
@@ -61,7 +67,8 @@ import torch
 from ray_lightning_tpu_torch.models.quant import QTensor
 
 #: the port's Dense weights other than qkv: flax kernel = weight.T
-_DENSE_SUFFIXES = (".attn.out.weight", ".mlp.up.weight", ".mlp.down.weight")
+_DENSE_SUFFIXES = (".attn.out.weight", ".mlp.up.weight", ".mlp.down.weight",
+                   ".moe.router.weight")
 _LM_HEAD = "lm_head.weight"        # the untied head, also weight.T
 _QKV_SUFFIX = ".attn.qkv.weight"
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

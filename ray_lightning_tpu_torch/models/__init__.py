@@ -14,6 +14,10 @@ from ray_lightning_tpu_torch.models.generate import (decode_step,
 from ray_lightning_tpu_torch.models.lora import LoraConfig
 from ray_lightning_tpu_torch.models.gpt import (GPT2_SIZES, GPTModule,
                                                count_params, gpt2_config)
+from ray_lightning_tpu_torch.models.moe import (MoeConfig, MoeModule,
+                                                MoeTransformerLM,
+                                                expert_parallel_rule,
+                                                moe_config)
 from ray_lightning_tpu_torch.models.mnist import (LightningMNISTClassifier,
                                                   MNISTClassifier, MNISTNet)
 from ray_lightning_tpu_torch.models.quant import (QTensor, dequantize_params,
@@ -46,4 +50,6 @@ __all__ = [
     "TransformerEncoder", "ViTClassifier", "ViTModule", "vit_config",
     "XORModel", "XORDataModule", "count_params", "ResNet", "ResNetBlock",
     "BottleneckBlock", "ResNetModule", "resnet10", "resnet18", "resnet50",
+    "MoeConfig", "MoeModule", "MoeTransformerLM", "moe_config",
+    "expert_parallel_rule",
 ]

@@ -47,6 +47,12 @@ _NEG = torch.finfo(torch.float32).min
 _TINY = torch.finfo(torch.float32).tiny
 
 
+def _logits_only(outputs):
+    """The logits of a model's output: a Mixture-of-Experts LM returns
+    ``(logits, aux)`` (the JAX ``generate.py``'s ``_logits_only``)."""
+    return outputs[0] if isinstance(outputs, tuple) else outputs
+
+
 def _mix64(x: int) -> int:
     """splitmix64's finalizer: a bijection of 64-bit ints."""
     x = (x + 0x9E3779B97F4A7C15) & _MASK64
@@ -155,9 +161,9 @@ def _arena_apply(model, arena, tokens: torch.Tensor,
                  adapter_ids=None):
     """Page-native forward: the arena (one ``PagedKV`` per layer) is read
     and written in place through ``page_table``."""
-    return model(tokens, positions=kv_positions, kv_positions=kv_positions,
-                 page_table=page_table, cache=arena,
-                 **_adapter_kw(adapter_ids))
+    return _logits_only(model(
+        tokens, positions=kv_positions, kv_positions=kv_positions,
+        page_table=page_table, cache=arena, **_adapter_kw(adapter_ids)))
 
 
 def decode_step_paged(model, arena, tokens: torch.Tensor,
@@ -189,8 +195,9 @@ def decode_step(model, cache, tokens: torch.Tensor,
     """ONE cached step on dense per-row caches (a list of ``DenseKV``,
     updated in place): ``tokens`` (B, 1) at ``kv_positions`` (B, 1), each
     row at its own position. Returns the last logits (B, V)."""
-    return model(tokens, positions=kv_positions, kv_positions=kv_positions,
-                 cache=cache, **_adapter_kw(adapter_ids))[:, -1]
+    return _logits_only(model(
+        tokens, positions=kv_positions, kv_positions=kv_positions,
+        cache=cache, **_adapter_kw(adapter_ids)))[:, -1]
 
 
 def verify_step(model, cache, tokens: torch.Tensor,
@@ -201,8 +208,9 @@ def verify_step(model, cache, tokens: torch.Tensor,
     run ``kv_positions`` (B, T) under a block-causal mask, so offset
     ``j``'s logits are what T sequential :func:`decode_step` calls give.
     Returns all of them, (B, T, V)."""
-    return model(tokens, positions=kv_positions, kv_positions=kv_positions,
-                 cache=cache, **_adapter_kw(adapter_ids))
+    return _logits_only(model(
+        tokens, positions=kv_positions, kv_positions=kv_positions,
+        cache=cache, **_adapter_kw(adapter_ids)))
 
 
 def _prefill_impl(model, prompt_tokens: torch.Tensor,
@@ -215,8 +223,8 @@ def _prefill_impl(model, prompt_tokens: torch.Tensor,
     B, P = prompt_tokens.shape
     cache = new_cache(model.cfg, B, model.device)
     positions = torch.arange(P, device=prompt_tokens.device)[None]
-    logits = model(prompt_tokens, positions=positions, cache=cache,
-                   **_adapter_kw(adapter_ids))
+    logits = _logits_only(model(prompt_tokens, positions=positions,
+                                cache=cache, **_adapter_kw(adapter_ids)))
     if prompt_lengths is None:
         last = logits[:, -1]
     else:
@@ -239,8 +247,8 @@ def _chunk_prefill_impl(model, arena, row_pages: torch.Tensor,
     C = tokens.shape[1]
     positions = offset + torch.arange(C, device=tokens.device)[None]
     cache = [ChunkKV(kv, row_pages, offset) for kv in arena]
-    logits = model(tokens, positions=positions, cache=cache,
-                   **_adapter_kw(adapter_ids))
+    logits = _logits_only(model(tokens, positions=positions, cache=cache,
+                                **_adapter_kw(adapter_ids)))
     return logits[:, valid_len - 1]
 
 
@@ -337,8 +345,8 @@ def _decode_scan(model, cache, tokens, lengths, gen, done, *, steps,
             t = total - steps - 1 + s
             pos = torch.full((B, 1), t, dtype=torch.long,
                              device=tokens.device)
-            last = model(tokens[:, t:t + 1], positions=pos,
-                         cache=cache)[:, -1]
+            last = _logits_only(model(tokens[:, t:t + 1], positions=pos,
+                                      cache=cache))[:, -1]
         nxt = sample_logits(last, gen, temperature, top_k)
         if eos is not None:
             nxt, done = latch_eos(nxt, done, eos)
@@ -434,7 +442,8 @@ def generate_full_scan(model, params, prompt_tokens, max_new_tokens: int,
         cache = new_cache(model.cfg, B, dev)
         for t in range(total - 1):
             pos = torch.full((B, 1), t, dtype=torch.long, device=dev)
-            last = fwd(tokens[:, t:t + 1], positions=pos, cache=cache)[:, -1]
+            last = _logits_only(fwd(tokens[:, t:t + 1], positions=pos,
+                                    cache=cache))[:, -1]
             nxt = sample_logits(last, gen, temperature, top_k)
             if eos_id is not None:
                 # only a row past its prompt latches: another row's

@@ -515,12 +515,14 @@ class Strategy:
 
     def bind_batch_stats(self, model: torch.nn.Module) -> None:
         """Tell every module that computes batch statistics (one with a
-        ``sync_stats`` attribute: the port's ``BatchNorm``) whether they
-        are the global batch's: true inside a process group under a
-        strategy with ``global_batch_stats``, where the module averages
-        its per-channel means over ranks with an autograd-aware
-        all-reduce, as the JAX strategies' one-program step computes
-        them over the sharded batch."""
+        ``sync_stats`` attribute: the port's ``BatchNorm`` and the MoE's
+        router, ``models/moe.py:MoeMlp``) whether they are the global
+        batch's: true inside a process group under a strategy with
+        ``global_batch_stats``, where ``BatchNorm`` averages its
+        per-channel means over ranks and ``MoeMlp`` routes its rows as
+        their place in the global batch routes them, each with
+        autograd-aware collectives, as the JAX strategies' one-program
+        step computes them over the sharded batch."""
         synced = self.in_world and self.global_batch_stats
         for m in model.modules():
             if hasattr(m, "sync_stats"):

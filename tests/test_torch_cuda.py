@@ -69,7 +69,11 @@ fails that request while the other worker, never stopped, serves its own
 requests to the single client's tokens. The encoder family: K2-K4 at
 BERT's and ViT-B/16's sequence lengths, BERT-tiny's f32 logits and
 gradients through the kernels equal to the dense attention's, and a
-ViT fit under its remat policy launching K2 twice a layer a step.
+ViT fit under its remat policy launching K2 twice a layer a step. The
+MoE LM: K2-K4 at its attention shape (causal, H = 4, T = 128), a bf16
+MoE-small step launching each once a layer on ``tc``, the f32 step
+against the CPU under the near-tie routing rule, a fit's launches, and
+greedy decode equal to the CPU's.
 ``chip_smoke.py`` repeats this at the serving and training paths' full
 shapes.
 """
@@ -722,6 +726,109 @@ def test_resnet_buffers_round_trip_a_checkpoint_on_the_card(cuda, tmp_path,
         assert sd2[n].device.type == "cuda" and torch.equal(a, sd2[n]), n
     assert not torch.equal(bufs["bn_init.running_var"],
                            torch.ones_like(bufs["bn_init.running_var"]))
+
+
+# ------------------------------------------------------------ the MoE
+# MoE-small's widths (4 layers, d_model 256, 4 heads of 64, 8 experts) at
+# the slice's sequence length
+MOE_CFG = dict(vocab_size=256, max_seq_len=128, attention_impl="flash",
+               n_experts=8)
+
+
+def _moe_batch(cfg, batch_size, seed=0):
+    from ray_lightning_tpu_torch.models import moe
+    x, y = moe._synthetic_lm_tokens(batch_size, cfg.max_seq_len,
+                                    cfg.vocab_size, seed)
+    return torch.from_numpy(x), torch.from_numpy(y).long()
+
+
+def test_moe_attention_kernels_at_the_slice_shape(cuda):
+    """K2-K4 at MoE-small's attention shape (B=8, H=4, D=64, T=S=128,
+    causal) against their plain versions: bf16 on ``tc``, f32 on
+    ``simt``, within ``chip_smoke.flash_case``'s bounds."""
+    import chip_smoke
+    flush = torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        chip_smoke.flash_case("test", "moe", 8, 128, 128, True, dtype, flush,
+                              H=4)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_bf16_step_runs_k2_k4_on_tc(cuda, k):
+    """MoE-small in bf16 at the slice's batch (8 x 128): one forward and
+    backward of ``ce + w·aux`` launches K2-K4 once a layer each, on
+    ``tc``; the loss, aux and every gradient finite, the banks' among
+    them."""
+    import torch.nn.functional as F
+    from ray_lightning_tpu_torch.models import MoeTransformerLM, moe_config
+    cfg = moe_config("small", expert_top_k=k, **MOE_CFG)
+    model = MoeTransformerLM(cfg, device=cuda)
+    x, y = _moe_batch(cfg, 8)
+    cf.reset_kernel_launches()
+    logits, aux = model(x.to(cuda))
+    loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                           y.to(cuda).reshape(-1)) + cfg.aux_loss_weight * aux
+    loss.backward()
+    torch.cuda.synchronize()
+    for n in cf.KERNELS:
+        assert cf.route_launches(n) == {"simt": 0, "tc": cfg.n_layers}, n
+    assert torch.isfinite(loss) and torch.isfinite(aux)
+    for n, p in model.named_parameters():
+        assert torch.isfinite(p.grad).all(), n
+    assert float(model.blocks[0].moe.experts_up.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_moe_f32_step_on_the_card_matches_the_cpu(cuda, k):
+    """Phase Z (f) (c)'s rule on MoE-small at batch 2: layer by layer on
+    the CPU's inputs, a token may take other experts on the card only at
+    a near tie of the CPU's probabilities, every other token's output
+    within 1e-4 of the layer's largest; without a flip the loss, aux and
+    every gradient (``chip_smoke.moe_step_vs_cpu`` raises on a miss)."""
+    import chip_smoke
+    from ray_lightning_tpu_torch.models import moe_config
+    cfg = moe_config("small", expert_top_k=k, dtype=torch.float32, **MOE_CFG)
+    res = chip_smoke.moe_step_vs_cpu(cfg, 2, device=cuda)
+    assert res["end_to_end"] == "held" or res["near_tie_flips"] > 0
+
+
+def test_moe_fit_on_the_card_counts_the_kernels(cuda):
+    """A nano ``MoeModule`` fit on the card (adafactor, bf16 over f32
+    weights): K2 once a layer a step and a validation batch, K3 and K4
+    once a layer a step, all on ``tc``; ``train_aux`` and the validation
+    metrics finite."""
+    from ray_lightning_tpu_torch.models import MoeModule, moe_config
+    cfg = moe_config("nano", vocab_size=256, max_seq_len=64,
+                     attention_impl="flash")
+    cf.reset_kernel_launches()
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=3, limit_val_batches=2, seed=0)
+    trainer.fit(MoeModule(config=cfg, seq_len=64, optimizer="adafactor"))
+    n = cfg.n_layers
+    want = {"flash_fwd": n * 5, "flash_bwd_dkv": n * 3,
+            "flash_bwd_dq": n * 3}
+    for name in cf.KERNELS:
+        assert cf.route_launches(name) == {"simt": 0, "tc": want[name]}
+    metrics = trainer.callback_metrics
+    for name in ("train_aux", "val_ce", "val_aux"):
+        assert np.isfinite(float(metrics[name])), name
+
+
+def test_moe_greedy_generate_on_the_card_matches_the_cpu(cuda):
+    """Greedy ``generate()`` of an f32 MoE-small at capacity factor 16
+    (no expert overflows in the prefill or a step): the card's tokens
+    equal the CPU's."""
+    from ray_lightning_tpu_torch.models import (MoeTransformerLM, generate,
+                                                moe_config)
+    cfg = moe_config("small", dtype=torch.float32, capacity_factor=16.0,
+                     **MOE_CFG)
+    cpu = MoeTransformerLM(cfg, device="cpu")
+    card = MoeTransformerLM(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    prompts = np.random.default_rng(3).integers(0, 256, (2, 8))
+    want = generate(cpu, None, prompts, 8, rng=0, temperature=0.0)
+    got = generate(card, None, prompts, 8, rng=0, temperature=0.0)
+    assert torch.equal(got.cpu(), want)
 
 
 # ------------------------------------------------ fused dequant-matmul

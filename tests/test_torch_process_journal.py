@@ -115,15 +115,34 @@ for w in json.loads(sys.argv[3]):
     fleet.submit(**w)
 # pump until every request has >= 2 journaled frontier tokens, then STOP
 # ticking (so they stay unretired) and wait to be killed: the long
-# max_new_tokens keeps the kill point mid-decode
+# max_new_tokens keeps the kill point mid-decode. One tick drains every
+# batch the worker has flushed, journaling as it goes, and retires at its
+# end: on a loaded host its drain can chase the worker from its first
+# token to its last. So the kill point is checked after every journaled
+# token, and the tick stops there, before the rest of its drain and its
+# retirements.
+class KillPoint(Exception):
+    pass
+
+journal = fleet._journal
+note_frontier = journal.note_frontier
+
+def note_and_check(*args, **kwargs):
+    note_frontier(*args, **kwargs)
+    sent = journal._sent
+    if (not journal._retired and sent
+            and all(v >= 2 for v in sent.values())):
+        raise KillPoint
+
+journal.note_frontier = note_and_check
 deadline = time.time() + 240
 while time.time() < deadline:
-    fleet.tick()
-    sent = fleet._journal._sent
+    try:
+        fleet.tick()
+    except KillPoint:
+        break
     if fleet._journal._retired:
         raise SystemExit("request retired before the kill point")
-    if sent and all(v >= 2 for v in sent.values()):
-        break
     time.sleep(0.01)
 else:
     raise SystemExit("no frontier progress before deadline")

@@ -9,8 +9,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_lightning_tpu_torch import (BoringModel, GPTModule, ResNetModule,
-                                     gpt2_config, resnet10)
+from ray_lightning_tpu_torch import (BoringModel, GPTModule, MoeModule,
+                                     ResNetModule, gpt2_config, moe_config,
+                                     resnet10)
 from ray_lightning_tpu_torch.core import Callback
 from ray_lightning_tpu_torch.interop import load_flax_params
 from ray_lightning_tpu_torch.launchers import (ExecutorBase, ProcessRay,
@@ -79,6 +80,30 @@ class NarrowResNet(ResNetModule):
     def configure_model(self):
         return resnet10(self.num_classes, dtype=self.dtype, num_filters=8,
                         device="meta")
+
+    def init_variables(self, model, generator, batch):
+        if self.init is None:
+            return super().init_variables(model, generator, batch)
+        load_flax_params(model, self.init)
+
+
+#: the two-process MoE: one layer, banks (4, 128, 256) that adafactor
+#: factors, and a capacity factor at which the global capacity binds
+MOE_NARROW = dict(d_model=128, n_heads=2, d_ff=256, n_layers=1, n_experts=4,
+                  vocab_size=128, max_seq_len=16, capacity_factor=0.5)
+MOE_FIT = dict(batch_size=8, seq_len=16, num_samples=64, lr=3e-3)
+
+
+class NarrowMoe(MoeModule):
+    """``MoeModule`` at :data:`MOE_NARROW` in f32 (``optimizer`` one of
+    ``make_optimizer``'s presets), started from the JAX trainer's initial
+    params (a flax tree of numpy arrays) when ``init`` is given."""
+
+    def __init__(self, init=None, optimizer="adafactor"):
+        super().__init__(config=moe_config(dtype=torch.float32,
+                                           **MOE_NARROW),
+                         optimizer=optimizer, **MOE_FIT)
+        self.init = init
 
     def init_variables(self, model, generator, batch):
         if self.init is None:
@@ -172,6 +197,26 @@ class LossRecorder(Callback):
 
     def load_state_dict(self, state):
         self.losses = list(state["losses"])
+
+
+class StepRecorder(Callback):
+    """Per-step values of the step's outputs named in ``keys`` (the loss
+    and logged metrics, reduced over ranks), carried back to the driver
+    as this callback's state."""
+
+    def __init__(self, keys=("loss",)):
+        self.keys = tuple(keys)
+        self.rows = []
+
+    def on_train_batch_end(self, trainer, module, outputs, batch,
+                           batch_idx):
+        self.rows.append({k: float(outputs[k]) for k in self.keys})
+
+    def state_dict(self):
+        return {"rows": list(self.rows)}
+
+    def load_state_dict(self, state):
+        self.rows = list(state["rows"])
 
 
 class SaveAt(Callback):
