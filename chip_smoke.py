@@ -244,7 +244,8 @@ T3. Training, kernel path against plain path end to end, in f32: one
    plain PyTorch attention differentiated by autograd
    (``attention_impl="dot"``); loss to 1e-5 relative, every gradient to
    its stated bound.
-Z. The encoder family and MNIST. (a) K2-K4 against their plain versions
+Z. The encoder family, MNIST, ResNet, the MoE LM and the
+   encoder-decoder. (a) K2-K4 against their plain versions
    at the encoders' bidirectional shapes, non-causal: BERT-base's (B=32,
    T=S=128) and ViT-B/16's (B=32, T=S=197: a partial last tile), H=12,
    D=64, q/k/v views of a fused projection, bf16 (``tc``) and f32
@@ -296,6 +297,31 @@ Z. The encoder family and MNIST. (a) K2-K4 against their plain versions
    other token's output within 1e-4), and without a flip the loss, aux
    and every gradient; greedy ``generate()`` of the f32 model at
    capacity factor 16, token-identical to the CPU's. Prints its seconds.
+   (g) The encoder-decoder at the widest seq2seq the repo defines
+   (``tools/ab_sweep.py:51-56``: 6 + 6 layers, d_model 512, 8 heads of
+   64, d_ff 2048, vocab 50304, ``attention_impl="flash"``, 95,913,984
+   parameters): K2-K4 against their plain versions at its encoder's
+   (full) and decoder's (causal) self-attention shapes (B=16, H=8, D=64,
+   T=S=256) and at the reversal gate's (B=32, H=4, D=32, T=S=8), bf16
+   timed beside SDPA and f32; ``Seq2SeqModule(config=<that config>,
+   batch_size=16, seq_len=256)`` the same fit as (b), without remat and
+   under ``remat_policy="dots_with_no_batch_dims_save_attn"``: step ms,
+   tokens/s (8,192 a step, source and target), peak memory, K2 2·n_layers
+   times a forward (twice a step under remat), K3 and K4 2·n_layers a
+   step, all ``tc``, half of each causal and half full
+   (``cf.mask_launches``); the cross-attention never reaches a kernel.
+   One bf16 step of the fitted model profiled (up to PROFILE_TRIES
+   windows, like every profile; the host's launch calls by API). One f32
+   step of the width cut to 2 + 2 layers at batch 2 x 256 with a source
+   mask (row 0 padded after 200 tokens, row 1 all padding) on the card
+   (TF32 off) against the CPU: the loss, the logits and every gradient
+   within 1e-4 of their largest magnitude, the all-padding row's
+   cross-attention exactly 0 on both. The reversal gate
+   (``tests/test_seq2seq.py:114-124``'s settings with ``"flash"`` on one
+   card): validation token accuracy above 0.5, K2-K4 on ``tc`` at D=32;
+   its witnesses, the same fit with ``"dot"`` on the card and with
+   ``"flash"`` on the CPU, hold it too and launch no kernel. Prints its
+   seconds by part.
 M. The model core's training options at GPT-2-small width (bf16 compute
    over f32 weights, batch 8 x 1024, ``Trainer(strategy=RayStrategy(
    num_workers=1), seed=0)``). (a) ``dropout=0.1`` on the flash config,
@@ -519,7 +545,12 @@ X. The process replica fleet, run after phase N on phase 2's weights,
    three ``_vit`` entries (T=S=197) count phase Z's BERT-base and
    ViT-B/16 fits, their times and errors phase Z (a)'s bf16 rows; the
    three ``_moe`` entries (causal, H=4, T=S=128) phase Z (f)'s two
-   MoE-small fits, their times and errors (f)'s bf16 row. K5 has
+   MoE-small fits, their times and errors (f)'s bf16 row; the
+   ``_s2s_enc`` and ``_s2s_dec`` entries (B=16, H=8, T=S=256, full and
+   causal) phase Z (g)'s two full-width fits' launches of that mask, the
+   ``_s2s_gate_enc`` and ``_s2s_gate_dec`` entries (B=32, H=4, D=32,
+   T=S=8) its reversal gate's, their times and errors (g)'s bf16 rows.
+   K5 has
    five entries, each one forward's 49 calls, bf16 x,
    int8 codes (times and bound their sums, the error the largest of
    them): ``quantized_matmul`` at
@@ -1741,6 +1772,21 @@ def storage_bytes(eng) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def device_records(events):
+    """The device's kernel and copy records among ``key_averages()``'s
+    ``events``: the CUDA events but the user annotations (an
+    ``Optimizer.step#...`` span is a CUDA event as well, over kernels
+    that are counted on their own)."""
+    from torch.autograd import DeviceType
+    return [a for a in events if a.device_type == DeviceType.CUDA
+            and not getattr(a, "is_user_annotation", False)]
+
+
+def host_calls(events) -> dict:
+    """The host's launch and copy calls among ``events``, by API."""
+    return {a.key: a.count for a in events if a.key in G_HOST_LAUNCH_CALLS}
+
+
 def profiled(work):
     """``torch.profiler``'s ``key_averages()`` of one call of ``work``
     (CPU and CUDA), in a window padded by PROFILE_PAD_S of idle host time
@@ -1749,7 +1795,6 @@ def profiled(work):
     records differ in number from the host's launch and copy calls (a
     record the profiler dropped). Returns the last window's events and
     the number of windows taken."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
@@ -1760,10 +1805,8 @@ def profiled(work):
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
         events = prof.key_averages()
-        device = sum(a.count for a in events
-                     if a.device_type == DeviceType.CUDA)
-        host = sum(a.count for a in events if a.key in G_HOST_LAUNCH_CALLS)
-        if device == host:
+        device = sum(a.count for a in device_records(events))
+        if device == sum(host_calls(events).values()):
             break
     return events, tries
 
@@ -1779,7 +1822,6 @@ def profile_decode(proto, sd, trace, layout, **kw):
     taken, device busy ms, the idle share against
     the host median, the six kernels that take the most device time (name,
     ms, launches), and the engine's KV storage bytes."""
-    from torch.autograd import DeviceType
     from ray_lightning_tpu_torch.serve import ServeEngine
     from ray_lightning_tpu_torch.serve.request import Request
     eng = ServeEngine(proto, sd, device=DEVICE, **layout, **kw)
@@ -1794,13 +1836,12 @@ def profile_decode(proto, sd, trace, layout, **kw):
         eng.step()                   # ends in a host copy: synchronized
         host.append(time.perf_counter() - t0)
     events, tries = profiled(eng.step)
-    kernels = [a for a in events if a.device_type == DeviceType.CUDA]
+    kernels = device_records(events)
     busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
     host_ms = 1e3 * statistics.median(host)
     top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:6]
     out = dict(launches=sum(a.count for a in kernels),
-               host_launch_calls=sum(a.count for a in events
-                                     if a.key in G_HOST_LAUNCH_CALLS),
+               host_launch_calls=sum(host_calls(events).values()),
                profile_tries=tries,
                kernel_counts={a.key: a.count for a in kernels},
                device_busy_ms=busy_ms if kernels else "not measured",
@@ -2200,7 +2241,6 @@ def p_profile(proto, sd, prompts, layout, *, async_dispatch,
     G_PROFILE_HOST ticks after G_PROFILE_WARM, then one tick under
     ``torch.profiler`` (:func:`profiled`): the device's kernel launches,
     busy ms, and the idle share against the host median."""
-    from torch.autograd import DeviceType
     from ray_lightning_tpu_torch.serve import ServeEngine
     from ray_lightning_tpu_torch.serve.request import Request
     eng = ServeEngine(proto, sd, device=DEVICE, **layout, **kw)
@@ -2229,7 +2269,7 @@ def p_profile(proto, sd, prompts, layout, *, async_dispatch,
     events, _ = profiled(tick)
     for p in pending:
         eng.step_sync(p)
-    kernels = [a for a in events if a.device_type == DeviceType.CUDA]
+    kernels = device_records(events)
     busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
     host_ms = 1e3 * statistics.median(host)
     eng.shutdown()
@@ -3318,15 +3358,15 @@ def sdpa_times(q, k, v, do, causal, flush, tag="phaseT1"):
 
 
 def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
-               H=12):
-    """K2-K4 once each on ``flash_inputs(dtype, B, T, S, H)`` against their
+               H=12, D=64):
+    """K2-K4 once each on ``flash_inputs(dtype, B, T, S, H, D)`` against their
     plain versions: every call's route (bf16 ``tc``, f32 ``simt``), each
     output's error within its bound (``flash_tol``), rows that admit no
     key at 0 / 1e30. ``timed``: each kernel's cold-L2 time, its plain
     version's, its bound, and SDPA's under each backend. Returns the
     printed row."""
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
-    q, k, v, do = flash_inputs(dtype, B, T, S, H)
+    q, k, v, do = flash_inputs(dtype, B, T, S, H, D)
     cf.reset_kernel_launches()
     out, lse = cf.flash_fwd(q, k, v, causal)
     delta = cf.flash_delta(out, do)
@@ -3350,7 +3390,7 @@ def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
         grad_bounds = dict(zip(("dq", "dk", "dv"), cf.flash_grad_bound(
             q, k, v, do, lse, delta, causal, ref_dq, ref_dk, ref_dv)))
     row = dict(case=label, dtype=str(dtype).split(".")[-1], B=B, T=T, S=S,
-               H=H, causal=causal, route=route)
+               H=H, D=D, causal=causal, route=route)
     for name, got, ref, grad in (("out", out, ref_out, False),
                                  ("lse", lse, ref_lse, False),
                                  ("dq", dq, ref_dq, True),
@@ -5237,10 +5277,8 @@ class IProbe(Callback):
         and copy calls (what the check compares: the profiler drops a
         device record now and then, PERF.md §7), beside the device's
         kernel and host-to-device copy records."""
-        from torch.autograd import DeviceType
-        dev = [a for a in self.events if a.device_type == DeviceType.CUDA]
-        host = {a.key: a.count for a in self.events
-                if a.key in G_HOST_LAUNCH_CALLS}
+        dev = device_records(self.events)
+        host = host_calls(self.events)
         return dict(
             launch_calls=sum(n for k, n in host.items()
                              if "Launch" in k),
@@ -6250,13 +6288,15 @@ def z_kernels(flush):
     return rows
 
 
-def z_fit(what, module, remat_replays=0, after=None, on_step=None):
+def z_fit(what, module, remat_replays=0, after=None, on_step=None,
+          sites=None):
     """A fit of ``Z_STEPS`` steps and ``Z_VAL_BATCHES`` validation batches
     through ``Trainer(strategy=RayStrategy(num_workers=1))``: every loss
-    finite, K2-K4 ``n_layers`` times a step on ``tc`` (K2 once more a
-    step under remat, whose backward replays the forward, and once a
-    validation batch), or none of them for a module without a
-    transformer config. Returns the step ms (median after the warm-up),
+    finite, K2-K4 ``sites`` times a step on ``tc`` (the model's flash
+    attention sites, ``n_layers`` by default; K2 once more a step under
+    remat, whose backward replays the forward, and once a validation
+    batch), or none of them for a module without a transformer config.
+    Returns the step ms (median after the warm-up),
     samples/s, peak memory, losses, launches and what ``after(trainer)``
     returns; ``on_step(trainer, outputs)`` runs after each step."""
     from ray_lightning_tpu_torch import RayStrategy, Trainer
@@ -6291,7 +6331,7 @@ def z_fit(what, module, remat_replays=0, after=None, on_step=None):
     if hasattr(module, "cfg"):
         launches = check_flash_launches(
             f"Z {what}", Z_STEPS, Z_STEPS * remat_replays + Z_VAL_BATCHES,
-            module.cfg.n_layers)
+            module.cfg.n_layers if sites is None else sites)
     else:
         launches = cf.kernel_launches()
         check(not any(launches.values()),
@@ -6522,11 +6562,8 @@ def z_resnet_profile(dtype):
     """One ResNet-18 training step at (e)'s batch (forward, loss,
     backward, the SGD-Nesterov update) outside the trainer: the median
     host ms of Z_PROFILE_HOST synchronized steps after Z_PROFILE_WARM,
-    then one step under ``torch.profiler``: its launches, device busy
-    ms, the idle share against the host median and the four kernels
-    that take the most device time."""
+    then one step under ``torch.profiler`` (``profile_step``)."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
     from ray_lightning_tpu_torch import ResNetModule
     from ray_lightning_tpu_torch.data import synthetic_images
     module = ResNetModule(depth=18, dtype=dtype, **Z_RESNET)
@@ -6542,6 +6579,19 @@ def z_resnet_profile(dtype):
         F.cross_entropy(model(x), y.long()).backward()
         opt.step()
 
+    res = profile_step(step)
+    del model, opt
+    release()
+    return res
+
+
+def profile_step(step):
+    """``step()`` (a training step outside the trainer) Z_PROFILE_WARM
+    times, the median host ms of Z_PROFILE_HOST synchronized calls, then
+    one call under ``torch.profiler`` (``profiled``): its launches, the
+    host's launch and copy calls by API, device busy ms, the idle share
+    against the host median and the four kernels that take the most
+    device time."""
     for _ in range(Z_PROFILE_WARM):
         step()
     host = []
@@ -6552,15 +6602,14 @@ def z_resnet_profile(dtype):
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
     events, tries = profiled(step)
-    kernels = [a for a in events if a.device_type == DeviceType.CUDA]
+    kernels = device_records(events)
+    calls = host_calls(events)
     busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
     host_ms = 1e3 * statistics.median(host)
     top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:4]
-    del model, opt
-    release()
     return dict(launches=sum(a.count for a in kernels),
-                host_launch_calls=sum(a.count for a in events
-                                      if a.key in G_HOST_LAUNCH_CALLS),
+                host_launch_calls=sum(calls.values()),
+                host_calls_by_api=calls,
                 profile_tries=tries,
                 device_busy_ms=busy_ms if kernels else "not measured",
                 host_ms_median=host_ms,
@@ -6816,12 +6865,285 @@ def z_moe(card, flush):
                 decode=decode, seconds=seconds, card=card)
 
 
+# (g) the encoder-decoder: the widest seq2seq the repo defines
+# (tools/ab_sweep.py:51-56): 6 + 6 layers, d_model 512, 8 heads of 64,
+# d_ff 2048, vocab 50304, bf16 over f32 weights, batch 16 x 256 source
+# and 256 target tokens
+Z_S2S_CFG = dict(vocab_size=50304, max_seq_len=256, d_model=512, n_heads=8,
+                 n_layers=6, d_ff=2048, causal=True, scan_layers=False,
+                 attention_impl="flash")
+Z_S2S = dict(batch_size=16, seq_len=256)
+# the second fit: one of tools/ab_sweep.py:93-107's remat candidates
+Z_S2S_REMAT = dict(remat=True,
+                   remat_policy="dots_with_no_batch_dims_save_attn")
+# (a) K2-K4's shapes on this path: (label, B, T=S, H, D, causal), the
+# fits' encoder and decoder self-attention, and the reversal gate's
+Z_S2S_SHAPES = (("s2s_enc", 16, 256, 8, 64, False),
+                ("s2s_dec", 16, 256, 8, 64, True),
+                ("s2s_gate_enc", 32, 8, 4, 32, False),
+                ("s2s_gate_dec", 32, 8, 4, 32, True))
+# (c) one f32 step, card (TF32 off) against the CPU: the full width cut to
+# 2 + 2 layers and batch 2 x 256, row 0's source padded after
+# Z_S2S_CHECK_KEEP tokens and row 1's all padding; the loss, the logits
+# and every gradient to Z_S2S_RTOL of their largest magnitude
+Z_S2S_CHECK_LAYERS, Z_S2S_CHECK_BATCH, Z_S2S_CHECK_KEEP = 2, 2, 200
+Z_S2S_RTOL = 1e-4
+# (d) the reversal gate: tests/test_seq2seq.py:114-124's settings on one
+# card at the same global batch, the default widths with "flash"
+Z_S2S_GATE = dict(batch_size=32, seq_len=8, num_samples=512, vocab_size=64,
+                  lr=3e-3)
+Z_S2S_GATE_FIT = dict(max_epochs=4, limit_train_batches=16,
+                      limit_val_batches=4)
+Z_S2S_GATE_ACC = 0.5
+
+
+def z_s2s_kernels(flush):
+    """(a) K2-K4 against their plain versions at each of Z_S2S_SHAPES,
+    bf16 (``tc``, timed beside SDPA) and f32 (``simt``)."""
+    rows = {}
+    for label, B, T, H, D, causal in Z_S2S_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows[(label, str(dtype).split(".")[-1])] = flash_case(
+                "phaseZ (g)", label, B, T, T, causal, dtype, flush,
+                timed=dtype == torch.bfloat16, H=H, D=D)
+    return rows
+
+
+def s2s_masks(what, sites_per_call: int, calls: dict) -> dict:
+    """K2-K4's launches since the last reset split by mask
+    (``cf.mask_launches``): half of each kernel's ``calls[name]`` causal
+    (the decoder's self-attention) and half full (the encoder's), each
+    ``sites_per_call`` a call, checked. Returns them."""
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    got = {n: cf.mask_launches(n) for n in cf.KERNELS}
+    want = {n: {"causal": sites_per_call * calls[n],
+                "full": sites_per_call * calls[n]} for n in cf.KERNELS}
+    check(got == want, f"Z (g) {what}: launches by mask {got} != {want}")
+    return got
+
+
+def z_s2s_fit(remat: bool, after=None):
+    """(b) The full-width seq2seq through ``z_fit``: K2-K4 at 2·n_layers
+    sites a step (the encoder's and the decoder's self-attention; the
+    cross-attention runs the plain attention), K2 once more a site a
+    step under remat; tokens/s counts source and target. ``after(trainer,
+    module)`` runs on the fitted model and adds to the result."""
+    from ray_lightning_tpu_torch import Seq2SeqModule, TransformerConfig
+    from ray_lightning_tpu_torch.models import count_params
+    cfg = TransformerConfig(**Z_S2S_CFG, **(Z_S2S_REMAT if remat else {}))
+    n = cfg.n_layers
+    replays = 1 if remat else 0
+    module = Seq2SeqModule(config=cfg, num_samples=Z_S2S["batch_size"]
+                           * Z_STEPS, **Z_S2S)
+    what = "(g) seq2seq" + (" remat" if remat else "")
+
+    def fitted(trainer):
+        res = dict(count_params=count_params(trainer.model),
+                   mask_launches=s2s_masks(what, n, {
+                       "flash_fwd": Z_STEPS * (1 + replays) + Z_VAL_BATCHES,
+                       "flash_bwd_dkv": Z_STEPS, "flash_bwd_dq": Z_STEPS}))
+        if after is not None:
+            res.update(after(trainer, module))
+        return res
+
+    res = z_fit(what, module, remat_replays=replays, sites=2 * n,
+                after=fitted)
+    res.update(remat_policy=cfg.remat_policy if remat else None,
+               tokens_per_s=res["samples_per_s"] * 2 * Z_S2S["seq_len"])
+    return res
+
+
+def s2s_batch(cfg, batch_size: int, device):
+    """``batch_size`` reversal pairs of ``cfg.max_seq_len`` tokens (the
+    training loader's first rows) as a (src, tgt) batch on ``device``."""
+    from ray_lightning_tpu_torch.models import seq2seq
+    src, tgt = seq2seq._reversal_pairs(batch_size, cfg.max_seq_len,
+                                       cfg.vocab_size, 0)
+    return torch.from_numpy(src).to(device), torch.from_numpy(tgt).to(device)
+
+
+def z_s2s_profile(trainer, module):
+    """One bf16 training step of (b)'s fitted model at its batch
+    (forward, loss, backward, a fresh AdamW) outside the trainer, through
+    ``profile_step`` in one profiler window."""
+    model = trainer.model
+    opt = module.configure_optimizers()(model.parameters())
+    batch = s2s_batch(module.cfg, Z_S2S["batch_size"], DEVICE)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        module._loss_acc(model, batch)[0].backward()
+        opt.step()
+
+    res = profile_step(step)
+    opt.zero_grad(set_to_none=True)
+    del opt
+    return dict(profile=res)
+
+
+def s2s_step_vs_cpu(device=DEVICE, layers=Z_S2S_CHECK_LAYERS,
+                    batch_size=Z_S2S_CHECK_BATCH, keep=Z_S2S_CHECK_KEEP,
+                    rtol=Z_S2S_RTOL, **widths):
+    """(c) One f32 training step of the full-width seq2seq (``widths``
+    override Z_S2S_CFG's) cut to ``layers`` + ``layers`` layers, from the
+    same weights and batch on
+    ``device`` and the CPU, with a source mask that pads row 0 after
+    ``keep`` tokens and the whole of row 1: the loss, the logits and
+    every gradient to ``rtol`` of their largest magnitude; the
+    all-padding row's cross-attention core exactly 0 in every decoder
+    block on both; K2-K4 ``layers`` times each on ``simt`` (the decoder's
+    self-attention; the masked encoder takes the dense attention).
+    Returns the numbers; raises on a miss."""
+    import torch.nn.functional as F
+    from ray_lightning_tpu_torch import (Seq2SeqModule, Seq2SeqTransformer,
+                                         TransformerConfig)
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    cfg = TransformerConfig(**dict(Z_S2S_CFG, n_layers=layers,
+                                   dtype=torch.float32, **widths))
+    src, tgt = s2s_batch(cfg, batch_size, "cpu")
+    mask = torch.ones_like(src)
+    mask[0, keep:] = 0
+    mask[1] = 0
+    cpu = Seq2SeqTransformer(cfg, device="cpu")
+    card = Seq2SeqTransformer(cfg, device="meta").to_empty(device=device)
+    card.load_state_dict(cpu.state_dict())
+    dec_in = Seq2SeqModule._shift_right(tgt)
+    out = {}
+    for where, model in (("cpu", cpu), ("card", card)):
+        cores = []
+        hooks = [b.cross_attn.out.register_forward_hook(
+            lambda m, args, o: cores.append(args[0].detach()))
+            for b in model.decoder_blocks()]
+        dev = next(model.parameters()).device
+        cf.reset_kernel_launches()
+        logits = model(src.to(dev), dec_in.to(dev), src_mask=mask.to(dev))
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               tgt.to(dev).reshape(-1).long())
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        check(len(cores) == layers and all(
+            int(torch.count_nonzero(c[1])) == 0
+            and int(torch.count_nonzero(c[0])) > 0 for c in cores),
+            f"Z (g) (c) {where}: the all-padding row's cross-attention is "
+            "not exactly 0 (or row 0's is)")
+        out[where] = (loss.item(), logits.detach().cpu(),
+                      {n: p.grad.cpu() for n, p in model.named_parameters()})
+        if where == "card":
+            torch.cuda.synchronize()
+            routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+            check(all(r == {"simt": layers, "tc": 0}
+                      for r in routes.values()),
+                  f"Z (g) (c): flash routes {routes}")
+    (lc, oc, gc), (lg, og, gg) = out["cpu"], out["card"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    logits_rel = float((og - oc).abs().max()) / float(oc.abs().max())
+    worst = max(((gg[n] - w).abs().max().item()
+                 / max(w.abs().max().item(), 1e-30), n)
+                for n, w in gc.items())
+    res = dict(layers=layers, batch=batch_size, loss_cpu=lc, loss_card=lg,
+               loss_rel=loss_rel, logits_rel=logits_rel,
+               worst_grad=worst[0], worst_grad_at=worst[1],
+               all_padding_cross_attention="exactly 0")
+    check(loss_rel <= rtol and logits_rel <= rtol and worst[0] <= rtol,
+          f"Z (g) (c): the card's step differs from the CPU's: {res}")
+    del cpu, card
+    release()
+    return res
+
+
+def z_s2s_gate(impl: str = "flash", device=None):
+    """(d) The reversal gate: ``Z_S2S_GATE`` through
+    ``Trainer(strategy=RayStrategy(num_workers=1, device=device))`` for
+    Z_S2S_GATE_FIT, bf16 with ``impl``: validation token accuracy above
+    Z_S2S_GATE_ACC. On the card under ``"flash"`` K2-K4 at 2·n_layers
+    sites a step (K2 also a validation batch), every launch on ``tc`` at
+    D = 32. The witnesses launch none: ``"dot"`` on the card (the kernels
+    are not what the gate measures) and ``device="cpu"`` (nor is the
+    card)."""
+    from ray_lightning_tpu_torch import (RayStrategy, Seq2SeqModule,
+                                         Trainer, TransformerConfig)
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    g = Z_S2S_GATE
+    cfg = TransformerConfig(vocab_size=g["vocab_size"],
+                            max_seq_len=g["seq_len"], d_model=128,
+                            n_heads=4, n_layers=2, d_ff=256, causal=True,
+                            attention_impl=impl)
+    check(cfg.head_dim == 32, f"Z (g) (d): head_dim {cfg.head_dim}")
+    trainer = Trainer(strategy=RayStrategy(num_workers=1, device=device),
+                      seed=0, **Z_S2S_GATE_FIT)
+    cf.reset_kernel_launches()
+    t0 = time.perf_counter()
+    trainer.fit(Seq2SeqModule(config=cfg, **g))
+    fit_s = time.perf_counter() - t0
+    acc = float(trainer.callback_metrics["val_acc"])
+    epochs = Z_S2S_GATE_FIT["max_epochs"]
+    steps = epochs * Z_S2S_GATE_FIT["limit_train_batches"]
+    val = epochs * Z_S2S_GATE_FIT["limit_val_batches"]
+    check(trainer.global_step == steps and acc > Z_S2S_GATE_ACC,
+          f"Z (g) (d) {impl} {device}: val_acc {acc} after "
+          f"{trainer.global_step} steps, gate {Z_S2S_GATE_ACC}")
+    n = cfg.n_layers
+    if impl == "flash" and device is None:
+        launches = check_flash_launches("Z (g) (d)", steps, val, 2 * n)
+        masks = s2s_masks("(d)", n, {"flash_fwd": steps + val,
+                                     "flash_bwd_dkv": steps,
+                                     "flash_bwd_dq": steps})
+    else:
+        launches, masks = cf.kernel_launches(), None
+        check(not any(launches.values()),
+              f"Z (g) (d) {impl} {device}: flash launches {launches}")
+    del trainer
+    release()
+    return dict(impl=impl, device=device or DEVICE, steps=steps,
+                val_batches=val, val_acc=acc, fit_s=fit_s,
+                launches=launches, mask_launches=masks)
+
+
+def z_seq2seq(card, flush):
+    """(g) The encoder-decoder: (a) K2-K4 at its shapes, (b) the
+    full-width fits without and with remat and one profiled bf16 step,
+    (c) the f32 step against the CPU with a padded source, (d) the
+    reversal gate and its two witnesses."""
+    t_part = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = time.perf_counter() - t_part - sum(parts.values())
+
+    kernels = z_s2s_kernels(flush)
+    lap("a")
+    fits = {}
+    for remat in (False, True):
+        res = z_s2s_fit(remat, after=None if remat else z_s2s_profile)
+        fits["remat" if remat else "plain"] = res
+        print(f"phaseZ (g) seq2seq{' remat' if remat else ''}",
+              json.dumps(dict(res, card=card)), flush=True)
+        lap("b remat" if remat else "b plain and profile")
+    prof = fits["plain"].pop("profile")
+    print("phaseZ (g) seq2seq bf16 step profiled", json.dumps(
+        dict(prof, card=card)), flush=True)
+    step = s2s_step_vs_cpu()
+    print("phaseZ (g) f32 seq2seq step, card vs CPU", json.dumps(
+        dict(step, card=card)), flush=True)
+    lap("c")
+    gate = z_s2s_gate()
+    gate["witnesses"] = [z_s2s_gate("dot"), z_s2s_gate(device="cpu")]
+    lap("d")
+    seconds = time.perf_counter() - t_part
+    print("phaseZ (g) reversal gate", json.dumps(dict(
+        gate, seconds=seconds, parts_s=parts, card=card)), flush=True)
+    return dict(kernels=kernels, fits=fits, profile=prof, step_vs_cpu=step,
+                gate=gate, seconds=seconds, parts_s=parts, card=card)
+
+
 def phase_z_zoo(card):
-    """The encoder family, MNIST, ResNet and the MoE LM: (a) K2-K4 at the
-    encoders' shapes, (b) BERT-base fine-tuning and its f32
-    kernel-vs-plain step, (c) ViT-B/16 under its default remat policy,
-    (d) MNIST's gate and the determinism check, (e) ResNet-18/50 with
-    BatchNorm state, (f) MoE-small (``z_moe``)."""
+    """The encoder family, MNIST, ResNet, the MoE LM and the
+    encoder-decoder: (a) K2-K4 at the encoders' shapes, (b) BERT-base
+    fine-tuning and its f32 kernel-vs-plain step, (c) ViT-B/16 under its
+    default remat policy, (d) MNIST's gate and the determinism check, (e)
+    ResNet-18/50 with BatchNorm state, (f) MoE-small (``z_moe``), (g) the
+    96M-parameter seq2seq (``z_seq2seq``)."""
     from ray_lightning_tpu_torch.models import (BertModule, ViTModule,
                                                 bert_config, vit_config)
     t_phase = time.perf_counter()
@@ -6849,12 +7171,13 @@ def phase_z_zoo(card):
     resnet = z_resnet(card)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
     moe = z_moe(card, flush)
+    s2s = z_seq2seq(card, flush)
     del flush
     seconds = time.perf_counter() - t_phase
-    print(f"phaseZ took {seconds:.1f} s (f: {moe['seconds']:.1f} s)",
-          flush=True)
+    print(f"phaseZ took {seconds:.1f} s (f: {moe['seconds']:.1f} s, g: "
+          f"{s2s['seconds']:.1f} s)", flush=True)
     return dict(kernels=kernels, bert=bert, vit=vit, mnist=mnist,
-                resnet=resnet, moe=moe, seconds=seconds)
+                resnet=resnet, moe=moe, seq2seq=s2s, seconds=seconds)
 
 
 def main() -> int:
@@ -7073,6 +7396,29 @@ def main() -> int:
             ms=mrow[f"{kind}_ms"], plain_ms=mrow[f"{kind}_plain_ms"],
             bound_ms=mrow[f"{kind}_bound_ms"],
             bound_by=mrow[f"{kind}_bound_by"], library_ms=lib))
+    # K2-K4 at the encoder-decoder's shapes: the full-width fits'
+    # encoder (B=16, H=8, T=S=256, full) and decoder self-attention
+    # (causal), launches from phase Z (g)'s two fits; the reversal gate's
+    # (B=32, H=4, D=32, T=S=8), launches from (g) (d)'s fit
+    zs = zoo["seq2seq"]
+    for label, _B, _T, _H, _D, causal in Z_S2S_SHAPES:
+        srow = zs["kernels"][(label, "bfloat16")]
+        runs = ([zs["gate"]] if label.startswith("s2s_gate")
+                else list(zs["fits"].values()))
+        mask = "causal" if causal else "full"
+        for name, kind, line, errs, lib in (
+                ("flash_fwd", "fwd", 41, ("out",), srow["library_fwd_ms"]),
+                ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
+                 srow["library_bwd_ms"]),
+                ("flash_bwd_dq", "dq", 173, ("dq",), None)):
+            kernels.append(dict(
+                name=f"{name}_{label}", route="cuda", source=flash_source,
+                replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
+                launches=sum(r["mask_launches"][name][mask] for r in runs),
+                max_abs_err=max(srow[f"{e}_err"] for e in errs),
+                ms=srow[f"{kind}_ms"], plain_ms=srow[f"{kind}_plain_ms"],
+                bound_ms=srow[f"{kind}_bound_ms"],
+                bound_by=srow[f"{kind}_bound_by"], library_ms=lib))
     # K2 as phase L's chunk dispatches call it: B=1, T=128, S=1024 keys
     # (the longest row), launches from phase L's bf16 run
     chunk = next(r for r in chunk_k2 if r["S"] == 1024)

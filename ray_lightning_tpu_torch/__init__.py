@@ -52,7 +52,10 @@ Mixture-of-Experts LM (``models/moe.py``: ``MoeModule``,
 ``MoeTransformerLM``): top-k capacity routing with the JAX package's
 drops, over the global batch under the SPMD strategies and each rank's
 rows under ``HorovodRayStrategy``, and the Switch aux loss in the
-training loss.
+training loss. Slice 23 is the encoder-decoder (``models/seq2seq.py``:
+``Seq2SeqModule``, ``Seq2SeqTransformer``): cross-attention over a
+padded source, the decoder's remat seats and dropout sites, and the
+scanned encoder's weights through the converter.
 
 Ground rules of the port:
 
@@ -95,7 +98,9 @@ from ray_lightning_tpu_torch.models import (BertClassifier, BertModule,
                                             MNISTClassifier, MNISTNet,
                                             MoeConfig, MoeModule,
                                             MoeTransformerLM,
-                                            ResNetModule, TransformerConfig,
+                                            ResNetModule, Seq2SeqModule,
+                                            Seq2SeqTransformer,
+                                            TransformerConfig,
                                             TransformerEncoder, TransformerLM,
                                             ViTClassifier, ViTModule,
                                             XORDataModule, XORModel,
@@ -139,4 +144,4 @@ __all__ = ["Callback", "CSVLogger", "EarlyStopping", "EMAWeightAveraging",
            "fit_fingerprint", "ResNetModule", "resnet10", "resnet18",
            "resnet50", "XORModel", "XORDataModule", "count_params",
            "MoeConfig", "MoeModule", "MoeTransformerLM", "moe_config",
-           "expert_parallel_rule"]
+           "expert_parallel_rule", "Seq2SeqModule", "Seq2SeqTransformer"]

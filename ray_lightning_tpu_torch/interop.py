@@ -40,6 +40,12 @@ raises. The layouts differ in these places:
   kernel, and the expert banks ``experts_up`` (E, d, d_ff),
   ``experts_down`` (E, d_ff, d) and their biases (E, 1, ·) keep their
   layout (the port's banks are the flax ones);
+- an encoder-decoder (``Seq2SeqTransformer``) has its encoder stack
+  ``encoder`` (scanned or unrolled) and its decoder blocks ``dec_i``
+  straight under the root, with the names flax gives them; a decoder
+  block's cross-attention has a ``q`` kernel (d, H, head_dim) with bias
+  (H, head_dim) and a ``kv`` kernel (d, 2, H, head_dim) with bias (2, H,
+  head_dim), flattened as ``qkv`` is (rows ordered (2, H, head_dim));
 - a LoRA model's adapter banks (``lora_A`` (N, in, r) and ``lora_B``
   (N, r, out) beside a targeted projection's kernel) keep their layout:
   the port's banks are the flax ones (``models/lora.py``). An adapter
@@ -66,12 +72,28 @@ import torch
 
 from ray_lightning_tpu_torch.models.quant import QTensor
 
-#: the port's Dense weights other than qkv: flax kernel = weight.T
+#: the port's Dense weights of flax ``Dense`` kernels: flax kernel =
+#: weight.T
 _DENSE_SUFFIXES = (".attn.out.weight", ".mlp.up.weight", ".mlp.down.weight",
-                   ".moe.router.weight")
+                   ".moe.router.weight", ".self_attn.out.weight",
+                   ".cross_attn.out.weight")
 _LM_HEAD = "lm_head.weight"        # the untied head, also weight.T
-_QKV_SUFFIX = ".attn.qkv.weight"
+#: ``DenseGeneral`` projections with head axes, by the port's module
+#: name: their flax kernel's feature axes ahead of (H, head_dim) -- the
+#: self-attention's fused qkv (3, H, hd), the cross-attention's q (H,
+#: hd) and kv (2, H, hd)
+_GENERAL_GROUPS = {"qkv": 3, "q": 1, "kv": 2}
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _general(name: str):
+    """``(groups, "weight" | "bias")`` of a ``DenseGeneral`` projection
+    with head axes, or None."""
+    parts = name.rsplit(".", 2)
+    if len(parts) == 3 and parts[1] in _GENERAL_GROUPS \
+            and parts[2] in ("weight", "bias"):
+        return _GENERAL_GROUPS[parts[1]], parts[2]
+    return None
 
 
 def _is_lora(name: str) -> bool:
@@ -157,10 +179,11 @@ def _flax_leaves(params: Mapping[str, Any]) -> Iterator[Tuple[str, Any]]:
 
 
 def _to_port_layout(name: str, leaf: np.ndarray) -> np.ndarray:
-    if name.endswith(_QKV_SUFFIX):                  # (d, 3, H, hd)
-        return leaf.reshape(leaf.shape[0], -1).T
-    if name.endswith(".attn.qkv.bias"):             # (3, H, hd)
-        return leaf.reshape(-1)
+    general = _general(name)
+    if general is not None:
+        if general[1] == "weight":          # (d, [3 | 2,] H, hd)
+            return leaf.reshape(leaf.shape[0], -1).T
+        return leaf.reshape(-1)             # ([3 | 2,] H, hd)
     if _is_dense(name):
         return leaf.T
     return leaf
@@ -194,12 +217,13 @@ def _tree_leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
 
 def flax_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """The port's state-dict entries (as numpy) for a flax param tree --
-    a ``TransformerLM``'s, scanned or unrolled, or one of the encoder
-    family's or the MLP's -- or for flax variables ``{"params": ...,
-    "batch_stats": ...}`` (a ResNet's), every leaf by its path:
-    ``block_i``, ``ResNetBlock_i`` and ``BottleneckBlock_i`` are
-    ``blocks.i``; a Dense kernel is transposed, the qkv kernel and bias
-    flattened, a conv kernel (kh, kw, C, D) becomes (D, C, kh, kw);
+    a ``TransformerLM``'s or a ``Seq2SeqTransformer``'s, scanned or
+    unrolled, or one of the encoder family's or the MLP's -- or for flax
+    variables ``{"params": ..., "batch_stats": ...}`` (a ResNet's), every
+    leaf by its path: ``block_i``, ``ResNetBlock_i`` and
+    ``BottleneckBlock_i`` are ``blocks.i``; a Dense kernel is
+    transposed, the qkv, q and kv kernels and biases flattened, a conv
+    kernel (kh, kw, C, D) becomes (D, C, kh, kw);
     ``batch_stats`` ``mean``/``var`` become ``running_mean``/
     ``running_var``."""
     if "params" in params and isinstance(params["params"], Mapping):
@@ -215,7 +239,7 @@ def flax_state_dict(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         parts = [p for key in path[:-1] for p in _port_key(key)]
         name = ".".join(parts + [_LEAF_NAMES.get(path[-1], path[-1])])
         x = np.asarray(leaf)
-        if name.endswith((_QKV_SUFFIX, ".attn.qkv.bias")):
+        if _general(name) is not None:
             x = _to_port_layout(name, x)
         elif path[-1] == "kernel":
             x = x.transpose(3, 2, 0, 1) if x.ndim == 4 else x.T
@@ -233,12 +257,17 @@ def _stat_entries(stats: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 def flax_layout(name: str, weight: torch.Tensor,
                 n_heads: int) -> torch.Tensor:
     """The flax-layout view of one port matrix (the inverse of the
-    transposes above): qkv (3·H·hd, d) -> (d, 3, H, hd); out, up, down
-    and the untied head (out, in) -> (in, out); embeddings as they
-    are."""
-    if name.endswith(_QKV_SUFFIX):
+    transposes above): qkv (3·H·hd, d) -> (d, 3, H, hd), a
+    cross-attention's q (H·hd, d) -> (d, H, hd) and kv (2·H·hd, d) ->
+    (d, 2, H, hd); out, up, down and the untied head (out, in) -> (in,
+    out); embeddings as they are."""
+    general = _general(name)
+    if general is not None and general[1] == "weight":
+        groups = general[0]
         rows, d = weight.shape
-        return weight.T.reshape(d, 3, n_heads, rows // (3 * n_heads))
+        lead = (groups,) if groups > 1 else ()
+        return weight.T.reshape(d, *lead, n_heads,
+                                rows // (groups * n_heads))
     if _is_dense(name):
         return weight.T
     return weight
@@ -246,9 +275,10 @@ def flax_layout(name: str, weight: torch.Tensor,
 
 def flax_weights(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The flax-layout view of every full-precision matrix (parameter of
-    ndim >= 2) of a port ``TransformerLM``: the Dense weights and the
-    two embedding tables -- the leaves JAX ``quantize_params`` quantizes
-    -- keyed by the port's state-dict names."""
+    ndim >= 2) of a port ``TransformerLM`` (or ``Seq2SeqTransformer``):
+    the Dense weights and the embedding tables -- the leaves JAX
+    ``quantize_params`` quantizes -- keyed by the port's state-dict
+    names."""
     return {name: flax_layout(name, p.detach(), model.cfg.n_heads)
             for name, p in model.named_parameters()
             if p.ndim >= 2 and not _is_lora(name)}
@@ -257,7 +287,8 @@ def flax_weights(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 def load_flax_params(model: torch.nn.Module,
                      params: Mapping[str, Any]) -> torch.nn.Module:
     """Fill ``model`` (a port ``TransformerLM``, ``TransformerEncoder``,
-    ``BertClassifier``, ``ViTClassifier``, ``MNISTNet`` or ``ResNet``)
+    ``BertClassifier``, ``ViTClassifier``, ``MNISTNet``, ``ResNet``,
+    ``MoeTransformerLM`` or ``Seq2SeqTransformer``)
     from a flax param tree or flax variables, in place, each value cast
     to its parameter's or buffer's dtype; every parameter and buffer
     must be covered and every leaf used (strict): a model with running

@@ -27,6 +27,8 @@ from ray_lightning_tpu_torch.models.resnet import (BottleneckBlock, ResNet,
                                                    ResNetBlock, ResNetModule,
                                                    resnet10, resnet18,
                                                    resnet50)
+from ray_lightning_tpu_torch.models.seq2seq import (Seq2SeqModule,
+                                                    Seq2SeqTransformer)
 from ray_lightning_tpu_torch.models.transformer import (DenseKV, PagedKV,
                                                         TransformerConfig,
                                                         TransformerEncoder,
@@ -51,5 +53,5 @@ __all__ = [
     "XORModel", "XORDataModule", "count_params", "ResNet", "ResNetBlock",
     "BottleneckBlock", "ResNetModule", "resnet10", "resnet18", "resnet50",
     "MoeConfig", "MoeModule", "MoeTransformerLM", "moe_config",
-    "expert_parallel_rule",
+    "expert_parallel_rule", "Seq2SeqModule", "Seq2SeqTransformer",
 ]

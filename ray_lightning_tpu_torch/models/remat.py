@@ -33,7 +33,7 @@ that the ``save_attn`` policies keep by its name argument.
 
 :func:`count_saved` measures what autograd keeps for backward: the
 tensors packed outside checkpointed regions (through
-``saved_tensors_hooks``), each region's input, and the outputs its
+``saved_tensors_hooks``), each region's tensor inputs, and the outputs its
 policy keeps, counted once per storage and leaving parameters out.
 """
 from __future__ import annotations
@@ -181,9 +181,11 @@ def _contexts(policy: _Policy):
 def checkpoint_block(fn, x: torch.Tensor, *args, policy: Optional[str]):
     """``fn(x, *args)`` rematerialized under ``policy``: its masks come
     from integer seeds among ``args``, so no generator state is saved or
-    restored (``preserve_rng_state=False``)."""
+    restored (``preserve_rng_state=False``). Every tensor input is kept
+    for the replay (a decoder block's memory and mask beside ``x``)."""
     if _counter is not None:
-        _counter.add(x)
+        for t in (x, *args):
+            _counter.add(t)
     kw = {}
     if policy is not None:
         kw["context_fn"] = functools.partial(_contexts, _Policy(policy))

@@ -778,22 +778,41 @@ def check_seq_len(cfg: TransformerConfig, length: int,
             f"{what} length {length} exceeds max_seq_len={cfg.max_seq_len}")
 
 
+#: flax's ``lecun_normal``: a normal truncated at two standard
+#: deviations, rescaled to the variance 1 / fan_in
+_TRUNCATED_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_params(module: nn.Module,
                 generator: Optional[torch.Generator] = None,
-                zeros: Sequence[str] = ()) -> None:
+                zeros: Sequence[str] = (),
+                flax_defaults: bool = False) -> None:
     """GPT-2- and BERT-style init in place: N(0, 0.02) for every matrix,
     embedding and learned position table, zero biases, adapter banks (a
     fresh slot is the null adapter, as the JAX ``LoraDense`` inits it)
-    and parameters named in ``zeros``, unit LayerNorm scales. Every draw
-    comes from ``generator`` (a CPU ``torch.Generator``; None = a fresh
-    one seeded 0), in ``named_parameters()`` order, made on the CPU and
-    copied to the parameter's device; meta parameters are skipped.
-    torch's global generator is never used."""
+    and parameters named in ``zeros``, unit LayerNorm scales.
+    ``flax_defaults``: flax's own initializers for the matrices instead,
+    as a flax module that names none draws them -- each ``Dense`` weight
+    ``lecun_normal`` over its input width (variance 1 / in, truncated at
+    two standard deviations), each ``Embed`` table N(0, 1 / features).
+    Every draw comes from ``generator`` (a CPU ``torch.Generator``; None =
+    a fresh one seeded 0), in ``named_parameters()`` order, made on the
+    CPU and copied to the parameter's device; meta parameters are
+    skipped. torch's global generator is never used."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     scales = {id(m.weight) for m in module.modules()
               if isinstance(m, LayerNorm)}
+    # flax's standard deviations by parameter: Dense weights truncated,
+    # Embed tables not
+    dense, embed = {}, {}
+    if flax_defaults:
+        for m in module.modules():
+            if isinstance(m, Dense) and m.qweight is None:
+                dense[id(m.weight)] = m.in_features ** -0.5
+            elif isinstance(m, Embed) and m.qweight is None:
+                embed[id(m.weight)] = m.embedding_dim ** -0.5
     for name, p in module.named_parameters():
         if p.device.type == "meta":
             continue
@@ -801,9 +820,13 @@ def init_params(module: nn.Module,
             p.fill_(1.0)
         elif name.endswith("bias") or ".lora_" in name or name in zeros:
             p.zero_()
+        elif id(p) in dense:
+            p.copy_(nn.init.trunc_normal_(
+                torch.empty(p.shape, dtype=p.dtype), 0.0, 1.0, -2.0, 2.0,
+                generator=generator) * (dense[id(p)] / _TRUNCATED_STD))
         else:
             p.copy_(torch.empty(p.shape, dtype=p.dtype).normal_(
-                0.0, 0.02, generator=generator))
+                0.0, embed.get(id(p), 0.02), generator=generator))
 
 
 def check_dropout_seed(cfg: TransformerConfig, deterministic: bool,

@@ -52,8 +52,8 @@ __all__ = ["flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd",
            "flash_fwd_reference", "flash_bwd_dkv_reference",
            "flash_bwd_dq_reference", "flash_bwd_reference", "flash_delta",
            "flash_out_bound", "flash_grad_bound",
-           "kernel_launches", "route_launches", "reset_kernel_launches",
-           "KERNELS", "FWD_ROUTES", "BWD_ROUTES"]
+           "kernel_launches", "route_launches", "mask_launches",
+           "reset_kernel_launches", "KERNELS", "FWD_ROUTES", "BWD_ROUTES"]
 
 SOURCE = "flash_attention"
 #: kernel names, in path order: forward, dK/dV, dQ
@@ -71,6 +71,8 @@ _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _routes: Dict[str, Dict[str, int]] = {
     name: dict.fromkeys(FWD_ROUTES if name == "flash_fwd" else BWD_ROUTES, 0)
     for name in KERNELS}
+_masks: Dict[str, Dict[str, int]] = {
+    name: {"causal": 0, "full": 0} for name in KERNELS}
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -88,8 +90,15 @@ def route_launches(kernel: str = "flash_fwd") -> Dict[str, int]:
     return dict(_routes[kernel])
 
 
+def mask_launches(kernel: str = "flash_fwd") -> Dict[str, int]:
+    """``kernel``'s launches since :func:`reset_kernel_launches` split by
+    its mask: ``"causal"`` and ``"full"`` (bidirectional); they sum to
+    ``kernel_launches()[kernel]``."""
+    return dict(_masks[kernel])
+
+
 def reset_kernel_launches() -> None:
-    for counts in (_launches, *_routes.values()):
+    for counts in (_launches, *_routes.values(), *_masks.values()):
         for name in counts:
             counts[name] = 0
 
@@ -328,7 +337,7 @@ def _check_rows(x: torch.Tensor, B: int, H: int, T: int, what: str):
         raise ValueError(f"{what} must be contiguous float32 ({B}, {H}, {T})")
 
 
-def _launch(name: str, route: str, fn, *args) -> None:
+def _launch(name: str, route: str, causal: bool, fn, *args) -> None:
     """Launch ``name`` on ``route`` (the route's number is the last
     argument but the stream); raise if the launch fails."""
     err = fn(*args)
@@ -337,6 +346,7 @@ def _launch(name: str, route: str, fn, *args) -> None:
         raise RuntimeError(f"{name} kernel launch ({route}) failed: {msg}")
     _launches[name] += 1
     _routes[name][route] += 1
+    _masks[name]["causal" if causal else "full"] += 1
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -353,10 +363,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_fwd", route, lib.flash_fwd_launch, q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                _rows(q, k, v, out), B, H, T, S, D, DTYPES[q.dtype],
-                int(causal), D ** -0.5, FWD_ROUTES.index(route), stream)
+        _launch("flash_fwd", route, causal, lib.flash_fwd_launch,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), _rows(q, k, v, out), B, H, T, S, D,
+                DTYPES[q.dtype], int(causal), D ** -0.5,
+                FWD_ROUTES.index(route), stream)
     return out, lse
 
 
@@ -376,7 +387,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_bwd_dkv", route, lib.flash_bwd_dkv_launch,
+        _launch("flash_bwd_dkv", route, causal, lib.flash_bwd_dkv_launch,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), _rows(q, k, v, do, dk, dv), B, H, T, S, D,
@@ -398,7 +409,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_bwd_dq", route, lib.flash_bwd_dq_launch,
+        _launch("flash_bwd_dq", route, causal, lib.flash_bwd_dq_launch,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 _rows(q, k, v, do, dq), B, H, T, S, D, DTYPES[q.dtype],

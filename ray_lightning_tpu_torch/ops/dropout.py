@@ -5,7 +5,9 @@ that flax splits per module (the attention weights in
 ``ops/attention.py``, the MLP output through ``nn.Dropout``). The port
 cannot reproduce JAX's counter-based stream, so it owns its own: every
 site calls :func:`dropout_keep` with a plain integer seed, derived by
-:func:`site_seed` from the step's seed, the layer and the site.
+:func:`site_seed` from the step's seed, the layer and the site. A model
+with two stacks numbers their layers apart (the encoder-decoder's
+decoder blocks follow its encoder's), so no two sites share a seed.
 
 The mask comes from a ``torch.Generator`` made on the tensor's device
 from that integer inside the call. Nothing is read from torch's global
@@ -23,11 +25,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["ATTENTION", "MLP", "site_seed", "dropout_keep", "apply_dropout"]
+__all__ = ["ATTENTION", "MLP", "CROSS", "site_seed", "dropout_keep",
+           "apply_dropout"]
 
-#: the two dropout sites of a block, as the JAX package places them: the
-#: attention weights after the softmax, and the MLP output after ``down``
-ATTENTION, MLP = 0, 1
+#: the dropout sites of a block, as the JAX package places them: the
+#: attention weights after the softmax, the MLP output after ``down``,
+#: and a decoder block's cross-attention weights (``models/seq2seq.py``)
+ATTENTION, MLP, CROSS = 0, 1, 2
 
 
 def site_seed(seed: int, layer: int, site: int) -> int:

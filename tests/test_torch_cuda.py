@@ -73,7 +73,10 @@ ViT fit under its remat policy launching K2 twice a layer a step. The
 MoE LM: K2-K4 at its attention shape (causal, H = 4, T = 128), a bf16
 MoE-small step launching each once a layer on ``tc``, the f32 step
 against the CPU under the near-tie routing rule, a fit's launches, and
-greedy decode equal to the CPU's.
+greedy decode equal to the CPU's. The encoder-decoder: K2-K4 at the
+reversal gate's shape (D = 32, T = 8), the f32 step with a padded source
+against the CPU (the all-padding row's cross-attention exactly 0), and a
+bf16 remat fit's exact launches, split by mask.
 ``chip_smoke.py`` repeats this at the serving and training paths' full
 shapes.
 """
@@ -829,6 +832,61 @@ def test_moe_greedy_generate_on_the_card_matches_the_cpu(cuda):
     want = generate(cpu, None, prompts, 8, rng=0, temperature=0.0)
     got = generate(card, None, prompts, 8, rng=0, temperature=0.0)
     assert torch.equal(got.cpu(), want)
+
+
+# ------------------------------------------------ the encoder-decoder
+@pytest.mark.parametrize("causal", [False, True], ids=["encoder", "decoder"])
+def test_seq2seq_gate_shape_kernels_match_plain(cuda, causal):
+    """K2-K4 at the reversal gate's attention shape (B=32, H=4, D=32,
+    T=S=8), the encoder's (full) and the decoder's (causal) against their
+    plain versions: bf16 on ``tc``, f32 on ``simt``, within
+    ``chip_smoke.flash_case``'s bounds."""
+    import chip_smoke
+    flush = torch.empty(1 << 20, dtype=torch.uint8, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        chip_smoke.flash_case("test", "s2s_gate", 32, 8, 8, causal, dtype,
+                              flush, H=4, D=32)
+
+
+def test_seq2seq_f32_step_with_a_padded_source_matches_the_cpu(cuda):
+    """Phase Z (g) (c)'s check at a narrower vocab and length: one f32
+    step of 2 + 2 layers at d_model 512, row 0's source padded after 40
+    tokens and row 1's all padding; the loss, logits and every gradient
+    within 1e-4 of their largest magnitude, the all-padding row's
+    cross-attention exactly 0, K2-K4 twice each on ``simt``
+    (``chip_smoke.s2s_step_vs_cpu`` raises on a miss)."""
+    import chip_smoke
+    res = chip_smoke.s2s_step_vs_cpu(device=cuda, keep=40, vocab_size=1024,
+                                     max_seq_len=64)
+    assert res["all_padding_cross_attention"] == "exactly 0"
+
+
+def test_seq2seq_bf16_remat_fit_counts_the_kernels(cuda):
+    """A narrow ``Seq2SeqModule`` under ``remat_policy=
+    "dots_with_no_batch_dims_save_attn"`` on the card, bf16 over f32
+    weights: K2 at 2·n_layers sites twice a step (the forward and the
+    backward's replay) and once a validation batch, K3 and K4 once a
+    site a step, all on ``tc``, half of each kernel's launches causal
+    (the decoder's) and half full (the encoder's); the losses finite."""
+    from ray_lightning_tpu_torch import Seq2SeqModule, TransformerConfig
+    cfg = TransformerConfig(vocab_size=512, max_seq_len=64, d_model=256,
+                            n_heads=4, n_layers=2, d_ff=512, causal=True,
+                            attention_impl="flash", remat=True,
+                            remat_policy="dots_with_no_batch_dims_save_attn")
+    cf.reset_kernel_launches()
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
+                      limit_train_batches=3, limit_val_batches=2, seed=0)
+    trainer.fit(Seq2SeqModule(config=cfg, batch_size=8, seq_len=64,
+                              num_samples=64))
+    n = cfg.n_layers
+    calls = {"flash_fwd": 2 * 3 + 2, "flash_bwd_dkv": 3, "flash_bwd_dq": 3}
+    for name in cf.KERNELS:
+        assert cf.route_launches(name) == {"simt": 0,
+                                           "tc": 2 * n * calls[name]}, name
+        assert cf.mask_launches(name) == {"causal": n * calls[name],
+                                          "full": n * calls[name]}, name
+    for key in ("train_loss", "val_loss", "val_acc"):
+        assert np.isfinite(float(trainer.callback_metrics[key])), key
 
 
 # ------------------------------------------------ fused dequant-matmul

@@ -10,8 +10,9 @@ import torch
 import torch.distributed as dist
 
 from ray_lightning_tpu_torch import (BoringModel, GPTModule, MoeModule,
-                                     ResNetModule, gpt2_config, moe_config,
-                                     resnet10)
+                                     ResNetModule, Seq2SeqModule,
+                                     TransformerConfig, gpt2_config,
+                                     moe_config, resnet10)
 from ray_lightning_tpu_torch.core import Callback
 from ray_lightning_tpu_torch.interop import load_flax_params
 from ray_lightning_tpu_torch.launchers import (ExecutorBase, ProcessRay,
@@ -103,6 +104,30 @@ class NarrowMoe(MoeModule):
         super().__init__(config=moe_config(dtype=torch.float32,
                                            **MOE_NARROW),
                          optimizer=optimizer, **MOE_FIT)
+        self.init = init
+
+    def init_variables(self, model, generator, batch):
+        if self.init is None:
+            return super().init_variables(model, generator, batch)
+        load_flax_params(model, self.init)
+
+
+#: the two-process encoder-decoder: tests/test_seq2seq.py's widths, f32
+S2S_NARROW = dict(vocab_size=32, max_seq_len=8, d_model=64, n_heads=4,
+                  n_layers=2, d_ff=128, causal=True)
+S2S_FIT = dict(batch_size=8, seq_len=8, num_samples=64, vocab_size=32,
+               lr=3e-3)
+
+
+class NarrowSeq2Seq(Seq2SeqModule):
+    """``Seq2SeqModule`` at :data:`S2S_NARROW` in f32 (``attention_impl``
+    as given), started from the JAX trainer's initial params (a flax tree
+    of numpy arrays) when ``init`` is given."""
+
+    def __init__(self, init=None, attention_impl="dot"):
+        super().__init__(config=TransformerConfig(
+            dtype=torch.float32, attention_impl=attention_impl,
+            **S2S_NARROW), **S2S_FIT)
         self.init = init
 
     def init_variables(self, model, generator, batch):
