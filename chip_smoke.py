@@ -156,7 +156,7 @@ P. Async dispatch, phase 2's weights and trace (greedy and sampled rows),
    8 slots, on four engines: page-native (K1), int8 weights (K5),
    chunked with the prefix cache (phase L's layout, K2) and spec at k = 4
    (phase S's draft). (a) Each in bf16 and in f32 (the f32 runs cut to
-   the first ``F32_LAYERS`` = 6 blocks, ``f32_depth``) through
+   the first ``F32_LAYERS`` = 3 blocks, ``f32_depth``) through
    ``ServeClient(async_dispatch=True)`` and the sync client: tokens and
    finish reasons bitwise equal. (b) Every steady-state ``step_enqueue``
    (one chaining on an outstanding carry) of the bf16 runs, and of a
@@ -193,7 +193,7 @@ F. Faults and telemetry, phase 2's weights (each run through a fresh
    ``ServeClient(retry_policy=RetryPolicy(max_attempts=3, base_delay=0))``,
    its recoveries, host ms and the card's allocated bytes after every
    rebuild recorded; every f32 run but (b)'s at the first
-   ``F32_LAYERS`` = 6 blocks, ``f32_depth``). (a) Phase 2's page-native
+   ``F32_LAYERS`` = 3 blocks, ``f32_depth``). (a) Phase 2's page-native
    engine and trace, f32:
    ``serve.dispatch`` crashes at the first prefill, the first decode
    dispatch (8 rows in flight) and the first later decode dispatch where
@@ -318,10 +318,8 @@ Z. The encoder family, MNIST, ResNet, the MoE LM and the
    within 1e-4 of their largest magnitude, the all-padding row's
    cross-attention exactly 0 on both. The reversal gate
    (``tests/test_seq2seq.py:114-124``'s settings with ``"flash"`` on one
-   card): validation token accuracy above 0.5, K2-K4 on ``tc`` at D=32;
-   its witnesses, the same fit with ``"dot"`` on the card and with
-   ``"flash"`` on the CPU, hold it too and launch no kernel. Prints its
-   seconds by part.
+   card): validation token accuracy above 0.5, K2-K4 on ``tc`` at D=32.
+   Prints its seconds by part.
 M. The model core's training options at GPT-2-small width (bf16 compute
    over f32 weights, batch 8 x 1024, ``Trainer(strategy=RayStrategy(
    num_workers=1), seed=0)``). (a) ``dropout=0.1`` on the flash config,
@@ -460,8 +458,9 @@ H. The health of a fit, at T2's configuration (GPT-2-small, flash,
    same fit run in this process without faults (a DDP world of one is
    the one-process fit), the card's free memory at the cold restart's
    first step within H_MEM_SLACK of the fresh worker's (one rank's
-   memory, not two), the stall's detection within 10 s past
-   ``heartbeat_timeout``. Printed: ms from each fault to its detection
+   memory, not two), the stall's detection after at least
+   ``heartbeat_timeout`` of silence since the last beat and within 10 s
+   past it of the stall's start. Printed: ms from each fault to its detection
    and to ``gang.teardown``, s from each restart to its first step (cold
    against warm), the memory tier's bytes and ms per put.
 I. The input pipeline, run after T2 at T2's configuration: 8 steps fed
@@ -504,7 +503,8 @@ X. The process replica fleet, run after phase N on phase 2's weights,
    replica, each worker's seconds from spawn to ``set_replica`` and its
    bytes on the card (the free memory it took), the fleet's tokens/s and
    ms a pump tick beside phase 2's single client and phase N (a)'s
-   in-process fleet. Then one f32 fleet of 2 workers and a warm standby
+   in-process fleet. Then one f32 fleet (at ``F32_LAYERS``, as phase
+   F's f32 runs) of 2 workers and a warm standby
    (refilled on the driver's thread, so no spawn lands inside another
    measurement) under ``FleetConfig(max_request_failovers=3,
    probation_after=2)``, its engines with ``prefill_chunk=128`` (as
@@ -528,6 +528,34 @@ X. The process replica fleet, run after phase N on phase 2's weights,
    workers (their ``stop()`` stats) equal n_layers per decode step the
    worker reports. Prints its seconds and the script's; every phase
    prints the script's seconds at its end.
+E. The port's example scripts (``examples/*_torch.py``), run last,
+   in-process, each through its ``main(argv)``. (a)
+   ``long_context_example_torch.py --impl flash --size small --seq-len
+   16384 --batch-size 1 --max-epochs 1 --generate 16``: GPT-2-small at
+   full width over T = 16384 on one card, 32 steps and 32 validation
+   batches; step ms (median after the first 2, each step synchronized),
+   tokens/s, peak device memory, the share of the bf16 peak by model
+   flops ((6·N + 12·L·T·d) a token, N its parameters at this
+   max_seq_len); K2 n_layers a step and a validation batch, K3 and K4
+   n_layers a step, every launch ``tc``; generate()'s 16 tokens ids of
+   the vocabulary. Then K2-K4 against their plain versions at that shape
+   (B=1, T=S=16384, H=12, D=64, causal, bf16; the plain versions and
+   the bounds two heads a call, whose f32 scores of all 12 heads would
+   be 12.9 GB), each timed on a cold L2 beside its plain version, its
+   bound and SDPA's flash backend. (b) ``serve_example_torch.py
+   --attention-kernel cuda`` with the model in f32 (its greedy rows
+   token-identical to ``generate()``, the script's gate; K1 n_layers a
+   decode step) and ``--weight-dtype int8 --matmul-kernel cuda`` in
+   bf16 (K5 nine calls a decode step on the GEMVs and nine a prefill on
+   ``tc``); K1 (f32 and bf16) and K5 (int8, bf16 x, M=4 and 64) against
+   their plain versions at the script's nano widths (4 slots, H=4,
+   D=32, d_model 128, vocab 256), timed. (c)
+   ``lora_lifecycle_example_torch.py``: its gates (base bitwise frozen,
+   adapter moved, hot load = build-time residency, null row = bankless);
+   no kernel launches (its clients use the dense slot pool). (d) The
+   other eight scripts at ``--smoke-test --num-workers 1``: each reaches
+   its end, metrics finite, the sweep's best point, two exploit steps.
+   Prints its seconds by part.
 4. A ``{"kernels": [...]}`` line, the card line again, and the result
    line ``{"ok": true, "device": {...}}``. K1 has two entries:
    ``paged_attention`` at T=1 with phase 2's, phase L's, phase P's and
@@ -566,11 +594,19 @@ X. The process replica fleet, run after phase N on phase 2's weights,
    ``quantized_matmul_verify`` at M=40 (a spec verify, the tensor-core
    kernel; phase S (d)'s and phase G (e)'s verify launches), and
    ``quantized_matmul_untied_head``, one call of the untied head at M=8
-   (phase M (e)'s serving run's head launches, every M).
+   (phase M (e)'s serving run's head launches, every M). Phase E adds
+   ``flash_fwd_long``, ``flash_bwd_dkv_long`` and ``flash_bwd_dq_long``
+   (B=1, T=S=16384, causal; (a)'s fit), ``paged_attention_nano`` (f32,
+   the K1 run of (b)) and ``quantized_matmul_nano`` (M=4, the GEMVs) and
+   ``quantized_matmul_nano_prefill`` (M=64, ``tc``), one forward's nine
+   calls each (the K5 run of (b)).
 """
+import ast
 import contextlib
 import dataclasses
 import gc
+import importlib
+import io
 import json
 import multiprocessing
 import os
@@ -676,10 +712,11 @@ def hgmma_counts() -> dict:
 
 # --------------------------------------------------------------- phase 1
 def attention_inputs(dtype, quantized, T, gen, B=8, H=12, D=64, ps=16,
-                     pp=64):
+                     pp=64, span=1000):
     """One serving-shaped call of the paged-attention read side: every
     row owns the pages through its last position (other entries −1), rows
-    sit at positions spread over 0..1000, and the last row admits no key."""
+    sit at positions spread over 0..``span``, and the last row admits no
+    key."""
     from ray_lightning_tpu_torch.models.quant import kv_quantize, kv_scales
     P = B * pp
     q = torch.randn(B, T, H, D, generator=gen).to(dtype)
@@ -691,7 +728,7 @@ def attention_inputs(dtype, quantized, T, gen, B=8, H=12, D=64, ps=16,
         kp, vp = kv_quantize(kp, ks), kv_quantize(vp, vs)
     else:
         kp, vp = kp.to(dtype), vp.to(dtype)
-    start = np.linspace(0, 1000 - (T - 1), B).astype(np.int32)
+    start = np.linspace(0, span - (T - 1), B).astype(np.int32)
     pos = torch.from_numpy(start[:, None] + np.arange(T, dtype=np.int32))
     pos[-1] = -1
     pt = torch.full((B, pp), -1, dtype=torch.int32)
@@ -748,41 +785,52 @@ def library_call(q, k_pages, v_pages, k_scales, v_scales, pos, pt):
         dense(v_pages, v_scales), attn_mask=mask).transpose(1, 2)
 
 
-def phase1_kernel_vs_plain(flush):
+def k1_case(tag, args, quantized, flush):
+    """K1 once on ``args`` (``attention_inputs``) against its plain
+    version: a second call the same bits, the error within ``TOL``, the
+    all-masked row 0; its launch geometry, its cold-L2 time, the plain
+    version's, the library call's and the bound. Returns the printed
+    row."""
     from ray_lightning_tpu_torch.models import paged_attention as pa
+    q = args[0]
+    out = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again),
+          "K1: a second call must give the same bits")
+    geometry = pa.launch_geometry(args[0], args[1], args[6])
+    ref = pa.paged_attention_reference(*args)
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"kernel output {out.shape} {out.dtype}")
+    check(bool(torch.isfinite(out).all()), "non-finite output")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[q.dtype]
+    check(float(out[-1].abs().max()) == 0.0,
+          "the all-masked row must emit 0")
+    bound_ms, bound_by = attention_bound(*args)
+    B, T, H, D = q.shape
+    row = dict(
+        q=str(q.dtype).split(".")[-1],
+        pages="int8" if quantized else str(q.dtype).split(".")[-1],
+        B=B, T=T, H=H, D=D, geometry=geometry, max_abs_err=err, tol=tol,
+        ms=time_ms(lambda: pa.paged_attention(*args), flush),
+        plain_ms=time_ms(lambda: pa.paged_attention_reference(*args),
+                         flush),
+        library_ms=time_ms(lambda: library_call(*args), flush),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"{tag} paged_attention", json.dumps(row), flush=True)
+    check(err <= tol, f"kernel vs plain {err} > {tol} ({row})")
+    return row
+
+
+def phase1_kernel_vs_plain(flush):
     gen = torch.Generator().manual_seed(0)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for quantized in (False, True):
             for T in (1, 4, S_K + 1):
                 args = attention_inputs(dtype, quantized, T, gen)
-                out = pa.paged_attention(*args)
-                again = pa.paged_attention(*args)
-                torch.cuda.synchronize()
-                check(torch.equal(out, again),
-                      "K1: a second call must give the same bits")
-                geometry = pa.launch_geometry(args[0], args[1], args[6])
-                ref = pa.paged_attention_reference(*args)
-                check(out.shape == ref.shape and out.dtype == ref.dtype,
-                      f"kernel output {out.shape} {out.dtype}")
-                check(bool(torch.isfinite(out).all()), "non-finite output")
-                err = (out.float() - ref.float()).abs().max().item()
-                tol = TOL[dtype]
-                check(float(out[-1].abs().max()) == 0.0,
-                      "the all-masked row must emit 0")
-                bound_ms, bound_by = attention_bound(*args)
-                row = dict(
-                    q=str(dtype).split(".")[-1],
-                    pages="int8" if quantized else str(dtype).split(".")[-1],
-                    T=T, geometry=geometry, max_abs_err=err, tol=tol,
-                    ms=time_ms(lambda: pa.paged_attention(*args), flush),
-                    plain_ms=time_ms(
-                        lambda: pa.paged_attention_reference(*args), flush),
-                    library_ms=time_ms(lambda: library_call(*args), flush),
-                    bound_ms=bound_ms, bound_by=bound_by)
-                rows.append(row)
-                print("phase1 paged_attention", json.dumps(row), flush=True)
-                check(err <= tol, f"kernel vs plain {err} > {tol} ({row})")
+                rows.append(k1_case("phase1", args, quantized, flush))
     return rows
 
 
@@ -1032,8 +1080,47 @@ def matmul_bound(x, qt, N):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_q1_matmul_vs_plain(flush):
+def qmm_case(tag, label, weight_dtype, qt, transpose, w2d, x, flush,
+             timed=True, geometry=False):
+    """K5 once on ``x`` against its plain version (a second call the same
+    bits, the error within ``QMM_TOL`` of the largest magnitude);
+    ``timed``: its cold-L2 time, the plain version's, cuBLAS's on the
+    dequantized ``w2d`` and the bound; ``geometry``: the launch's. Returns
+    the printed row."""
     from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    M, K = x.shape
+    N = w2d.shape[1]
+    out = qmm.quantized_matmul(x, qt, transpose)
+    again = qmm.quantized_matmul(x, qt, transpose)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again),
+          "K5: a second call must give the same bits")
+    ref = qmm.quantized_matmul_reference(x, qt, transpose)
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"K5 output {out.shape} {out.dtype}")
+    check(bool(torch.isfinite(out).all()), "K5 output not finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = QMM_TOL[x.dtype] * max(1.0, float(ref.float().abs().max()))
+    row = dict(proj=label, weights=weight_dtype,
+               x=str(x.dtype).split(".")[-1], M=M, K=K, N=N,
+               max_abs_err=err, tol=tol)
+    if geometry:
+        row["geometry"] = qmm.launch_geometry(x, qt, transpose)
+    if timed:
+        bound_ms, bound_by = matmul_bound(x, qt, N)
+        row.update(
+            ms=time_ms(lambda: qmm.quantized_matmul(x, qt, transpose),
+                       flush),
+            plain_ms=time_ms(lambda: qmm.quantized_matmul_reference(
+                x, qt, transpose), flush),
+            library_ms=time_ms(lambda: torch.matmul(x, w2d), flush),
+            bound_ms=bound_ms, bound_by=bound_by)
+    print(f"{tag} quantized_matmul", json.dumps(row), flush=True)
+    check(err <= tol, f"K5 vs plain {err} > {tol} ({row})")
+    return row
+
+
+def phase_q1_matmul_vs_plain(flush):
     from ray_lightning_tpu_torch.models.quant import (matmul_view,
                                                       quantize_params)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1053,40 +1140,11 @@ def phase_q1_matmul_vs_plain(flush):
                 for M in Ms:
                     x = torch.randn(M, K, generator=gen,
                                     device=DEVICE).to(dtype)
-                    out = qmm.quantized_matmul(x, qt, transpose)
-                    again = qmm.quantized_matmul(x, qt, transpose)
-                    torch.cuda.synchronize()
-                    check(torch.equal(out, again),
-                          "K5: a second call must give the same bits")
-                    ref = qmm.quantized_matmul_reference(x, qt, transpose)
-                    check(out.shape == ref.shape and out.dtype == ref.dtype,
-                          f"K5 output {out.shape} {out.dtype}")
-                    check(bool(torch.isfinite(out).all()),
-                          "K5 output not finite")
-                    err = (out.float() - ref.float()).abs().max().item()
-                    tol = QMM_TOL[dtype] * max(
-                        1.0, float(ref.float().abs().max()))
-                    row = dict(proj=label, weights=weight_dtype,
-                               x=str(dtype).split(".")[-1], M=M, K=K, N=N,
-                               max_abs_err=err, tol=tol)
-                    if M == 8:      # a decode step: the GEMVs' launch
-                        row["geometry"] = qmm.launch_geometry(x, qt,
-                                                              transpose)
-                    if M != 7:      # the ragged case is checked, not timed
-                        bound_ms, bound_by = matmul_bound(x, qt, N)
-                        row.update(
-                            ms=time_ms(lambda: qmm.quantized_matmul(
-                                x, qt, transpose), flush),
-                            plain_ms=time_ms(
-                                lambda: qmm.quantized_matmul_reference(
-                                    x, qt, transpose), flush),
-                            library_ms=time_ms(
-                                lambda: torch.matmul(x, w2d), flush),
-                            bound_ms=bound_ms, bound_by=bound_by)
-                    rows.append(row)
-                    print("phaseQ1 quantized_matmul", json.dumps(row),
-                          flush=True)
-                    check(err <= tol, f"K5 vs plain {err} > {tol} ({row})")
+                    # a decode step's M: the GEMVs' launch geometry; the
+                    # ragged case is checked, not timed
+                    rows.append(qmm_case("phaseQ1", label, weight_dtype,
+                                         qt, transpose, w2d, x, flush,
+                                         timed=M != 7, geometry=M == 8))
                 del wd, w2d
         del w
     for weight_dtype in ("int8", "int4"):
@@ -1489,7 +1547,7 @@ def phase_l_k2_chunk_shapes(flush):
 S_K = 4                          # draft tokens a round: the verify's T = 5
 S_VERIFY_M = SERVE["num_slots"] * (S_K + 1)   # the verify's K5 rows: 40
 S_DRAFT_LAYERS = 2
-F32_LAYERS = 6             # P's and F's f32 runs, N (b) (f32_depth)
+F32_LAYERS = 3             # P's, F's and X's f32 runs, N (b) (f32_depth)
 # the identical draft (the target itself, f32): the share of judged
 # drafts it must have accepted
 S_ACCEPT_IDENTICAL = 0.99
@@ -1506,11 +1564,11 @@ def draft_state(sd, n_layers):
 
 def f32_depth(cfg, sd):
     """``cfg`` and ``sd`` cut to their first ``F32_LAYERS`` blocks (as
-    :func:`draft_state` cuts them): the depth of phases P's and F's f32
-    runs and of N (b)'s failover, which hold tokens against tokens of the
-    same model -- replay, journal restore, async and failover identity
-    ask for every serving path at full width, not for every layer, and
-    the script's time limit asks for the seconds."""
+    :func:`draft_state` cuts them): the depth of phases P's, F's and X's
+    f32 runs and of N (b)'s failover, which hold tokens against tokens of
+    the same model -- replay, journal restore, async and failover
+    identity ask for every serving path at full width, not for every
+    layer, and the script's time limit asks for the seconds."""
     return (dataclasses.replace(cfg, n_layers=F32_LAYERS),
             draft_state(sd, F32_LAYERS))
 
@@ -3229,7 +3287,7 @@ FLASH_CASES = [  # (label, B, T, S, causal); H=12, D=64 throughout
 
 
 def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
-              causal: bool, grad_bounds=None):
+              causal: bool, grad_bounds=None, head_chunk=None):
     """Bound on |kernel - plain| of one flash output, in f32 units: a
     number, or a tensor of ref's shape bounding each element
     (``grad_bounds``: bf16 dq, dk, dv's, from ``cf.flash_grad_bound``).
@@ -3261,8 +3319,33 @@ def flash_tol(dtype, name: str, ref: torch.Tensor, grad: bool, q, k, v,
     if dtype == torch.float32:
         return 1e-4 * max(top, 1e-30) if grad else 1e-5
     if name == "out":
-        return cf.flash_out_bound(q, k, v, causal, ref)
+        return by_heads(lambda *a: cf.flash_out_bound(*a[:3], causal, a[3]),
+                        head_chunk, q, k, v, ref)
     return grad_bounds[name]
+
+
+def by_heads(fn, chunk, *tensors):
+    """``fn(*tensors)`` computed ``chunk`` heads at a time and joined: the
+    plain versions at a long T, whose f32 scores of every head at once
+    (B·H·T·S·4 bytes, 12.9 GB at H=12, T=S=16384) and their temporaries
+    would crowd the card. A 4-D tensor's heads are its dim 2 (B, T, H, D),
+    a 3-D one's its dim 1 (B, H, T); the results join the same way.
+    ``chunk=None``: one call."""
+    H = tensors[0].shape[2]
+    if chunk is None or chunk >= H:
+        return fn(*tensors)
+
+    def heads(x, h):
+        return x[:, :, h:h + chunk] if x.dim() == 4 else x[:, h:h + chunk]
+
+    def join(parts):
+        return torch.cat(parts, dim=2 if parts[0].dim() == 4 else 1)
+
+    parts = [fn(*(heads(x, h) for x in tensors))
+             for h in range(0, H, chunk)]
+    if torch.is_tensor(parts[0]):
+        return join(parts)
+    return tuple(join(list(p)) for p in zip(*parts))
 
 
 def bound_used(got: torch.Tensor, ref: torch.Tensor, tol) -> float:
@@ -3317,9 +3400,10 @@ def flash_bound(kind: str, q, k, causal: bool):
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 
 
-def sdpa_times(q, k, v, do, causal, flush, tag="phaseT1"):
+def sdpa_times(q, k, v, do, causal, flush, tag="phaseT1",
+               backends=SDPA_BACKENDS):
     """``F.scaled_dot_product_attention`` on (B, H, T, D) views of the same
-    inputs, once under each backend of ``SDPA_BACKENDS`` that
+    inputs, once under each of ``backends`` that
     ``torch.nn.attention.sdpa_kernel`` lets run them: its forward, and its
     backward (forward + backward minus forward). Returns ``{backend:
     (fwd_ms, bwd_ms)}``; a backend that refuses these inputs is left out
@@ -3340,7 +3424,7 @@ def sdpa_times(q, k, v, do, causal, flush, tag="phaseT1"):
             .backward(doh)
 
     times = {}
-    for name in SDPA_BACKENDS:
+    for name in backends:
         with sdpa_kernel(getattr(SDPBackend, name)):
             try:            # does this backend take these inputs?
                 fwd_bwd()
@@ -3358,13 +3442,15 @@ def sdpa_times(q, k, v, do, causal, flush, tag="phaseT1"):
 
 
 def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
-               H=12, D=64):
+               H=12, D=64, head_chunk=None, sdpa_backends=SDPA_BACKENDS):
     """K2-K4 once each on ``flash_inputs(dtype, B, T, S, H, D)`` against their
     plain versions: every call's route (bf16 ``tc``, f32 ``simt``), each
     output's error within its bound (``flash_tol``), rows that admit no
     key at 0 / 1e30. ``timed``: each kernel's cold-L2 time, its plain
-    version's, its bound, and SDPA's under each backend. Returns the
-    printed row."""
+    version's, its bound, and SDPA's under each of ``sdpa_backends``.
+    ``head_chunk``: the plain versions and the bounds run that many heads
+    a call (``by_heads``), their time that of the calls over every head.
+    Returns the printed row."""
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
     q, k, v, do = flash_inputs(dtype, B, T, S, H, D)
     cf.reset_kernel_launches()
@@ -3380,15 +3466,28 @@ def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
     check(all(r == {"simt": 0, "tc": 0, route: 1}
               for r in routes.values()),
           f"flash {label} {dtype}: routes {routes}, want {route}")
+
+    def fwd_plain():
+        return by_heads(lambda *a: cf.flash_fwd_reference(*a, causal),
+                        head_chunk, q, k, v)
+
+    def dkv_plain():
+        return by_heads(lambda *a: cf.flash_bwd_dkv_reference(*a, causal),
+                        head_chunk, q, k, v, do, lse, delta)
+
+    def dq_plain():
+        return by_heads(lambda *a: cf.flash_bwd_dq_reference(*a, causal),
+                        head_chunk, q, k, v, do, lse, delta)
+
     # the same inputs for both: the kernels' lse and delta
-    ref_out, ref_lse = cf.flash_fwd_reference(q, k, v, causal)
-    ref_dk, ref_dv = cf.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                causal)
-    ref_dq = cf.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    ref_out, ref_lse = fwd_plain()
+    ref_dk, ref_dv = dkv_plain()
+    ref_dq = dq_plain()
     grad_bounds = None
     if dtype == torch.bfloat16:
-        grad_bounds = dict(zip(("dq", "dk", "dv"), cf.flash_grad_bound(
-            q, k, v, do, lse, delta, causal, ref_dq, ref_dk, ref_dv)))
+        grad_bounds = dict(zip(("dq", "dk", "dv"), by_heads(
+            lambda *a: cf.flash_grad_bound(*a[:6], causal, *a[6:]),
+            head_chunk, q, k, v, do, lse, delta, ref_dq, ref_dk, ref_dv)))
     row = dict(case=label, dtype=str(dtype).split(".")[-1], B=B, T=T, S=S,
                H=H, D=D, causal=causal, route=route)
     for name, got, ref, grad in (("out", out, ref_out, False),
@@ -3402,7 +3501,7 @@ def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
               f"flash {label} {dtype} {name} not finite")
         err = (got.float() - ref.float()).abs().max().item()
         tol = flash_tol(dtype, name, ref, grad, q, k, v, causal,
-                        grad_bounds)
+                        grad_bounds, head_chunk)
         used = bound_used(got, ref, tol)
         row[f"{name}_err"], row[f"{name}_used"] = err, used
         row[f"{name}_tol"] = (None if torch.is_tensor(tol)
@@ -3416,20 +3515,15 @@ def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
               "rows that admit no key must give out 0, lse 1e30, dq 0")
     del grad_bounds, ref_out, ref_lse, ref_dk, ref_dv, ref_dq
     if timed:
-        lib = sdpa_times(q, k, v, do, causal, flush, tag)
+        lib = sdpa_times(q, k, v, do, causal, flush, tag, sdpa_backends)
         fwd_backend = min(lib, key=lambda n: lib[n][0])
         bwd_backend = min(lib, key=lambda n: lib[n][1])
         for kind, fn, plain in (
-                ("fwd", lambda: cf.flash_fwd(q, k, v, causal),
-                 lambda: cf.flash_fwd_reference(q, k, v, causal)),
+                ("fwd", lambda: cf.flash_fwd(q, k, v, causal), fwd_plain),
                 ("dkv", lambda: cf.flash_bwd_dkv(
-                    q, k, v, do, lse, delta, causal),
-                 lambda: cf.flash_bwd_dkv_reference(
-                     q, k, v, do, lse, delta, causal)),
+                    q, k, v, do, lse, delta, causal), dkv_plain),
                 ("dq", lambda: cf.flash_bwd_dq(
-                    q, k, v, do, lse, delta, causal),
-                 lambda: cf.flash_bwd_dq_reference(
-                     q, k, v, do, lse, delta, causal))):
+                    q, k, v, do, lse, delta, causal), dq_plain)):
             bound_ms, bound_by = flash_bound(kind, q, k, causal)
             row[f"{kind}_ms"] = time_ms(fn, flush)
             row[f"{kind}_plain_ms"] = time_ms(plain, flush)
@@ -3443,6 +3537,30 @@ def flash_case(tag, label, B, T, S, causal, dtype, flush, timed=False,
         row["library_bwd_backend"] = bwd_backend
     print(f"{tag} flash", json.dumps(row), flush=True)
     return row
+
+
+FLASH_SOURCE = "ray_lightning_tpu_torch/csrc/flash_attention.cu"
+# (kernel, its flash_case row's key, pallas_flash.py line, its outputs)
+FLASH_KINDS = (("flash_fwd", "fwd", 41, ("out",)),
+               ("flash_bwd_dkv", "dkv", 130, ("dk", "dv")),
+               ("flash_bwd_dq", "dq", 173, ("dq",)))
+
+
+def flash_entries(row, suffix, launches):
+    """K2-K4's entries of the kernels line at one shape: ``row`` a timed
+    ``flash_case`` row, ``launches(kernel)`` the main path's launches.
+    SDPA's backward (its fastest backend) computes dq, dk and dv together:
+    it stands beside K3, and K4 has no library call of its own."""
+    library = {"fwd": row["library_fwd_ms"], "dkv": row["library_bwd_ms"],
+               "dq": None}
+    return [dict(name=name + suffix, route="cuda", source=FLASH_SOURCE,
+                 replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
+                 launches=launches(name),
+                 max_abs_err=max(row[f"{e}_err"] for e in errs),
+                 ms=row[f"{kind}_ms"], plain_ms=row[f"{kind}_plain_ms"],
+                 bound_ms=row[f"{kind}_bound_ms"],
+                 bound_by=row[f"{kind}_bound_by"], library_ms=library[kind])
+            for name, kind, line, errs in FLASH_KINDS]
 
 
 def phase_t1_flash_vs_plain(flush):
@@ -4655,9 +4773,15 @@ def h_gang_chain(ray, gang, ref_state) -> dict:
           f"H (c) free memory at the restarted worker's first step "
           f"{stamps[1]['free_at_first']} against the fresh worker's "
           f"{stamps[0]['free_at_first']}")
+    # the watchdog judges silence from the worker's last beat, which comes
+    # a few ms before the stall's stamp: the timeout is held against the
+    # silence it saw, the promptness against the stall's start
+    silence = out["stall"]["last_beat_age_s"]
     latency = out["stall"]["fault_to_detection_ms"] / 1e3
-    check(H_HEARTBEAT_TIMEOUT <= latency < H_HEARTBEAT_TIMEOUT + 10.0,
-          f"H (d) detected {latency} s after the stall began")
+    check(silence >= H_HEARTBEAT_TIMEOUT
+          and latency < H_HEARTBEAT_TIMEOUT + 10.0,
+          f"H (d) detected after {silence} s of silence, {latency} s "
+          "after the stall began")
     store.shutdown()
     del trainer, sup
     release()
@@ -6056,12 +6180,14 @@ def x_bf16(cfg, sd, trace, served, fleet_n, card, out):
 def x_f32(cfg, sd, trace, served, card, out):
     """(b) and (c) on one f32 fleet of 2 workers and a warm standby under
     ``FleetConfig(max_request_failovers=3, probation_after=2)`` on
-    ``X_F32_LAYOUT``: the kill -9 first, then the poison request once it
-    has been served. No worker is alive after its shutdown and the free
-    memory is back. K2's chunk launches in the workers that stopped
-    gracefully are reported (the replays longer than ``prefill_len``)."""
+    ``X_F32_LAYOUT``, the model at ``F32_LAYERS`` (``f32_depth``): the
+    kill -9 first, then the poison request once it has been served. No
+    worker is alive after its shutdown and the free memory is back. K2's
+    chunk launches in the workers that stopped gracefully are reported
+    (the replays longer than ``prefill_len``)."""
     from ray_lightning_tpu_torch.obs import Telemetry
     from ray_lightning_tpu_torch.serve import FleetConfig
+    cfg, sd = f32_depth(cfg, sd)
     tick_s = served["bf16"]["step_ms_median"] / 1e3
     # (c) seeds the trace's requests explicitly with their (b) ids, the
     # default seeds: one fault-free run is the reference of both
@@ -7052,15 +7178,12 @@ def s2s_step_vs_cpu(device=DEVICE, layers=Z_S2S_CHECK_LAYERS,
     return res
 
 
-def z_s2s_gate(impl: str = "flash", device=None):
+def z_s2s_gate():
     """(d) The reversal gate: ``Z_S2S_GATE`` through
-    ``Trainer(strategy=RayStrategy(num_workers=1, device=device))`` for
-    Z_S2S_GATE_FIT, bf16 with ``impl``: validation token accuracy above
-    Z_S2S_GATE_ACC. On the card under ``"flash"`` K2-K4 at 2·n_layers
-    sites a step (K2 also a validation batch), every launch on ``tc`` at
-    D = 32. The witnesses launch none: ``"dot"`` on the card (the kernels
-    are not what the gate measures) and ``device="cpu"`` (nor is the
-    card)."""
+    ``Trainer(strategy=RayStrategy(num_workers=1))`` for Z_S2S_GATE_FIT,
+    bf16 with ``"flash"``: validation token accuracy above
+    Z_S2S_GATE_ACC, K2-K4 at 2·n_layers sites a step (K2 also a
+    validation batch), every launch on ``tc`` at D = 32."""
     from ray_lightning_tpu_torch import (RayStrategy, Seq2SeqModule,
                                          Trainer, TransformerConfig)
     from ray_lightning_tpu_torch.ops import cuda_flash as cf
@@ -7068,10 +7191,10 @@ def z_s2s_gate(impl: str = "flash", device=None):
     cfg = TransformerConfig(vocab_size=g["vocab_size"],
                             max_seq_len=g["seq_len"], d_model=128,
                             n_heads=4, n_layers=2, d_ff=256, causal=True,
-                            attention_impl=impl)
+                            attention_impl="flash")
     check(cfg.head_dim == 32, f"Z (g) (d): head_dim {cfg.head_dim}")
-    trainer = Trainer(strategy=RayStrategy(num_workers=1, device=device),
-                      seed=0, **Z_S2S_GATE_FIT)
+    trainer = Trainer(strategy=RayStrategy(num_workers=1), seed=0,
+                      **Z_S2S_GATE_FIT)
     cf.reset_kernel_launches()
     t0 = time.perf_counter()
     trainer.fit(Seq2SeqModule(config=cfg, **g))
@@ -7081,22 +7204,16 @@ def z_s2s_gate(impl: str = "flash", device=None):
     steps = epochs * Z_S2S_GATE_FIT["limit_train_batches"]
     val = epochs * Z_S2S_GATE_FIT["limit_val_batches"]
     check(trainer.global_step == steps and acc > Z_S2S_GATE_ACC,
-          f"Z (g) (d) {impl} {device}: val_acc {acc} after "
-          f"{trainer.global_step} steps, gate {Z_S2S_GATE_ACC}")
+          f"Z (g) (d): val_acc {acc} after {trainer.global_step} steps, "
+          f"gate {Z_S2S_GATE_ACC}")
     n = cfg.n_layers
-    if impl == "flash" and device is None:
-        launches = check_flash_launches("Z (g) (d)", steps, val, 2 * n)
-        masks = s2s_masks("(d)", n, {"flash_fwd": steps + val,
-                                     "flash_bwd_dkv": steps,
-                                     "flash_bwd_dq": steps})
-    else:
-        launches, masks = cf.kernel_launches(), None
-        check(not any(launches.values()),
-              f"Z (g) (d) {impl} {device}: flash launches {launches}")
+    launches = check_flash_launches("Z (g) (d)", steps, val, 2 * n)
+    masks = s2s_masks("(d)", n, {"flash_fwd": steps + val,
+                                 "flash_bwd_dkv": steps,
+                                 "flash_bwd_dq": steps})
     del trainer
     release()
-    return dict(impl=impl, device=device or DEVICE, steps=steps,
-                val_batches=val, val_acc=acc, fit_s=fit_s,
+    return dict(steps=steps, val_batches=val, val_acc=acc, fit_s=fit_s,
                 launches=launches, mask_launches=masks)
 
 
@@ -7104,7 +7221,7 @@ def z_seq2seq(card, flush):
     """(g) The encoder-decoder: (a) K2-K4 at its shapes, (b) the
     full-width fits without and with remat and one profiled bf16 step,
     (c) the f32 step against the CPU with a padded source, (d) the
-    reversal gate and its two witnesses."""
+    reversal gate."""
     t_part = time.perf_counter()
     parts = {}
 
@@ -7128,7 +7245,6 @@ def z_seq2seq(card, flush):
         dict(step, card=card)), flush=True)
     lap("c")
     gate = z_s2s_gate()
-    gate["witnesses"] = [z_s2s_gate("dot"), z_s2s_gate(device="cpu")]
     lap("d")
     seconds = time.perf_counter() - t_part
     print("phaseZ (g) reversal gate", json.dumps(dict(
@@ -7178,6 +7294,293 @@ def phase_z_zoo(card):
           f"{s2s['seconds']:.1f} s)", flush=True)
     return dict(kernels=kernels, bert=bert, vit=vit, mnist=mnist,
                 resnet=resnet, moe=moe, seq2seq=s2s, seconds=seconds)
+
+
+# -------------------------------------------------------------- phase E
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples")
+# (a): GPT-2-small at full width over T = 16384 on one card, as a user
+# runs the long-context script
+E_LONG = ["--impl", "flash", "--size", "small", "--seq-len", "16384",
+          "--batch-size", "1", "--max-epochs", "1", "--generate", "16"]
+E_LONG_NEW = 16                  # --generate
+E_LONG_BATCHES = 32              # 32 samples of one row: the script's
+                                 # training and validation batches
+E_WARMUP = 2                     # steps left out of the step median
+E_HEAD_CHUNK = 2                 # heads a plain-version call at T = 16384
+# (b): the serve script's K1 run (f32: greedy identity holds by
+# contract) and its K5 run (bf16, the script's default dtype)
+E_SERVE_K1 = ["--attention-kernel", "cuda"]
+E_SERVE_K5 = ["--weight-dtype", "int8", "--matmul-kernel", "cuda"]
+# the serve script's nano GPT (gpt2_config("nano", vocab_size=256,
+# max_seq_len=64)) and engine (4 slots, prefill 16, 16-token pages)
+E_NANO = dict(slots=4, prefill_len=16, page_size=16, max_seq_len=64,
+              n_layers=2, heads=4, head_dim=32, d_model=128, vocab=256)
+E_NANO_PROJECTIONS = [("qkv", (128, 3, 4, 32), False),
+                      ("out", (128, 128), False), ("up", (128, 512), False),
+                      ("down", (512, 128), False), ("head", (256, 128), True)]
+# (d): the other eight scripts at their smoke settings, one card
+E_SMOKE = {
+    "mnist_ddp_example": [],
+    "allreduce_example": [],
+    "resnet_example": [],
+    "bert_finetune_example": [],
+    "vit_example": [],
+    "gpt_sharded_example": ["--generate", "4"],
+    "mnist_tune_example": [],
+    "resnet_pbt_example": [],
+}
+
+
+def example(stem: str):
+    """The port's ``examples/<stem>_torch.py``, imported under its file
+    name."""
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    return importlib.import_module(f"{stem}_torch")
+
+
+class Tee:
+    """Writes to every stream it holds (a script's printout kept while it
+    still reaches the log)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def e_long_context(card, flush):
+    """(a) ``long_context_example_torch.py`` with ``E_LONG``: GPT-2-small
+    at T = 16384 through K2-K4 on one card. Step ms (median after the
+    first E_WARMUP), tokens/s, peak device memory and the share of the
+    bf16 peak by model flops (6·N + 12·L·T·d a token, N the parameters at
+    this max_seq_len); K2 n_layers times a step and a validation batch,
+    K3 and K4 n_layers a step, all ``tc``; the loss finite; generate()'s
+    16 tokens ids of the vocabulary. Then K2-K4 against their plain
+    versions at this shape (B=1, T=S=16384, H=12, D=64, causal, bf16;
+    the plain versions ``E_HEAD_CHUNK`` heads a call), timed beside SDPA's
+    flash backend."""
+    from ray_lightning_tpu_torch import count_params
+    from ray_lightning_tpu_torch.ops import cuda_flash as cf
+    script = example("long_context_example")
+    steps = []
+
+    class StepClock(Callback):
+        def on_train_batch_start(self, trainer, pl_module, batch,
+                                 batch_idx):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, trainer, pl_module, outputs, batch,
+                               batch_idx):
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - self.t0)
+
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_kernel_launches()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(Tee(sys.stdout, printed)):
+        trainer = script.main(E_LONG, callbacks=[StepClock()])
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = cf.kernel_launches()
+    routes = {n: cf.route_launches(n) for n in cf.KERNELS}
+    model = trainer.model
+    cfg = model.cfg
+    T, L, d = cfg.max_seq_len, cfg.n_layers, cfg.d_model
+    n_steps, val = trainer.global_step, E_LONG_BATCHES
+    metrics = {k: float(v) for k, v in trainer.callback_metrics.items()}
+    check(T == 16384 and cfg.attention_impl == "flash"
+          and n_steps == len(steps) == E_LONG_BATCHES,
+          f"E (a): T {T}, {n_steps} steps, {len(steps)} timed")
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f"E (a): metrics {metrics}")
+    want = {"flash_fwd": L * (n_steps + val), "flash_bwd_dkv": L * n_steps,
+            "flash_bwd_dq": L * n_steps}
+    check(launches == want and all(
+        r == {"simt": 0, "tc": want[n]} for n, r in routes.items()),
+        f"E (a): flash launches {launches} routes {routes}, want {want} "
+        "all tc")
+    tail = re.search(r"decoded (\d+) tokens in [0-9.]+s: (\[[0-9, ]*\])",
+                     printed.getvalue())
+    check(tail is not None, "E (a): no generate() line")
+    tokens = ast.literal_eval(tail.group(2))
+    check(int(tail.group(1)) == E_LONG_NEW and len(tokens) == E_LONG_NEW
+          and all(0 <= t < cfg.vocab_size for t in tokens),
+          f"E (a): generated {tokens}")
+    n_params = count_params(model)
+    step_s = statistics.median(steps[E_WARMUP:])
+    flops = (6 * n_params + 12 * L * T * d) * T
+    res = dict(T=T, batch=1, layers=L, params=n_params, steps=n_steps,
+               val_batches=val, step_ms=1e3 * step_s,
+               step_ms_all=[1e3 * x for x in steps],
+               tokens_per_s=T / step_s,
+               bf16_peak_share=flops / step_s / PEAK_OPS_PER_S[
+                   torch.bfloat16],
+               peak_memory_gib=peak / 2 ** 30, launches=launches,
+               generated=tokens, metrics=metrics, run_s=run_s, card=card)
+    print("phaseE (a) long context", json.dumps(res), flush=True)
+    del trainer, model
+    release()
+    res["kernels"] = flash_case("phaseE", "long", 1, T, T, True,
+                                torch.bfloat16, flush, timed=True,
+                                head_chunk=E_HEAD_CHUNK,
+                                sdpa_backends=("FLASH_ATTENTION",))
+    return res
+
+
+def e_serving(card, flush):
+    """(b) ``serve_example_torch.py`` twice: ``E_SERVE_K1`` in f32 (the
+    script's greedy-identity gate against ``generate()`` holds; K1
+    n_layers a decode step, T = 1, no K5), then ``E_SERVE_K5`` in bf16
+    (the dense pool; K5 9 calls a decode step on the GEMVs and 9 a
+    prefill on ``tc``, no K1). K1 (f32 and bf16 q and pages) and K5
+    (int8, bf16 x, the nano projections at decode's M = 4 and a
+    prefill's M = 64) against their plain versions at the nano shapes."""
+    from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    from ray_lightning_tpu_torch.models.quant import (matmul_view,
+                                                      quantize_params)
+    script = example("serve_example")
+    n = E_NANO
+    runs = {}
+    for label, argv, dtype in (("k1", E_SERVE_K1, torch.float32),
+                               ("k5", E_SERVE_K5, None)):
+        pa.reset_kernel_launches()
+        qmm.reset_kernel_launches()
+        t0 = time.perf_counter()
+        res = script.main(argv, dtype=dtype)
+        runs[label] = dict(
+            {k: v for k, v in res.items() if k != "completions"},
+            run_s=time.perf_counter() - t0, k1=pa.kernel_launches(),
+            k1_by_t=pa.launches_by_t(), k5=qmm.route_launches())
+        check(len(res["completions"]) == 12,
+              f"E (b) {label}: {len(res['completions'])} completions")
+    k1, k5 = runs["k1"], runs["k5"]
+    check(k1["identical"] is True and k1["k1"] == n["n_layers"]
+          * k1["decode_steps"] > 0 and set(k1["k1_by_t"]) == {1}
+          and not any(k1["k5"].values()),
+          f"E (b) K1 run: {k1}")
+    calls = 4 * n["n_layers"] + 1
+    check(k5["k1"] == 0 and k5["k5"]["gemv_dense"] + k5["k5"]["gemv_attend"]
+          == calls * k5["decode_steps"] > 0
+          and k5["k5"]["tc"] == calls * k5["prefills"]
+          and k5["k5"]["tiled_f32"] == 0, f"E (b) K5 run: {k5}")
+    print("phaseE (b) serving", json.dumps(dict(runs, card=card)),
+          flush=True)
+    gen = torch.Generator().manual_seed(0)
+    k1_rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = attention_inputs(
+            dtype, False, 1, gen, B=n["slots"], H=n["heads"],
+            D=n["head_dim"], ps=n["page_size"],
+            pp=n["max_seq_len"] // n["page_size"],
+            span=n["max_seq_len"] - 1)
+        k1_rows[str(dtype).split(".")[-1]] = k1_case("phaseE", args, False,
+                                                     flush)
+    gcuda = torch.Generator(device=DEVICE).manual_seed(0)
+    qrows = []
+    for label, shape, transpose in E_NANO_PROJECTIONS:
+        w = torch.randn(shape, generator=gcuda, device=DEVICE) * 0.02
+        qt = quantize_params({"w": w}, "int8")["w"]
+        _, _, K, N = matmul_view(qt, transpose)
+        wd = qt.dequantize().to(torch.bfloat16)
+        w2d = wd.reshape(N, K).T if transpose else wd.reshape(K, N)
+        for M in (n["slots"], n["slots"] * n["prefill_len"]):
+            x = torch.randn(M, K, generator=gcuda,
+                            device=DEVICE).to(torch.bfloat16)
+            qrows.append(qmm_case("phaseE", label, "int8", qt, transpose,
+                                  w2d, x, flush, geometry=M <= 16))
+    fwd = {M: forward_sum(qrows, "int8", M, n["n_layers"])
+           for M in (n["slots"], n["slots"] * n["prefill_len"])}
+    for M, row in fwd.items():
+        print(f"phaseE nano forward M={M}", json.dumps(row), flush=True)
+    return dict(runs=runs, k1_rows=k1_rows, k5_forward=fwd)
+
+
+def e_lora(card):
+    """(c) ``lora_lifecycle_example_torch.py`` with its defaults: the base
+    bitwise frozen, the adapter moved, the hot load and build-time
+    residency token-identical, the null row the bankless engine's (the
+    script raises otherwise); its clients serve from the dense slot
+    pool, so no kernel of the port runs."""
+    from ray_lightning_tpu_torch.models import paged_attention as pa
+    from ray_lightning_tpu_torch.models import quantized_matmul as qmm
+    pa.reset_kernel_launches()
+    qmm.reset_kernel_launches()
+    t0 = time.perf_counter()
+    res = example("lora_lifecycle_example").main([])
+    res = dict(res, run_s=time.perf_counter() - t0, card=card)
+    check(res["frozen"] and res["adapter_moved"] and res["identical"],
+          f"E (c): {res}")
+    check(pa.kernel_launches() == 0 and qmm.kernel_launches() == 0,
+          "E (c): a kernel launched on the dense pool")
+    print("phaseE (c) lora lifecycle", json.dumps(res), flush=True)
+    release()
+    return res
+
+
+def e_smoke(card):
+    """(d) The other eight scripts at ``--smoke-test --num-workers 1`` on
+    this card: each reaches its end; the trainers' metrics finite, the
+    sweep's best point found, two exploit steps of the mini-PBT."""
+    out = {}
+    for stem, extra in E_SMOKE.items():
+        t0 = time.perf_counter()
+        res = example(stem).main(["--smoke-test", "--num-workers", "1",
+                                  *extra])
+        row = dict(run_s=time.perf_counter() - t0)
+        if stem == "mnist_tune_example":
+            best, acc = res
+            check(best is not None and 0.0 <= acc <= 1.0,
+                  f"E (d) {stem}: {res}")
+            row.update(best=best, val_acc=acc)
+        elif stem == "resnet_pbt_example":
+            members, exploits = res
+            check(len(exploits) == 2, f"E (d) {stem}: {exploits}")
+            row.update(members=members, exploits=exploits)
+        else:
+            metrics = {k: float(v) for k, v in res.callback_metrics.items()}
+            check(res.global_step > 0 and metrics and all(
+                np.isfinite(v) for v in metrics.values()),
+                f"E (d) {stem}: step {res.global_step}, {metrics}")
+            row.update(steps=res.global_step, metrics=metrics)
+        del res
+        release()
+        print(f"phaseE (d) {stem}", json.dumps(row), flush=True)
+        out[stem] = row
+    return out
+
+
+def phase_e_examples(card):
+    """Phase E: the port's example scripts on the card (the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    parts = {}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=DEVICE)
+    out = {"long": e_long_context(card, flush)}
+    parts["a"] = time.perf_counter() - t_phase
+    out["serve"] = e_serving(card, flush)
+    del flush
+    parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
+    out["lora"] = e_lora(card)
+    parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+    out["smoke"] = e_smoke(card)
+    parts["d"] = time.perf_counter() - t_phase - sum(parts.values())
+    out["seconds"], out["parts_s"] = time.perf_counter() - t_phase, parts
+    print("phaseE took", json.dumps(dict(seconds=out["seconds"],
+                                         parts_s=parts)), flush=True)
+    return out
 
 
 def main() -> int:
@@ -7301,6 +7704,8 @@ def main() -> int:
     del state_r
     print(f"phaseH took {time.perf_counter() - t0:.1f} s; the script "
           f"{time.perf_counter() - started:.1f} s so far", flush=True)
+    examples = phase_e_examples(card)
+    ended("E")
 
     # the main paths' own calls: bf16 q and pages, T=1 (serving); bf16,
     # B=8, T=S=1024, causal (training)
@@ -7340,90 +7745,44 @@ def main() -> int:
             launches=n, max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    flash_source = "ray_lightning_tpu_torch/csrc/flash_attention.cu"
-    for name, kind, line, errs, lib in (
-            ("flash_fwd", "fwd", 41, ("out",), fpath["library_fwd_ms"]),
-            # SDPA's backward (its fastest backend) computes dq, dk and dv
-            # together: it stands beside K3, and K4 has no library call of
-            # its own
-            ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
-             fpath["library_bwd_ms"]),
-            ("flash_bwd_dq", "dq", 173, ("dq",), None)):
-        kernels.append(dict(
-            name=name, route="cuda", source=flash_source,
-            replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
-            launches=(trained["launches"][name]
-                      + piped["launches"][name]
-                      + core["flash_launches"][name]
-                      + health["armed"]["launches"][name]
-                      + health["supervised"]["launches"][name]),
-            max_abs_err=max(fpath[f"{e}_err"] for e in errs),
-            ms=fpath[f"{kind}_ms"], plain_ms=fpath[f"{kind}_plain_ms"],
-            bound_ms=fpath[f"{kind}_bound_ms"],
-            bound_by=fpath[f"{kind}_bound_by"], library_ms=lib))
+    kernels += flash_entries(fpath, "", lambda name: (
+        trained["launches"][name] + piped["launches"][name]
+        + core["flash_launches"][name] + health["armed"]["launches"][name]
+        + health["supervised"]["launches"][name]))
     # K2-K4 at the encoders' bidirectional shapes, launches from phase
     # Z's BERT-base (T=S=128) and ViT-B/16 (T=S=197) fits
     for model, _B, T in Z_SHAPES:
-        zrow = zoo["kernels"][(model, "bfloat16")]
-        for name, kind, line, errs, lib in (
-                ("flash_fwd", "fwd", 41, ("out",), zrow["library_fwd_ms"]),
-                ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
-                 zrow["library_bwd_ms"]),
-                ("flash_bwd_dq", "dq", 173, ("dq",), None)):
-            kernels.append(dict(
-                name=f"{name}_{model}", route="cuda", source=flash_source,
-                replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
-                launches=zoo[model]["launches"][name],
-                max_abs_err=max(zrow[f"{e}_err"] for e in errs),
-                ms=zrow[f"{kind}_ms"], plain_ms=zrow[f"{kind}_plain_ms"],
-                bound_ms=zrow[f"{kind}_bound_ms"],
-                bound_by=zrow[f"{kind}_bound_by"], library_ms=lib))
+        kernels += flash_entries(zoo["kernels"][(model, "bfloat16")],
+                                 f"_{model}",
+                                 zoo[model]["launches"].__getitem__)
     # K2-K4 at the MoE's causal shape (B=8, H=4, T=S=128), launches from
     # phase Z (f)'s MoE-small fits at top-1 and top-2
     zmoe = zoo["moe"]
-    mrow = zmoe["kernels"]["bfloat16"]
-    for name, kind, line, errs, lib in (
-            ("flash_fwd", "fwd", 41, ("out",), mrow["library_fwd_ms"]),
-            ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
-             mrow["library_bwd_ms"]),
-            ("flash_bwd_dq", "dq", 173, ("dq",), None)):
-        kernels.append(dict(
-            name=f"{name}_moe", route="cuda", source=flash_source,
-            replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
-            launches=sum(f["launches"][name]
-                         for f in zmoe["fits"].values()),
-            max_abs_err=max(mrow[f"{e}_err"] for e in errs),
-            ms=mrow[f"{kind}_ms"], plain_ms=mrow[f"{kind}_plain_ms"],
-            bound_ms=mrow[f"{kind}_bound_ms"],
-            bound_by=mrow[f"{kind}_bound_by"], library_ms=lib))
+    kernels += flash_entries(zmoe["kernels"]["bfloat16"], "_moe",
+                             lambda name: sum(f["launches"][name] for f
+                                              in zmoe["fits"].values()))
     # K2-K4 at the encoder-decoder's shapes: the full-width fits'
     # encoder (B=16, H=8, T=S=256, full) and decoder self-attention
     # (causal), launches from phase Z (g)'s two fits; the reversal gate's
     # (B=32, H=4, D=32, T=S=8), launches from (g) (d)'s fit
     zs = zoo["seq2seq"]
     for label, _B, _T, _H, _D, causal in Z_S2S_SHAPES:
-        srow = zs["kernels"][(label, "bfloat16")]
         runs = ([zs["gate"]] if label.startswith("s2s_gate")
                 else list(zs["fits"].values()))
         mask = "causal" if causal else "full"
-        for name, kind, line, errs, lib in (
-                ("flash_fwd", "fwd", 41, ("out",), srow["library_fwd_ms"]),
-                ("flash_bwd_dkv", "dkv", 130, ("dk", "dv"),
-                 srow["library_bwd_ms"]),
-                ("flash_bwd_dq", "dq", 173, ("dq",), None)):
-            kernels.append(dict(
-                name=f"{name}_{label}", route="cuda", source=flash_source,
-                replaces=f"ray_lightning_tpu/ops/pallas_flash.py:{line}",
-                launches=sum(r["mask_launches"][name][mask] for r in runs),
-                max_abs_err=max(srow[f"{e}_err"] for e in errs),
-                ms=srow[f"{kind}_ms"], plain_ms=srow[f"{kind}_plain_ms"],
-                bound_ms=srow[f"{kind}_bound_ms"],
-                bound_by=srow[f"{kind}_bound_by"], library_ms=lib))
+        kernels += flash_entries(
+            zs["kernels"][(label, "bfloat16")], f"_{label}",
+            lambda name: sum(r["mask_launches"][name][mask] for r in runs))
+    # K2-K4 at the long-context shape (B=1, H=12, T=S=16384, causal),
+    # launches from phase E (a)'s fit
+    elong = examples["long"]
+    kernels += flash_entries(elong["kernels"], "_long",
+                             elong["launches"].__getitem__)
     # K2 as phase L's chunk dispatches call it: B=1, T=128, S=1024 keys
     # (the longest row), launches from phase L's bf16 run
     chunk = next(r for r in chunk_k2 if r["S"] == 1024)
     kernels.append(dict(
-        name="flash_fwd_chunk", route="cuda", source=flash_source,
+        name="flash_fwd_chunk", route="cuda", source=FLASH_SOURCE,
         replaces="ray_lightning_tpu/ops/pallas_flash.py:41",
         launches=(long_prompts["runs"]["bf16"]["k2_routes"]["tc"]
                   + pl["chunked"]["k2"]["tc"] + ac["k2"]["tc"]
@@ -7479,6 +7838,35 @@ def main() -> int:
         launches=core["untied"]["serving"]["head_route_launches"]["tc"],
         **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                 "bound_ms", "bound_by", "library_ms")}))
+    # the serve script's nano model (phase E (b)): K1 at 4 slots, H=4,
+    # D=32, T=1, f32 (its K1 run's dtype), launches from that run; K5's
+    # nine calls a forward (2 x (qkv, out, up, down) and the head), int8,
+    # bf16 x, at decode's M=4 (the GEMVs) and a prefill's M=64 (tc),
+    # launches from its K5 run
+    nano = examples["serve"]
+    erow = nano["k1_rows"]["float32"]
+    kernels.append(dict(
+        name=pa.KERNEL + "_nano", route="cuda",
+        source="ray_lightning_tpu_torch/csrc/paged_attention.cu",
+        replaces="ray_lightning_tpu/models/pallas_attention.py:83",
+        launches=nano["runs"]["k1"]["k1"],
+        **{k: erow[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "library_ms")}))
+    k5n = nano["runs"]["k5"]["k5"]
+    slots = E_NANO["slots"]
+    for name, M, launches5 in (
+            (qmm.KERNEL + "_nano", slots,
+             k5n["gemv_dense"] + k5n["gemv_attend"]),
+            (qmm.KERNEL + "_nano_prefill", slots * E_NANO["prefill_len"],
+             k5n["tc"])):
+        fwd = nano["k5_forward"][M]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="ray_lightning_tpu_torch/csrc/quantized_matmul.cu",
+            replaces="ray_lightning_tpu/models/pallas_matmul.py:123",
+            launches=launches5,
+            **{k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}))
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     check(not idle, f"kernels no main path launched: {idle}")
     x_left_over("the script's end")

@@ -206,6 +206,12 @@ def _worker_main(conn, env: Dict[str, str],
     # guard covers the SIGKILL shape, where a worker wedged inside a long
     # call (or blocked on a manager queue) never reads the pipe
     install_orphan_guard_from_env(driver_pid)
+    # the driver starts this process daemonic (it must not outlive the
+    # driver), but what the actor runs may start processes of its own --
+    # a multiprocess loader's producers -- which multiprocessing refuses
+    # to a daemonic process; this process's lifetime is the pipe's, so it
+    # drops the flag in its own view (the driver's handle keeps it)
+    mp.current_process().daemon = False
     actor = None
     while True:
         try:

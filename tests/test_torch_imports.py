@@ -1,8 +1,8 @@
 """The port stays free of JAX: no module of ``ray_lightning_tpu_torch/``
-(nor ``chip_smoke.py``, nor the port's report tools) imports jax, flax,
-optax or the JAX package, and importing the port -- the native ring, the
-multiprocess loader, the fleet and the process fleet's driver and worker
-included -- loads none of them."""
+(nor ``chip_smoke.py``, the port's report tools or its example scripts)
+imports jax, flax, optax or the JAX package, and importing the port --
+the native ring, the multiprocess loader, the fleet and the process
+fleet's driver and worker included -- loads none of them."""
 import ast
 import pathlib
 import subprocess
@@ -19,7 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "ray_lightning_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_lightning_tpu")
 FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("*_torch.py")))
+         + sorted((ROOT / "tools").glob("*_torch.py"))
+         + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _forbidden(name: str) -> bool:

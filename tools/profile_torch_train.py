@@ -2,6 +2,7 @@
 
     python3 tools/profile_torch_train.py [--steps 5] [--warmup 3]
         [--dropout 0.1] [--remat [--remat-policy NAME]] [--untied]
+        [--seq-len 1024] [--batch 8] [--impl flash|dot]
 
 Needs one NVIDIA GPU. Runs the training path of ``chip_smoke.py`` phase
 T2 (GPT-2-small at full width, ``attention_impl="flash"``, batch 8 x 1024
@@ -17,7 +18,12 @@ kernel,
 and the kernels that take the most device time. ``--dropout``,
 ``--remat``, ``--remat-policy`` and ``--untied`` set the config's
 ``dropout``, ``remat``, ``remat_policy`` and ``tie_embeddings=False``;
-the line then also gives the peak device memory.
+the line then also gives the peak device memory. ``--seq-len`` (the
+config's ``max_seq_len`` too), ``--batch`` and ``--impl``
+(``attention_impl``: the flash kernels or the plain ``dot`` attention)
+set the shape and the attention; a fit that runs out of device memory
+prints one JSON line with ``out_of_memory`` true, the error and the peak
+memory reached, and exits 0.
 """
 import argparse
 import json
@@ -47,6 +53,9 @@ def main() -> int:
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--remat-policy", default=None)
     ap.add_argument("--untied", action="store_true")
+    ap.add_argument("--seq-len", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--impl", default="flash", choices=["flash", "dot"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -56,6 +65,7 @@ def main() -> int:
     profiled = (args.warmup + n, args.warmup + 2 * n)
     marks = {}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    profiling = []                  # [True] while the window is open
 
     def on_start(trainer, module, batch, idx):
         if idx in (timed[0], profiled[0]):
@@ -63,6 +73,7 @@ def main() -> int:
             marks[idx] = time.perf_counter()
         if idx == profiled[0]:
             prof.start()
+            profiling.append(True)
 
     def on_end(trainer, module, outputs, batch, idx):
         if idx + 1 in (timed[1], profiled[1]):
@@ -70,17 +81,33 @@ def main() -> int:
             marks[idx + 1] = time.perf_counter()
         if idx + 1 == profiled[1]:
             prof.stop()
+            profiling.clear()
 
-    cfg = gpt2_config("small", attention_impl="flash", dropout=args.dropout,
+    cfg = gpt2_config("small", attention_impl=args.impl,
+                      max_seq_len=args.seq_len, dropout=args.dropout,
                       remat=args.remat, remat_policy=args.remat_policy,
                       tie_embeddings=not args.untied)
+    shape = dict(card=chip_smoke.card_line(), batch=args.batch,
+                 seq_len=args.seq_len, impl=args.impl, steps=n,
+                 dropout=args.dropout, remat=args.remat,
+                 remat_policy=args.remat_policy, untied=args.untied)
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(strategy=RayStrategy(num_workers=1), max_epochs=1,
                       limit_train_batches=profiled[1], limit_val_batches=0,
                       seed=0, callbacks=[LambdaCallback(
                           on_train_batch_start=on_start,
                           on_train_batch_end=on_end)])
-    trainer.fit(GPTModule(config=cfg, batch_size=8, seq_len=1024))
+    try:
+        trainer.fit(GPTModule(config=cfg, batch_size=args.batch,
+                              seq_len=args.seq_len))
+    except torch.cuda.OutOfMemoryError as err:
+        if profiling:
+            prof.stop()
+        print(json.dumps(dict(
+            shape, out_of_memory=True, error=str(err).splitlines()[0],
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            steps_done=trainer.global_step)), flush=True)
+        return 0
 
     host_ms = 1e3 * (marks[timed[1]] - marks[timed[0]]) / n
     # device kernels only: user annotations (e.g. the optimizer's
@@ -104,9 +131,7 @@ def main() -> int:
     top = sorted(kernels, key=lambda a: -a.self_device_time_total)[:12]
     measured = bool(kernels)
     out = dict(
-        card=chip_smoke.card_line(), batch=8, seq_len=1024, steps=n,
-        dropout=args.dropout, remat=args.remat,
-        remat_policy=args.remat_policy, untied=args.untied,
+        shape, out_of_memory=False,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         host_ms_per_step=host_ms,
         profiled_host_ms_per_step=1e3 * (marks[profiled[1]]
